@@ -9,16 +9,28 @@ fails without them; it never falls back to the CPU and imports no JAX.
 1. Prints the card (``nvidia-smi`` name and power limit), turns TF32 off
    for cuDNN and cuBLAS, and builds the CUDA kernels from
    ``pqmf_tpu_torch/csrc`` (timed).
-2. Holds each kernel — K1 analysis, K2 synthesis, K3 fused round trip —
-   against its plain PyTorch version on the card, at the flagship's shapes
-   and at edge cases.
-3. Drives the flagship (``PQMFPitchShiftWrapper``, atten 100, 16 bands,
-   8192-sample blocks, 16 fixed shifts) on the card: 8 stateful blocks, one
-   16-stream step and one ``forward_fn``, each >= 90 dB against the same
-   wrapper on the CPU, carried state included; the launch counters must
-   show one K1 + one K2 per pitch-shift step and one K3 per round trip.
+2. Holds each kernel — K1 analysis, K2 synthesis, K3 fused round trip, and
+   the offline PQMF's polyphase adapters over them, K4/K5/K6 — against its
+   plain PyTorch version on the card, at the main paths' shapes and at edge
+   cases (K4-K6 at M = 4, 16, 32, 64 and on the 60 s signal).
+3. Drives the two paths on the card, each with the launch counters zeroed
+   just before and read just after:
+   - the flagship (``PQMFPitchShiftWrapper``, atten 100, 16 bands,
+     8192-sample blocks, 16 fixed shifts): 8 stateful blocks, one 16-stream
+     step and one ``forward_fn``, each >= 90 dB against the same wrapper on
+     the CPU, carried state included; one K1 + one K2 per pitch-shift step
+     and one K3 per round trip;
+   - the offline path, with every plain version made to raise: ``PQMF``
+     (atten 100, 16 bands) ``forward``/``inverse``/``roundtrip`` on the 60 s
+     signal and a stereo batch, the fine-tuned bank, the M=32 round trip,
+     ``PQMFWrapper.process``, its artifact saved and reloaded, and the
+     ``export_pqmf`` CLI on a 10 s wav. Each call's launches are exact, its
+     output matches the CPU port, and the 60 s round trips keep the banks'
+     SNRs (55.23 dB designed at delay 0, 104.24 dB fine-tuned at
+     ``edge_trim=1024``).
 4. Times each kernel against its plain version, the flagship block, the
-   16-stream step and the 60 s round trip with CUDA events.
+   16-stream step, the 60 s round trips and one ``PQMFWrapper.process``
+   block with CUDA events.
 
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 Any failure raises and the exit code is non-zero.
@@ -26,9 +38,13 @@ Any failure raises and the exit code is non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,6 +56,10 @@ SHIFTS16 = [0, 4, -5, -12, 3, -7, 2, -3, 5, -9, 1, -1, -4, -6, -2, -24]
 BAR_DB = 90.0
 K12_TOL = dict(atol=2e-5, rtol=1e-4)  # pqmf_tpu's own kernel-vs-lax bar
 K3_TOL = dict(atol=1e-5, rtol=0.0)    # recomputed halo: another tap order
+K6_TOL = dict(atol=2e-5, rtol=1e-4)   # K3's order vs the polyphase formula's
+OFFLINE_TOL = dict(atol=2e-5, rtol=1e-4)  # the offline path vs the CPU port
+SNR_60S_DB = (55.23, 0.01)        # designed M=16 bank, delay 0, whole signal
+SNR_FINETUNED_DB = (104.24, 0.05)  # fine-tuned M=16 bank, edge_trim=1024
 
 
 def _audio(n: int, seed: int, batch: int = 1) -> np.ndarray:
@@ -58,6 +78,35 @@ def _headline_signal(n: int) -> np.ndarray:
     return (0.5 * np.sin(2 * np.pi * 440 * t)
             + 0.1 * rng.standard_normal(n).astype(np.float32)).astype(
                 np.float32)
+
+
+@contextlib.contextmanager
+def _plain_versions_refused():
+    """Make every plain version the offline path could reach raise, so a
+    run inside shows the CUDA path never took one."""
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import polyphase as pk
+    from pqmf_tpu_torch.ops import filterbank as fb
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    patched = [(pk, n) for n in ("polyphase_analysis_plain",
+                                 "polyphase_synthesis_plain",
+                                 "polyphase_roundtrip_plain")]
+    patched += [(cc, n) for n in ("analysis_conv_plain",
+                                  "synthesis_conv_plain",
+                                  "roundtrip_conv_plain")]
+    patched += [(fb, n) for n in ("polyphase_forward", "polyphase_inverse",
+                                  "_conv1d")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in patched]
+    for mod, n in patched:
+        setattr(mod, n, refuse)
+    try:
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
 
 
 def _profile(step, n: int, step_ms: float, top: int = 8) -> dict:
@@ -108,9 +157,14 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from pqmf_tpu_torch import PQMFPitchShiftWrapper, StreamingPQMF
+    from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper, PQMFWrapper,
+                                StreamingPQMF, load_artifact, save_artifact)
+    from pqmf_tpu_torch.cli import export_pqmf
     from pqmf_tpu_torch.kernels import _build
     from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import polyphase as pk
+    from pqmf_tpu_torch.parallel.training import load_pretrained_bank
+    from pqmf_tpu_torch.utils.audio import read_wav, write_wav
     from pqmf_tpu_torch.utils.metrics import aligned_roundtrip_snr_db, snr_db
 
     dev = torch.device("cuda")
@@ -146,7 +200,9 @@ def main() -> int:
     wa, ws = hkf.to(dev), hki.to(dev)
 
     # -- 2. kernels vs plain, on the card -------------------------------------
-    errs = {"analysis": 0.0, "synthesis": 0.0, "roundtrip": 0.0}
+    errs = {"analysis": 0.0, "synthesis": 0.0, "roundtrip": 0.0,
+            "polyphase_analysis": 0.0, "polyphase_synthesis": 0.0,
+            "polyphase_roundtrip": 0.0}
 
     def check(name, got, ref, tol, what):
         torch.cuda.synchronize()
@@ -203,7 +259,55 @@ def main() -> int:
         print(f"  {what} vs the CPU's plain version: max|err| "
               f"{(got - ref).abs().max().item():.3g}")
 
-    # -- 3. the slice on the card vs the port on the CPU ----------------------
+    # K4/K5/K6 over K1/K2/K3 at the offline geometries: even kernel lengths
+    # (L*M and L), x_offset -(L//2-1), syn_pad (L//2, L//2), and at M=32/64
+    # K1's band and K2's phase chunks with a short last chunk
+    print("polyphase kernels vs plain:")
+    offline = {M: PQMF(100, M, device="cuda") for M in (4, 16, 32, 64)}
+    for M, pq in offline.items():
+        hp, hi, w2 = pq.params["hk_poly"], pq.params["hk_ipoly"], pq._w2
+        L = hp.shape[-1]
+        fused = pk.roundtrip_supported(M, L * M, L)
+        for B in (1, 16):
+            x, sub = rand(B, 1, BLOCK), rand(B, M, BLOCK // M)
+            check("polyphase_analysis", pk.polyphase_analysis(x, hp, w2),
+                  pk.polyphase_analysis_plain(x, hp), K12_TOL,
+                  f"K4 M={M} x{tuple(x.shape)}")
+            check("polyphase_synthesis", pk.polyphase_synthesis(sub, hi),
+                  pk.polyphase_synthesis_plain(sub, hi), K12_TOL,
+                  f"K5 M={M} x{tuple(sub.shape)}")
+            if fused:
+                check("polyphase_roundtrip",
+                      pk.polyphase_roundtrip(x, hp, hi, w2),
+                      pk.polyphase_roundtrip_plain(x, hp, hi), K6_TOL,
+                      f"K6 M={M} x{tuple(x.shape)}")
+        print(f"  M={M}: K6 {'runs' if fused else 'not taken (K4 + K5)'}")
+    pq16 = offline[16]
+    hp, hi, w2 = pq16.params["hk_poly"], pq16.params["hk_ipoly"], pq16._w2
+    raw60 = torch.from_numpy(sixty).to(dev)[None, None]
+    sub60 = pk.polyphase_analysis(raw60, hp, w2)
+    check("polyphase_analysis", sub60, pk.polyphase_analysis_plain(raw60, hp),
+          K12_TOL, f"K4 60 s x{tuple(raw60.shape)}")
+    check("polyphase_synthesis", pk.polyphase_synthesis(sub60, hi),
+          pk.polyphase_synthesis_plain(sub60, hi), K12_TOL,
+          f"K5 60 s x{tuple(sub60.shape)}")
+    check("polyphase_roundtrip", pk.polyphase_roundtrip(raw60, hp, hi, w2),
+          pk.polyphase_roundtrip_plain(raw60, hp, hi), K6_TOL,
+          f"K6 60 s x{tuple(raw60.shape)}")
+    x, sub = rand(2, 1, BLOCK), rand(2, 16, BLOCK // 16)
+    for what, got, ref in [
+            ("K4", pk.polyphase_analysis(x, hp, w2),
+             pk.polyphase_analysis_plain(x.cpu(), hp.cpu())),
+            ("K5", pk.polyphase_synthesis(sub, hi),
+             pk.polyphase_synthesis_plain(sub.cpu(), hi.cpu())),
+            ("K6", pk.polyphase_roundtrip(x, hp, hi, w2),
+             pk.polyphase_roundtrip_plain(x.cpu(), hp.cpu(), hi.cpu()))]:
+        got = got.cpu()
+        torch.testing.assert_close(got, ref, **K6_TOL)
+        print(f"  {what} vs the CPU's plain version: max|err| "
+              f"{(got - ref).abs().max().item():.3g}")
+
+    # -- 3. the paths on the card vs the port on the CPU ----------------------
     gpu = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR,
                                 shifts_in_semitones=SHIFTS16, device="cuda")
     cpu = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR,
@@ -252,6 +356,112 @@ def main() -> int:
     print(f"60 s round trip (K3) whole-signal SNR: {rt_db:.4f} dB")
     assert rt_db >= 65.0, rt_db  # the design's floor on this signal: 65.2
 
+    # the offline path: PQMF, PQMFWrapper, its artifact and its CLI
+    def counted(want_cc, want_pk, fn, *args):
+        """Run fn(*args) and check the launches it made, kernel by kernel."""
+        before = (dict(cc.LAUNCHES), dict(pk.LAUNCHES))
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for now, was, want in ((cc.LAUNCHES, before[0], want_cc),
+                               (pk.LAUNCHES, before[1], want_pk)):
+            delta = {k: now[k] - was[k] for k in now}
+            assert delta == {**dict.fromkeys(now, 0), **want}, \
+                (fn, delta, want)
+        return out
+
+    ana, syn, rt = {"analysis": 1}, {"synthesis": 1}, {"roundtrip": 1}
+    both = {"analysis": 1, "synthesis": 1}
+    stereo = _audio(16 * 4096, 4, batch=4).reshape(2, 2, -1)
+    block_x = _audio(BLOCK, 5)[None]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    wav_in = os.path.join(tmp, "in.wav")
+    write_wav(wav_in, _audio(10 * SR, 6) * 0.5, SR)
+    finetuned = load_pretrained_bank("hk16_atten100_finetuned")
+    off_gpu = PQMF(100, 16, device="cuda")
+    st_gpu = PQMF(100, 16, n_channels=2, device="cuda")
+    ft_gpu = PQMF(100, 16, device="cuda")
+    ft_gpu.set_weights(finetuned)
+    m32_gpu = PQMF(100, 32, device="cuda")
+    wrap_gpu = PQMFWrapper(100, 16, BLOCK, device="cuda")
+    cli_args = ["--input", wav_in, "--out_dir", os.path.join(tmp, "art"),
+                "--audio_dir", tmp, "--device", "cuda"]
+
+    cc.reset_launches()
+    pk.reset_launches()
+    with _plain_versions_refused():
+        g_off = {
+            "60 s forward": counted(ana, ana, off_gpu.forward, raw60),
+            "60 s inverse": counted(syn, syn, off_gpu.inverse, sub60),
+            "60 s roundtrip": counted(rt, rt, off_gpu.roundtrip, raw60),
+            "stereo forward": counted(ana, ana, st_gpu.forward, stereo),
+            "stereo roundtrip": counted(rt, rt, st_gpu.roundtrip, stereo),
+            "fine-tuned 60 s roundtrip": counted(rt, rt, ft_gpu.roundtrip,
+                                                 raw60),
+            "M=32 roundtrip": counted(both, both, m32_gpu.roundtrip,
+                                      stereo[0, :1]),
+        }
+        st_sub = g_off["stereo forward"]
+        g_off["stereo inverse"] = counted(syn, syn, st_gpu.inverse, st_sub)
+        g_wrap = counted(both, {}, wrap_gpu.process, block_x)
+        save_artifact(wrap_gpu, os.path.join(tmp, "wrapper"))
+        reloaded, _ = load_artifact(os.path.join(tmp, "wrapper"),
+                                    device="cuda")
+        g_reload = counted(both, {}, reloaded.process, block_x)
+        # forward, inverse, process: two K1 + two K2
+        rc = counted({"analysis": 2, "synthesis": 2}, {}, export_pqmf.main,
+                     cli_args)
+        assert rc == 0, rc
+    off_launches, off_kernel_launches = dict(pk.LAUNCHES), dict(cc.LAUNCHES)
+    print(f"offline-path launches: K4-K6 {off_launches}, "
+          f"K1-K3 {off_kernel_launches}")
+
+    off_cpu = PQMF(100, 16)
+    st_cpu = PQMF(100, 16, n_channels=2)
+    ft_cpu = PQMF(100, 16)
+    ft_cpu.set_weights(finetuned)
+    c_off = {
+        "60 s forward": off_cpu.forward(sixty),
+        "60 s inverse": off_cpu.inverse(sub60.cpu()),
+        "60 s roundtrip": off_cpu.roundtrip(sixty),
+        "stereo forward": st_cpu.forward(stereo),
+        "stereo roundtrip": st_cpu.roundtrip(stereo),
+        "stereo inverse": st_cpu.inverse(st_sub.cpu()),
+        "fine-tuned 60 s roundtrip": ft_cpu.roundtrip(sixty),
+        "M=32 roundtrip": PQMF(100, 32).roundtrip(stereo[0, :1]),
+    }
+    for what, ref in c_off.items():
+        got = g_off[what].cpu()
+        assert got.shape == ref.shape and torch.isfinite(got).all(), what
+        torch.testing.assert_close(got, ref, **OFFLINE_TOL,
+                                   msg=lambda m: f"{what}: {m}")
+        print(f"  {what} vs CPU: max|err| "
+              f"{(got - ref).abs().max().item():.3g}")
+    off_db = aligned_roundtrip_snr_db(
+        sixty, g_off["60 s roundtrip"][0, 0].cpu().numpy(), 0)
+    ft_db = aligned_roundtrip_snr_db(
+        sixty, g_off["fine-tuned 60 s roundtrip"][0, 0].cpu().numpy(), 0,
+        edge_trim=1024)
+    print(f"60 s offline round trip (K6) SNR at delay 0: {off_db:.4f} dB; "
+          f"fine-tuned bank, edge_trim=1024: {ft_db:.4f} dB")
+    assert abs(off_db - SNR_60S_DB[0]) <= SNR_60S_DB[1], off_db
+    assert abs(ft_db - SNR_FINETUNED_DB[0]) <= SNR_FINETUNED_DB[1], ft_db
+
+    wrap_cpu = PQMFWrapper(100, 16, BLOCK)
+    c_wrap = wrap_cpu.process(block_x)
+    for what, got in [("PQMFWrapper.process", g_wrap),
+                      ("reloaded artifact", g_reload)]:
+        err = 0.0
+        for g, c in zip(got, c_wrap):
+            torch.testing.assert_close(g.cpu(), c, **K12_TOL)
+            err = max(err, (g.cpu() - c).abs().max().item())
+        print(f"  {what} vs CPU: max|err| {err:.3g}")
+    out_wav, out_sr = read_wav(os.path.join(tmp, "reconstruido.wav"))
+    want_len = -(-10 * SR // BLOCK) * BLOCK
+    assert out_sr == SR and out_wav.shape == (1, want_len), out_wav.shape
+    assert np.isfinite(out_wav).all() and np.abs(out_wav).max() > 0.1
+    print(f"  export_pqmf CLI: exit 0, {out_wav.shape[-1]} samples")
+    shutil.rmtree(tmp)
+
     # -- 4. times, CUDA events after warm-up -----------------------------------
     def cuda_ms(fn, iters):
         for _ in range(3):
@@ -290,6 +500,25 @@ def main() -> int:
                       lambda x: cc.roundtrip_conv_plain(x, wa, ws, 16,
                                                         (16, 16))),
     }
+    cases.update({
+        "polyphase_analysis": [("60 s [1,1,2646000]", raw60, 20),
+                               ("block [1,1,8192]", rand(1, 1, BLOCK), 200)],
+        "polyphase_synthesis": [("60 s [1,16,165375]", sub60, 20),
+                                ("block [1,16,512]", rand(1, 16, 512), 200)],
+        "polyphase_roundtrip": [("60 s [1,1,2646000]", raw60, 20),
+                                ("block [1,1,8192]", rand(1, 1, BLOCK), 200)],
+    })
+    calls.update({
+        "polyphase_analysis": (
+            lambda x: pk.polyphase_analysis(x, hp, w2),
+            lambda x: pk.polyphase_analysis_plain(x, hp)),
+        "polyphase_synthesis": (
+            lambda x: pk.polyphase_synthesis(x, hi),
+            lambda x: pk.polyphase_synthesis_plain(x, hi)),
+        "polyphase_roundtrip": (
+            lambda x: pk.polyphase_roundtrip(x, hp, hi, w2),
+            lambda x: pk.polyphase_roundtrip_plain(x, hp, hi)),
+    })
     times = {}
     print(f"times on {card} (CUDA events, ms per call):")
     for name, rows in cases.items():
@@ -329,6 +558,9 @@ def main() -> int:
     streams_ms = cuda_ms(streams_step, 30)
     streams_lat = latency_ms(streams_step, 100)
     rt_ms = times["roundtrip"][0]
+    off_rt_ms = cuda_ms(lambda: off_gpu.roundtrip(raw60), 20)
+    wrap_ms = cuda_ms(lambda: wrap_gpu.process(block_x), 200)
+    wrap_lat = latency_ms(lambda: wrap_gpu.process(block_x), 100)
     summary = {
         "card": card,
         "flagship_block_ms": block_ms,
@@ -340,6 +572,12 @@ def main() -> int:
         "roundtrip_60s_ms": rt_ms,
         "roundtrip_60s_rtf": 60.0 / (rt_ms / 1e3),
         "roundtrip_60s_snr_db": rt_db,
+        "offline_roundtrip_60s_ms": off_rt_ms,
+        "offline_roundtrip_60s_rtf": 60.0 / (off_rt_ms / 1e3),
+        "offline_roundtrip_60s_snr_db": off_db,
+        "finetuned_roundtrip_60s_snr_db_trim1024": ft_db,
+        "pqmfwrapper_process_8192_ms": wrap_ms,
+        "pqmfwrapper_process_8192_latency_ms_median_p90_n": wrap_lat,
     }
     print(json.dumps(summary))
 
@@ -349,17 +587,28 @@ def main() -> int:
                             ("16-stream step", streams_step, streams_ms)]:
         print(json.dumps({"profile": label, **_profile(step, 10, ms)}))
 
-    replaces = {"analysis": "pqmf_tpu/kernels/cached_conv.py:408",
-                "synthesis": "pqmf_tpu/kernels/cached_conv.py:542",
-                "roundtrip": "pqmf_tpu/kernels/cached_conv.py:794"}
-    names = {"analysis": "K1 strided_analysis_conv",
-             "synthesis": "K2 dense_synthesis_conv",
-             "roundtrip": "K3 fused_roundtrip_conv"}
-    kernels = [{"name": names[k], "route": "cuda",
+    # (key, name, replaces, launches on its path: the flagship for K1-K3,
+    # the offline path for K4-K6)
+    rows = [
+        ("analysis", "K1 strided_analysis_conv",
+         "pqmf_tpu/kernels/cached_conv.py:408", launches["analysis"]),
+        ("synthesis", "K2 dense_synthesis_conv",
+         "pqmf_tpu/kernels/cached_conv.py:542", launches["synthesis"]),
+        ("roundtrip", "K3 fused_roundtrip_conv",
+         "pqmf_tpu/kernels/cached_conv.py:794", launches["roundtrip"]),
+        ("polyphase_analysis", "K4 polyphase_analysis (over K1)",
+         "pqmf_tpu/kernels/polyphase.py:168", off_launches["analysis"]),
+        ("polyphase_synthesis", "K5 polyphase_synthesis (over K2)",
+         "pqmf_tpu/kernels/polyphase.py:197", off_launches["synthesis"]),
+        ("polyphase_roundtrip", "K6 polyphase_roundtrip (over K3)",
+         "pqmf_tpu/kernels/polyphase.py:235", off_launches["roundtrip"]),
+    ]
+    kernels = [{"name": name, "route": "cuda",
                 "source": "pqmf_tpu_torch/csrc/cached_conv.cu",
-                "replaces": replaces[k], "launches": launches[k],
-                "max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in names]
+                "replaces": where, "launches": n, "max_abs_err": errs[k],
+                "ms": times[k][0], "plain_ms": times[k][1]}
+               for k, name, where, n in rows]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,39 @@
 """pqmf_tpu_torch — the PyTorch + CUDA port of ``pqmf_tpu`` for NVIDIA Hopper.
 
 A second package beside the JAX one, which stays the reference every part
-of the port is tested against. This slice ports the main path: the
-streaming PQMF filterbank (:class:`StreamingPQMF`) on three hand-written
-CUDA kernels (``kernels/cached_conv.py``, ``csrc/cached_conv.cu``), and the
-flagship per-sub-band phase-vocoder pitch shifter
-(:class:`PQMFPitchShiftWrapper`). :func:`params_from_jax` carries a bank
-over from ``pqmf_tpu``. Nothing here imports JAX.
+of the port is tested against. Ported so far:
+
+- the streaming PQMF filterbank (:class:`StreamingPQMF`) on three
+  hand-written CUDA kernels, K1/K2/K3 (``kernels/cached_conv.py``,
+  ``csrc/cached_conv.cu``);
+- the offline PQMF (:class:`PQMF`, polyphase and classic) on the polyphase
+  adapters K4/K5/K6 over those kernels (``kernels/polyphase.py``);
+- the plain wrapper (:class:`PQMFWrapper`) and the flagship per-sub-band
+  phase-vocoder pitch shifter (:class:`PQMFPitchShiftWrapper`), their
+  artifacts (:func:`save_artifact`, :func:`load_artifact`) and the
+  ``cli.export_pqmf`` entry point.
+
+:func:`params_from_jax` carries a bank over from ``pqmf_tpu``. Nothing here
+imports JAX.
 """
 
 from pqmf_tpu_torch import design
 from pqmf_tpu_torch.convert import params_from_jax
-from pqmf_tpu_torch.pipelines import PQMFPitchShiftWrapper
+from pqmf_tpu_torch.export import load_artifact, save_artifact
+from pqmf_tpu_torch.filterbank import PQMF
+from pqmf_tpu_torch.pipelines import PQMFPitchShiftWrapper, PQMFWrapper
 from pqmf_tpu_torch.streaming import StreamingPQMF
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
     "design",
+    "PQMF",
     "StreamingPQMF",
+    "PQMFWrapper",
     "PQMFPitchShiftWrapper",
+    "save_artifact",
+    "load_artifact",
     "params_from_jax",
     "__version__",
 ]

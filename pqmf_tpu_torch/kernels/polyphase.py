@@ -1,0 +1,213 @@
+"""The offline PQMF's polyphase kernels K4/K5/K6: adapters over K1/K2/K3.
+
+PyTorch counterpart of ``pqmf_tpu/kernels/polyphase.py``. The polyphase
+conv is a strided dense conv on the raw signal,
+``y[:, t] = W2 @ x[(t - L//2)*M : (t - L//2)*M + L*M]`` with
+``W2[c, l*M + m] = hk_poly[c, m, l]``, which is the streaming path's conv
+geometry. So, as in the JAX package, each public op here is an adapter over
+one hand-written kernel of ``kernels/cached_conv.py``
+(``csrc/cached_conv.cu``): the bank flattens to raw conv weights and the
+reference's centered pads and trims become input padding:
+
+- K4 :func:`polyphase_analysis` replaces
+  ``pqmf_tpu/kernels/polyphase.py:polyphase_analysis`` and runs K1;
+- K5 :func:`polyphase_synthesis` replaces
+  ``pqmf_tpu/kernels/polyphase.py:polyphase_synthesis`` and runs K2;
+- K6 :func:`polyphase_roundtrip` replaces
+  ``pqmf_tpu/kernels/polyphase.py:polyphase_roundtrip`` and runs K3.
+
+Each has a plain version (``*_plain``) built from the reference's formula in
+``ops/filterbank.py`` (de-interleave, then an L-tap conv): another tap
+order than the kernels', so the card check compares two formulations. A
+wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
+runs the kernel route (``*_over_k1/k2/k3``) or raises. Every launch adds one
+to :data:`LAUNCHES` (K1/K2/K3 count theirs in ``cached_conv.LAUNCHES``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from pqmf_tpu_torch.kernels import cached_conv as cc
+from pqmf_tpu_torch.ops import filterbank as fb
+
+__all__ = [
+    "LAUNCHES",
+    "reset_launches",
+    "analysis_weights",
+    "polyphase_analysis",
+    "polyphase_synthesis",
+    "polyphase_roundtrip",
+    "polyphase_analysis_plain",
+    "polyphase_synthesis_plain",
+    "polyphase_roundtrip_plain",
+    "analysis_over_k1",
+    "synthesis_over_k2",
+    "roundtrip_over_k3",
+    "supports",
+    "roundtrip_supported",
+]
+
+# adapter launches since the last reset_launches(), by kernel
+LAUNCHES = {"analysis": 0, "synthesis": 0, "roundtrip": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def analysis_weights(hk_poly: torch.Tensor) -> torch.Tensor:
+    """K1's layout of an analysis bank: ``hk_poly`` [Mb, M, L] ->
+    ``w2`` [Mb, 1, L*M] with ``w2[c, 0, l*M + m] = hk_poly[c, m, l]``.
+    Built once when weights are installed, not per call."""
+    Mb, M, L = hk_poly.shape
+    return hk_poly.permute(0, 2, 1).reshape(Mb, 1, L * M).contiguous()
+
+
+def supports(n_band: int, taps_per_phase: int) -> bool:
+    """Whether K1 and K2 take a polyphase bank of ``taps_per_phase`` (L)
+    taps per phase: K4 runs K1 with L*M taps, K5 runs K2 with L."""
+    return cc.supports(n_band, taps_per_phase * n_band, taps_per_phase)
+
+
+def roundtrip_supported(n_band: int, analysis_taps: int,
+                        synthesis_taps: int) -> bool:
+    """Whether K6 runs (K3 takes the geometry): the port's shared-memory
+    gate ``cached_conv.fused_roundtrip_supported`` — true up to M=16 for
+    the atten-100 banks. The JAX gate (128-lane grouping) does not apply
+    here; past this gate the round trip runs K4 then K5."""
+    return cc.fused_roundtrip_supported(n_band, analysis_taps,
+                                        synthesis_taps)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the reference's polyphase formula
+# ---------------------------------------------------------------------------
+
+
+def polyphase_analysis_plain(x, hk_poly):
+    """Plain K4: ``reverse_half(polyphase_forward(x, hk_poly))``."""
+    return fb.reverse_half(fb.polyphase_forward(x, hk_poly))
+
+
+def polyphase_synthesis_plain(x, hk_ipoly):
+    """Plain K5: ``polyphase_inverse(reverse_half(x), hk_ipoly)``."""
+    return fb.polyphase_inverse(fb.reverse_half(x), hk_ipoly)
+
+
+def polyphase_roundtrip_plain(x, hk_poly, hk_ipoly):
+    """Plain K6: plain K5 of plain K4 (the two sign masks cancel)."""
+    return polyphase_synthesis_plain(polyphase_analysis_plain(x, hk_poly),
+                                     hk_ipoly)
+
+
+# ---------------------------------------------------------------------------
+# the kernel routes: pads and layouts around K1/K2/K3 (on CPU tensors the
+# K1/K2/K3 wrappers run their own plain versions, so the tests hold these
+# routes against the formulas above)
+# ---------------------------------------------------------------------------
+
+
+def _analysis_input(x, M: int, L: int):
+    """The centered polyphase pad as input padding: window t starts at
+    (t - L//2)*M, and the last window ends at T + (L - L//2 - 1)*M."""
+    return F.pad(x, ((L // 2) * M, (L - L // 2 - 1) * M))
+
+
+def analysis_over_k1(x, w2, M: int):
+    """K4's route: K1 over the padded input. x [B, 1, T]; w2 [Mb, 1, L*M]
+    (:func:`analysis_weights`). Returns [B, Mb, T/M]."""
+    L = w2.shape[-1] // M
+    return cc.strided_analysis_conv(_analysis_input(x, M, L), w2, M)
+
+
+def synthesis_over_k2(x, hk_ipoly):
+    """K5's route: K2 over sub-bands padded (L//2-1, L-L//2), the
+    reference's pad L//2+1, ``[..., :-1]`` trim and 2-row delay trim in one;
+    the input mask's parity is the sub-band time (``x_offset=-off``).
+    x [B, Mb, T']; hk_ipoly [M, Mb, L]. Returns [B, 1, M*T']."""
+    B, _, Tp = x.shape
+    M, L = hk_ipoly.shape[0], hk_ipoly.shape[-1]
+    off = L // 2 - 1
+    out = cc.dense_synthesis_conv(F.pad(x, (off, L - 1 - off)), hk_ipoly,
+                                  x_offset=-off)  # [B, T', M]
+    return out.reshape(B, 1, Tp * M)
+
+
+def roundtrip_over_k3(x, w2, hk_ipoly, M: int):
+    """K6's route: K3 with the synthesis pad one wider on each side than
+    K5's, which shifts every output window one step later and adds one
+    trailing step; dropping output step 0 leaves exactly K5(K4(x))'s
+    windows. x [B, 1, T]; returns [B, 1, T]."""
+    B, _, T = x.shape
+    L = w2.shape[-1] // M
+    Ls = hk_ipoly.shape[-1]
+    out = cc.fused_roundtrip_conv(_analysis_input(x, M, L), w2, hk_ipoly,
+                                  M, (Ls // 2, Ls - Ls // 2))
+    return out[:, 1:, :].reshape(B, 1, T)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_signal(x, M: int):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"x must be a torch.Tensor, got {type(x)}")
+    if x.ndim != 3 or x.shape[1] != 1:
+        raise ValueError(f"x must be [B, 1, T], got {tuple(x.shape)}")
+    if x.shape[-1] % M:
+        raise ValueError(f"T={x.shape[-1]} must be divisible by M={M}")
+
+
+def polyphase_analysis(x, hk_poly, w2=None):
+    """K4 — offline polyphase analysis plus the fused ``reverse_half``.
+
+    x: [B, 1, T] (T divisible by M); hk_poly: [Mb, M, L]; ``w2`` is
+    ``analysis_weights(hk_poly)`` when the caller keeps it. Returns
+    [B, Mb, T/M], equal to ``reverse_half(polyphase_forward(x, hk_poly))``."""
+    M = hk_poly.shape[1]
+    _check_signal(x, M)
+    if x.device.type == "cpu":
+        return polyphase_analysis_plain(x, hk_poly)
+    if w2 is None:
+        w2 = analysis_weights(hk_poly)
+    out = analysis_over_k1(x, w2, M)
+    LAUNCHES["analysis"] += 1
+    return out
+
+
+def polyphase_synthesis(x, hk_ipoly):
+    """K5 — ``reverse_half`` plus offline polyphase synthesis.
+
+    x: [B, Mb, T'] sub-bands; hk_ipoly: [M, Mb, L], contiguous. Returns
+    [B, 1, M*T'], equal to ``polyphase_inverse(reverse_half(x), hk_ipoly)``."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"x must be a torch.Tensor, got {type(x)}")
+    if x.ndim != 3:
+        raise ValueError(f"x must be [B, Mb, T'], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return polyphase_synthesis_plain(x, hk_ipoly)
+    out = synthesis_over_k2(x, hk_ipoly)
+    LAUNCHES["synthesis"] += 1
+    return out
+
+
+def polyphase_roundtrip(x, hk_poly, hk_ipoly, w2=None):
+    """K6 — analysis -> synthesis in one kernel (K3): the sub-bands stay in
+    shared memory and the two masks cancel. Equal to
+    ``polyphase_synthesis(polyphase_analysis(x, hk_poly), hk_ipoly)`` up to
+    f32 round-off (another tap order). Full bank only (hk_poly [M, M, L]);
+    gate with :func:`roundtrip_supported`. x: [B, 1, T] -> [B, 1, T]."""
+    M = hk_poly.shape[1]
+    _check_signal(x, M)
+    if x.device.type == "cpu":
+        return polyphase_roundtrip_plain(x, hk_poly, hk_ipoly)
+    if w2 is None:
+        w2 = analysis_weights(hk_poly)
+    out = roundtrip_over_k3(x, w2, hk_ipoly, M)
+    LAUNCHES["roundtrip"] += 1
+    return out

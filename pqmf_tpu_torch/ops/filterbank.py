@@ -3,10 +3,13 @@
 PyTorch counterpart of ``pqmf_tpu/ops/filterbank.py``. The bank build is
 the JAX package's host-side NumPy, copied (importing anything from
 ``pqmf_tpu`` imports JAX), so the banks are bit-equal. The tensor side is
-``reverse_half`` and a plain ``_conv1d``: the latter serves only the plain
-versions of the conv kernels and ``streaming.streaming_conv`` /
-``offline_conv``; the streaming path itself runs the kernels in
-``pqmf_tpu_torch.kernels.cached_conv``.
+``reverse_half``, a plain full-f32 ``_conv1d`` and, on it, the offline
+polyphase and classic analysis/synthesis with the reference's exact edge
+semantics. ``_conv1d`` serves the plain versions of the conv kernels,
+``streaming.streaming_conv`` / ``offline_conv`` and the classic path; the
+polyphase ops are the plain versions of K4/K5/K6
+(``pqmf_tpu_torch.kernels.polyphase``), whose CUDA route runs the kernels
+in ``pqmf_tpu_torch.kernels.cached_conv``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ __all__ = [
     "get_qmf_bank",
     "build_filterbank",
     "params_from_hk",
+    "polyphase_forward",
+    "polyphase_inverse",
+    "classic_forward",
+    "classic_inverse",
     "check_precision",
     "full_f32",
 ]
@@ -157,3 +164,59 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
         x = F.pad(x, padding)
     with full_f32():
         return F.conv1d(x, w, stride=stride)
+
+
+def polyphase_forward(x: torch.Tensor, hk_poly: torch.Tensor) -> torch.Tensor:
+    """Fast polyphase analysis (reference: pqmf.py:115-130).
+
+    x: [B, 1, T] with T divisible by M; hk_poly: [Mb, M, L].
+    Returns [B, Mb, T/M]."""
+    B, C, T = x.shape
+    M, L = hk_poly.shape[1], hk_poly.shape[-1]
+    # "b c (t m) -> b (c m) t": phase index m is the fast axis of time
+    xp = x.reshape(B, C, T // M, M).transpose(-1, -2).reshape(B, C * M,
+                                                              T // M)
+    return _conv1d(xp, hk_poly, padding=(L // 2, L // 2))[..., :-1]
+
+
+def polyphase_inverse(x: torch.Tensor, hk_ipoly: torch.Tensor) -> torch.Tensor:
+    """Fast polyphase synthesis (reference: pqmf.py:133-157).
+
+    x: [B, Mb, T'] sub-bands; hk_ipoly: [M, Mb, L]. Returns [B, 1, M*T']."""
+    M, L = hk_ipoly.shape[0], hk_ipoly.shape[-1]
+    pad = L // 2 + 1
+    y = _conv1d(x, hk_ipoly, padding=(pad, pad))[..., :-1] * M
+    y = torch.flip(y, dims=(1,))  # band-order reversal
+    # drop the first 2 polyphase rows == the reference's ``x[..., 2*M:]``
+    # trim after the interleave (pqmf.py:156)
+    y = y[..., 2:]
+    B, _, Tp = y.shape
+    # "b (c m) t -> b c (t m)": interleave phases back into time
+    return y.transpose(1, 2).reshape(B, 1, Tp * M)
+
+
+def classic_forward(x: torch.Tensor, hk: torch.Tensor) -> torch.Tensor:
+    """Slow full-rate analysis (reference: pqmf.py:160-177).
+
+    x: [B, 1, T]; hk: [M, P]. Returns [B, M, T/M]."""
+    M, P = hk.shape
+    return _conv1d(x, hk[:, None, :], stride=M,
+                   padding=(P // 2, P // 2))[..., :-1]
+
+
+def classic_inverse(x: torch.Tensor, hk: torch.Tensor) -> torch.Tensor:
+    """Slow synthesis via zero-stuffing (reference: pqmf.py:180-199): each
+    band is zero-stuffed to full rate (``y[..., ::M] = x*M``, M*T' samples
+    including the M-1 trailing zeros) and convolved with the time-flipped
+    bank summed over bands, padded (P//2-1, P//2) so the output equals the
+    reference's ``conv1d(pad=P//2)[..., 1:]``. (The JAX package stuffs with
+    ``lhs_dilation=M``, whose dilated input lacks those trailing zeros and
+    so pads M-1 more on the right.)
+
+    x: [B, M, T']; hk: [M, P]. Returns [B, 1, M*T']."""
+    M, P = hk.shape
+    B, _, Tp = x.shape
+    y = x.new_zeros((B, M, Tp * M))
+    y[..., ::M] = x * M
+    w = torch.flip(hk, dims=(-1,))[None]  # [1, M, P]
+    return _conv1d(y, w, padding=(P // 2 - 1, P // 2))

@@ -1,7 +1,10 @@
-"""L3 — the flagship per-sub-band phase-vocoder pitch shifter.
+"""L3 — the plain PQMF wrapper and the flagship per-sub-band phase-vocoder
+pitch shifter.
 
-PyTorch counterpart of ``pqmf_tpu/pipelines.py``'s
-:class:`PQMFPitchShiftWrapper` (reference 1-PitchShifterWrapper.py:104-323):
+PyTorch counterpart of ``pqmf_tpu/pipelines.py``'s :class:`PQMFWrapper`
+(reference PQMFWrapper.py:17-92: analysis, synthesis and both, on the
+streaming PQMF's offline convs K1/K2) and :class:`PQMFPitchShiftWrapper`
+(reference 1-PitchShifterWrapper.py:104-323):
 
     analysis conv (K1) -> batched matmul-DFT STFT of all bands -> stretch
     of every band at its own rate (padded to the max frame count, masked)
@@ -29,7 +32,7 @@ from pqmf_tpu_torch.ops import resample as rs
 from pqmf_tpu_torch.ops import stft as S
 from pqmf_tpu_torch.streaming import StreamingPQMF
 
-__all__ = ["PQMFPitchShiftWrapper", "derive_stft_geometry"]
+__all__ = ["PQMFWrapper", "PQMFPitchShiftWrapper", "derive_stft_geometry"]
 
 
 def _next_pow2(x: int) -> int:
@@ -208,6 +211,73 @@ class _RegistryMixin:
 
     def attribute_dict(self):
         return {name: getattr(self, name) for name in self._attributes}
+
+
+class PQMFWrapper(_RegistryMixin):
+    """Plain analysis/synthesis wrapper (reference PQMFWrapper.py:17-92),
+    on one device.
+
+    Methods: ``forward`` (mono -> n_band sub-bands), ``inverse``,
+    ``process`` (-> (reconstructed, subbands), the reference's actual
+    return order — its docstring says the opposite, SURVEY §2.5-5).
+    """
+
+    def __init__(self, attenuation: int = 100, n_band: int = 16,
+                 m_buffer_size: int = 512, precision: str = "highest",
+                 max_buffer_size: int | None = 16384, device="cpu"):
+        self.n_band = n_band
+        self.attenuation = attenuation
+        self.pqmf = StreamingPQMF(attenuation, n_band, precision=precision,
+                                  device=device)
+        self.device = self.pqmf.device
+        self._methods = ["forward", "inverse", "process"]
+        self._attributes = [
+            "n_band", "attenuation",
+            "forward_in_ch", "forward_out_ch",
+            "inverse_in_ch", "inverse_out_ch",
+            "process_in_ch", "process_out_ch",
+            "m_buffer_size", "max_buffer_size",
+        ]
+        # exact reference values (PQMFWrapper.py:34-41)
+        self.forward_in_ch = 1
+        self.forward_out_ch = 1
+        self.inverse_in_ch = 1
+        self.inverse_out_ch = 1
+        self.process_in_ch = 1
+        self.process_out_ch = 2
+        self.m_buffer_size = m_buffer_size
+        self.max_buffer_size = max_buffer_size
+        _check_declared_buffers(m_buffer_size, max_buffer_size)
+
+    def forward(self, x):
+        """x [1, T] / [B, 1, T] (array or tensor) -> [B, n_band, T/n_band]."""
+        x = self.pqmf.as_tensor(x)
+        if x.ndim == 2:
+            x = x[None]
+        if not (x.ndim == 3 and x.shape[1] == 1):
+            raise ValueError(
+                "input must be [1, buffer_size] or [batch, 1, buffer_size]")
+        _check_buffer(x.shape[-1], self.n_band, self.max_buffer_size)
+        return self.pqmf.forward(x)
+
+    def inverse(self, x):
+        """[B, n_band, T'] -> [B, 1, T'*n_band]."""
+        x = self.pqmf.as_tensor(x)
+        if not (x.ndim == 3 and x.shape[1] == self.n_band):
+            raise ValueError(
+                f"input must be [batch, {self.n_band}, T'] or "
+                f"[1, {self.n_band}, T']")
+        _check_buffer(x.shape[-1] * self.n_band, self.n_band,
+                      self.max_buffer_size, what="sub-band signal",
+                      check_multiple=False)
+        return self.pqmf.inverse(x)
+
+    def process(self, x):
+        subbands = self.forward(x)
+        reconstructed = self.inverse(subbands)
+        return reconstructed, subbands
+
+    __call__ = forward
 
 
 class PQMFPitchShiftWrapper(_RegistryMixin):

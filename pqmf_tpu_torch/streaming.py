@@ -36,6 +36,7 @@ __all__ = [
     "conv_state_init",
     "kernels_from_params",
     "resolve_device",
+    "as_device_tensor",
     "StreamingPQMF",
 ]
 
@@ -66,6 +67,17 @@ def _on(v, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.detach().to(device, torch.float32).contiguous()
     return torch.tensor(np.asarray(v, np.float32), device=device)
+
+
+def as_device_tensor(x, device: torch.device) -> torch.Tensor:
+    """An input as a tensor on ``device``: arrays are copied there; a tensor
+    must already be there (no silent transfer)."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"input is on {x.device}, this PQMF on "
+                             f"{device}")
+        return x
+    return _on(x, device)
 
 
 def kernels_from_params(params, device="cpu") -> tuple:
@@ -241,14 +253,8 @@ class StreamingPQMF:
     # -- inputs and channel folding -----------------------------------------
 
     def as_tensor(self, x) -> torch.Tensor:
-        """An input as a tensor on this PQMF's device: arrays are copied
-        there; a tensor must already be there (no silent transfer)."""
-        if isinstance(x, torch.Tensor):
-            if x.device != self.device:
-                raise ValueError(f"input is on {x.device}, this PQMF on "
-                                 f"{self.device}")
-            return x
-        return _on(x, self.device)
+        """An input as a tensor on this PQMF's device (as_device_tensor)."""
+        return as_device_tensor(x, self.device)
 
     def _fold(self, x):
         """[B, C, T] (or [C, T] / [T]) -> ([B*C, 1, T], B)."""

@@ -1,5 +1,5 @@
 """Host-side utilities of the port (NumPy only)."""
 
-from pqmf_tpu_torch.utils import metrics
+from pqmf_tpu_torch.utils import audio, metrics
 
-__all__ = ["metrics"]
+__all__ = ["audio", "metrics"]

@@ -9,7 +9,8 @@ without the suite's conftest:
 
 Tolerances: K1/K2 atol=2e-5 / rtol=1e-4 (pqmf_tpu's kernel-vs-lax bar);
 K3 against the plain composition atol=1e-5 (its recomputed halo sums the
-taps in another order); the slice >= 90 dB.
+taps in another order); K4/K5 against the polyphase formula 2e-5 / 1e-4
+and K6 2e-5 / 1e-4 (another tap order again); the slice >= 90 dB.
 """
 
 import numpy as np
@@ -17,9 +18,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from pqmf_tpu_torch import PQMFPitchShiftWrapper, StreamingPQMF
+from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper, PQMFWrapper,
+                            StreamingPQMF)
 from pqmf_tpu_torch.kernels import _build
 from pqmf_tpu_torch.kernels import cached_conv as cc
+from pqmf_tpu_torch.kernels import polyphase as pk
+from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.utils.metrics import snr_db
 
 pytestmark = pytest.mark.cuda
@@ -129,3 +133,87 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
                                  hkf, 16)
     with pytest.raises(ValueError, match="is on"):
         cc.strided_analysis_conv(x, hkf.cpu(), 16)
+
+
+@pytest.mark.parametrize("M", [4, 16, 32, 64])
+@pytest.mark.parametrize("B,T_sub", [(1, 512), (16, 512), (3, 37)])
+def test_polyphase_kernels_match_plain(dev, M, B, T_sub):
+    """K4/K5/K6 on the card against their plain versions (the polyphase
+    formula) — even kernel lengths, x_offset -(L//2-1), syn_pad (L//2,
+    L//2), and at M=32/64 K1's band and K2's phase chunks with a short last
+    chunk."""
+    p = fb.build_filterbank(100, M)
+    hp = torch.tensor(p["hk_poly"], device=dev)
+    hi = torch.tensor(p["hk_ipoly"], device=dev)
+    g = torch.Generator().manual_seed(M * 1000 + B)
+    x = torch.randn(B, 1, M * T_sub, generator=g).to(dev)
+    s = torch.randn(B, M, T_sub, generator=g).to(dev)
+    torch.testing.assert_close(pk.polyphase_analysis(x, hp),
+                               pk.polyphase_analysis_plain(x, hp), **TOL)
+    torch.testing.assert_close(pk.polyphase_synthesis(s, hi),
+                               pk.polyphase_synthesis_plain(s, hi), **TOL)
+    L = hp.shape[-1]
+    if pk.roundtrip_supported(M, L * M, L):
+        torch.testing.assert_close(pk.polyphase_roundtrip(x, hp, hi),
+                                   pk.polyphase_roundtrip_plain(x, hp, hi),
+                                   **TOL)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            pk.polyphase_roundtrip(x, hp, hi)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("M,rt", [(16, {"roundtrip": 1}),
+                                  (32, {"analysis": 1, "synthesis": 1}),
+                                  (64, {"analysis": 1, "synthesis": 1})])
+def test_pqmf_routes_and_launch_counts(dev, M, rt):
+    gpu, cpu = PQMF(100, M, device="cuda"), PQMF(100, M)
+    x = np.random.default_rng(M).standard_normal((2, 1, M * 300)).astype(
+        np.float32)
+    zero = {"analysis": 0, "synthesis": 0, "roundtrip": 0}
+    for name, arg, want in [("forward", x, {"analysis": 1}),
+                            ("inverse", cpu.forward(x).numpy(),
+                             {"synthesis": 1}),
+                            ("roundtrip", x, rt)]:
+        cc.reset_launches()
+        pk.reset_launches()
+        got = getattr(gpu, name)(arg)
+        torch.cuda.synchronize()
+        assert cc.LAUNCHES == {**zero, **want}, name
+        assert pk.LAUNCHES == {**zero, **want}, name
+        torch.testing.assert_close(got.cpu(), getattr(cpu, name)(arg),
+                                   **TOL)
+
+
+def test_offline_path_runs_no_plain_version(dev, monkeypatch):
+    """Every plain version the offline path could reach raises: the CUDA
+    path of PQMF (K6, and K4 + K5 at M=32), its classic path aside, and
+    PQMFWrapper never call one."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for name in ("polyphase_analysis_plain", "polyphase_synthesis_plain",
+                 "polyphase_roundtrip_plain"):
+        monkeypatch.setattr(pk, name, refuse)
+    for name in ("analysis_conv_plain", "synthesis_conv_plain",
+                 "roundtrip_conv_plain"):
+        monkeypatch.setattr(cc, name, refuse)
+    for name in ("polyphase_forward", "polyphase_inverse", "_conv1d"):
+        monkeypatch.setattr(fb, name, refuse)
+    x = np.random.default_rng(5).standard_normal((1, 1, 8192)).astype(
+        np.float32)
+    for M in (16, 32):
+        pq = PQMF(100, M, device="cuda")
+        pq.inverse(pq.forward(x))
+        pq.roundtrip(x)
+    PQMFWrapper(100, 16, 8192, device="cuda").process(x)
+    torch.cuda.synchronize()
+
+
+def test_pqmf_refuses_a_bank_the_kernels_do_not_take(dev):
+    pq = PQMF(100, 16, device="cuda")
+    hk = np.random.default_rng(6).standard_normal((16, 16 * 4096)).astype(
+        np.float32)
+    with pytest.raises(ValueError, match="do not take"):
+        pq.set_weights(fb.params_from_hk(hk))
+    assert pq.params["hk"].shape == (16, 512)  # the old bank stays

@@ -143,6 +143,11 @@ def test_import_leaves_jax_out():
         "for m in pkgutil.walk_packages(pqmf_tpu_torch.__path__, "
         "'pqmf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "want = ['filterbank', 'kernels.polyphase', 'export', "
+        "'cli.export_pqmf', 'utils.audio', 'parallel.training']\n"
+        "missing = [w for w in want if 'pqmf_tpu_torch.' + w "
+        "not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' "
         "or n.startswith(('jax.', 'pqmf_tpu.')) or n == 'pqmf_tpu')\n"
         "assert not bad, bad\n"
