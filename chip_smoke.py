@@ -27,10 +27,25 @@ fails without them; it never falls back to the CPU and imports no JAX.
      ``export_pqmf`` CLI on a 10 s wav. Each call's launches are exact, its
      output matches the CPU port, and the 60 s round trips keep the banks'
      SNRs (55.23 dB designed at delay 0, 104.24 dB fine-tuned at
-     ``edge_trim=1024``).
+     ``edge_trim=1024``);
+   - the torchaudio variant (``PQMFPitchShiftWrapperTA``, 16 bands, 8192
+     blocks, the reference's shift range) at B = 1 and B = 16, the 8-band x
+     2048 edge case (Tb = 256) and a 10 s whole file, plain versions
+     refused: one K1 and one K2 per ``pitchshifter``, each >= 90 dB against
+     the CPU port;
+   - ``stream_ola`` over the flagship (block 4096, overlap 2048) on 10 s,
+     mono and stereo: one K1 + one K2 per block and one K3 per call, the
+     pitch stream >= 90 dB and the round-trip stream within OFFLINE_TOL of
+     the CPU port;
+   - the standalone shifters on 10 s, each >= 90 dB against the CPU port,
+     and the ``vocoder``, ``ps_torchaudio``, ``blocks`` (host loop and
+     ``--scan``) and ``export_pvoc`` CLIs on a 10 s wav with
+     ``--device cuda``.
 4. Times each kernel against its plain version, the flagship block, the
-   16-stream step, the 60 s round trips and one ``PQMFWrapper.process``
-   block with CUDA events.
+   16-stream step, the 60 s round trips, one ``PQMFWrapper.process``
+   block, the TA block at B = 1 and 16, ``stream_ola`` on 10 s and the
+   standalone shifters, with CUDA events and the host clock, and profiles
+   the flagship and TA steps.
 
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 Any failure raises and the exit code is non-zero.
@@ -60,6 +75,11 @@ K6_TOL = dict(atol=2e-5, rtol=1e-4)   # K3's order vs the polyphase formula's
 OFFLINE_TOL = dict(atol=2e-5, rtol=1e-4)  # the offline path vs the CPU port
 SNR_60S_DB = (55.23, 0.01)        # designed M=16 bank, delay 0, whole signal
 SNR_FINETUNED_DB = (104.24, 0.05)  # fine-tuned M=16 bank, edge_trim=1024
+TA_SHIFTS16 = [3.2, -48.5, 12.3, 0, 7, -24, 1, 2, 3, 4, 5, 6, -6, -12, 9,
+               -30]                # the reference's random range
+TA_SHIFTS8 = [0, -3, 5, 12, -7, 2, 1, -1]
+SUB_SR = round(SR / N_BAND)        # 2756: the per-band rate
+OLA_BLOCK, OLA_OVERLAP = 4096, 2048  # the block harness's defaults
 
 
 def _audio(n: int, seed: int, batch: int = 1) -> np.ndarray:
@@ -157,9 +177,15 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper, PQMFWrapper,
-                                StreamingPQMF, load_artifact, save_artifact)
-    from pqmf_tpu_torch.cli import export_pqmf
+    from pqmf_tpu_torch import (PQMF, PhaseVocoderPitchShift,
+                                PQMFPitchShiftWrapper,
+                                PQMFPitchShiftWrapperTA, PQMFWrapper,
+                                ResamplePitchShift, StreamingPQMF,
+                                TorchaudioPitchShift, load_artifact,
+                                save_artifact, stream_ola)
+    from pqmf_tpu_torch.cli import blocks as blocks_cli
+    from pqmf_tpu_torch.cli import (export_pqmf, export_pvoc, ps_torchaudio,
+                                    vocoder)
     from pqmf_tpu_torch.kernels import _build
     from pqmf_tpu_torch.kernels import cached_conv as cc
     from pqmf_tpu_torch.kernels import polyphase as pk
@@ -462,6 +488,134 @@ def main() -> int:
     print(f"  export_pqmf CLI: exit 0, {out_wav.shape[-1]} samples")
     shutil.rmtree(tmp)
 
+    # the torchaudio variant: K1, every band's shift, K2 — one of each per
+    # pitchshifter call, with every plain version made to raise
+    ta = {dev_: PQMFPitchShiftWrapperTA(100, N_BAND, BLOCK, SR, TA_SHIFTS16,
+                                        device=dev_)
+          for dev_ in ("cuda", "cpu")}
+    ta8 = {dev_: PQMFPitchShiftWrapperTA(100, 8, 2048, SR, TA_SHIFTS8,
+                                         device=dev_)
+           for dev_ in ("cuda", "cpu")}
+    ta_file = {dev_: PQMFPitchShiftWrapperTA(100, N_BAND, BLOCK, SR,
+                                             TA_SHIFTS16,
+                                             max_buffer_size=None,
+                                             device=dev_)
+               for dev_ in ("cuda", "cpu")}
+    ten = _audio(10 * SR, 10)
+    ten_x = np.pad(ten, ((0, 0), (0, (-ten.shape[-1]) % BLOCK)))[None]
+    ta_in = {
+        "TA B=1 block": (ta, _audio(BLOCK, 7)[None]),
+        "TA B=16 blocks": (ta, _audio(BLOCK, 8, batch=16)[:, None]),
+        "TA 8 bands x 2048 (Tb=256)": (ta8, _audio(2048, 9, batch=2)[:, None]),
+        "TA 10 s whole file": (ta_file, ten_x),
+    }
+    cc.reset_launches()
+    pk.reset_launches()
+    with _plain_versions_refused():
+        g_ta = {what: counted(both, {}, w["cuda"].pitchshifter, x)
+                for what, (w, x) in ta_in.items()}
+        ta_sub = counted(ana, {}, ta["cuda"].forward, ta_in["TA B=1 block"][1])
+        ta_back = counted(syn, {}, ta["cuda"].inverse, ta_sub)
+    ta_launches = dict(cc.LAUNCHES)
+    print(f"TA-path launches: {ta_launches}")
+    assert ta_launches == {"analysis": 5, "synthesis": 5, "roundtrip": 0}
+    for what, (w, x) in ta_in.items():
+        got = g_ta[what]
+        assert got.shape == x.shape and torch.isfinite(got).all(), what
+        db = snr_db(w["cpu"].pitchshifter(x).numpy(), got.cpu().numpy())
+        print(f"  {what}: {db:.1f} dB vs CPU")
+        assert db >= BAR_DB, (what, db)
+    c_sub = ta["cpu"].forward(ta_in["TA B=1 block"][1])
+    torch.testing.assert_close(ta_sub.cpu(), c_sub, **OFFLINE_TOL)
+    torch.testing.assert_close(ta_back.cpu(), ta["cpu"].inverse(c_sub),
+                               **OFFLINE_TOL)
+    print("  TA forward / inverse vs CPU: within OFFLINE_TOL")
+
+    # the block-streaming harness over the flagship: one K1 + one K2 per
+    # block for the pitch stream, one K3 for all the round trips
+    ola_in = {"stream_ola mono 10 s": _audio(10 * SR, 11),
+              "stream_ola stereo 10 s": _audio(10 * SR, 12, batch=2)}
+    ola_hop = OLA_BLOCK - OLA_OVERLAP
+    n_blocks = -(-(10 * SR - OLA_BLOCK) // ola_hop) + 1
+    g_ola = {}
+    for what, x in ola_in.items():
+        cc.reset_launches()
+        with _plain_versions_refused():
+            g_ola[what] = stream_ola(gpu, x, OLA_BLOCK, OLA_OVERLAP)
+        torch.cuda.synchronize()
+        ola_launches = dict(cc.LAUNCHES)
+        print(f"{what} launches: {ola_launches}")
+        assert ola_launches == {"analysis": n_blocks, "synthesis": n_blocks,
+                                "roundtrip": 1}, ola_launches
+        c_pitch, c_recon = stream_ola(cpu, x, OLA_BLOCK, OLA_OVERLAP)
+        g_pitch, g_recon = (t.cpu() for t in g_ola[what])
+        assert g_pitch.shape == x.shape and torch.isfinite(g_pitch).all()
+        db = snr_db(c_pitch.numpy(), g_pitch.numpy())
+        torch.testing.assert_close(g_recon, c_recon, **OFFLINE_TOL)
+        print(f"  {what}: pitch {db:.1f} dB vs CPU, recon max|err| "
+              f"{(g_recon - c_recon).abs().max().item():.3g}")
+        assert db >= BAR_DB, (what, db)
+
+    # the standalone shifters on 10 s (the TA shifter at the band rate)
+    ta_sig = _audio(10 * SUB_SR, 13)
+    shifters = {
+        "TorchaudioPitchShift(2756, -5)": (TorchaudioPitchShift(SUB_SR, -5),
+                                           ta_sig),
+        "TorchaudioPitchShift(2756, 7)": (TorchaudioPitchShift(SUB_SR, 7),
+                                          ta_sig),
+        "PhaseVocoderPitchShift n_steps 4": (
+            lambda x: PhaseVocoderPitchShift()(x, 4), ten),
+        "ResamplePitchShift(4)": (ResamplePitchShift(4), ten),
+    }
+    for what, (fn, x) in shifters.items():
+        got = fn(torch.from_numpy(x).to(dev))
+        assert got.shape == x.shape and torch.isfinite(got).all(), what
+        db = snr_db(fn(torch.from_numpy(x)).numpy(), got.cpu().numpy())
+        print(f"  {what}: {db:.1f} dB vs CPU")
+        assert db >= BAR_DB, (what, db)
+
+    # the four new CLIs on a 10 s wav, every plain conv refused
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    wav_in = os.path.join(tmp, "in.wav")
+    write_wav(wav_in, ten * 0.5, SR)
+    shifts_arg = ["--shifts", ",".join(str(v) for v in SHIFTS16)]
+    cli_runs = [
+        ("vocoder", vocoder.main,
+         [wav_in, os.path.join(tmp, "pvoc.wav"), "--n_steps", "4"],
+         {"pvoc.wav": (1, 10 * SR)}),
+        ("ps_torchaudio", ps_torchaudio.main,
+         [wav_in, "--out_dir", os.path.join(tmp, "ta"), "--shifts",
+          ",".join(str(v) for v in TA_SHIFTS16)],
+         {"ta/ta_pitchshifted.wav": ten_x.shape[1:],
+          "ta/reconstruido.wav": ten_x.shape[1:]}),
+        ("blocks", blocks_cli.main,
+         [wav_in, "--out_dir", os.path.join(tmp, "b"), *shifts_arg],
+         {"b/blocktest_pitchshifter.wav": (1, 10 * SR),
+          "b/nonblock_pitchshifter.wav": (1, 10 * SR)}),
+        ("blocks --scan", blocks_cli.main,
+         [wav_in, "--scan", "--out_dir", os.path.join(tmp, "s"),
+          *shifts_arg],
+         {"s/blocktest_pitchshifter.wav": (1, 10 * SR),
+          "s/blocktest_recontructed.wav": (1, 10 * SR)}),
+        ("export_pvoc", export_pvoc.main,
+         ["--input", wav_in, "--out_dir", os.path.join(tmp, "art"),
+          "--seed", "0", "--save_audio", "--audio_dir",
+          os.path.join(tmp, "pv")],
+         {"pv/phasevocoder.wav": ten_x.shape[1:]}),
+    ]
+    for name, main_fn, args, outputs in cli_runs:
+        cc.reset_launches()
+        with _plain_versions_refused():
+            rc = main_fn([*args, "--device", "cuda"])
+        torch.cuda.synchronize()
+        assert rc == 0, (name, rc)
+        for rel, shape in outputs.items():
+            y, sr_out = read_wav(os.path.join(tmp, rel))
+            assert sr_out == SR and y.shape == tuple(shape), (rel, y.shape)
+            assert np.isfinite(y).all() and np.abs(y).max() > 0.01, rel
+        print(f"  CLI {name}: exit 0, launches {dict(cc.LAUNCHES)}")
+    shutil.rmtree(tmp)
+
     # -- 4. times, CUDA events after warm-up -----------------------------------
     def cuda_ms(fn, iters):
         for _ in range(3):
@@ -561,6 +715,31 @@ def main() -> int:
     off_rt_ms = cuda_ms(lambda: off_gpu.roundtrip(raw60), 20)
     wrap_ms = cuda_ms(lambda: wrap_gpu.process(block_x), 200)
     wrap_lat = latency_ms(lambda: wrap_gpu.process(block_x), 100)
+    ta_x1 = torch.from_numpy(ta_in["TA B=1 block"][1]).to(dev)
+    ta_x16 = torch.from_numpy(ta_in["TA B=16 blocks"][1]).to(dev)
+
+    def ta_step1():
+        ta["cuda"].pitchshifter(ta_x1)
+
+    def ta_step16():
+        ta["cuda"].pitchshifter(ta_x16)
+
+    ta1_ms = cuda_ms(ta_step1, 50)
+    ta1_lat = latency_ms(ta_step1, 100)
+    ta16_ms = cuda_ms(ta_step16, 30)
+    ta16_lat = latency_ms(ta_step16, 50)
+    ola_x = torch.from_numpy(ola_in["stream_ola mono 10 s"]).to(dev)
+    ola_lat = latency_ms(lambda: stream_ola(gpu, ola_x, OLA_BLOCK,
+                                            OLA_OVERLAP), 5)
+    ola2_x = torch.from_numpy(ola_in["stream_ola stereo 10 s"]).to(dev)
+    ola2_lat = latency_ms(lambda: stream_ola(gpu, ola2_x, OLA_BLOCK,
+                                             OLA_OVERLAP), 3)
+    shifter_times = {}
+    for what, (fn, x) in shifters.items():
+        xd = torch.from_numpy(x).to(dev)
+        shifter_times[what] = {"cuda_events_ms": cuda_ms(lambda: fn(xd), 5),
+                               "latency_ms_median_p90_n":
+                                   latency_ms(lambda: fn(xd), 5)}
     summary = {
         "card": card,
         "flagship_block_ms": block_ms,
@@ -578,13 +757,25 @@ def main() -> int:
         "finetuned_roundtrip_60s_snr_db_trim1024": ft_db,
         "pqmfwrapper_process_8192_ms": wrap_ms,
         "pqmfwrapper_process_8192_latency_ms_median_p90_n": wrap_lat,
+        "ta_block_b1_ms": ta1_ms,
+        "ta_block_b1_latency_ms_median_p90_n": ta1_lat,
+        "ta_block_b16_ms": ta16_ms,
+        "ta_block_b16_rtf": 16 * (BLOCK / SR) / (ta16_ms / 1e3),
+        "ta_block_b16_latency_ms_median_p90_n": ta16_lat,
+        "stream_ola_mono_10s_ms_median_p90_n": ola_lat,
+        "stream_ola_mono_10s_rtf": 10.0 / (ola_lat[0] / 1e3),
+        "stream_ola_stereo_10s_ms_median_p90_n": ola2_lat,
+        "stream_ola_stereo_10s_rtf": 10.0 / (ola2_lat[0] / 1e3),
+        "shifters_10s": shifter_times,
     }
     print(json.dumps(summary))
 
     # where a step's time goes: kernels by device time, and the share of
     # the step's wall time the card is busy at all
     for label, step, ms in [("flagship block", flagship_step, block_ms),
-                            ("16-stream step", streams_step, streams_ms)]:
+                            ("16-stream step", streams_step, streams_ms),
+                            ("TA block B=1", ta_step1, ta1_ms),
+                            ("TA blocks B=16", ta_step16, ta16_ms)]:
         print(json.dumps({"profile": label, **_profile(step, 10, ms)}))
 
     # (key, name, replaces, launches on its path: the flagship for K1-K3,

@@ -8,10 +8,14 @@ of the port is tested against. Ported so far:
   ``csrc/cached_conv.cu``);
 - the offline PQMF (:class:`PQMF`, polyphase and classic) on the polyphase
   adapters K4/K5/K6 over those kernels (``kernels/polyphase.py``);
-- the plain wrapper (:class:`PQMFWrapper`) and the flagship per-sub-band
-  phase-vocoder pitch shifter (:class:`PQMFPitchShiftWrapper`), their
-  artifacts (:func:`save_artifact`, :func:`load_artifact`) and the
-  ``cli.export_pqmf`` entry point.
+- the plain wrapper (:class:`PQMFWrapper`), the flagship per-sub-band
+  phase-vocoder pitch shifter (:class:`PQMFPitchShiftWrapper`) and the
+  torchaudio variant (:class:`PQMFPitchShiftWrapperTA`), their artifacts
+  (:func:`save_artifact`, :func:`load_artifact`);
+- the standalone shifters (``shifters.py``) and the block-streaming
+  harness (:func:`stream_ola`);
+- the CLIs ``cli.export_pqmf``, ``cli.export_pvoc``, ``cli.vocoder``,
+  ``cli.ps_torchaudio`` and ``cli.blocks``.
 
 :func:`params_from_jax` carries a bank over from ``pqmf_tpu``. Nothing here
 imports JAX.
@@ -21,10 +25,15 @@ from pqmf_tpu_torch import design
 from pqmf_tpu_torch.convert import params_from_jax
 from pqmf_tpu_torch.export import load_artifact, save_artifact
 from pqmf_tpu_torch.filterbank import PQMF
-from pqmf_tpu_torch.pipelines import PQMFPitchShiftWrapper, PQMFWrapper
+from pqmf_tpu_torch.pipelines import (PQMFPitchShiftWrapper,
+                                      PQMFPitchShiftWrapperTA, PQMFWrapper,
+                                      stream_ola)
+from pqmf_tpu_torch.shifters import (PhaseVocoderPitchShift, PitchShifter,
+                                     ResamplePitchShift,
+                                     TorchaudioPitchShift)
 from pqmf_tpu_torch.streaming import StreamingPQMF
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "design",
@@ -32,6 +41,12 @@ __all__ = [
     "StreamingPQMF",
     "PQMFWrapper",
     "PQMFPitchShiftWrapper",
+    "PQMFPitchShiftWrapperTA",
+    "stream_ola",
+    "PhaseVocoderPitchShift",
+    "ResamplePitchShift",
+    "TorchaudioPitchShift",
+    "PitchShifter",
     "save_artifact",
     "load_artifact",
     "params_from_jax",

@@ -11,10 +11,12 @@ package loads the other's artifacts:
   fades and rates too), so loading never re-runs the design chain;
 - ``state.npz``     — the flagship's crossfade state (``prev_tail``).
 
-Not ported yet (ROADMAP queue 1, item 11): the ahead-of-time program
+Three kinds: ``PQMFWrapper``, ``PQMFPitchShiftWrapper`` and
+``PQMFPitchShiftWrapperTA`` (config with ``sample_rate`` and
+``shifts_in_semitones``, weights only: it carries no state). Not ported
+yet (ROADMAP queue 1, item 11): the ahead-of-time program
 (``with_stablehlo=True`` in the JAX package; a TorchScript or
-``torch.export`` form here) and the torchaudio-variant kind, which waits
-for its wrapper (queue 1, item 10). Both raise ``ValueError``.
+``torch.export`` form here), which raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import warnings
 import numpy as np
 import torch
 
-from pqmf_tpu_torch.pipelines import PQMFPitchShiftWrapper, PQMFWrapper
+from pqmf_tpu_torch.pipelines import (PQMFPitchShiftWrapper,
+                                      PQMFPitchShiftWrapperTA, PQMFWrapper)
 
 __all__ = ["save_artifact", "load_artifact"]
 
@@ -52,19 +55,20 @@ def _weights_of(wrapper) -> dict:
 
 
 def save_artifact(wrapper, path: str, with_stablehlo: bool = False) -> str:
-    """Serialize a :class:`PQMFWrapper` or :class:`PQMFPitchShiftWrapper`
-    to an artifact directory; returns the path."""
+    """Serialize a :class:`PQMFWrapper`, :class:`PQMFPitchShiftWrapper` or
+    :class:`PQMFPitchShiftWrapperTA` to an artifact directory; returns the
+    path."""
     if with_stablehlo:
         raise ValueError(
             "with_stablehlo=True is not ported: the ahead-of-time form "
             "(TorchScript / torch.export) waits for ROADMAP queue 1, "
             "item 11")
     kind = type(wrapper).__name__
-    if not isinstance(wrapper, (PQMFWrapper, PQMFPitchShiftWrapper)):
+    if not isinstance(wrapper, (PQMFWrapper, PQMFPitchShiftWrapper,
+                                PQMFPitchShiftWrapperTA)):
         raise ValueError(
-            f"no artifact for {kind}: the port saves PQMFWrapper and "
-            "PQMFPitchShiftWrapper (the torchaudio variant waits for "
-            "ROADMAP queue 1, item 10)")
+            f"no artifact for {kind}: the port saves PQMFWrapper, "
+            "PQMFPitchShiftWrapper and PQMFPitchShiftWrapperTA")
     from pqmf_tpu_torch import __version__
 
     manifest = {
@@ -96,6 +100,9 @@ def save_artifact(wrapper, path: str, with_stablehlo: bool = False) -> str:
             "prev_tail": [wrapper.n_band, wrapper.band_overlap]}
         np.savez(os.path.join(path, "state.npz"),
                  prev_tail=_np(wrapper._state["prev_tail"]))
+    elif isinstance(wrapper, PQMFPitchShiftWrapperTA):
+        manifest["config"]["sample_rate"] = wrapper.sample_rate
+        manifest["config"]["shifts_in_semitones"] = list(wrapper.shifts)
     np.savez(os.path.join(path, "weights.npz"), **_weights_of(wrapper))
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=2)
@@ -131,9 +138,10 @@ def load_artifact(path: str, device="cpu"):
             cfg.get("sample_rate", 44100), cfg.get("shifts_in_semitones"),
             phase_rule=cfg.get("phase_rule", "reference"), **common)
     elif kind == "PQMFPitchShiftWrapperTA":
-        raise ValueError(
-            "artifact kind PQMFPitchShiftWrapperTA is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+        wrapper = PQMFPitchShiftWrapperTA(
+            cfg["attenuation"], cfg["n_band"], cfg["m_buffer_size"],
+            cfg.get("sample_rate", 44100), cfg.get("shifts_in_semitones"),
+            **common)
     else:
         raise ValueError(f"unknown artifact kind {kind}")
     wrapper.pqmf.set_weights(

@@ -1,15 +1,19 @@
 """torch.stft-compatible real-valued STFT / ISTFT as matmuls.
 
-PyTorch counterpart of the real-valued path of ``pqmf_tpu/ops/stft.py``
-(``stft_ri`` / ``istft_ri_parts``): center padding of ``n_fft//2``, a
-``win_length`` Hann window zero-padded centered to ``n_fft``, frame count
-``1 + (T_padded - n_fft) // hop``, ``normalized=True`` scaling, and
-overlap-add with the window-square sum.
+PyTorch counterpart of ``pqmf_tpu/ops/stft.py``: center padding of
+``n_fft//2`` (zeros, or the reflection the torchaudio-variant shifter
+uses), a ``win_length`` Hann window zero-padded centered to ``n_fft``,
+frame count ``1 + (T_padded - n_fft) // hop``, ``normalized=True``
+scaling, and overlap-add with the window-square sum and torch.istft's
+``length`` semantics.
 
-The DFT is a matmul against a cos/sin basis, not ``torch.fft``: on an
-exactly-zero frame the matmul gives +0.0 real parts (phase 0) where an FFT
-gives -0.0 (phase pi), and the pitch shifter's stretch reads that phase.
-The matmuls run in full f32 (:func:`~pqmf_tpu_torch.ops.filterbank.full_f32`).
+The DFT of the serving paths (``stft_ri`` / ``istft_ri``) is a matmul
+against a cos/sin basis, not ``torch.fft``: on an exactly-zero frame the
+matmul gives +0.0 real parts (phase 0) where an FFT gives -0.0 (phase pi),
+and the pitch shifters' stretch reads that phase. The matmuls run in full
+f32 (:func:`~pqmf_tpu_torch.ops.filterbank.full_f32`). The complex
+:func:`stft` / :func:`istft` on ``torch.fft`` are kept for parity checks,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,10 +28,15 @@ from pqmf_tpu_torch.ops.filterbank import full_f32
 
 __all__ = [
     "hann_window",
+    "reflect_pad",
     "frame_count",
     "dft_basis",
     "idft_basis",
+    "stft",
+    "istft",
     "stft_ri",
+    "ta_stft_ri",
+    "istft_ri",
     "istft_ri_parts",
 ]
 
@@ -56,10 +65,56 @@ def frame_count(T: int, n_fft: int, hop_length: int) -> int:
     return 1 + (T + 2 * (n_fft // 2) - n_fft) // hop_length
 
 
-def _center_pad(x: torch.Tensor, n_fft: int) -> torch.Tensor:
-    """torch.stft's center padding of x [B, T]: n_fft//2 zeros each side
-    (``pad_mode="constant"``, the only mode the flagship uses)."""
-    return F.pad(x, (n_fft // 2, n_fft // 2))
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """``jnp.pad(x, mode="reflect")`` on the last axis, for any pad width.
+
+    ``F.pad(mode="reflect")`` raises once a pad reaches the input's length;
+    NumPy and JAX keep reflecting, which is the periodic even extension of
+    period ``2 (T - 1)`` (a 1-sample input repeats). The torchaudio-variant
+    shifter pads sub-bands by ``n_fft//2`` = 256, as long as the 8-band
+    bands of a 2048 block, so it needs that extension."""
+    T = x.shape[-1]
+    i = torch.arange(-left, T + right, device=x.device)
+    if T == 1:
+        idx = torch.zeros_like(i)
+    else:
+        period = 2 * (T - 1)
+        j = torch.remainder(i, period)
+        idx = torch.where(j >= T, period - j, j)
+    return x.index_select(-1, idx)
+
+
+def _center_pad(x: torch.Tensor, n_fft: int,
+                pad_mode: str = "constant") -> torch.Tensor:
+    """torch.stft's center padding of x [B, T]: n_fft//2 each side, zeros
+    (``"constant"``) or the reflection (``"reflect"``, as JAX pads)."""
+    pad = n_fft // 2
+    if pad_mode == "constant":
+        return F.pad(x, (pad, pad))
+    if pad_mode == "reflect":
+        return reflect_pad(x, pad, pad)
+    raise ValueError(f"unsupported pad_mode {pad_mode}")
+
+
+def _trim_or_pad(out: torch.Tensor, total: int, center: bool,
+                 length: int | None, n_fft: int) -> torch.Tensor:
+    """torch.istft's length semantics: center-trim by n_fft//2; with an
+    explicit ``length`` the OLA samples after the trim come first, then
+    zeros."""
+    if center:
+        trim = n_fft // 2
+        if length is None:
+            return out[..., trim: total - trim]
+        avail = min(length, total - trim)
+        out = out[..., trim: trim + avail]
+    elif length is None:
+        return out
+    else:
+        avail = min(length, total)
+        out = out[..., :avail]
+    if avail < length:
+        out = F.pad(out, (0, length - avail))
+    return out
 
 
 @functools.lru_cache(maxsize=32)
@@ -105,11 +160,12 @@ def idft_basis(n_fft: int, device="cpu"):
 
 
 def _frame_signal(x: torch.Tensor, n_fft: int, hop: int, frames: int):
-    """[B, Tp] -> [B, frames, n_fft] sliding windows (a copy-free view)."""
+    """[..., Tp] -> [..., frames, n_fft] sliding windows (a copy-free
+    view)."""
     need = (frames - 1) * hop + n_fft
     if x.shape[-1] < need:
         x = F.pad(x, (0, need - x.shape[-1]))
-    return x.unfold(-1, n_fft, hop)[:, :frames]
+    return x.unfold(-1, n_fft, hop)[..., :frames, :]
 
 
 def _ola(y_f: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -135,20 +191,56 @@ def _ola(y_f: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return out.index_add_(-1, idx, y_f.reshape(*lead, frames * n_fft))
 
 
-def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
-            window: torch.Tensor, normalized: bool = True):
-    """torch.stft (``center=True, pad_mode="constant"``) with real/imag
-    outputs via a matmul DFT.
-
-    x: [B, T] -> (re, im) each [B, F, frames]."""
-    x = _center_pad(x, n_fft)
+def _framed(x, n_fft, hop_length, window, center, pad_mode):
+    """Center-pad, frame and window x [B, T] -> [B, frames, n_fft]."""
+    if center:
+        x = _center_pad(x, n_fft, pad_mode)
     frames = 1 + (x.shape[-1] - n_fft) // hop_length
     w = _padded_window(window, n_fft).to(x.dtype)
-    framed = _frame_signal(x, n_fft, hop_length, frames) * w
+    return _frame_signal(x, n_fft, hop_length, frames) * w
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: torch.Tensor,
+         center: bool = True, normalized: bool = True,
+         pad_mode: str = "constant") -> torch.Tensor:
+    """Complex STFT matching ``torch.stft`` on ``torch.fft.rfft``.
+
+    x: [B, T] -> complex64 [B, n_fft//2 + 1, frames]."""
+    spec = torch.fft.rfft(
+        _framed(x, n_fft, hop_length, window, center, pad_mode), dim=-1)
+    if normalized:
+        spec = spec * float(1.0 / np.sqrt(n_fft))
+    return spec.transpose(1, 2)
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
+          window: torch.Tensor, center: bool = True, normalized: bool = True,
+          length: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`stft` matching ``torch.istft``: complex
+    [B, F, frames] -> [B, length], by default ``(frames-1)*hop``."""
+    frames = spec.shape[-1]
+    w = _padded_window(window, n_fft)
+    y_f = torch.fft.irfft(spec.transpose(1, 2), n=n_fft, dim=-1)
+    if normalized:
+        y_f = y_f * float(np.sqrt(n_fft))
+    y = _ola(y_f * w, n_fft, hop_length)
+    wsq = _ola((w * w).expand(frames, n_fft), n_fft, hop_length)
+    out = y / torch.where(wsq > 1e-11, wsq, torch.ones_like(wsq))
+    return _trim_or_pad(out, y.shape[-1], center, length, n_fft)
+
+
+def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
+            window: torch.Tensor, center: bool = True,
+            normalized: bool = True, pad_mode: str = "constant"):
+    """:func:`stft` with real/imag outputs via a matmul DFT.
+
+    x: [B, T] -> (re, im) each [B, F, frames], in x's dtype (float32, or
+    float64 over the same float32 basis)."""
+    framed = _framed(x, n_fft, hop_length, window, center, pad_mode)
     C, S = dft_basis(n_fft, x.device)
     with full_f32():
         # one matmul for both parts: each output column is its own dot
-        both = torch.matmul(framed, torch.cat([C, S], dim=1))
+        both = torch.matmul(framed, torch.cat([C, S], dim=1).to(x.dtype))
     both = both.transpose(1, 2)  # [B, 2F, frames]
     F_ = n_fft // 2 + 1
     re, im = both[:, :F_], -both[:, F_:]
@@ -158,6 +250,24 @@ def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
     return re, im
 
 
+def ta_stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
+               window: torch.Tensor):
+    """The torchaudio variant's analysis: :func:`stft_ri` of x [B, T] with
+    the reflect pad and no normalization, summed in float64 and rounded
+    once to float32.
+
+    The running phase reads every bin's angle, and in a near-zero bin a
+    float32 summation-order difference (the card's GEMM against the CPU's)
+    turns it by up to radians, which the phase sum carries into every
+    later frame (with a float32 DFT, the standalone shifter on 10 s at
+    2756 Hz measured 90.9 dB on an NVIDIA H100 against the CPU). The
+    standalone :class:`~pqmf_tpu_torch.shifters.TorchaudioPitchShift`
+    and the fused per-band path of the wrapper share this one analysis."""
+    re, im = stft_ri(x.double(), n_fft, hop_length, window, center=True,
+                     normalized=False, pad_mode="reflect")
+    return re.float(), im.float()
+
+
 def istft_ri_parts(re, im, n_fft: int, hop_length: int, window,
                    normalized: bool = True, frame_mask=None):
     """OLA core of the real-valued ISTFT: returns (y, wsq) over the full
@@ -165,7 +275,7 @@ def istft_ri_parts(re, im, n_fft: int, hop_length: int, window,
 
     re/im: [..., F, frames]. ``frame_mask`` [..., frames] of 0/1 (leading
     dims broadcast against re's) drops frames from both sums — the pitch
-    shifter's per-band ``frames_out``."""
+    shifters' per-band ``frames_out``."""
     frames = re.shape[-1]
     w = _padded_window(window, n_fft)
     Ci, Si = idft_basis(n_fft, re.device)
@@ -182,3 +292,14 @@ def istft_ri_parts(re, im, n_fft: int, hop_length: int, window,
         wsq_f = wsq_f * frame_mask[..., :, None]
 
     return _ola(y_f, n_fft, hop_length), _ola(wsq_f, n_fft, hop_length)
+
+
+def istft_ri(re: torch.Tensor, im: torch.Tensor, n_fft: int,
+             hop_length: int, window: torch.Tensor, center: bool = True,
+             normalized: bool = True, length: int | None = None):
+    """:func:`istft` from real/imag spectra via the matmul IDFT:
+    [B, F, frames] each -> [B, length]."""
+    y, wsq = istft_ri_parts(re, im, n_fft, hop_length, window,
+                            normalized=normalized)
+    out = y / torch.where(wsq > 1e-11, wsq, torch.ones_like(wsq))
+    return _trim_or_pad(out, y.shape[-1], center, length, n_fft)

@@ -1,25 +1,35 @@
-"""L3 — the plain PQMF wrapper and the flagship per-sub-band phase-vocoder
-pitch shifter.
+"""L3 — the wrappers, the torchaudio variant and the block-streaming harness.
 
-PyTorch counterpart of ``pqmf_tpu/pipelines.py``'s :class:`PQMFWrapper`
-(reference PQMFWrapper.py:17-92: analysis, synthesis and both, on the
-streaming PQMF's offline convs K1/K2) and :class:`PQMFPitchShiftWrapper`
-(reference 1-PitchShifterWrapper.py:104-323):
+PyTorch counterpart of ``pqmf_tpu/pipelines.py``:
+
+- :class:`PQMFWrapper` (reference PQMFWrapper.py:17-92): analysis,
+  synthesis and both, on the streaming PQMF's offline convs K1/K2;
+- :class:`PQMFPitchShiftWrapper`, the flagship (reference
+  1-PitchShifterWrapper.py:104-323)::
 
     analysis conv (K1) -> batched matmul-DFT STFT of all bands -> stretch
     of every band at its own rate (padded to the max frame count, masked)
     -> masked OLA ISTFT -> per-band linear resample -> crossfade against
     the carried tail -> synthesis conv (K2)
 
-with the crossfade state (``prev_tail``) threaded explicitly:
-``pitchshift_fn(state, x) -> (state', y)``; ``forward_fn`` is the plain
-round trip (K3). The middle is plain tensor code over all bands at once;
-the convs are the hand-written kernels on a CUDA device and their plain
-versions on the CPU.
+  with the crossfade state (``prev_tail``) threaded explicitly:
+  ``pitchshift_fn(state, x) -> (state', y)``; ``forward_fn`` is the plain
+  round trip (K3);
+- :class:`PQMFPitchShiftWrapperTA`, the torchaudio variant (reference
+  PQMFPsWrapper.py:31-150): K1, then torchaudio's per-band pitch shift of
+  every band at once (reflect-pad STFT, running-phase stretch, masked
+  ISTFT, banded windowed-sinc resample), then K2;
+- :func:`stream_ola`, the block-streaming overlap-add harness (reference
+  2-TestBlocks.py:86-126).
+
+The middles are plain tensor code over all bands at once; the convs are
+the hand-written kernels on a CUDA device and their plain versions on the
+CPU.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -30,9 +40,16 @@ from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.ops import phase_vocoder as pv
 from pqmf_tpu_torch.ops import resample as rs
 from pqmf_tpu_torch.ops import stft as S
+from pqmf_tpu_torch.shifters import TorchaudioPitchShift
 from pqmf_tpu_torch.streaming import StreamingPQMF
 
-__all__ = ["PQMFWrapper", "PQMFPitchShiftWrapper", "derive_stft_geometry"]
+__all__ = [
+    "PQMFWrapper",
+    "PQMFPitchShiftWrapper",
+    "PQMFPitchShiftWrapperTA",
+    "derive_stft_geometry",
+    "stream_ola",
+]
 
 
 def _next_pow2(x: int) -> int:
@@ -454,3 +471,297 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         return self.forward_fn(x)
 
     __call__ = forward
+
+
+# ---------------------------------------------------------------------------
+# the block-streaming harness
+# ---------------------------------------------------------------------------
+
+
+def stream_ola(wrapper, x, block: int, overlap: int | None = None):
+    """The block-streaming harness (reference 2-TestBlocks.py:86-126) over
+    a flagship wrapper: Hann-windowed overlapping blocks -> the stateful
+    pitch-shift step per block, crossfade state carried -> windowed
+    overlap-add normalized by the accumulated window energy (+ 1e-8), and
+    beside it the plain round trip of the same blocks.
+
+    x: [C, T] (or [T]) array or tensor on the wrapper's device. C == 1
+    runs ``pitchshift_fn`` from ``init_state()``; C > 1 runs one serving
+    stream per channel (``pitchshift_streams`` from ``init_streams(C)``),
+    each with its own crossfade state. The round trip carries no state, so
+    all blocks go through ``forward_fn`` as one batch (one K3 on a CUDA
+    device; one K1 and one K2 per block for the pitch stream). Eager: no
+    per-length program cache. Returns (pitch_stream [C, T], recon_stream
+    [C, T]) on the wrapper's device.
+    """
+    x = wrapper.pqmf.as_tensor(x)
+    if x.ndim == 1:
+        x = x[None]
+    C, T = x.shape
+    hop = block - (block // 2 if overlap is None else overlap)
+    if hop <= 0 or hop > block:
+        raise ValueError("overlap must be in [0, block-1]")
+    n_frames = 1 if T <= block else -(-(T - block) // hop) + 1
+    total = (n_frames - 1) * hop + block
+
+    window = S.hann_window(block, x.device)
+    framed = S._frame_signal(F.pad(x, (0, total - T)), block, hop, n_frames)
+    blocks = (framed * window).transpose(0, 1)  # [N, C, block]
+    if C == 1:
+        state, step = wrapper.init_state(), wrapper.pitchshift_fn
+    else:
+        state, step = wrapper.init_streams(C), wrapper.pitchshift_streams
+    outs = []
+    for blk in blocks:  # [C, block] -> [C, block]
+        state, out = step(state, blk)
+        outs.append(out)
+    outs = torch.stack(outs, dim=1)  # [C, N, block]
+    recs = wrapper.forward_fn(blocks.reshape(n_frames * C, 1, block))
+    recs = recs.reshape(n_frames, C, block).transpose(0, 1)
+
+    wsq = (window * window).expand(n_frames, block)
+    norm = S._ola(wsq, block, hop) + 1e-8  # the harness's epsilon
+    pitch = S._ola(outs * window, block, hop) / norm
+    recon = S._ola(recs * window, block, hop) / norm
+    return pitch[:, :T], recon[:, :T]
+
+
+# ---------------------------------------------------------------------------
+# the torchaudio variant
+# ---------------------------------------------------------------------------
+
+
+def _fused_ta_pitchshift(bands, plan, n_fft, hop, win):
+    """torchaudio's pitch shift of every band at once (reference per-band
+    loop: PQMFPsWrapper.py:126-144).
+
+    bands: [B, M, Tb]; ``plan`` from ``PQMFPitchShiftWrapperTA._ta_plan``.
+    Per band: rates [M] f32, frames_out / len_stretch [M] int64, zero_shift
+    [M] (1 where n_steps == 0), banded resample weights W [M, Tb, K] and
+    window starts ``start`` [M, Tb] into the ``pad_left``-offset stretch
+    buffer of length Lbuf (see
+    :func:`~pqmf_tpu_torch.ops.resample.banded_resample_plan`). The
+    resample is the banded gather ``z[j] = sum_k W[j, k] y[start[j] + k]``.
+    Returns shifted [B, M, Tb]."""
+    (rates, frames_out, len_stretch, zero_shift, W, start, FO_max, pad_left,
+     Lbuf) = plan
+    B, M, Tb = bands.shape
+    dev = bands.device
+    window = S.hann_window(win, dev)
+
+    # torchaudio's STFT of all bands, band-major rows [M*B, Tb]
+    x = bands.transpose(0, 1).reshape(M * B, Tb)
+    re, im = S.ta_stft_ri(x, n_fft, hop, window)
+    F_, frames = re.shape[1], re.shape[2]
+    omega = pv.phase_advance(F_, hop, n_fft, dev)
+    re_s, im_s = pv.stretch_accumulate(re.reshape(M, B, F_, frames),
+                                       im.reshape(M, B, F_, frames),
+                                       rates, omega, FO_max)
+
+    # masked OLA ISTFT, then torch.istft(length=ls) per band: the samples
+    # from n_fft//2 on, zero from ls on, placed pad_left into the buffer
+    fmask = (torch.arange(FO_max, device=dev)[None, :]
+             < frames_out[:, None]).to(torch.float32)  # [M, FO]
+    y, wsq = S.istft_ri_parts(re_s, im_s, n_fft, hop, window,
+                              normalized=False, frame_mask=fmask[:, None, :])
+    out = y / torch.where(wsq > 1e-11, wsq, torch.ones_like(wsq))
+    ystr = out[..., n_fft // 2:]  # [M, B, L]
+    L = ystr.shape[-1]
+    keep = torch.arange(L, device=dev)[None, :] < len_stretch[:, None]
+    ystr = ystr * keep[:, None, :].to(ystr.dtype)
+    ystr = F.pad(ystr, (pad_left, Lbuf - pad_left - L))
+
+    K = W.shape[-1]
+    idx = (start[:, :, None] + torch.arange(K, device=dev)).reshape(M, 1, -1)
+    taps = torch.gather(ystr, -1, idx.expand(M, B, Tb * K))
+    z = (taps.reshape(M, B, Tb, K) * W[:, None]).sum(-1)  # [M, B, Tb]
+    # n_steps == 0 bands pass through untouched (torchaudio's early-out)
+    z = torch.where(zero_shift[:, None, None] > 0, bands.transpose(0, 1), z)
+    return z.transpose(0, 1)
+
+
+class PQMFPitchShiftWrapperTA(_RegistryMixin):
+    """torchaudio-variant wrapper (reference PQMFPsWrapper.py:31-150), on
+    one device: per-band :class:`~pqmf_tpu_torch.shifters.TorchaudioPitchShift`
+    at the sub-band sample rate ``round(sr / n_band)``, center crop / pad
+    back, reconstruct.
+
+    ``pitchshifter`` runs analysis (K1), every band's shift at once (the
+    per-band resample ratios batch through the banded sinc plan) and
+    synthesis (K2); ``pitchshifter_loop`` keeps the reference's per-band
+    structure as its parity oracle.
+    """
+
+    def __init__(self, attenuation: int = 100, n_band: int = 16,
+                 m_buffer_size: int = 512, sample_rate: int = 44100,
+                 shifts_in_semitones=None, precision: str = "highest",
+                 max_buffer_size: int | None = 8192, device="cpu"):
+        self.n_band = n_band
+        self.attenuation = attenuation
+        self.sample_rate = sample_rate
+        self.precision = fb.check_precision(precision)
+        self.pqmf = StreamingPQMF(attenuation, n_band, precision=precision,
+                                  device=device)
+        self.device = self.pqmf.device
+
+        self._methods = ["forward", "inverse", "pitchshifter"]
+        self._attributes = [
+            "n_band", "attenuation",
+            "forward_in_ch", "forward_out_ch",
+            "inverse_in_ch", "inverse_out_ch",
+            "pitchshifter_in_ch", "pitchshifter_out_ch",
+            "m_buffer_size", "max_buffer_size",
+        ]
+        # exact reference values (PQMFPsWrapper.py:37-51)
+        self.forward_in_ch = 1
+        self.forward_out_ch = 1
+        self.inverse_in_ch = 1
+        self.inverse_out_ch = 1
+        self.pitchshifter_in_ch = 1
+        self.pitchshifter_out_ch = 2
+        self.m_buffer_size = m_buffer_size
+        self.max_buffer_size = max_buffer_size
+        _check_declared_buffers(m_buffer_size, max_buffer_size)
+
+        sub_sr = int(round(float(sample_rate) / float(max(1, n_band))))
+        self.sub_band_sample_rate = sub_sr
+        if shifts_in_semitones is None:
+            self.shifts = list(range(n_band))  # chromatic default
+        else:
+            self.shifts = list(shifts_in_semitones)
+        if len(self.shifts) != n_band:
+            raise ValueError(
+                f"expected {n_band} shifts, got {len(self.shifts)}")
+        # Python's round: half to even, as the JAX package and torch round
+        self.pitch_shifters = [
+            TorchaudioPitchShift(sub_sr, int(round(float(s))))
+            for s in self.shifts
+        ]
+        sh0 = self.pitch_shifters[0]
+        self._n_fft, self._win, self._hop = (sh0.n_fft, sh0.win_length,
+                                             sh0.hop_length)
+        self._ta_plans = {}
+
+    def _block(self, x):
+        """x [1, T] / [B, 1, T] (array or tensor) -> [B, 1, T] on device."""
+        x = self.pqmf.as_tensor(x)
+        if x.ndim == 2:
+            x = x[None]
+        if not (x.ndim == 3 and x.shape[1] == 1):
+            raise ValueError(
+                "input must be [1, buffer_size] or [batch, 1, buffer_size]")
+        _check_buffer(x.shape[-1], self.n_band, self.max_buffer_size)
+        return x
+
+    def forward(self, x):
+        """[B, 1, T] -> [B, n_band, T/n_band] (one K1 on a CUDA device)."""
+        return self.pqmf.forward(self._block(x))
+
+    def inverse(self, x):
+        """[B, n_band, T'] -> [B, 1, T'*n_band] (one K2 on a CUDA device)."""
+        x = self.pqmf.as_tensor(x)
+        if not (x.ndim == 3 and x.shape[1] == self.n_band):
+            raise ValueError(f"input must be [batch, {self.n_band}, T']")
+        _check_buffer(x.shape[-1] * self.n_band, self.n_band,
+                      self.max_buffer_size, what="sub-band signal",
+                      check_multiple=False)
+        return self.pqmf.inverse(x)
+
+    def _ta_plan(self, Tb: int):
+        """Per-band plan for band length Tb, cached per Tb: stretch
+        geometry and banded sinc-resample weights and starts padded to
+        common shapes (host-side NumPy, then on the device). Returns
+        (rates, frames_out, len_stretch, zero_shift, W, start, FO_max,
+        pad_left, Lbuf)."""
+        plan = self._ta_plans.get(Tb)
+        if plan is not None:
+            return plan
+        sub_sr = self.sub_band_sample_rate
+        M = self.n_band
+        frames = S.frame_count(Tb, self._n_fft, self._hop)
+        rates, fo, ls, zero, banded = [], [], [], [], []
+        for sh in self.pitch_shifters:
+            if sh.n_steps == 0:  # identity early-out, torchaudio-style
+                rates.append(1.0)
+                fo.append(frames)
+                ls.append(Tb)
+                zero.append(1.0)
+                banded.append((np.zeros((Tb, 1), np.float32),
+                               np.zeros((Tb,), np.int32), 0))
+                continue
+            _, fo_b, ls_b, orig_b = sh.geometry(Tb)
+            Wb, st, wd = _banded_plan(orig_b, sub_sr, Tb)
+            g = math.gcd(orig_b, sub_sr)
+            # torchaudio's target length ceil(T*new/orig); rows past it
+            # are the shifter's right zero-pad
+            valid = int(math.ceil(ls_b * (sub_sr // g) / (orig_b // g)))
+            Wb = Wb.copy()
+            Wb[min(valid, Tb):] = 0.0
+            rates.append(sh.rate)
+            fo.append(fo_b)
+            ls.append(ls_b)
+            zero.append(0.0)
+            banded.append((Wb, st, wd))
+        FO_max = max(fo)
+        Kt = max(w.shape[-1] for w, _, _ in banded)
+        pad_left = max(wd for _, _, wd in banded)
+        W = np.zeros((M, Tb, Kt), np.float32)
+        starts = np.zeros((M, Tb), np.int64)
+        for i, (Wb, st, _) in enumerate(banded):
+            W[i, :, : Wb.shape[-1]] = Wb
+            starts[i] = st + pad_left
+        ystr_len = self._n_fft // 2 + (FO_max - 1) * self._hop
+        Lbuf = max(pad_left + ystr_len, int(starts.max()) + Kt)
+        dev = self.device
+        plan = (torch.tensor(np.asarray(rates, np.float32), device=dev),
+                torch.tensor(fo, dtype=torch.int64, device=dev),
+                torch.tensor(ls, dtype=torch.int64, device=dev),
+                torch.tensor(zero, dtype=torch.float32, device=dev),
+                torch.from_numpy(W).to(dev), torch.from_numpy(starts).to(dev),
+                FO_max, pad_left, Lbuf)
+        self._ta_plans[Tb] = plan
+        return plan
+
+    def pitchshifter(self, x):
+        """Decompose (K1) -> shift all bands -> reconstruct (K2): x
+        [1, T] / [B, 1, T] -> [B, 1, T]. ``pqmf.forward`` / ``inverse`` are
+        the offline ``_cached_analysis`` / ``_cached_synthesis`` (a
+        passthrough at n_band == 1, reference pqmf.py:250-251) on the bank
+        installed at the time of the call."""
+        x = self._block(x)
+        plan = self._ta_plan(x.shape[-1] // self.n_band)
+        shifted = _fused_ta_pitchshift(self.pqmf.forward(x), plan,
+                                       self._n_fft, self._hop, self._win)
+        return self.pqmf.inverse(shifted)
+
+    def pitchshifter_loop(self, x):
+        """The reference's per-band dispatch structure, kept as the fused
+        path's parity oracle (PQMFPsWrapper.py:114-150)."""
+        subbands = self.forward(x)  # [B, M, Tb]
+        target = subbands.shape[-1]
+        out = []
+        for i in range(self.n_band):
+            shifted = self.pitch_shifters[i](subbands[:, i, :])[:, None, :]
+            cur = shifted.shape[-1]
+            if cur > target:
+                start = (cur - target) // 2
+                shifted = shifted[..., start:start + target]
+            elif cur < target:
+                # the reference pads with reflect here (PQMFPsWrapper.py:142)
+                pad = target - cur
+                shifted = S.reflect_pad(shifted, pad // 2, pad - pad // 2)
+            out.append(shifted)
+        return self.inverse(torch.cat(out, dim=1))
+
+    __call__ = forward
+
+
+@functools.lru_cache(maxsize=128)
+def _banded_plan(orig_freq: int, new_freq: int, n_out: int):
+    """:func:`~pqmf_tpu_torch.ops.resample.banded_resample_plan`, cached:
+    a large reduced ratio takes the host about half a second, and wrappers
+    of one configuration share their plans. The arrays are read-only."""
+    plan = rs.banded_resample_plan(orig_freq, new_freq, n_out)
+    for a in plan[:2]:
+        a.setflags(write=False)
+    return plan

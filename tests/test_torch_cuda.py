@@ -10,7 +10,9 @@ without the suite's conftest:
 Tolerances: K1/K2 atol=2e-5 / rtol=1e-4 (pqmf_tpu's kernel-vs-lax bar);
 K3 against the plain composition atol=1e-5 (its recomputed halo sums the
 taps in another order); K4/K5 against the polyphase formula 2e-5 / 1e-4
-and K6 2e-5 / 1e-4 (another tap order again); the slice >= 90 dB.
+and K6 2e-5 / 1e-4 (another tap order again); the slice, the
+torchaudio variant, the block harness's pitch stream and the standalone
+shifters >= 90 dB.
 """
 
 import numpy as np
@@ -18,8 +20,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper, PQMFWrapper,
-                            StreamingPQMF)
+from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper,
+                            PQMFPitchShiftWrapperTA, PQMFWrapper,
+                            StreamingPQMF, TorchaudioPitchShift, stream_ola)
 from pqmf_tpu_torch.kernels import _build
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.kernels import polyphase as pk
@@ -217,3 +220,77 @@ def test_pqmf_refuses_a_bank_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="do not take"):
         pq.set_weights(fb.params_from_hk(hk))
     assert pq.params["hk"].shape == (16, 512)  # the old bank stays
+
+
+def _refuse_plain(monkeypatch):
+    """Make every plain conv version raise: a run after this shows the
+    CUDA path never took one."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for name in ("analysis_conv_plain", "synthesis_conv_plain",
+                 "roundtrip_conv_plain"):
+        monkeypatch.setattr(cc, name, refuse)
+    monkeypatch.setattr(fb, "_conv1d", refuse)
+
+
+TA_SHIFTS8 = [0, -3, 5, 12, -7, 2, 1, -1]
+
+
+@pytest.mark.parametrize("M,buf,shifts,B", [
+    (16, 8192, [3.2, -48.5, 12.3, 0, 7, -24, 1, 2, 3, 4, 5, 6, -6, -12, 9,
+                -30], 1),
+    (16, 8192, None, 16),
+    (8, 2048, TA_SHIFTS8, 2)])  # Tb = 256: K1/K2 at the M=8 bank
+def test_ta_pitchshifter_on_kernels(dev, monkeypatch, M, buf, shifts, B):
+    """One K1 and one K2 per pitchshifter call, one K1 per forward, one K2
+    per inverse, no plain conv; >= 90 dB against the CPU port."""
+    gpu = PQMFPitchShiftWrapperTA(100, M, buf, shifts_in_semitones=shifts,
+                                  device="cuda")
+    cpu = PQMFPitchShiftWrapperTA(100, M, buf, shifts_in_semitones=shifts)
+    x = np.random.default_rng(M + B).standard_normal((B, 1, buf)).astype(
+        np.float32) * 0.3
+    want = cpu.pitchshifter(x).numpy()
+    _refuse_plain(monkeypatch)
+    cc.reset_launches()
+    got = gpu.pitchshifter(x)
+    sub = gpu.forward(x)
+    back = gpu.inverse(sub)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"analysis": 2, "synthesis": 2, "roundtrip": 0}
+    assert got.shape == (B, 1, buf) and back.shape == (B, 1, buf)
+    assert snr_db(want, got.cpu().numpy()) >= 90
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_stream_ola_on_kernels(dev, monkeypatch, C):
+    """One K1 + one K2 per block for the pitch stream, one K3 for all the
+    round trips; no plain conv; pitch >= 90 dB and recon within 2e-5 of the
+    CPU port."""
+    gpu = PQMFPitchShiftWrapper(100, 16, 8192, 44100, SHIFTS16,
+                                device="cuda")
+    cpu = PQMFPitchShiftWrapper(100, 16, 8192, 44100, SHIFTS16)
+    x = np.random.default_rng(C).standard_normal((C, 20000)).astype(
+        np.float32) * 0.3
+    c_pitch, c_recon = stream_ola(cpu, x, 4096, 2048)
+    _refuse_plain(monkeypatch)
+    cc.reset_launches()
+    g_pitch, g_recon = stream_ola(gpu, x, 4096, 2048)
+    torch.cuda.synchronize()
+    n_blocks = -(-(20000 - 4096) // 2048) + 1
+    assert cc.LAUNCHES == {"analysis": n_blocks, "synthesis": n_blocks,
+                           "roundtrip": 1}
+    assert g_pitch.device.type == "cuda" and g_pitch.shape == (C, 20000)
+    assert snr_db(c_pitch.numpy(), g_pitch.cpu().numpy()) >= 90
+    torch.testing.assert_close(g_recon.cpu(), c_recon, atol=2e-5, rtol=1e-4)
+
+
+def test_standalone_shifter_on_card(dev):
+    """The torchaudio shifter runs on the input's device, >= 90 dB against
+    the CPU port (its running phase is float64 on both)."""
+    x = np.random.default_rng(3).standard_normal((2, 5000)).astype(
+        np.float32) * 0.3
+    sh = TorchaudioPitchShift(2756, 7)
+    got = sh(torch.from_numpy(x).to(dev))
+    assert got.device.type == "cuda"
+    assert snr_db(sh(x).numpy(), got.cpu().numpy()) >= 90

@@ -144,7 +144,10 @@ def test_import_leaves_jax_out():
         "'pqmf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "want = ['filterbank', 'kernels.polyphase', 'export', "
-        "'cli.export_pqmf', 'utils.audio', 'parallel.training']\n"
+        "'cli.export_pqmf', 'utils.audio', 'parallel.training', "
+        "'shifters', 'pipelines', 'ops.resample', 'cli._common', "
+        "'cli.vocoder', 'cli.ps_torchaudio', 'cli.blocks', "
+        "'cli.export_pvoc']\n"
         "missing = [w for w in want if 'pqmf_tpu_torch.' + w "
         "not in sys.modules]\n"
         "assert not missing, missing\n"

@@ -400,9 +400,9 @@ def test_artifact_refusals(tmp_path):
     save_artifact(w, str(tmp_path / "c"))
     man_path = tmp_path / "c" / "manifest.json"
     man = json.loads(man_path.read_text())
-    man["kind"] = "PQMFPitchShiftWrapperTA"
+    man["kind"] = "PQMFPitchShiftWrapperXL"
     man_path.write_text(json.dumps(man))
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="unknown artifact kind"):
         load_artifact(str(tmp_path / "c"))
     man["kind"] = "PQMFWrapper"
     man["config"]["future_knob"] = 1
