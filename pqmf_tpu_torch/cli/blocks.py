@@ -11,7 +11,7 @@ method that exists (the reference's calls a missing one, SURVEY.md
     python -m pqmf_tpu_torch.cli.blocks in.wav --block 4096 [--overlap N]
         [--out_prefix blocktest] [--out_dir DIR] [--n_band 16]
         [--buffer 8192] [--shifts s0,s1,...] [--seed N] [--artifact DIR]
-        [--scan] [--stereo] [--finetuned] [--device cuda]
+        [--scan] [--stereo] [--finetuned] [--device cpu]
 
 The host loop overlap-adds in NumPy; ``--scan`` runs the whole stream
 through :func:`~pqmf_tpu_torch.pipelines.stream_ola` on the device
@@ -28,7 +28,7 @@ import time
 import numpy as np
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("input", help="input wav file")
     p.add_argument("--block", type=int, default=4096,
@@ -62,8 +62,13 @@ def main(argv=None) -> int:
                    help="keep all channels, one serving stream per channel "
                         "(independent crossfade state each) instead of the "
                         "reference's mono mixdown")
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="where to run (default: the card)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     from pqmf_tpu_torch.cli._common import (install_finetuned_bank,
                                             parse_shifts)

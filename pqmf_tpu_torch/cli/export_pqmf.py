@@ -1,7 +1,7 @@
 """Export and round-trip test of the plain PQMF wrapper
 (reference: PQMFWrapper.py:96-135).
 
-    python -m pqmf_tpu_torch.cli.export_pqmf --input in.wav --device cuda
+    python -m pqmf_tpu_torch.cli.export_pqmf --input in.wav
 
 Builds PQMFWrapper(atten=100, n_band=16, buffer=8192), optionally installs
 the committed fine-tuned bank, saves the artifact, reloads it, runs
@@ -17,7 +17,7 @@ import os
 import numpy as np
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--input", required=True, help="wav file to round-trip")
     p.add_argument("--out_dir", default="artifacts/pqmf")
@@ -29,8 +29,13 @@ def main(argv=None) -> int:
                    help="install the committed fine-tuned bank for this "
                         "(attenuation, n_band) before export (see "
                         "parallel.training.load_pretrained_bank)")
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="where to run (default: the card)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     from pqmf_tpu_torch.export import load_artifact, save_artifact
     from pqmf_tpu_torch.pipelines import PQMFWrapper

@@ -1,7 +1,7 @@
 """Export and test of the flagship phase-vocoder pitch-shift wrapper
 (reference: 1-PitchShifterWrapper.py:328-371).
 
-    python -m pqmf_tpu_torch.cli.export_pvoc --input in.wav --device cuda
+    python -m pqmf_tpu_torch.cli.export_pvoc --input in.wav
         [--out_dir artifacts/pqmfpvoc] [--seed N] [--save_audio]
         [--finetuned]
 
@@ -18,7 +18,7 @@ import os
 import numpy as np
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--input", required=True, help="wav file to process")
     p.add_argument("--out_dir", default="artifacts/pqmfpvoc")
@@ -33,8 +33,13 @@ def main(argv=None) -> int:
     p.add_argument("--finetuned", action="store_true",
                    help="install the committed fine-tuned bank for this "
                         "(attenuation, n_band) before export")
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="where to run (default: the card)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     from pqmf_tpu_torch.cli._common import (install_finetuned_bank,
                                             parse_shifts)

@@ -3,7 +3,7 @@
 
     python -m pqmf_tpu_torch.cli.ps_torchaudio in.wav [--n_band 16]
         [--buffer 8192] [--shifts s0,s1,...] [--seed N] [--out_dir audio]
-        [--finetuned] [--device cuda]
+        [--finetuned] [--device cpu]
 
 Builds the torchaudio-variant wrapper (one accumulating phase-vocoder +
 windowed-sinc-resample shifter per band at the sub-band sample rate
@@ -20,7 +20,7 @@ import os
 import numpy as np
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("input", help="input wav")
     p.add_argument("--attenuation", type=int, default=100)
@@ -36,8 +36,13 @@ def main(argv=None) -> int:
     p.add_argument("--finetuned", action="store_true",
                    help="install the committed fine-tuned bank for this "
                         "(attenuation, n_band)")
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="where to run (default: the card)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     from pqmf_tpu_torch.cli._common import (install_finetuned_bank,
                                             parse_shifts)

@@ -2,7 +2,7 @@
 (reference: VocoderPitchShifter.py:350-383).
 
     python -m pqmf_tpu_torch.cli.vocoder in.wav out.wav --n_steps 4
-        [--n_fft 1024 --hop_length 256 --win_length 1024] [--device cuda]
+        [--n_fft 1024 --hop_length 256 --win_length 1024] [--device cpu]
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import argparse
 import numpy as np
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Phase-vocoder pitch shifter test CLI")
     p.add_argument("input", help="input wav")
@@ -21,8 +21,13 @@ def main(argv=None) -> int:
     p.add_argument("--n_fft", type=int, default=1024)
     p.add_argument("--hop_length", type=int, default=256)
     p.add_argument("--win_length", type=int, default=1024)
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="where to run (default: the card)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     import torch
 

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the PQMF streaming path's three
 // convolutions.  Plain C interface, built with nvcc and loaded with ctypes
-// (pqmf_tpu_torch/kernels/_build.py); the Python wrappers and their plain
-// PyTorch versions live in pqmf_tpu_torch/kernels/cached_conv.py.
+// (pqmf_tpu_torch/kernels/_build.py); the Python wrappers, their plain
+// PyTorch versions and a mirror of every launch plan live in
+// pqmf_tpu_torch/kernels/cached_conv.py.
 //
 // Every kernel computes a VALID convolution in f32 of an input the caller has
 // already padded, launches on the stream it is given and allocates nothing.
@@ -16,31 +17,49 @@
 // What bounds them on the H100: all three are f32 FMA on the CUDA cores
 // (the "highest" tier is full f32, so no tensor-core tier applies), at about
 // 1 kFLOP per input sample for K1 and 1 kFLOP per output sample for K2 against
-// 8 bytes of device memory each: arithmetic and shared-memory bandwidth, not
-// HBM.  The design answers that with data reuse: each block stages its haloed
-// input window and the bank (flipped and scaled by M for K2/K3, with the input
-// sign applied while staging) in shared memory once, and each thread keeps
-// kR outputs in registers so one weight load feeds kR FMAs.  Lanes of a warp
-// run over output channels, and every staged bank row has an odd stride, so
-// the weight reads hit 16+ distinct banks and the window reads broadcast.
-// K3 keeps the sub-band intermediate in shared memory and recomputes the
-// Ks-1 sample halo of its tile from the input instead of carrying state
-// between blocks: blocks run in parallel, in no order.
+// 8 bytes of device memory each: arithmetic, not HBM.  An inner loop that
+// loads one operand from shared memory per FMA is bound by those loads
+// instead, so K2 and K3 share one register tile (slide_fma): each thread
+// keeps NB bands x NT steps of sums, loads NB weights of a tap as one vector
+// and slides a window of the input along the taps, one float4 per 4 taps —
+// 5 loads per 4*NB*NT FMAs.  K1 keeps the first design (kR outputs a thread,
+// one weight load per kR FMAs) and is the next to move onto slide_fma.
+//
+// K3 reads its input window in polyphase form, xp[r][tau] = x[M*tau + r], so
+// the analysis is slide_fma over each phase r; the sub-band tile stays in
+// shared memory and feeds the synthesis, and only a Ks-1 step halo of it is
+// recomputed per tile (tiles of 512 sub-band steps at M=16: 1.07x).  Its
+// blocks are persistent, one an SM: each stages both banks once, walks time
+// tiles, and copies the next tile's window with cp.async while the current
+// one computes.  K2 chooses its tile from the call's size (launch_plan):
+// large calls run persistent blocks of big tiles, small ones split the band
+// sum across the threads of a block and reduce it in shared memory, so a
+// block of 512 steps still spreads over the whole card.  K2 copies its bank
+// and window with cp.async too: a small call is bound by that staging, and
+// the asynchronous copies skip the round trip through registers.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block, all three kernels
-constexpr int kR = 4;           // outputs one thread keeps in registers
+constexpr int kThreads = 256;   // threads per block of K1 and K3
+constexpr int kR = 4;           // K1: outputs one thread keeps in registers
 constexpr int kAnaGroups = 16;  // K1: kAnaGroups * kR = 64 output steps a block
-constexpr int kSynGroups = 16;  // K2: 64 output steps a block
-constexpr int kRtGroups = 32;   // K3: 128 output steps a block
 constexpr int kWeightBytes = 64 * 1024;  // cap on the bank chunk K1/K2 stage
 constexpr size_t kStaticSmem = 48 * 1024;
+constexpr int kNT = 8;          // K3 (and large K2 calls): steps a thread tile
+constexpr int kSynThreads = 128;     // K2: most threads a block
+constexpr int kSynMaxSteps = 256;    // K2: most output steps a block
+constexpr int kSynFill = 128;        // K2: threads an SM should get
+constexpr size_t kSmemPerSm = 233472;  // shared memory of one SM
+// K2 splits the band sum only up to 16 bands: a split sum of 1056+ terms
+// (M=32, 64) rounds far enough from the plain conv's order to leave K12_TOL
+constexpr int kSplitMaxBands = 16;
 
 __host__ __device__ inline int odd(int n) { return n | 1; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 inline int min_i(int a, int b) { return a < b ? a : b; }
 inline int max_i(int a, int b) { return a > b ? a : b; }
@@ -50,32 +69,131 @@ inline int analysis_chunk(int Mb, int K) {
   return max_i(1, min_i(Mb, kWeightBytes / (4 * odd(K))));
 }
 
-// K2 stages Cc output phases of the bank at a time.
-inline int synthesis_chunk(int M, int Mb, int K) {
-  return max_i(1, min_i(M, kWeightBytes / (4 * odd(Mb * K))));
-}
-
-__host__ __device__ inline int roundtrip_sub_len(int Ks) {
-  const int n_sub = kRtGroups * kR + Ks - 1;
-  return (n_sub + kR - 1) / kR * kR;
-}
-
 size_t analysis_smem(int M, int Mb, int K) {
   const int Tt = kAnaGroups * kR;
   return sizeof(float) *
          ((size_t)analysis_chunk(Mb, K) * odd(K) + (size_t)(Tt - 1) * M + K);
 }
 
-size_t synthesis_smem(int M, int Mb, int K) {
-  const int Tt = kSynGroups * kR;
-  return sizeof(float) * ((size_t)synthesis_chunk(M, Mb, K) * odd(Mb * K) +
-                          (size_t)Mb * (Tt + K - 1));
+// A launch: grid, threads, the output steps of one tile, the steps of one
+// thread tile (K2's NT; K3's sub-band steps a tile), the split of K2's band
+// sum, and the dynamic shared memory.  cached_conv.launch_plan mirrors it.
+struct Plan {
+  int gx, gy, gz, threads, tile_steps, aux, split;
+  size_t smem;
+};
+
+// K2: phase groups of 4 a block (at most 2: 8 phases), at most
+// kWeightBytes of bank.
+inline int synthesis_phase_groups(int M, int Mb, int K) {
+  return max_i(1, min_i(min_i(cdiv(M, 4), 2), kWeightBytes / (16 * Mb * K)));
 }
 
-size_t roundtrip_smem(int M, int Ka, int Ks) {
-  const int sub_len = roundtrip_sub_len(Ks);
-  return sizeof(float) * ((size_t)M * odd(Ka) + (size_t)M * odd(M * Ks) +
-                          (size_t)M * sub_len + (size_t)(sub_len - 1) * M + Ka);
+size_t synthesis_plan_smem(int Mb, int K, int CG, int Tt, int red) {
+  return sizeof(float) * ((size_t)Mb * K * CG + (size_t)Mb * round4(Tt + K + 4)
+                          + red);
+}
+
+// K2's plan.  Thread tiles are 4 phases x NT steps.  Split the band sum
+// (MS threads a tile, at most 16) until the card holds kSynFill threads an
+// SM, then halve NT; grow the blocks (at most kSynThreads threads and
+// kSynMaxSteps steps) while there are still as many blocks as SMs.
+Plan synthesis_plan(int B, int M, int Mb, int K, int T_out, int n_sms) {
+  const int n_pg = cdiv(M, 4);
+  const long long fill = (long long)n_sms * kSynFill;
+  int NT = kNT, MS = 1;
+  long long items = (long long)B * cdiv(T_out, NT) * n_pg;
+  while (MS < 16 && 2 * MS <= Mb && Mb <= kSplitMaxBands && items * MS < fill)
+    MS *= 2;
+  if (items * MS < fill) NT = 4;
+  int SG, PG;
+  if (MS == 1) {  // a large call: blocks of 4*PG phases
+    PG = synthesis_phase_groups(M, Mb, K);
+    SG = max_i(1, min_i(kSynMaxSteps / NT, kSynThreads / PG));
+  } else {
+    PG = 1;
+    SG = 1;
+    while (2 * SG * MS <= kSynThreads && 2 * SG * NT <= kSynMaxSteps &&
+           (long long)B * cdiv(T_out, 2 * SG * NT) * n_pg >= n_sms)
+      SG *= 2;
+  }
+  Plan p;
+  p.threads = SG * PG * MS;
+  p.tile_steps = NT * SG;
+  p.aux = NT;
+  p.split = MS;
+  p.smem = synthesis_plan_smem(Mb, K, 4 * PG, NT * SG,
+                               MS > 1 ? MS * SG * PG * NT * 4 : 0);
+  // one tile a block, or for a large call as many blocks as fit on the
+  // card at once, each walking several tiles with its bank staged once
+  const int tiles = B * cdiv(T_out, p.tile_steps);
+  const int per_sm = max_i(1, min_i(2048 / p.threads,
+                                    (int)(kSmemPerSm / (p.smem + 1024))));
+  p.gx = MS == 1 ? min_i(tiles, n_sms * per_sm) : tiles;
+  p.gy = cdiv(n_pg, PG);
+  p.gz = 1;
+  return p;
+}
+
+// The most shared memory any K2 plan of this bank takes (the gate).
+size_t synthesis_smem(int M, int Mb, int K) {
+  return synthesis_plan_smem(Mb, K, 4 * synthesis_phase_groups(M, Mb, K),
+                             kSynMaxSteps, kSynThreads * kNT * 4);
+}
+
+// K3's geometry: NB bands a thread tile, BG = M/NB band groups, and a tile
+// of n_sub sub-band steps (one analysis thread tile per thread) of which
+// Tt are output steps; J taps per phase of the analysis bank.
+struct RtGeom {
+  int NB, BG, n_sub, Tt, J, XR, SP;
+  size_t smem;
+};
+
+RtGeom roundtrip_geom(int M, int Ka, int Ks) {
+  RtGeom g;
+  g.NB = M < 4 ? M : 4;
+  g.BG = max_i(1, M / g.NB);
+  g.n_sub = kThreads * kNT / g.BG;
+  g.Tt = max_i(0, (g.n_sub - Ks + 1) / kNT * kNT);
+  g.J = cdiv(Ka, M);
+  g.XR = round4(g.n_sub + g.J + 4);  // one phase of the window
+  g.SP = g.n_sub + 8;                // one band of the sub-band tile
+  g.smem = sizeof(float) * ((size_t)M * g.J * M + (size_t)M * Ks * M +
+                            (size_t)M * g.SP + 2 * (size_t)M * g.XR);
+  return g;
+}
+
+bool roundtrip_templated(int M) {
+  return M == 2 || M == 4 || M == 8 || M == 16;
+}
+
+Plan roundtrip_plan(int B, int M, int Ka, int Ks, int T_out, int n_sms) {
+  const RtGeom g = roundtrip_geom(M, Ka, Ks);
+  Plan p;
+  const int n_tiles = g.Tt > 0 ? B * cdiv(T_out, g.Tt) : 0;
+  p.gx = min_i(n_tiles, n_sms);
+  p.gy = 1;
+  p.gz = 1;
+  p.threads = kThreads;
+  p.tile_steps = g.Tt;
+  p.aux = g.n_sub;
+  p.split = 1;
+  p.smem = g.smem;
+  return p;
+}
+
+Plan analysis_plan(int B, int M, int Mb, int K, int T_out) {
+  const int Cb = analysis_chunk(Mb, K);
+  Plan p;
+  p.gx = cdiv(T_out, kAnaGroups * kR);
+  p.gy = cdiv(Mb, Cb);
+  p.gz = B;
+  p.threads = kThreads;
+  p.tile_steps = kAnaGroups * kR;
+  p.aux = Cb;
+  p.split = 1;
+  p.smem = analysis_smem(M, Mb, K);
+  return p;
 }
 
 // ---------------------------------------------------------------------------
@@ -138,155 +256,373 @@ analysis_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// K2: dense synthesis, time-major output.  Block (time tile, phase chunk,
-// batch row).
+// The register tile K2 and K3 share.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-synthesis_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ out, int Mb, int Tpad, int M, int K,
-                 int T_out, int Cc, int fuse_mask, int x_offset) {
-  extern __shared__ float smem[];
-  const int Tt = kSynGroups * kR;
-  const int Wl = Tt + K - 1;     // staged window of one band
-  const int Sw = odd(Mb * K);    // stride of one output phase's bank
-  float* w_s = smem;             // [Cc][Sw] = M * w[M-1-c][m][k]
-  float* x_s = smem + Cc * Sw;   // [Mb][Wl], input sign applied
-  const int t0 = blockIdx.x * Tt;
-  const int c0 = blockIdx.y * Cc;
-  const int b = blockIdx.z;
-  const int cc = min(Cc, M - c0);
-  const float gain = (float)M;
-  const int MK = Mb * K;
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((unsigned long long)p & 15) == 0;
+}
 
-  for (int i = threadIdx.x; i < cc * MK; i += blockDim.x) {
-    const int c = i / MK;
-    const int r = i - c * MK;
-    w_s[c * Sw + r] = gain * w[(long long)(M - 1 - (c0 + c)) * MK + r];
-  }
-  const float* xb = x + (long long)b * Mb * Tpad;
-  for (int i = threadIdx.x; i < Mb * Wl; i += blockDim.x) {
-    const int m = i / Wl;
-    const int tau = t0 + (i - m * Wl);
-    float v = tau < Tpad ? xb[(long long)m * Tpad + tau] : 0.0f;
-    // reverse_half on the input, by the sample's position in the unpadded
-    // signal; & 1 keeps the parity right where that position is negative
-    if (fuse_mask && (m & 1) && !((tau + x_offset) & 1)) v = -v;
-    x_s[i] = v;
-  }
-  __syncthreads();
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-  for (int item = threadIdx.x; item < cc * kSynGroups; item += blockDim.x) {
-    const int c = item % cc;
-    const int g = item / cc;
-    float acc[kR];
+// N consecutive floats, one vector load (p aligned to N floats).
+template <int N>
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = ld4(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    static_assert(N == 2, "vectors of 2 or 4 floats");
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    static_assert(N == 2, "vectors of 2 or 4 floats");
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+// acc[b][i] += sum_{q < nq} w[q*ws + b] * x[i + q] for b < NB, i < NT: an
+// NB x NT outer-product tile that slides a register window of x along the
+// taps.  Per 4 taps: one float4 of x and 4 NB-wide weight loads for
+// 4*NB*NT FMAs.  w is aligned to NB floats and ws a multiple of NB; x is
+// 16-byte aligned, and x[0 .. nq + NT + 3] lies in the caller's buffer.
+template <int NB, int NT>
+__device__ __forceinline__ void slide_fma(float (&acc)[NB][NT],
+                                          const float* __restrict__ w, int ws,
+                                          const float* __restrict__ x,
+                                          int nq) {
+  float win[NT + 4];
 #pragma unroll
-    for (int j = 0; j < kR; ++j) acc[j] = 0.0f;
-    for (int m = 0; m < Mb; ++m) {
-      const float* wr = w_s + c * Sw + m * K;
-      const float* xr = x_s + m * Wl + g;
-      for (int k = 0; k < K; ++k) {
-        const float wk = wr[k];
+  for (int i = 0; i < NT; i += 4) {
+    const float4 t = ld4(x + i);
+    win[i] = t.x; win[i + 1] = t.y; win[i + 2] = t.z; win[i + 3] = t.w;
+  }
+  int q = 0;
+#pragma unroll 8
+  for (; q + 4 <= nq; q += 4) {
+    const float4 t = ld4(x + q + NT);
+    win[NT] = t.x; win[NT + 1] = t.y; win[NT + 2] = t.z; win[NT + 3] = t.w;
 #pragma unroll
-        for (int j = 0; j < kR; ++j)
-          acc[j] = fmaf(wk, xr[j * kSynGroups + k], acc[j]);
-      }
+    for (int d = 0; d < 4; ++d) {
+      float wv[NB];
+      ld_vec<NB>(w + (q + d) * ws, wv);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          acc[b][i] = fmaf(wv[b], win[i + d], acc[b][i]);
     }
 #pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int t = t0 + g + j * kSynGroups;
-      if (t < T_out) out[((long long)b * T_out + t) * M + c0 + c] = acc[j];
+    for (int i = 0; i < NT; ++i) win[i] = win[i + 4];
+  }
+  const int rem = nq - q;  // 0..3 taps left
+  if (rem > 0) {
+    const float4 t = ld4(x + q + NT);
+    win[NT] = t.x; win[NT + 1] = t.y; win[NT + 2] = t.z; win[NT + 3] = t.w;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      if (d < rem) {
+        float wv[NB];
+        ld_vec<NB>(w + (q + d) * ws, wv);
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+          for (int i = 0; i < NT; ++i)
+            acc[b][i] = fmaf(wv[b], win[i + d], acc[b][i]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+// 16 bytes, of which the first `bytes` are copied and the rest zeroed
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// K2: dense synthesis, time-major output.  Block (tiles, phase chunk):
+// it stages its chunk of the bank once and walks the tiles (batch row, time
+// tile) with a stride of the grid; thread (tile u = (step group, phase
+// group), band split ms).
+// ---------------------------------------------------------------------------
+template <int NT>
+__global__ void __launch_bounds__(kSynThreads)
+synthesis_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 float* __restrict__ out, int B, int Mb, int Tpad, int M,
+                 int K, int T_out, int SG, int PG, int MS, int fuse_mask,
+                 int x_offset) {
+  extern __shared__ float4 syn_smem[];
+  float* smem = reinterpret_cast<float*>(syn_smem);
+  const int CG = 4 * PG;
+  const int U = SG * PG;
+  const int Tt = NT * SG;
+  const int XW = round4(Tt + K + 4);  // one band of the window
+  float* w_s = smem;                  // [Mb][K][CG] = w[M-1-c][m][k]
+  float* x_s = w_s + Mb * K * CG;     // [Mb][XW], input sign applied
+  float* red_s = x_s + Mb * XW;       // [MS][U][NT][4] partial sums
+  const int c0 = blockIdx.y * CG;
+  const int tid = threadIdx.x;
+  const int tiles_x = cdiv(T_out, Tt);
+  const int u = tid % U;
+  const int ms = tid / U;
+  const int pg = u % PG;
+  const int sg = u / PG;
+
+  // the bank chunk, transposed to [m][k][c] by asynchronous copies (the
+  // gain M is applied to the sums: a power of two, so the same floats)
+  const int MK = Mb * K;
+  for (int c = 0; c < CG; ++c) {
+    const bool in = c0 + c < M;
+    const float* src = w + (long long)(in ? M - 1 - c0 - c : 0) * MK;
+#pragma unroll 4
+    for (int f = tid; f < MK; f += blockDim.x)
+      cp_async4(w_s + f * CG + c, src + f, in ? 4 : 0);
+  }
+  const float gain = (float)M;
+  const bool rows16 = (Tpad & 3) == 0 && aligned16(x);
+  const int XW4 = XW >> 2;
+  for (int tile = blockIdx.x; tile < B * tiles_x; tile += gridDim.x) {
+    const int b = tile / tiles_x;
+    const int t0 = (tile % tiles_x) * Tt;
+    if (tile != blockIdx.x) __syncthreads();  // the last tile is done
+    // the window, 4 steps a copy (16 bytes where rows are aligned), zeros
+    // past the input; then reverse_half on the input, by the sample's
+    // position in the unpadded signal (& 1 keeps the parity right where
+    // it is negative), each thread on the steps it copied
+    const float* xb = x + (long long)b * Mb * Tpad;
+#pragma unroll 4
+    for (int e = tid; e < Mb * XW4; e += blockDim.x) {
+      const int m = e / XW4;
+      const int tau = t0 + 4 * (e - m * XW4);
+      const float* src = xb + (long long)m * Tpad + tau;
+      if (rows16) {
+        const int n = min(max(Tpad - tau, 0), 4);
+        cp_async16(x_s + 4 * e, n ? src : xb, 4 * n);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          cp_async4(x_s + 4 * e + j, tau + j < Tpad ? src + j : xb,
+                    tau + j < Tpad ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    if (fuse_mask) {
+      for (int e = tid; e < Mb * XW4; e += blockDim.x) {
+        const int m = e / XW4;
+        if (m & 1) {
+          const int tau = t0 + 4 * (e - m * XW4);
+          float* v = x_s + 4 * e + ((tau + x_offset) & 1 ? 1 : 0);
+          v[0] = -v[0];  // the first and third even steps of the four
+          v[2] = -v[2];
+        }
+      }
+    }
+    __syncthreads();
+
+    float acc[4][NT];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < NT; ++i) acc[c][i] = 0.0f;
+    for (int m = ms; m < Mb; m += MS)
+      slide_fma<4, NT>(acc, w_s + m * K * CG + pg * 4, CG,
+                       x_s + m * XW + sg * NT, K);
+
+    if (MS == 1) {
+      const int c = c0 + pg * 4;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const int t = t0 + sg * NT + i;
+        if (t >= T_out) break;
+        float* o = out + ((long long)b * T_out + t) * M + c;
+        if ((M & 3) == 0 && c + 4 <= M) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(gain * acc[0][i], gain * acc[1][i],
+                          gain * acc[2][i], gain * acc[3][i]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c + j < M) o[j] = gain * acc[j][i];
+        }
+      }
+      continue;
+    }
+    float* r = red_s + (ms * U + u) * NT * 4;
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      *reinterpret_cast<float4*>(r + 4 * i) =
+          make_float4(acc[0][i], acc[1][i], acc[2][i], acc[3][i]);
+    __syncthreads();
+    const int n_out = U * NT * 4;
+    for (int o = tid; o < n_out; o += blockDim.x) {
+      float sum = 0.0f;
+      for (int j = 0; j < MS; ++j) sum += red_s[j * n_out + o];
+      const int i = (o >> 2) % NT;
+      const int uu = (o >> 2) / NT;
+      const int t = t0 + (uu / PG) * NT + i;
+      const int c = c0 + (uu % PG) * 4 + (o & 3);
+      if (t < T_out && c < M)
+        out[((long long)b * T_out + t) * M + c] = gain * sum;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3: fused round trip.  Block (output time tile, batch row).
+// K3: fused round trip.  Persistent blocks, one an SM, walk the tiles
+// (batch row, output time tile) with a stride of the grid.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+template <int M>
+__global__ void __launch_bounds__(kThreads, 1)
 roundtrip_kernel(const float* __restrict__ x, const float* __restrict__ wa,
                  const float* __restrict__ ws, float* __restrict__ out,
-                 int Tpad, int M, int Ka, int Ks, int T_ana, int T_out,
-                 int pad_left) {
-  extern __shared__ float smem[];
-  const int Tt = kRtGroups * kR;
-  const int sub_len = roundtrip_sub_len(Ks);
-  const int SG = sub_len / kR;   // sub-band groups a thread item covers
-  const int Kaw = odd(Ka);
-  const int Sw = odd(M * Ks);
-  float* wa_s = smem;                // [M][Kaw]
-  float* ws_s = wa_s + M * Kaw;      // [M][Sw] = M * w_syn[M-1-c][m][k]
-  float* sub_s = ws_s + M * Sw;      // [M][sub_len] sub-band tile + halo
-  float* x_s = sub_s + M * sub_len;  // [(sub_len - 1) * M + Ka]
-  const int t0 = blockIdx.x * Tt;
-  const int b = blockIdx.y;
-  const int tau0 = t0 - pad_left;    // sub-band time of sub_s[.][0]
-  const float gain = (float)M;
-  const int MK = M * Ks;
+                 int B, int Tpad, int Ka, int Ks, int T_ana, int T_out,
+                 int pad_left, int n_sub, int Tt, int J, int XR, int SP) {
+  constexpr int NB = M < 4 ? M : 4;
+  constexpr int BG = M / NB;
+  extern __shared__ float4 rt_smem[];
+  float* wa_s = reinterpret_cast<float*>(rt_smem);  // [r][J][M]
+  float* ws_s = wa_s + M * J * M;     // [m][Ks][M] = M * ws[M-1-c][m][k]
+  float* sub_s = ws_s + M * Ks * M;   // [M][SP] sub-band tile + halo
+  float* xp_s = sub_s + M * SP;       // [2][M][XR] = x[M*(tau0+tau) + r]
+  const int tid = threadIdx.x;
+  const int tiles_per_row = cdiv(T_out, Tt);
+  const int n_tiles = B * tiles_per_row;
 
-  for (int i = threadIdx.x; i < M * Ka; i += blockDim.x) {
-    const int m = i / Ka;
-    wa_s[m * Kaw + (i - m * Ka)] = wa[i];
-  }
-  for (int i = threadIdx.x; i < M * MK; i += blockDim.x) {
-    const int c = i / MK;
-    const int r = i - c * MK;
-    ws_s[c * Sw + r] = gain * ws[(long long)(M - 1 - c) * MK + r];
-  }
-  const float* xb = x + (long long)b * Tpad;
-  const long long start = (long long)tau0 * M;
-  const int win = (sub_len - 1) * M + Ka;
-  for (int i = threadIdx.x; i < win; i += blockDim.x) {
-    const long long p = start + i;
-    x_s[i] = (p >= 0 && p < Tpad) ? xb[p] : 0.0f;
-  }
-  __syncthreads();
-
-  // analysis of the tile and its halo; the synthesis pad and the sub-band
-  // signal's end are zeros, as in the composition
-  for (int item = threadIdx.x; item < M * SG; item += blockDim.x) {
-    const int m = item % M;
-    const int g = item / M;
-    const float* wr = wa_s + m * Kaw;
-    const float* xr = x_s + g * M;
-    float acc[kR];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) acc[j] = 0.0f;
-    for (int k = 0; k < Ka; ++k) {
-      const float wk = wr[k];
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-        acc[j] = fmaf(wk, xr[j * SG * M + k], acc[j]);
+  // the window of tile `tl` into buffer `buf`, zeros outside the input
+  auto load_window = [&](int tl, int buf) {
+    const int row = tl / tiles_per_row;
+    const long long p0 = (long long)((tl % tiles_per_row) * Tt - pad_left) * M;
+    const float* xb = x + (long long)row * Tpad;
+    float* dst = xp_s + buf * M * XR;
+    for (int e = tid; e < M * XR; e += kThreads) {
+      const long long p = p0 + e;
+      const bool in = p >= 0 && p < Tpad;
+      cp_async4(dst + (e % M) * XR + e / M, in ? xb + p : xb, in ? 4 : 0);
     }
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int s = g + j * SG;
-      const int tau = tau0 + s;
-      sub_s[m * sub_len + s] = (tau >= 0 && tau < T_ana) ? acc[j] : 0.0f;
-    }
-  }
-  __syncthreads();
+  };
 
-  for (int item = threadIdx.x; item < M * kRtGroups; item += blockDim.x) {
-    const int c = item % M;
-    const int g = item / M;
-    float acc[kR];
+  int tile = blockIdx.x;
+  load_window(tile, 0);
+  cp_async_commit();
+  // wa_s[(r*J + j)*M + m] = wa[m][j*M + r], zero past Ka
+  for (int e = tid; e < M * Ka; e += kThreads) {
+    const int m = e / Ka;
+    const int k = e - m * Ka;
+    wa_s[((k % M) * J + k / M) * M + m] = wa[e];
+  }
+  for (int e = tid; e < M * J * M; e += kThreads) {  // taps past Ka
+    const int rj = e / M;
+    if ((rj % J) * M + rj / J >= Ka) wa_s[e] = 0.0f;
+  }
+  // ws_s[(m*Ks + k)*M + c] = M * ws[M-1-c][m][k]: lanes read consecutive
+  // taps of one phase (coalesced)
+  for (int e = tid; e < M * M * Ks; e += kThreads) {
+    const int c = e / (M * Ks);
+    ws_s[(e - c * M * Ks) * M + M - 1 - c] = (float)M * ws[e];
+  }
+  for (int e = tid; e < M * (SP - n_sub); e += kThreads) {
+    const int m = e / (SP - n_sub);
+    sub_s[m * SP + n_sub + e % (SP - n_sub)] = 0.0f;
+  }
+
+  for (int it = 0; tile < n_tiles; ++it) {
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {
+      load_window(next, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int row = tile / tiles_per_row;
+    const int t0 = (tile % tiles_per_row) * Tt;
+    const int tau0 = t0 - pad_left;  // sub-band time of sub_s[.][0]
+    const int n_out = min(Tt, T_out - t0);
+    const float* xp = xp_s + (it & 1) * M * XR;
+
+    // analysis of the tile and its halo; the synthesis pad and the sub-band
+    // signal's end are zeros, as in the composition
+    if (tid < BG * (n_sub / kNT)) {
+      const int bg = tid % BG;
+      const int s0 = tid / BG * kNT;
+      if (s0 < n_out + Ks - 1) {
+        float acc[NB][kNT];
 #pragma unroll
-    for (int j = 0; j < kR; ++j) acc[j] = 0.0f;
-    for (int m = 0; m < M; ++m) {
-      const float* wr = ws_s + c * Sw + m * Ks;
-      const float* xr = sub_s + m * sub_len + g;
-      for (int k = 0; k < Ks; ++k) {
-        const float wk = wr[k];
+        for (int c = 0; c < NB; ++c)
 #pragma unroll
-        for (int j = 0; j < kR; ++j)
-          acc[j] = fmaf(wk, xr[j * kRtGroups + k], acc[j]);
+          for (int i = 0; i < kNT; ++i) acc[c][i] = 0.0f;
+        for (int r = 0; r < M; ++r)
+          slide_fma<NB, kNT>(acc, wa_s + r * J * M + bg * NB, M,
+                             xp + r * XR + s0, (Ka - r + M - 1) / M);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          float* dst = sub_s + (bg * NB + c) * SP + s0;
+#pragma unroll
+          for (int i = 0; i < kNT; i += 4) {
+            float v[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int tau = tau0 + s0 + i + j;
+              v[j] = (tau >= 0 && tau < T_ana) ? acc[c][i + j] : 0.0f;
+            }
+            st_vec<4>(dst + i, v);
+          }
+        }
       }
     }
+    __syncthreads();
+
+    if (tid < BG * (Tt / kNT)) {
+      const int cg = tid % BG;
+      const int tl = tid / BG * kNT;
+      if (tl < n_out) {
+        float acc[NB][kNT];
 #pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int t = t0 + g + j * kRtGroups;
-      if (t < T_out) out[((long long)b * T_out + t) * M + c] = acc[j];
+        for (int c = 0; c < NB; ++c)
+#pragma unroll
+          for (int i = 0; i < kNT; ++i) acc[c][i] = 0.0f;
+        for (int m = 0; m < M; ++m)
+          slide_fma<NB, kNT>(acc, ws_s + m * Ks * M + cg * NB, M,
+                             sub_s + m * SP + tl, Ks);
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          if (tl + i < n_out) {
+            float v[NB];
+#pragma unroll
+            for (int c = 0; c < NB; ++c) v[c] = acc[c][i];
+            st_vec<NB>(out + ((long long)row * T_out + t0 + tl + i) * M +
+                           cg * NB, v);
+          }
+        }
+      }
     }
+    tile = next;
   }
 }
 
@@ -300,19 +636,59 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+cudaError_t sm_count(int* n) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+}
+
+template <int M>
+cudaError_t launch_roundtrip(const RtGeom& g, const Plan& p, const float* x,
+                             const float* wa, const float* ws, float* out,
+                             int B, int Tpad, int Ka, int Ks, int T_ana,
+                             int T_out, int pad_left, cudaStream_t stream) {
+  cudaError_t err = allow_smem(roundtrip_kernel<M>, p.smem);
+  if (err != cudaSuccess) return err;
+  roundtrip_kernel<M><<<p.gx, p.threads, p.smem, stream>>>(
+      x, wa, ws, out, B, Tpad, Ka, Ks, T_ana, T_out, pad_left, g.n_sub, g.Tt,
+      g.J, g.XR, g.SP);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory one block of kernel `which` (1 analysis, 2 synthesis,
-// 3 round trip) uses; the Python gates mirror this and check against it.
+// 3 round trip) may use: K1's and K3's, and the most of any K2 plan; the
+// Python gates mirror this and check against it.
 size_t pqmf_smem_bytes(int which, int M, int Mb, int Ka, int Ks) {
   switch (which) {
     case 1: return analysis_smem(M, Mb, Ka);
     case 2: return synthesis_smem(M, Mb, Ks);
-    case 3: return roundtrip_smem(M, Ka, Ks);
+    case 3: return roundtrip_geom(M, Ka, Ks).smem;
     default: return 0;
   }
+}
+
+// The launch plan of kernel `which` for a call with T_out output steps on a
+// card of n_sms SMs: plan[0..7] = grid x, y, z, threads, output steps a
+// tile, K2's NT / K3's sub-band steps a tile / K1's band chunk, K2's band
+// split, dynamic shared memory.  Returns 0, or -1 for an unknown kernel.
+int pqmf_launch_plan(int which, int B, int M, int Mb, int Ka, int Ks,
+                     int T_out, int n_sms, long long* plan) {
+  Plan p;
+  switch (which) {
+    case 1: p = analysis_plan(B, M, Mb, Ka, T_out); break;
+    case 2: p = synthesis_plan(B, M, Mb, Ks, T_out, n_sms); break;
+    case 3: p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms); break;
+    default: return -1;
+  }
+  const long long v[8] = {p.gx, p.gy, p.gz, p.threads, p.tile_steps, p.aux,
+                          p.split, (long long)p.smem};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  return 0;
 }
 
 const char* pqmf_error_string(int err) {
@@ -322,42 +698,56 @@ const char* pqmf_error_string(int err) {
 int pqmf_analysis_conv(const float* x, const float* w, float* out, int B,
                        int Tpad, int M, int Mb, int K, int T_out,
                        int fuse_mask, void* stream) {
-  const size_t smem = analysis_smem(M, Mb, K);
-  cudaError_t err = allow_smem(analysis_kernel, smem);
+  const Plan p = analysis_plan(B, M, Mb, K, T_out);
+  cudaError_t err = allow_smem(analysis_kernel, p.smem);
   if (err != cudaSuccess) return (int)err;
-  const int Tt = kAnaGroups * kR;
-  const int Cb = analysis_chunk(Mb, K);
-  const dim3 grid((T_out + Tt - 1) / Tt, (Mb + Cb - 1) / Cb, B);
-  analysis_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w, out, Tpad, M, Mb, K, T_out, Cb, fuse_mask);
+  const dim3 grid(p.gx, p.gy, p.gz);
+  analysis_kernel<<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
+      x, w, out, Tpad, M, Mb, K, T_out, p.aux, fuse_mask);
   return (int)cudaGetLastError();
 }
 
 int pqmf_synthesis_conv(const float* x, const float* w, float* out, int B,
                         int Mb, int Tpad, int M, int K, int T_out,
                         int fuse_mask, int x_offset, void* stream) {
-  const size_t smem = synthesis_smem(M, Mb, K);
-  cudaError_t err = allow_smem(synthesis_kernel, smem);
+  int n_sms = 0;
+  cudaError_t err = sm_count(&n_sms);
   if (err != cudaSuccess) return (int)err;
-  const int Tt = kSynGroups * kR;
-  const int Cc = synthesis_chunk(M, Mb, K);
-  const dim3 grid((T_out + Tt - 1) / Tt, (M + Cc - 1) / Cc, B);
-  synthesis_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w, out, Mb, Tpad, M, K, T_out, Cc, fuse_mask, x_offset);
+  const Plan p = synthesis_plan(B, M, Mb, K, T_out, n_sms);
+  const int SG = p.tile_steps / p.aux;
+  const int PG = p.threads / (SG * p.split);
+  const dim3 grid(p.gx, p.gy, p.gz);
+  auto kernel = p.aux == kNT ? synthesis_kernel<kNT> : synthesis_kernel<4>;
+  err = allow_smem(kernel, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
+      x, w, out, B, Mb, Tpad, M, K, T_out, SG, PG, p.split, fuse_mask,
+      x_offset);
   return (int)cudaGetLastError();
 }
 
 int pqmf_roundtrip_conv(const float* x, const float* wa, const float* ws,
                         float* out, int B, int Tpad, int M, int Ka, int Ks,
                         int T_ana, int T_out, int pad_left, void* stream) {
-  const size_t smem = roundtrip_smem(M, Ka, Ks);
-  cudaError_t err = allow_smem(roundtrip_kernel, smem);
+  if (!roundtrip_templated(M)) return (int)cudaErrorInvalidValue;
+  int n_sms = 0;
+  cudaError_t err = sm_count(&n_sms);
   if (err != cudaSuccess) return (int)err;
-  const int Tt = kRtGroups * kR;
-  const dim3 grid((T_out + Tt - 1) / Tt, B);
-  roundtrip_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, wa, ws, out, Tpad, M, Ka, Ks, T_ana, T_out, pad_left);
-  return (int)cudaGetLastError();
+  const RtGeom g = roundtrip_geom(M, Ka, Ks);
+  const Plan p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms);
+  if (g.Tt <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (M) {
+    case 2: err = launch_roundtrip<2>(g, p, x, wa, ws, out, B, Tpad, Ka, Ks,
+                                      T_ana, T_out, pad_left, s); break;
+    case 4: err = launch_roundtrip<4>(g, p, x, wa, ws, out, B, Tpad, Ka, Ks,
+                                      T_ana, T_out, pad_left, s); break;
+    case 8: err = launch_roundtrip<8>(g, p, x, wa, ws, out, B, Tpad, Ka, Ks,
+                                      T_ana, T_out, pad_left, s); break;
+    default: err = launch_roundtrip<16>(g, p, x, wa, ws, out, B, Tpad, Ka,
+                                        Ks, T_ana, T_out, pad_left, s);
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -109,7 +109,7 @@ def save_artifact(wrapper, path: str, with_stablehlo: bool = False) -> str:
     return path
 
 
-def load_artifact(path: str, device="cpu"):
+def load_artifact(path: str, device="cuda"):
     """Rebuild a wrapper on ``device`` from an artifact directory (saved by
     this package or by ``pqmf_tpu``): the weights load as they are (no
     design-chain rerun) and the state is restored. Returns

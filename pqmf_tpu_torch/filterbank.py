@@ -38,13 +38,14 @@ class PQMF:
     precision : str
         Only ``"highest"`` (full f32) is available.
     device : str or torch.device
-        ``"cpu"`` or ``"cuda"``; inputs may be NumPy arrays (copied to the
-        device) or float32 tensors already on it.
+        ``"cuda"`` (the default; raises without a card) or ``"cpu"``;
+        inputs may be NumPy arrays (copied to the device) or float32
+        tensors already on it.
     """
 
     def __init__(self, attenuation: float, n_band: int, polyphase: bool = True,
                  n_channels: int = 1, precision: str = "highest",
-                 device="cpu"):
+                 device="cuda"):
         if polyphase:
             power = math.log2(n_band)
             if power != math.floor(power):

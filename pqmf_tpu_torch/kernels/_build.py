@@ -87,6 +87,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.pqmf_analysis_conv, lib.pqmf_synthesis_conv,
                lib.pqmf_roundtrip_conv):
         fn.restype = ctypes.c_int
+    lib.pqmf_launch_plan.argtypes = [i, i, i, i, i, i, i, i, p]
+    lib.pqmf_launch_plan.restype = ctypes.c_int
     lib.pqmf_smem_bytes.argtypes = [i, i, i, i, i]
     lib.pqmf_smem_bytes.restype = ctypes.c_size_t
     lib.pqmf_error_string.argtypes = [i]

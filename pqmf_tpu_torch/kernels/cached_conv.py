@@ -15,7 +15,9 @@ padded, so offline (centered), causal and streaming modes share them. What
 bounds each kernel on the H100 and what its design does about it is written
 at the top of the CUDA source: they are f32 FMA on the CUDA cores, bound by
 arithmetic and shared-memory bandwidth, and reuse a staged input window and
-bank from shared memory with several outputs per thread in registers.
+bank from shared memory with several outputs per thread in registers. The
+launch plans (grid, tile, shared memory) are mirrored here by
+:func:`launch_plan`, so the CPU tests can reason about them.
 
 A wrapper takes its kernel's plain PyTorch version (``*_plain``, on
 ``F.conv1d`` in full f32) only for CPU tensors. On a CUDA tensor it launches
@@ -41,6 +43,7 @@ __all__ = [
     "supports",
     "fused_roundtrip_supported",
     "smem_bytes",
+    "launch_plan",
 ]
 
 # kernel launches since the last reset_launches(), by kernel
@@ -53,36 +56,130 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# gates: shared memory per block, mirroring pqmf_smem_bytes in the CUDA
-# source (the card check compares the two)
+# gates and launch plans, mirroring pqmf_smem_bytes and pqmf_launch_plan in
+# the CUDA source (the card check compares the two)
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+N_SMS = 132          # SMs of an H100 SXM; the C side asks the card
+_THREADS = 256               # kThreads: K1 and K3
 _R = 4                       # kR
 _ANA_TT = 16 * _R            # kAnaGroups * kR
-_SYN_TT = 16 * _R            # kSynGroups * kR
-_RT_TT = 32 * _R             # kRtGroups * kR
 _WEIGHT_BYTES = 64 * 1024    # kWeightBytes
+_NT = 8                      # kNT
+_SYN_THREADS = 128           # kSynThreads
+_SYN_MAX_STEPS = 256         # kSynMaxSteps
+_SYN_FILL = 128              # kSynFill
+_SMEM_PER_SM = 233472        # kSmemPerSm
+_SPLIT_MAX_BANDS = 16        # kSplitMaxBands
+_RT_BANDS = (2, 4, 8, 16)    # K3's compiled band counts
 
 
 def _odd(n: int) -> int:
     return n | 1
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _analysis_chunk(Mb: int, K: int) -> int:
+    return max(1, min(Mb, _WEIGHT_BYTES // (4 * _odd(K))))
+
+
+def _synthesis_phase_groups(M: int, Mb: int, K: int) -> int:
+    return max(1, min(_cdiv(M, 4), 2, _WEIGHT_BYTES // (16 * Mb * K)))
+
+
+def _synthesis_plan_smem(Mb: int, K: int, CG: int, Tt: int, red: int) -> int:
+    return 4 * (Mb * K * CG + Mb * _round4(Tt + K + 4) + red)
+
+
+def _roundtrip_geom(M: int, Ka: int, Ks: int) -> dict:
+    """K3's tile: NB bands a thread tile, n_sub sub-band steps (one
+    analysis thread tile per thread) of which Tt are output steps, J taps
+    per phase of the analysis bank."""
+    nb = M if M < 4 else 4
+    bg = max(1, M // nb)
+    n_sub = _THREADS * _NT // bg
+    Tt = max(0, (n_sub - Ks + 1) // _NT * _NT)
+    J = _cdiv(Ka, M)
+    XR, SP = _round4(n_sub + J + 4), n_sub + 8
+    return {"n_sub": n_sub, "Tt": Tt,
+            "smem": 4 * (M * J * M + M * Ks * M + M * SP + 2 * M * XR)}
+
+
 def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int) -> int:
     """Shared memory one block of kernel ``which`` ("analysis",
-    "synthesis", "roundtrip") needs; Ka/Ks are the analysis/synthesis
-    kernel lengths (the other one is ignored)."""
+    "synthesis", "roundtrip") may use — for K2 the most of any of its
+    launch plans; Ka/Ks are the analysis/synthesis kernel lengths (the
+    other one is ignored)."""
     if which == "analysis":
-        cb = max(1, min(Mb, _WEIGHT_BYTES // (4 * _odd(Ka))))
-        return 4 * (cb * _odd(Ka) + (_ANA_TT - 1) * M + Ka)
+        return 4 * (_analysis_chunk(Mb, Ka) * _odd(Ka) + (_ANA_TT - 1) * M
+                    + Ka)
     if which == "synthesis":
-        cc = max(1, min(M, _WEIGHT_BYTES // (4 * _odd(Mb * Ks))))
-        return 4 * (cc * _odd(Mb * Ks) + Mb * (_SYN_TT + Ks - 1))
+        return _synthesis_plan_smem(
+            Mb, Ks, 4 * _synthesis_phase_groups(M, Mb, Ks), _SYN_MAX_STEPS,
+            _SYN_THREADS * _NT * 4)
     if which == "roundtrip":
-        sub_len = -(-(_RT_TT + Ks - 1) // _R) * _R
-        return 4 * (M * _odd(Ka) + M * _odd(M * Ks) + M * sub_len
-                    + (sub_len - 1) * M + Ka)
+        return _roundtrip_geom(M, Ka, Ks)["smem"]
+    raise ValueError(f"unknown kernel {which!r}")
+
+
+def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
+                T_out: int, n_sms: int = N_SMS) -> tuple:
+    """The launch of kernel ``which`` for a call of ``T_out`` output steps
+    on a card of ``n_sms`` SMs, as the CUDA source plans it: (grid x, y, z,
+    threads, output steps a tile, K2's steps a thread tile / K3's sub-band
+    steps a tile / K1's band chunk, K2's band split, shared memory bytes).
+
+    K2 takes thread tiles of 4 phases x NT steps. It splits the band sum
+    over up to 16 threads (for banks of at most 16 bands: a longer split
+    sum rounds too far from the plain conv's order) until the card holds
+    128 threads an SM, then halves NT, and grows its blocks (<= 128
+    threads, <= 256 steps) while there are still as many blocks as SMs. A
+    call that needs no split takes tiles of up to 8 phases and runs as
+    many blocks as fit on the card at once, each walking its tiles. K3
+    runs one persistent block an SM over tiles of n_sub sub-band steps."""
+    if which == "analysis":
+        cb = _analysis_chunk(Mb, Ka)
+        return (_cdiv(T_out, _ANA_TT), _cdiv(Mb, cb), B, _THREADS, _ANA_TT,
+                cb, 1, smem_bytes("analysis", M, Mb, Ka, Ks))
+    if which == "synthesis":
+        n_pg = _cdiv(M, 4)
+        fill = n_sms * _SYN_FILL
+        nt, ms = _NT, 1
+        items = B * _cdiv(T_out, nt) * n_pg
+        while (ms < 16 and 2 * ms <= Mb and Mb <= _SPLIT_MAX_BANDS
+               and items * ms < fill):
+            ms *= 2
+        if items * ms < fill:
+            nt = 4
+        if ms == 1:
+            pg = _synthesis_phase_groups(M, Mb, Ks)
+            sg = max(1, min(_SYN_MAX_STEPS // nt, _SYN_THREADS // pg))
+        else:
+            pg, sg = 1, 1
+            while (2 * sg * ms <= _SYN_THREADS
+                   and 2 * sg * nt <= _SYN_MAX_STEPS
+                   and B * _cdiv(T_out, 2 * sg * nt) * n_pg >= n_sms):
+                sg *= 2
+        threads = sg * pg * ms
+        smem = _synthesis_plan_smem(Mb, Ks, 4 * pg, nt * sg,
+                                    threads * nt * 4 if ms > 1 else 0)
+        tiles = B * _cdiv(T_out, nt * sg)
+        per_sm = max(1, min(2048 // threads, _SMEM_PER_SM // (smem + 1024)))
+        gx = min(tiles, n_sms * per_sm) if ms == 1 else tiles
+        return (gx, _cdiv(n_pg, pg), 1, threads, nt * sg, nt, ms, smem)
+    if which == "roundtrip":
+        g = _roundtrip_geom(M, Ka, Ks)
+        n_tiles = B * _cdiv(T_out, g["Tt"]) if g["Tt"] > 0 else 0
+        return (min(n_tiles, n_sms), 1, 1, _THREADS, g["Tt"], g["n_sub"], 1,
+                g["smem"])
     raise ValueError(f"unknown kernel {which!r}")
 
 
@@ -100,12 +197,14 @@ def supports(n_band: int, analysis_taps: int, synthesis_taps: int) -> bool:
 
 def fused_roundtrip_supported(M: int, analysis_taps: int,
                               synthesis_taps: int) -> bool:
-    """Whether K3 takes this geometry: both full banks, the input window
-    and the sub-band tile fit in one block's shared memory (true for the
-    atten-100 banks up to M=16; M=32 is past it and its round trip runs
-    as K1 then K2)."""
-    return (M >= 2 and smem_bytes("roundtrip", M, M, analysis_taps,
-                                  synthesis_taps) <= SMEM_LIMIT)
+    """Whether K3 takes this geometry: a band count it is compiled for
+    (2, 4, 8, 16) whose banks, double-buffered input window and sub-band
+    tile fit in one block's shared memory (true for the atten-100 banks up
+    to M=16; M=32 is past it and its round trip runs as K1 then K2)."""
+    return (M in _RT_BANDS
+            and _roundtrip_geom(M, analysis_taps, synthesis_taps)["Tt"] > 0
+            and smem_bytes("roundtrip", M, M, analysis_taps,
+                           synthesis_taps) <= SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------

@@ -241,7 +241,7 @@ class PQMFWrapper(_RegistryMixin):
 
     def __init__(self, attenuation: int = 100, n_band: int = 16,
                  m_buffer_size: int = 512, precision: str = "highest",
-                 max_buffer_size: int | None = 16384, device="cpu"):
+                 max_buffer_size: int | None = 16384, device="cuda"):
         self.n_band = n_band
         self.attenuation = attenuation
         self.pqmf = StreamingPQMF(attenuation, n_band, precision=precision,
@@ -311,7 +311,7 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
                  m_buffer_size: int = 8192, sample_rate: int = 44100,
                  shifts_in_semitones=None, precision: str = "highest",
                  phase_rule: str = "reference",
-                 max_buffer_size: int | None = 16384, device="cpu"):
+                 max_buffer_size: int | None = 16384, device="cuda"):
         self.n_band = n_band
         self.attenuation = attenuation
         self.sample_rate = sample_rate
@@ -595,7 +595,7 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
     def __init__(self, attenuation: int = 100, n_band: int = 16,
                  m_buffer_size: int = 512, sample_rate: int = 44100,
                  shifts_in_semitones=None, precision: str = "highest",
-                 max_buffer_size: int | None = 8192, device="cpu"):
+                 max_buffer_size: int | None = 8192, device="cuda"):
         self.n_band = n_band
         self.attenuation = attenuation
         self.sample_rate = sample_rate

@@ -188,13 +188,15 @@ class StreamingPQMF:
     Conv geometry at (atten=100, M=16): analysis 1->16ch k=513 s=16,
     synthesis 16->16ch k=33 s=1 (reference pqmf.py:310-333).
 
-    Inputs may be NumPy arrays (copied to the device) or float32 tensors
-    already on it; only ``precision="highest"`` (full f32) is available.
+    ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``; without
+    a card ``"cuda"`` raises. Inputs may be NumPy arrays (copied to the
+    device) or float32 tensors already on it; only ``precision="highest"``
+    (full f32) is available.
     """
 
     def __init__(self, attenuation: float, n_band: int,
                  precision: str = "highest", n_channels: int = 1,
-                 device="cpu"):
+                 device="cuda"):
         power = math.log2(n_band)
         if power != math.floor(power):
             raise ValueError(f"n_band must be a power of 2, got {n_band}")

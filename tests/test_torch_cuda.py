@@ -8,8 +8,8 @@ without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1/K2 atol=2e-5 / rtol=1e-4 (pqmf_tpu's kernel-vs-lax bar);
-K3 against the plain composition atol=1e-5 (its recomputed halo sums the
-taps in another order); K4/K5 against the polyphase formula 2e-5 / 1e-4
+K3 against the plain composition atol=1e-5 (it sums the analysis taps
+phase by phase, another order); K4/K5 against the polyphase formula 2e-5 / 1e-4
 and K6 2e-5 / 1e-4 (another tap order again); the slice, the
 torchaudio variant, the block harness's pitch stream and the standalone
 shifters >= 90 dB.
@@ -45,7 +45,7 @@ def dev():
 
 
 def _bank(M, dev):
-    pq = StreamingPQMF(100, M)
+    pq = StreamingPQMF(100, M, device="cpu")
     return pq.hkf.to(dev), pq.hki.to(dev)
 
 
@@ -76,16 +76,74 @@ def test_kernels_match_plain(dev, M, B, T_sub):
 
 
 def test_smem_gate_mirrors_the_source(dev):
+    """The gates and the launch plans of kernels/cached_conv.py are the
+    CUDA source's, on this card's SM count."""
+    import ctypes
+
     lib = _build.load()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = (ctypes.c_longlong * 8)()
     for M, Ka, Ks in [(8, 257, 17), (16, 513, 33), (32, 1025, 33),
-                      (64, 2049, 33)]:
+                      (64, 2049, 33), (2, 65, 33), (16, 512, 32)]:
         for i, which in enumerate(("analysis", "synthesis", "roundtrip"), 1):
             assert lib.pqmf_smem_bytes(i, M, M, Ka, Ks) == \
                 cc.smem_bytes(which, M, M, Ka, Ks), (which, M)
+            for B, T_out in [(1, 37), (1, 512), (16, 512), (215, 256),
+                             (3, 479), (1, 165376)]:
+                assert lib.pqmf_launch_plan(i, B, M, M, Ka, Ks, T_out,
+                                            n_sms, plan) == 0
+                assert tuple(plan) == cc.launch_plan(
+                    which, B, M, M, Ka, Ks, T_out, n_sms=n_sms), \
+                    (which, M, B, T_out)
+
+
+def _tile(which, B, Ka, Ks, T_out):
+    return cc.launch_plan(which, B, 16, 16, Ka, Ks, T_out)[4]
+
+
+@pytest.mark.parametrize("B", [1, 16, 215])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_k2_tile_boundaries(dev, B, edge):
+    """K2 against its plain version at T_out one short of, at and one past
+    a multiple of its tile, with an odd negative x_offset."""
+    _, hki = _bank(16, dev)
+    Ks = hki.shape[-1]
+    tile = _tile("synthesis", B, 0, Ks, 512)
+    for T_out in (tile + edge, 3 * tile + edge):
+        if T_out < 1:
+            continue
+        g = torch.Generator().manual_seed(B * 10 + edge + 1)
+        x = torch.randn(B, 16, T_out + Ks - 1, generator=g).to(dev)
+        for off in (-15, -1, 0):
+            torch.testing.assert_close(
+                cc.dense_synthesis_conv(x, hki, True, off),
+                cc.synthesis_conv_plain(x, hki, True, off), **TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B", [1, 3, 215])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("pad", [(16, 16), (3, 0), (0, 40), (16, 17)])
+def test_k3_tile_boundaries(dev, B, edge, pad):
+    """K3 against the plain composition at T_out one short of, at and one
+    past its tile, with symmetric and lopsided synthesis pads."""
+    hkf, hki = _bank(16, dev)
+    Ka, Ks = hkf.shape[-1], hki.shape[-1]
+    T_out = _tile("roundtrip", B, Ka, Ks, 1000) + edge
+    T_ana = T_out - pad[0] - pad[1] + Ks - 1
+    g = torch.Generator().manual_seed(B * 100 + edge + 7)
+    x = torch.randn(B, 1, 16 * (T_ana - 1) + Ka + 5, generator=g).to(dev)
+    got = cc.fused_roundtrip_conv(x, hkf, hki, 16, pad)
+    assert got.shape == (B, T_out, 16)
+    torch.testing.assert_close(got, cc.roundtrip_conv_plain(x, hkf, hki, 16,
+                                                            pad),
+                               atol=1e-5, rtol=0)
+    torch.cuda.synchronize()
 
 
 def test_streaming_routes_through_kernels(dev):
-    gpu, cpu = StreamingPQMF(100, 16, device="cuda"), StreamingPQMF(100, 16)
+    gpu = StreamingPQMF(100, 16, device="cuda")
+    cpu = StreamingPQMF(100, 16, device="cpu")
     x = np.random.default_rng(0).standard_normal((2, 1, 4096)).astype(
         np.float32)
     cc.reset_launches()
@@ -112,7 +170,7 @@ def test_streaming_routes_through_kernels(dev):
 def test_slice_matches_cpu(dev):
     gpu = PQMFPitchShiftWrapper(100, 16, 2048, 44100, SHIFTS16,
                                 device="cuda")
-    cpu = PQMFPitchShiftWrapper(100, 16, 2048, 44100, SHIFTS16)
+    cpu = PQMFPitchShiftWrapper(100, 16, 2048, 44100, SHIFTS16, device="cpu")
     x = np.random.default_rng(1).standard_normal((1, 2 * 2048)).astype(
         np.float32) * 0.3
     gs, cs = gpu.init_state(), cpu.init_state()
@@ -170,7 +228,7 @@ def test_polyphase_kernels_match_plain(dev, M, B, T_sub):
                                   (32, {"analysis": 1, "synthesis": 1}),
                                   (64, {"analysis": 1, "synthesis": 1})])
 def test_pqmf_routes_and_launch_counts(dev, M, rt):
-    gpu, cpu = PQMF(100, M, device="cuda"), PQMF(100, M)
+    gpu, cpu = PQMF(100, M, device="cuda"), PQMF(100, M, device="cpu")
     x = np.random.default_rng(M).standard_normal((2, 1, M * 300)).astype(
         np.float32)
     zero = {"analysis": 0, "synthesis": 0, "roundtrip": 0}
@@ -247,7 +305,8 @@ def test_ta_pitchshifter_on_kernels(dev, monkeypatch, M, buf, shifts, B):
     per inverse, no plain conv; >= 90 dB against the CPU port."""
     gpu = PQMFPitchShiftWrapperTA(100, M, buf, shifts_in_semitones=shifts,
                                   device="cuda")
-    cpu = PQMFPitchShiftWrapperTA(100, M, buf, shifts_in_semitones=shifts)
+    cpu = PQMFPitchShiftWrapperTA(100, M, buf, shifts_in_semitones=shifts,
+                                  device="cpu")
     x = np.random.default_rng(M + B).standard_normal((B, 1, buf)).astype(
         np.float32) * 0.3
     want = cpu.pitchshifter(x).numpy()
@@ -269,7 +328,7 @@ def test_stream_ola_on_kernels(dev, monkeypatch, C):
     CPU port."""
     gpu = PQMFPitchShiftWrapper(100, 16, 8192, 44100, SHIFTS16,
                                 device="cuda")
-    cpu = PQMFPitchShiftWrapper(100, 16, 8192, 44100, SHIFTS16)
+    cpu = PQMFPitchShiftWrapper(100, 16, 8192, 44100, SHIFTS16, device="cpu")
     x = np.random.default_rng(C).standard_normal((C, 20000)).astype(
         np.float32) * 0.3
     c_pitch, c_recon = stream_ola(cpu, x, 4096, 2048)

@@ -116,9 +116,9 @@ def test_precision_tiers_refused():
 
     for tier in ("bf16x3", "default"):
         with pytest.raises(ValueError, match="only 'highest'"):
-            StreamingPQMF(100, 16, precision=tier)
+            StreamingPQMF(100, 16, precision=tier, device="cpu")
         with pytest.raises(ValueError, match="only 'highest'"):
-            PQMFPitchShiftWrapper(100, 16, 2048, precision=tier)
+            PQMFPitchShiftWrapper(100, 16, 2048, precision=tier, device="cpu")
 
 
 def test_cuda_device_refused_without_cuda():

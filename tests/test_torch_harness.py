@@ -45,7 +45,7 @@ def _audio(n, seed, channels=1):
 @pytest.fixture(scope="module")
 def pair():
     return (JWrapper(100, 16, BUF, 44100, SHIFTS16),
-            PQMFPitchShiftWrapper(100, 16, BUF, 44100, SHIFTS16))
+            PQMFPitchShiftWrapper(100, 16, BUF, 44100, SHIFTS16, device="cpu"))
 
 
 @pytest.fixture
@@ -128,7 +128,7 @@ def test_ta_artifact_cross_load(tmp_path):
     shifts = [12, -12, 0, 24, -24, 12, -12, 0, 12, -12, 0, 24, -24, 12, -12,
               7]
     ours = PQMFPitchShiftWrapperTA(100, 16, 2048, 44100, shifts,
-                                   max_buffer_size=None)
+                                   max_buffer_size=None, device="cpu")
     ours.pqmf.set_weights(load_pretrained_bank())
     save_artifact(ours, str(tmp_path / "t"))
     man = json.loads((tmp_path / "t" / "manifest.json").read_text())
@@ -143,7 +143,7 @@ def test_ta_artifact_cross_load(tmp_path):
                   ours.pitchshifter(x).numpy()) >= BAR_DB
 
     j_save(theirs, str(tmp_path / "j"))
-    back, man2 = load_artifact(str(tmp_path / "j"))
+    back, man2 = load_artifact(str(tmp_path / "j"), device="cpu")
     assert isinstance(back, PQMFPitchShiftWrapperTA)
     assert man2["config"] == man["config"]
     assert back.shifts == shifts and back.sub_band_sample_rate == 2756
@@ -201,7 +201,7 @@ def test_cli_ps_torchaudio_default_shifts_and_bank(tmp_path, wav, capsys):
     assert all(-48.53 <= s < 12.32 for s in drawn)
     assert main([wav, "--n_band", "16", "--buffer", "2048", "--shifts",
                  ",".join(["12", "-12"] * 8), "--finetuned",
-                 "--out_dir", str(tmp_path / "t")]) == 0
+                 "--out_dir", str(tmp_path / "t"), "--device", "cpu"]) == 0
     assert "hk16_atten100_finetuned" in capsys.readouterr().out
 
 
@@ -282,11 +282,12 @@ def test_cli_export_pvoc_and_blocks_artifact(tmp_path, wav):
     assert sr == 44100 and shifted.shape == (1, 6144)
     theirs, man = j_load(art)
     assert man["kind"] == "PQMFPitchShiftWrapper"
-    ours, _ = load_artifact(art)
+    ours, _ = load_artifact(art, device="cpu")
     assert theirs.shifts == ours.shifts
     assert all(-24.75 <= s < 12.43 for s in ours.shifts)
     assert blocks_main([wav, "--block", "1024", "--artifact", art,
-                        "--out_dir", str(tmp_path / "b")]) == 0
+                        "--out_dir", str(tmp_path / "b"),
+                        "--device", "cpu"]) == 0
     assert os.path.exists(tmp_path / "b" / "nonblock_pitchshifter.wav")
 
 

@@ -166,3 +166,76 @@ def test_build_without_nvcc_raises(monkeypatch):
                         lambda: _build.BUILD_DIR / "absent.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+BLOCK_SUB = 8192 // 16  # sub-band steps of one flagship block
+
+
+# ---------------------------------------------------------------------------
+# launch plans (the CUDA source's pqmf_launch_plan, mirrored in Python; the
+# card checks the mirror against the source in tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_k2_plan_fills_the_card_at_block_shapes(B):
+    """K2 at the flagship's sub-band block [B, 16, 512 + 32] launches at
+    least one block per SM of an H100."""
+    gx, gy, gz, threads, *_ = cc.launch_plan("synthesis", B, 16, 16, 0, 33,
+                                             BLOCK_SUB)
+    assert gx * gy * gz >= cc.N_SMS
+    assert 1 <= threads <= 128
+
+
+
+@pytest.mark.parametrize("Ka,Ks", [(513, 33), (512, 32)])
+def test_k3_halo_is_small(Ka, Ks):
+    """K3 recomputes at most 13% more sub-band steps than it outputs
+    (streaming bank 513/33, offline polyphase bank 512/32)."""
+    gx, _, _, threads, tile, n_sub, _, _ = cc.launch_plan(
+        "roundtrip", 1, 16, 16, Ka, Ks, 60 * 44100 // 16 + 1)
+    assert (tile + Ks - 1) / tile <= 1.13  # sub-band steps per output step
+    assert tile >= 256 and tile + Ks - 1 <= n_sub
+    assert gx == cc.N_SMS and threads == 256  # persistent: one an SM
+
+
+@pytest.mark.parametrize("M", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("B,T_out", [(1, 1), (1, 37), (1, 512), (16, 512),
+                                     (215, 256), (1, 165375)])
+def test_plans_fit_and_cover(M, B, T_out):
+    """Every plan of the committed banks fits one block's shared memory,
+    stays inside its kernel's gate, and its tiles cover the output."""
+    hkf, hki = _bank(M)
+    Ka, Ks = hkf.shape[-1], hki.shape[-1]
+    for which in ("analysis", "synthesis", "roundtrip"):
+        if which == "roundtrip" and not cc.fused_roundtrip_supported(M, Ka,
+                                                                     Ks):
+            continue
+        gx, gy, gz, threads, tile, aux, split, smem = cc.launch_plan(
+            which, B, M, M, Ka, Ks, T_out)
+        assert smem <= cc.smem_bytes(which, M, M, Ka, Ks) <= cc.SMEM_LIMIT
+        assert 1 <= threads <= 256 and gx >= 1 and gy >= 1 and gz >= 1
+        if which == "analysis":
+            assert gx * tile >= T_out and gy * aux >= M and gz == B
+        elif which == "synthesis":
+            tiles = B * -(-T_out // tile)
+            phase_groups = threads // (tile // aux * split)
+            assert gx <= tiles and gy * 4 * phase_groups >= M
+            assert tile % aux == 0 and split <= min(M, 16)
+            if split > 1:
+                assert gx == tiles  # one tile a block when the sum is split
+        else:
+            assert gx == min(B * -(-T_out // tile), cc.N_SMS)
+
+
+def test_k2_plan_keeps_big_tiles_for_long_calls():
+    """A 60 s synthesis (K5's shape) needs no band split and takes
+    256-step tiles of 8 phases; a 512-step block splits the sum."""
+    long_call = cc.launch_plan("synthesis", 1, 16, 16, 0, 32, 165375)
+    block = cc.launch_plan("synthesis", 1, 16, 16, 0, 33, BLOCK_SUB)
+    assert long_call[6] == 1 and long_call[4] == 256
+    assert long_call[:2] == (-(-165375 // 256), 2)
+    assert block[6] == 16 and block[4] <= 32
+    # a call with more tiles than fit on the card at once walks them
+    many = cc.launch_plan("synthesis", 64, 16, 16, 0, 32, 165375)
+    assert many[0] < 64 * -(-165375 // 256)

@@ -45,7 +45,7 @@ def _audio(n, seed, batch=1):
 @pytest.fixture(scope="module")
 def pair():
     return (JWrapper(100, 16, BUF, 44100, SHIFTS16),
-            PQMFPitchShiftWrapper(100, 16, BUF, 44100, SHIFTS16))
+            PQMFPitchShiftWrapper(100, 16, BUF, 44100, SHIFTS16, device="cpu"))
 
 
 def _db(ref, got):
@@ -119,13 +119,13 @@ def test_stateful_facade(pair):
 def test_accumulate_phase_rule_matches_jax():
     jw = JWrapper(100, 16, BUF, 44100, SHIFTS16, phase_rule="accumulate")
     tw = PQMFPitchShiftWrapper(100, 16, BUF, 44100, SHIFTS16,
-                               phase_rule="accumulate")
+                               phase_rule="accumulate", device="cpu")
     x = _audio(BUF, 6)
     _, jy = jw.pitchshift_fn(jw.init_state(), x)
     _, ty = tw.pitchshift_fn(tw.init_state(), x)
     assert _db(jy, ty) >= BAR_DB
     with pytest.raises(ValueError, match="phase_rule"):
-        PQMFPitchShiftWrapper(100, 16, BUF, phase_rule="other")
+        PQMFPitchShiftWrapper(100, 16, BUF, phase_rule="other", device="cpu")
 
 
 def test_short_block_refused(pair):
@@ -143,9 +143,10 @@ def test_input_guards(pair):
     with pytest.raises(ValueError, match="max_buffer_size"):
         tw.forward_fn(_audio(32768, 8))
     with pytest.raises(ValueError, match="max_buffer_size"):
-        PQMFPitchShiftWrapper(100, 16, 32768)
+        PQMFPitchShiftWrapper(100, 16, 32768, device="cpu")
     with pytest.raises(ValueError, match="16 shifts"):
-        PQMFPitchShiftWrapper(100, 16, BUF, shifts_in_semitones=[0, 1])
+        PQMFPitchShiftWrapper(100, 16, BUF, shifts_in_semitones=[0, 1],
+                              device="cpu")
 
 
 def test_cpu_slice_counts_no_launches(pair):

@@ -33,7 +33,8 @@ def _close(got, ref, msg=""):
 
 @pytest.fixture(scope="module")
 def pair16():
-    return JStreamingPQMF(100, 16, use_pallas=True), StreamingPQMF(100, 16)
+    return (JStreamingPQMF(100, 16, use_pallas=True),
+            StreamingPQMF(100, 16, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +104,7 @@ def test_analysis_pad_is_stride_unaware(pair16):
 @pytest.mark.parametrize("n_band", [8, 4])
 def test_stereo_folding_matches_jax(n_band):
     jp = JStreamingPQMF(100, n_band, use_pallas=True, n_channels=2)
-    tp = StreamingPQMF(100, n_band, n_channels=2)
+    tp = StreamingPQMF(100, n_band, n_channels=2, device="cpu")
     x = np.random.default_rng(n_band).standard_normal(
         (2, 2, n_band * 64)).astype(np.float32)
     sub = tp.forward(x)
@@ -130,7 +131,7 @@ def test_finetuned_bank_carried_across():
     jp = JStreamingPQMF(100, 16, use_pallas=True)
     jparams = jfb.params_from_hk(hk, h=h)
     jp.set_weights(jparams, *j_kernels(jparams))
-    tp = StreamingPQMF(100, 16)
+    tp = StreamingPQMF(100, 16, device="cpu")
     v0 = tp.weights_version
     tp.set_weights(params_from_jax({k: np.asarray(v)
                                     for k, v in jparams.items()}))
@@ -139,7 +140,7 @@ def test_finetuned_bank_carried_across():
         np.testing.assert_array_equal(tp.params[k].numpy(),
                                       np.asarray(jparams[k]), err_msg=k)
     # the same bank through the port's own NumPy params_from_hk
-    tp2 = StreamingPQMF(100, 16)
+    tp2 = StreamingPQMF(100, 16, device="cpu")
     tp2.set_weights(tfb.params_from_hk(hk, h=h))
     np.testing.assert_array_equal(tp2.hkf.numpy(), tp.hkf.numpy())
     np.testing.assert_array_equal(tp2.hki.numpy(), tp.hki.numpy())
@@ -155,7 +156,7 @@ def test_finetuned_bank_carried_across():
     snr_j = aligned_roundtrip_snr_db(x[0, 0], np.asarray(yj)[0, 0],
                                      jp.centered_delay, edge_trim=513)
     assert abs(snr_t - snr_j) < 0.5
-    designed = StreamingPQMF(100, 16).roundtrip(x)
+    designed = StreamingPQMF(100, 16, device="cpu").roundtrip(x)
     snr_d = aligned_roundtrip_snr_db(x[0, 0], designed.numpy()[0, 0],
                                      16, edge_trim=513)
     assert snr_t > snr_d + 20

@@ -54,7 +54,8 @@ def pair(request):
     M, buf, shifts = CONFIGS[request.param]
     x = _rand(11, 2, 1, buf)
     return (request.param, JTA(100, M, buf, shifts_in_semitones=shifts),
-            PQMFPitchShiftWrapperTA(100, M, buf, shifts_in_semitones=shifts),
+            PQMFPitchShiftWrapperTA(100, M, buf, shifts_in_semitones=shifts,
+                                    device="cpu"),
             x)
 
 
@@ -151,7 +152,7 @@ def test_forward_inverse_match_jax(pair):
 def test_single_band_passes_through():
     """n_band == 1: the 1-band filterbank is a passthrough, so the wrapper
     is the shifter alone at the full rate."""
-    w = PQMFPitchShiftWrapperTA(100, 1, 1024, 44100, [12])
+    w = PQMFPitchShiftWrapperTA(100, 1, 1024, 44100, [12], device="cpu")
     x = _rand(4, 1, 1, 1024)
     want = TorchaudioPitchShift(44100, 12)(x)
     np.testing.assert_allclose(w.pitchshifter(x).numpy(), want.numpy(),
@@ -162,7 +163,7 @@ def test_single_band_passes_through():
 def test_zero_shifts_reconstruct():
     """All-zero shifts: the bands pass through, so pitchshifter is the
     round trip."""
-    w = PQMFPitchShiftWrapperTA(100, 8, 1024, 44100, [0] * 8)
+    w = PQMFPitchShiftWrapperTA(100, 8, 1024, 44100, [0] * 8, device="cpu")
     x = _rand(5, 1, 1024)
     np.testing.assert_allclose(w.pitchshifter(x).numpy(),
                                w.inverse(w.forward(x)).numpy(), atol=1e-6)
@@ -173,7 +174,8 @@ def test_set_weights_respected():
     output, and the fused path still matches the per-band loop."""
     # octave shifts keep the resample ratios (and their plans) small
     w = PQMFPitchShiftWrapperTA(100, 8, 1024, 44100,
-                                [0, 12, -12, 24, -24, 12, -12, 7])
+                                [0, 12, -12, 24, -24, 12, -12, 7],
+                                device="cpu")
     x = _rand(6, 1, 1, 1024)
     y1 = w.pitchshifter(x).numpy()
     pq = w.pqmf
@@ -185,7 +187,7 @@ def test_set_weights_respected():
 
 def test_registry_attributes():
     jw = JTA(100, 4, 2048, 44100)
-    tw = PQMFPitchShiftWrapperTA(100, 4, 2048, 44100)
+    tw = PQMFPitchShiftWrapperTA(100, 4, 2048, 44100, device="cpu")
     assert tw.get_methods() == jw.get_methods() == [
         "forward", "inverse", "pitchshifter"]
     assert tw.get_attributes() == jw.get_attributes()
@@ -194,13 +196,15 @@ def test_registry_attributes():
     assert tw.shifts == [0, 1, 2, 3]
     assert tw.sub_band_sample_rate == jw.sub_band_sample_rate == 11025
     # Python's round is half to even: 2.5 -> 2, -0.5 -> 0, 3.5 -> 4
-    half = PQMFPitchShiftWrapperTA(100, 4, 2048, 44100, [2.5, -0.5, 3.5, 1])
+    half = PQMFPitchShiftWrapperTA(100, 4, 2048, 44100, [2.5, -0.5, 3.5, 1],
+                                   device="cpu")
     assert [s.n_steps for s in half.pitch_shifters] == [2, 0, 4, 1]
     assert tw(np.zeros((1, 2048), np.float32)).shape == (1, 4, 512)
 
 
 def test_buffer_guards():
-    w = PQMFPitchShiftWrapperTA(100, 8, 2048, shifts_in_semitones=[12] * 8)
+    w = PQMFPitchShiftWrapperTA(100, 8, 2048, shifts_in_semitones=[12] * 8,
+                                device="cpu")
     with pytest.raises(ValueError, match="multiple of n_band"):
         w.pitchshifter(_rand(7, 1, 1, 2044))
     with pytest.raises(ValueError, match="max_buffer_size"):
@@ -210,21 +214,23 @@ def test_buffer_guards():
     with pytest.raises(ValueError, match="input must be"):
         w.pitchshifter(np.zeros((1, 2, 2048), np.float32))
     with pytest.raises(ValueError, match="max_buffer_size"):
-        PQMFPitchShiftWrapperTA(100, 8, 16384)
+        PQMFPitchShiftWrapperTA(100, 8, 16384, device="cpu")
     with pytest.raises(ValueError, match="8 shifts"):
-        PQMFPitchShiftWrapperTA(100, 8, 2048, shifts_in_semitones=[1, 2])
+        PQMFPitchShiftWrapperTA(100, 8, 2048, shifts_in_semitones=[1, 2],
+                                device="cpu")
     with pytest.raises(ValueError, match="precision"):
-        PQMFPitchShiftWrapperTA(100, 8, 2048, precision="bf16x3")
+        PQMFPitchShiftWrapperTA(100, 8, 2048, precision="bf16x3", device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PQMFPitchShiftWrapperTA(100, 8, 2048, device="cuda")
     # offline whole-file use lifts the limit explicitly
     big = PQMFPitchShiftWrapperTA(100, 8, 2048, shifts_in_semitones=[12] * 8,
-                                  max_buffer_size=None)
+                                  max_buffer_size=None, device="cpu")
     assert big.pitchshifter(_rand(8, 1, 1, 8 * 600)).shape == (1, 1, 4800)
 
 
 def test_cpu_path_counts_no_launches():
-    w = PQMFPitchShiftWrapperTA(100, 8, 2048, shifts_in_semitones=[-12] * 8)
+    w = PQMFPitchShiftWrapperTA(100, 8, 2048, shifts_in_semitones=[-12] * 8,
+                                device="cpu")
     cc.reset_launches()
     w.pitchshifter(_rand(9, 1, 1, 2048))
     w.inverse(w.forward(_rand(9, 1, 1, 2048)))
