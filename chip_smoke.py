@@ -14,7 +14,8 @@ fails without them; it never falls back to the CPU and imports no JAX.
 2. Holds each kernel — K1 analysis, K2 synthesis, K3 fused round trip, and
    the offline PQMF's polyphase adapters over them, K4/K5/K6 — against its
    plain PyTorch version on the card, at the main paths' shapes and at edge
-   cases (K4-K6 at M = 4, 16, 32, 64 and on the 60 s signal).
+   cases (K1 at its tile boundaries with in-kernel pads, small and large
+   calls; K4-K6 at M = 4, 16, 32, 64 and on the 60 s signal).
 3. Drives the two paths on the card, each with the launch counters zeroed
    just before and read just after:
    - the flagship (``PQMFPitchShiftWrapper``, atten 100, 16 bands,
@@ -46,7 +47,9 @@ fails without them; it never falls back to the CPU and imports no JAX.
 4. Times each kernel against its plain version and, for K1/K2/K4/K5, one
    ``F.conv1d`` of the same product (``library_ms``), beside its bound
    (the larger of its FMAs at the f32 peak and its bytes at the HBM rate);
-   the device time of K1-K3 at the block shapes from ``torch.profiler``;
+   the device time of K1-K3 at the block shapes and of K4 at 60 s from
+   ``torch.profiler``, with the lone ``F.conv1d``'s device time beside K1's
+   and K2's (``device_us`` / ``library_device_us`` in the kernels line);
    the flagship block, the 16-stream step, the 60 s round trips, one
    ``PQMFWrapper.process`` block, the TA block at B = 1 and 16,
    ``stream_ola`` on 10 s and the standalone shifters, with CUDA events and
@@ -212,23 +215,27 @@ def _bound(name: str, x, hkf, hki, hp) -> tuple:
 
 def _device_us(fn, n: int) -> float:
     """Device time per call of ``fn`` (us): the CUDA kernels of ``n`` calls
-    in a torch.profiler trace, after warm-up."""
+    in a torch.profiler trace, after warm-up. A trace that lost its device
+    events is taken again; three lost traces fail the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+        for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0))
-                for e in prof.key_averages()
-                if getattr(e, "device_type", None) == DeviceType.CUDA)
-    return total / n
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA)
+        if total > 0:
+            return total / n
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def main() -> int:
@@ -295,7 +302,13 @@ def main() -> int:
     plan = (ctypes.c_longlong * 8)()
     for which, args in [
             ("analysis", (1, 16, 16, Ka, 0, BLOCK // 16)),
+            ("analysis", (16, 16, 16, Ka, 0, BLOCK // 16)),
             ("analysis", (1, 16, 16, 512, 0, 60 * SR // 16)),
+            ("analysis", (1, 8, 8, 257, 0, 256)),
+            ("analysis", (215, 16, 16, Ka, 0, OLA_BLOCK // 16)),
+            ("analysis", (1, 32, 32, 1024, 0, 4096)),
+            ("analysis", (1, 64, 64, 2048, 0, 2048)),
+            ("analysis", (1, 16, 6, Ka, 0, BLOCK // 16)),
             ("synthesis", (1, 16, 16, 0, Ks, BLOCK // 16)),
             ("synthesis", (16, 16, 16, 0, Ks, BLOCK // 16)),
             ("synthesis", (1, 16, 16, 0, 32, 60 * SR // 16)),
@@ -341,6 +354,20 @@ def main() -> int:
             check("analysis", cc.strided_analysis_conv(x, wa, 16, fuse),
                   cc.analysis_conv_plain(x, wa, 16, fuse), K12_TOL,
                   f"K1 x{tuple(x.shape)} fuse_mask={fuse}")
+    # K1 at its tile boundaries (T_out one short of, at and one past a
+    # multiple of the tile) in a small call (split phase sum) and a large
+    # one (persistent blocks), with its in-kernel pad
+    for B in (1, 3, 16):
+        for t_probe in (BLOCK // 16, 40000):
+            tile = cc.launch_plan("analysis", B, 16, 16, Ka, 0, t_probe,
+                                  n_sms=n_sms)[4]
+            for edge, pad in [(-1, (256, 256)), (0, (7, 3)), (1, (0, 0))]:
+                T_out = (t_probe // tile) * tile + edge
+                x = rand(B, 1, (T_out - 1) * 16 + Ka - sum(pad) + 5)
+                check("analysis",
+                      cc.strided_analysis_conv(x, wa, 16, True, pad),
+                      cc.analysis_conv_plain(x, wa, 16, True, pad), K12_TOL,
+                      f"K1 tile {tile} T_out {T_out} B={B} pad={pad}")
     for B, T in [(1, BLOCK // 16), (16, BLOCK // 16), (3, 37)]:
         for fuse, off in [(True, -16), (True, -15), (True, 3), (True, 0),
                           (False, 0)]:
@@ -800,8 +827,10 @@ def main() -> int:
               f"{bound_ms / times[name][0]:.1%} of it")
 
     # device time of K1-K3 at the block shapes (CUDA events there include
-    # the host launch)
-    dev_us = {}
+    # the host launch), of K4 at 60 s, and of the lone cuDNN conv of K1's
+    # and K2's products beside them: "slower than the library call" is read
+    # device time against device time
+    dev_us, lib_dev_us = {}, {}
     for what, fn, x in [
             ("K1 [1,1,8704]", calls["analysis"][0], rand(1, 1, BLOCK + pad_a)),
             ("K1 [16,1,8704]", calls["analysis"][0],
@@ -809,9 +838,16 @@ def main() -> int:
             ("K2 [1,16,544]", calls["synthesis"][0], rand(1, 16, 544)),
             ("K2 [16,16,544]", calls["synthesis"][0], rand(16, 16, 544)),
             ("K3 [1,1,8704]", calls["roundtrip"][0],
-             rand(1, 1, BLOCK + pad_a))]:
-        dev_us[what] = _device_us(lambda: fn(x), 50)
-        print(f"  device time {what}: {dev_us[what]:.2f} us (profiler)")
+             rand(1, 1, BLOCK + pad_a)),
+            ("K4 60 s [1,1,2646000]", calls["polyphase_analysis"][0],
+             raw60)]:
+        dev_us[what] = _device_us(lambda: fn(x), 10 if "60 s" in what else 50)
+        line = f"  device time {what}: {dev_us[what]:.2f} us"
+        kind = {"K1": "analysis", "K2": "synthesis"}.get(what[:2])
+        if kind:
+            lib_dev_us[what] = _device_us(lambda: library[kind](x), 50)
+            line += f", lone F.conv1d {lib_dev_us[what]:.2f} us"
+        print(line + " (profiler)")
 
     state = {"s": gpu.init_state()}
 
@@ -872,7 +908,8 @@ def main() -> int:
                                    latency_ms(lambda: fn(xd), 5)}
     summary = {
         "card": card,
-        "kernel_device_us_block_shapes": dev_us,
+        "kernel_device_us": dev_us,
+        "library_device_us_block_shapes": lib_dev_us,
         "flagship_block_ms": block_ms,
         "flagship_block_rtf": (BLOCK / SR) / (block_ms / 1e3),
         "flagship_block_latency_ms_median_p90_n": block_lat,
@@ -925,12 +962,17 @@ def main() -> int:
         ("polyphase_roundtrip", "K6 polyphase_roundtrip (over K3)",
          "pqmf_tpu/kernels/polyphase.py:235", off_launches["roundtrip"]),
     ]
+    # device times at the headline block shape (K1, K2) or 60 s (K4)
+    headline_dev = {"analysis": "K1 [1,1,8704]", "synthesis": "K2 [1,16,544]",
+                    "polyphase_analysis": "K4 60 s [1,1,2646000]"}
     kernels = [{"name": name, "route": "cuda",
                 "source": "pqmf_tpu_torch/csrc/cached_conv.cu",
                 "replaces": where, "launches": n, "max_abs_err": errs[k],
                 "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-                "library_ms": library_ms[k]}
+                "library_ms": library_ms[k],
+                "device_us": dev_us.get(headline_dev.get(k)),
+                "library_device_us": lib_dev_us.get(headline_dev.get(k))}
                for k, name, where, n in rows]
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))

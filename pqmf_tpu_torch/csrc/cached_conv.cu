@@ -4,11 +4,13 @@
 // PyTorch versions and a mirror of every launch plan live in
 // pqmf_tpu_torch/kernels/cached_conv.py.
 //
-// Every kernel computes a VALID convolution in f32 of an input the caller has
-// already padded, launches on the stream it is given and allocates nothing.
+// Every kernel computes a VALID convolution in f32, launches on the stream it
+// is given and allocates nothing.  K2 and K3 take an input the caller has
+// already padded; K1 takes a zero pad (pad_left, and zeros past the input)
+// and applies it while it copies its window.
 //
 // K1 analysis   replaces pqmf_tpu/kernels/cached_conv.py:strided_analysis_conv
-//   out[b,c,t] = sum_k w[c,0,k] * x[b,0,t*M+k]   (x -1 where c odd, t even)
+//   out[b,c,t] = sum_k w[c,0,k] * xpad[b,0,t*M+k]  (x -1 where c odd, t even)
 // K2 synthesis  replaces pqmf_tpu/kernels/cached_conv.py:dense_synthesis_conv
 //   out[b,t,c] = M * sum_{m,k} w[M-1-c,m,k] * s(m,t+k) * x[b,m,t+k]
 // K3 roundtrip  replaces pqmf_tpu/kernels/cached_conv.py:fused_roundtrip_conv
@@ -19,14 +21,23 @@
 // 1 kFLOP per input sample for K1 and 1 kFLOP per output sample for K2 against
 // 8 bytes of device memory each: arithmetic, not HBM.  An inner loop that
 // loads one operand from shared memory per FMA is bound by those loads
-// instead, so K2 and K3 share one register tile (slide_fma): each thread
+// instead, so all three share one register tile (slide_fma): each thread
 // keeps NB bands x NT steps of sums, loads NB weights of a tap as one vector
 // and slides a window of the input along the taps, one float4 per 4 taps —
-// 5 loads per 4*NB*NT FMAs.  K1 keeps the first design (kR outputs a thread,
-// one weight load per kR FMAs) and is the next to move onto slide_fma.
+// 5 loads per 4*NB*NT FMAs.
 //
-// K3 reads its input window in polyphase form, xp[r][tau] = x[M*tau + r], so
-// the analysis is slide_fma over each phase r; the sub-band tile stays in
+// K1 and K3 read their input window in polyphase form, xp[r][tau] =
+// x[M*tau + r], so the strided analysis is a dense M -> Mb conv of J =
+// ceil(K/M) taps over the phases r: slide_fma over each phase, with the bank
+// staged phase-major.  That is K2's shape with phases for input bands, so K1
+// takes K2's launch plan: small calls split the phase sum over threads and
+// reduce it in shared memory, large calls run as many blocks as fit on the
+// card at once, each staging its bank chunk once and walking its tiles.  A
+// second window buffer (the next tile's copy in flight) measured ~20%
+// slower at 60 s on an NVIDIA H100 80GB HBM3 at 700 W: it costs two of the
+// six blocks an SM holds (PERF.md).
+//
+// In K3 the sub-band tile stays in
 // shared memory and feeds the synthesis, and only a Ks-1 step halo of it is
 // recomputed per tile (tiles of 512 sub-band steps at M=16: 1.07x).  Its
 // blocks are persistent, one an SM: each stages both banks once, walks time
@@ -43,45 +54,116 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block of K1 and K3
-constexpr int kR = 4;           // K1: outputs one thread keeps in registers
-constexpr int kAnaGroups = 16;  // K1: kAnaGroups * kR = 64 output steps a block
+constexpr int kThreads = 256;   // threads per block of K3
 constexpr int kWeightBytes = 64 * 1024;  // cap on the bank chunk K1/K2 stage
 constexpr size_t kStaticSmem = 48 * 1024;
-constexpr int kNT = 8;          // K3 (and large K2 calls): steps a thread tile
-constexpr int kSynThreads = 128;     // K2: most threads a block
-constexpr int kSynMaxSteps = 256;    // K2: most output steps a block
-constexpr int kSynFill = 128;        // K2: threads an SM should get
+constexpr int kNT = 8;          // K3 (and large K1/K2 calls): steps a thread tile
+constexpr int kSynThreads = 128;     // K1/K2: most threads a block
+constexpr int kSynMaxSteps = 256;    // K1/K2: most output steps a block
+constexpr int kSynFill = 128;        // K1/K2: threads an SM should get
+constexpr int kAnaWindow = 4096;     // K1: input samples a tile's window holds
+constexpr int kAnaGroups = 2;        // K1: most band groups of 4 a block
 constexpr size_t kSmemPerSm = 233472;  // shared memory of one SM
-// K2 splits the band sum only up to 16 bands: a split sum of 1056+ terms
-// (M=32, 64) rounds far enough from the plain conv's order to leave K12_TOL
+// K1/K2 split the band (phase) sum only up to 16: a split sum of 1056+
+// terms (M=32, 64) rounds far enough from the plain conv's order to leave
+// K12_TOL
 constexpr int kSplitMaxBands = 16;
 
-__host__ __device__ inline int odd(int n) { return n | 1; }
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 inline int min_i(int a, int b) { return a < b ? a : b; }
 inline int max_i(int a, int b) { return a > b ? a : b; }
 
-// K1 stages Cb output bands of the bank at a time (all of them when they fit).
-inline int analysis_chunk(int Mb, int K) {
-  return max_i(1, min_i(Mb, kWeightBytes / (4 * odd(K))));
-}
-
-size_t analysis_smem(int M, int Mb, int K) {
-  const int Tt = kAnaGroups * kR;
-  return sizeof(float) *
-         ((size_t)analysis_chunk(Mb, K) * odd(K) + (size_t)(Tt - 1) * M + K);
-}
-
 // A launch: grid, threads, the output steps of one tile, the steps of one
-// thread tile (K2's NT; K3's sub-band steps a tile), the split of K2's band
-// sum, and the dynamic shared memory.  cached_conv.launch_plan mirrors it.
+// thread tile (K1/K2's NT; K3's sub-band steps a tile), the split of K1's
+// phase sum / K2's band sum, and the dynamic shared memory.
+// cached_conv.launch_plan mirrors it.
 struct Plan {
   int gx, gy, gz, threads, tile_steps, aux, split;
   size_t smem;
 };
+
+// The choice K1 and K2 share, for a call of n_groups groups of 4 output
+// channels whose sum runs over split_sum inputs (K1's phases, K2's bands):
+// thread tiles of 4 channels x NT steps.  Split the sum (MS threads a tile,
+// at most 16, for at most kSplitMaxBands inputs) until the card holds
+// kSynFill threads an SM, then halve NT; with a split, grow the blocks (SG
+// thread tiles, at most kSynThreads threads and max_steps steps) while
+// there are still as many blocks as SMs.  Without one SG is the caller's.
+struct Split {
+  int NT, MS, SG;
+};
+
+Split split_choice(int B, int n_groups, int split_sum, int T_out,
+                   int max_steps, int n_sms) {
+  const long long fill = (long long)n_sms * kSynFill;
+  Split c = {kNT, 1, 1};
+  const long long items = (long long)B * cdiv(T_out, c.NT) * n_groups;
+  while (c.MS < 16 && 2 * c.MS <= split_sum && split_sum <= kSplitMaxBands &&
+         items * c.MS < fill)
+    c.MS *= 2;
+  if (items * c.MS < fill) c.NT = 4;
+  if (c.MS > 1)
+    while (2 * c.SG * c.MS <= kSynThreads && 2 * c.SG * c.NT <= max_steps &&
+           (long long)B * cdiv(T_out, 2 * c.SG * c.NT) * n_groups >= n_sms)
+      c.SG *= 2;
+  return c;
+}
+
+// K1: band groups of 4 a block (at most 2: 8 bands), at most kWeightBytes
+// of bank (M*J taps a band).
+inline int analysis_band_groups(int M, int Mb, int J) {
+  return max_i(1, min_i(min_i(cdiv(Mb, 4), kAnaGroups),
+                         kWeightBytes / (16 * M * J)));
+}
+
+// K1: the most output steps a tile, so that a window holds ~kAnaWindow samples
+inline int analysis_max_steps(int M) {
+  return max_i(kNT, min_i(kSynMaxSteps, kAnaWindow / M));
+}
+
+size_t analysis_plan_smem(int M, int J, int CB, int Tt, int red) {
+  return sizeof(float) *
+         ((size_t)M * J * CB + (size_t)M * round4(Tt + J + 4) + red);
+}
+
+// K1's plan: split_choice over its M phases for each group of 4 bands.  A
+// call that needs no split takes tiles of up to 8 bands and runs as many
+// blocks as fit on the card at once, each walking its tiles.
+Plan analysis_plan(int B, int M, int Mb, int K, int T_out, int n_sms) {
+  const int J = cdiv(K, M);
+  const int n_bg = cdiv(Mb, 4);
+  const int max_steps = analysis_max_steps(M);
+  const Split c = split_choice(B, n_bg, M, T_out, max_steps, n_sms);
+  const int NT = c.NT, MS = c.MS;
+  int SG = c.SG, PG = 1;
+  if (MS == 1) {
+    PG = analysis_band_groups(M, Mb, J);
+    SG = max_i(1, min_i(max_steps / NT, kSynThreads / PG));
+  }
+  Plan p;
+  p.threads = SG * PG * MS;
+  p.tile_steps = NT * SG;
+  p.aux = NT;
+  p.split = MS;
+  p.smem = analysis_plan_smem(M, J, 4 * PG, p.tile_steps,
+                              MS > 1 ? p.threads * NT * 4 : 0);
+  const int tiles = B * cdiv(T_out, p.tile_steps);
+  p.gy = cdiv(n_bg, PG);
+  const int per_sm = max_i(1, min_i(2048 / p.threads,
+                                    (int)(kSmemPerSm / (p.smem + 1024))));
+  p.gx = MS == 1 ? min_i(tiles, max_i(1, n_sms * per_sm / p.gy)) : tiles;
+  p.gz = 1;
+  return p;
+}
+
+// The most shared memory any K1 plan of this bank takes (the gate).
+size_t analysis_smem(int M, int Mb, int K) {
+  const int J = cdiv(K, M);
+  return analysis_plan_smem(M, J, 4 * analysis_band_groups(M, Mb, J),
+                            analysis_max_steps(M), kSynThreads * kNT * 4);
+}
 
 // K2: phase groups of 4 a block (at most 2: 8 phases), at most
 // kWeightBytes of bank.
@@ -94,28 +176,16 @@ size_t synthesis_plan_smem(int Mb, int K, int CG, int Tt, int red) {
                           + red);
 }
 
-// K2's plan.  Thread tiles are 4 phases x NT steps.  Split the band sum
-// (MS threads a tile, at most 16) until the card holds kSynFill threads an
-// SM, then halve NT; grow the blocks (at most kSynThreads threads and
-// kSynMaxSteps steps) while there are still as many blocks as SMs.
+// K2's plan: split_choice over its Mb input bands for each group of 4
+// phases.
 Plan synthesis_plan(int B, int M, int Mb, int K, int T_out, int n_sms) {
   const int n_pg = cdiv(M, 4);
-  const long long fill = (long long)n_sms * kSynFill;
-  int NT = kNT, MS = 1;
-  long long items = (long long)B * cdiv(T_out, NT) * n_pg;
-  while (MS < 16 && 2 * MS <= Mb && Mb <= kSplitMaxBands && items * MS < fill)
-    MS *= 2;
-  if (items * MS < fill) NT = 4;
-  int SG, PG;
+  const Split c = split_choice(B, n_pg, Mb, T_out, kSynMaxSteps, n_sms);
+  const int NT = c.NT, MS = c.MS;
+  int SG = c.SG, PG = 1;
   if (MS == 1) {  // a large call: blocks of 4*PG phases
     PG = synthesis_phase_groups(M, Mb, K);
     SG = max_i(1, min_i(kSynMaxSteps / NT, kSynThreads / PG));
-  } else {
-    PG = 1;
-    SG = 1;
-    while (2 * SG * MS <= kSynThreads && 2 * SG * NT <= kSynMaxSteps &&
-           (long long)B * cdiv(T_out, 2 * SG * NT) * n_pg >= n_sms)
-      SG *= 2;
   }
   Plan p;
   p.threads = SG * PG * MS;
@@ -182,81 +252,8 @@ Plan roundtrip_plan(int B, int M, int Ka, int Ks, int T_out, int n_sms) {
   return p;
 }
 
-Plan analysis_plan(int B, int M, int Mb, int K, int T_out) {
-  const int Cb = analysis_chunk(Mb, K);
-  Plan p;
-  p.gx = cdiv(T_out, kAnaGroups * kR);
-  p.gy = cdiv(Mb, Cb);
-  p.gz = B;
-  p.threads = kThreads;
-  p.tile_steps = kAnaGroups * kR;
-  p.aux = Cb;
-  p.split = 1;
-  p.smem = analysis_smem(M, Mb, K);
-  return p;
-}
-
 // ---------------------------------------------------------------------------
-// K1: strided analysis.  Block (time tile, band chunk, batch row).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-analysis_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                float* __restrict__ out, int Tpad, int M, int Mb, int K,
-                int T_out, int Cb, int fuse_mask) {
-  extern __shared__ float smem[];
-  const int Tt = kAnaGroups * kR;
-  const int Kw = odd(K);
-  float* w_s = smem;             // [Cb][Kw]
-  float* x_s = smem + Cb * Kw;   // [(Tt - 1) * M + K]
-  const int t0 = blockIdx.x * Tt;
-  const int c0 = blockIdx.y * Cb;
-  const int b = blockIdx.z;
-  const int cb = min(Cb, Mb - c0);
-
-  for (int i = threadIdx.x; i < cb * K; i += blockDim.x) {
-    const int c = i / K;
-    const int k = i - c * K;
-    w_s[c * Kw + k] = w[(long long)(c0 + c) * K + k];
-  }
-  // outputs past T_out read zeros here and are never stored
-  const float* xb = x + (long long)b * Tpad;
-  const long long start = (long long)t0 * M;
-  const int win = (Tt - 1) * M + K;
-  for (int i = threadIdx.x; i < win; i += blockDim.x) {
-    const long long p = start + i;
-    x_s[i] = p < Tpad ? xb[p] : 0.0f;
-  }
-  __syncthreads();
-
-  for (int item = threadIdx.x; item < cb * kAnaGroups; item += blockDim.x) {
-    const int c = item % cb;
-    const int g = item / cb;  // this thread's steps: g + j * kAnaGroups
-    const float* wr = w_s + c * Kw;
-    const float* xr = x_s + g * M;
-    float acc[kR];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) acc[j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float wk = wr[k];
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-        acc[j] = fmaf(wk, xr[j * kAnaGroups * M + k], acc[j]);
-    }
-    const int cg = c0 + c;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int t = t0 + g + j * kAnaGroups;
-      if (t < T_out) {
-        // reverse_half on the output: -1 where the band is odd, t even
-        const bool flip = fuse_mask && (cg & 1) && !(t & 1);
-        out[((long long)b * Mb + cg) * T_out + t] = flip ? -acc[j] : acc[j];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The register tile K2 and K3 share.
+// The register tile K1, K2 and K3 share.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ bool aligned16(const void* p) {
   return ((unsigned long long)p & 15) == 0;
@@ -361,6 +358,141 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// q = e / M and r = e % M, by a shift and a mask where M = 2^lg (lg >= 0):
+// K1's staging splits every copied index so, and a division costs ~20 ops
+__device__ __forceinline__ void div_mod(int e, int M, int lg, int& q,
+                                        int& r) {
+  if (lg >= 0) {
+    q = e >> lg;
+    r = e & (M - 1);
+  } else {
+    q = e / M;
+    r = e - q * M;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1: strided analysis over the polyphase window.  Block (tiles, band
+// chunk): it stages its chunk of the bank once and walks the tiles (batch
+// row, time tile) with a stride of the grid; thread (tile u = (step group,
+// band group), phase split ms).
+// ---------------------------------------------------------------------------
+template <int NT>
+__global__ void __launch_bounds__(kSynThreads)
+analysis_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                float* __restrict__ out, int B, int Tx, int M, int Mb, int K,
+                int T_out, int pad_left, int SG, int PG, int MS,
+                int fuse_mask, int lgM) {
+  extern __shared__ float4 ana_smem[];
+  float* smem = reinterpret_cast<float*>(ana_smem);
+  const int CB = 4 * PG;
+  const int U = SG * PG;
+  const int Tt = NT * SG;
+  const int J = cdiv(K, M);
+  const int XR = round4(Tt + J + 4);     // one phase of the window
+  float* w_s = smem;                     // [M][J][CB] = w[c0+c][j*M + r]
+  float* xp_s = w_s + M * J * CB;        // [M][XR] = xpad[M*(t0+tau) + r]
+  float* red_s = xp_s + M * XR;          // [MS][CB][Tt] partial sums
+  const int c0 = blockIdx.y * CB;
+  const int tid = threadIdx.x;
+  const int tiles_x = cdiv(T_out, Tt);
+  const int n_tiles = B * tiles_x;
+  const int u = tid % U;
+  const int ms = tid / U;
+  const int pg = u % PG;
+  const int sg = u / PG;
+
+  // the bank chunk, phase-major: w_s[(r*J + j)*CB + c] = w[c0+c][j*M + r],
+  // zero past the last band (those sums are not stored); taps past K are
+  // never multiplied and not written
+  for (int c = 0; c < CB; ++c) {
+    const bool band = c0 + c < Mb;
+    const float* src = w + (long long)(band ? c0 + c : 0) * K;
+    for (int k = tid; k < K; k += blockDim.x) {
+      int j, r;
+      div_mod(k, M, lgM, j, r);
+      cp_async4(w_s + (r * J + j) * CB + c, band ? src + k : w,
+                band ? 4 : 0);
+    }
+  }
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = tile / tiles_x;
+    const int t0 = (tile % tiles_x) * Tt;
+    if (tile != blockIdx.x) __syncthreads();  // the last tile is done
+    // the window in polyphase form; the zero pad (pad_left, and past the
+    // input) is the copies' zero-fill.  Steps past Tt + J - 2 of a phase
+    // row are read into slide_fma's registers but never multiplied, so
+    // they are not copied
+    const long long p0 = (long long)t0 * M - pad_left;
+    const float* xb = x + (long long)b * Tx;
+    for (int e = tid; e < M * (Tt + J - 1); e += blockDim.x) {
+      const long long p = p0 + e;
+      const bool in = p >= 0 && p < Tx;
+      int tau, r;
+      div_mod(e, M, lgM, tau, r);
+      cp_async4(xp_s + r * XR + tau, in ? xb + p : xb, in ? 4 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float acc[4][NT];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < NT; ++i) acc[c][i] = 0.0f;
+    for (int r = ms; r < M; r += MS)
+      slide_fma<4, NT>(acc, w_s + r * J * CB + pg * 4, CB,
+                       xp_s + r * XR + sg * NT, (K - r + M - 1) / M);
+
+    if (MS == 1) {
+      // reverse_half on the output: -1 where the band is odd and the global
+      // step t even (t0 and ts are even, so t is even where i is)
+      const int ts = t0 + sg * NT;
+      const bool vec = (T_out & 3) == 0 && ts + NT <= T_out;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int c = c0 + pg * 4 + cc;
+        if (c < Mb) {
+          const float s = fuse_mask && (c & 1) ? -1.0f : 1.0f;
+          float* o = out + ((long long)b * Mb + c) * T_out + ts;
+          if (vec) {
+#pragma unroll
+            for (int i = 0; i < NT; i += 4)
+              *reinterpret_cast<float4*>(o + i) =
+                  make_float4(s * acc[cc][i], acc[cc][i + 1],
+                              s * acc[cc][i + 2], acc[cc][i + 3]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < NT; ++i)
+              if (ts + i < T_out) o[i] = (i & 1) ? acc[cc][i] : s * acc[cc][i];
+          }
+        }
+      }
+      continue;
+    }
+    float* rp = red_s + (ms * CB + pg * 4) * Tt + sg * NT;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+      for (int i = 0; i < NT; i += 4)
+        *reinterpret_cast<float4*>(rp + cc * Tt + i) = make_float4(
+            acc[cc][i], acc[cc][i + 1], acc[cc][i + 2], acc[cc][i + 3]);
+    __syncthreads();
+    const int n_out = CB * Tt;
+    for (int o = tid; o < n_out; o += blockDim.x) {
+      float sum = 0.0f;
+      for (int j = 0; j < MS; ++j) sum += red_s[j * n_out + o];
+      const int c = c0 + o / Tt;
+      const int t = t0 + o % Tt;
+      if (t < T_out && c < Mb)
+        out[((long long)b * Mb + c) * T_out + t] =
+            fuse_mask && (c & 1) && !(t & 1) ? -sum : sum;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -636,6 +768,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// log2(n) where n is a power of two, else -1
+int log2_exact(int n) {
+  int lg = 0;
+  while ((1 << lg) < n) ++lg;
+  return (1 << lg) == n ? lg : -1;
+}
+
 cudaError_t sm_count(int* n) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -674,13 +813,13 @@ size_t pqmf_smem_bytes(int which, int M, int Mb, int Ka, int Ks) {
 
 // The launch plan of kernel `which` for a call with T_out output steps on a
 // card of n_sms SMs: plan[0..7] = grid x, y, z, threads, output steps a
-// tile, K2's NT / K3's sub-band steps a tile / K1's band chunk, K2's band
-// split, dynamic shared memory.  Returns 0, or -1 for an unknown kernel.
+// tile, K1/K2's NT / K3's sub-band steps a tile, K1's phase split / K2's
+// band split, dynamic shared memory.  Returns 0, or -1 for an unknown kernel.
 int pqmf_launch_plan(int which, int B, int M, int Mb, int Ka, int Ks,
                      int T_out, int n_sms, long long* plan) {
   Plan p;
   switch (which) {
-    case 1: p = analysis_plan(B, M, Mb, Ka, T_out); break;
+    case 1: p = analysis_plan(B, M, Mb, Ka, T_out, n_sms); break;
     case 2: p = synthesis_plan(B, M, Mb, Ks, T_out, n_sms); break;
     case 3: p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms); break;
     default: return -1;
@@ -695,15 +834,24 @@ const char* pqmf_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// x: [B, 1, Tx], zero-padded by pad_left on the left and by zeros past Tx
+// on the right; T_out output steps.
 int pqmf_analysis_conv(const float* x, const float* w, float* out, int B,
-                       int Tpad, int M, int Mb, int K, int T_out,
+                       int Tx, int M, int Mb, int K, int T_out, int pad_left,
                        int fuse_mask, void* stream) {
-  const Plan p = analysis_plan(B, M, Mb, K, T_out);
-  cudaError_t err = allow_smem(analysis_kernel, p.smem);
+  int n_sms = 0;
+  cudaError_t err = sm_count(&n_sms);
   if (err != cudaSuccess) return (int)err;
+  const Plan p = analysis_plan(B, M, Mb, K, T_out, n_sms);
+  const int SG = p.tile_steps / p.aux;
+  const int PG = p.threads / (SG * p.split);
   const dim3 grid(p.gx, p.gy, p.gz);
-  analysis_kernel<<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
-      x, w, out, Tpad, M, Mb, K, T_out, p.aux, fuse_mask);
+  auto kernel = p.aux == kNT ? analysis_kernel<kNT> : analysis_kernel<4>;
+  err = allow_smem(kernel, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
+      x, w, out, B, Tx, M, Mb, K, T_out, pad_left, SG, PG, p.split,
+      fuse_mask, log2_exact(M));
   return (int)cudaGetLastError();
 }
 

@@ -80,7 +80,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare every C signature; pointers and the stream as c_void_p, or
     ctypes would pass them as 32-bit ints and cut them."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pqmf_analysis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.pqmf_analysis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pqmf_synthesis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pqmf_roundtrip_conv.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                         p]

@@ -10,8 +10,9 @@ in ``pqmf_tpu_torch/csrc/cached_conv.cu`` (built and bound by ``_build``):
 - K3 :func:`fused_roundtrip_conv` replaces
   ``pqmf_tpu/kernels/cached_conv.py:fused_roundtrip_conv``.
 
-All three compute VALID convolutions in f32 of inputs the caller has already
-padded, so offline (centered), causal and streaming modes share them. What
+All three compute VALID convolutions in f32, so offline (centered), causal
+and streaming modes share them; K2 and K3 take inputs the caller has already
+padded, K1 takes its zero pad as an argument and applies it in-kernel. What
 bounds each kernel on the H100 and what its design does about it is written
 at the top of the CUDA source: they are f32 FMA on the CUDA cores, bound by
 arithmetic and shared-memory bandwidth, and reuse a staged input window and
@@ -62,21 +63,17 @@ def reset_launches() -> None:
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 N_SMS = 132          # SMs of an H100 SXM; the C side asks the card
-_THREADS = 256               # kThreads: K1 and K3
-_R = 4                       # kR
-_ANA_TT = 16 * _R            # kAnaGroups * kR
+_THREADS = 256               # kThreads: K3
 _WEIGHT_BYTES = 64 * 1024    # kWeightBytes
 _NT = 8                      # kNT
 _SYN_THREADS = 128           # kSynThreads
 _SYN_MAX_STEPS = 256         # kSynMaxSteps
 _SYN_FILL = 128              # kSynFill
+_ANA_WINDOW = 4096           # kAnaWindow
+_ANA_GROUPS = 2              # kAnaGroups
 _SMEM_PER_SM = 233472        # kSmemPerSm
 _SPLIT_MAX_BANDS = 16        # kSplitMaxBands
 _RT_BANDS = (2, 4, 8, 16)    # K3's compiled band counts
-
-
-def _odd(n: int) -> int:
-    return n | 1
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -87,8 +84,38 @@ def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _analysis_chunk(Mb: int, K: int) -> int:
-    return max(1, min(Mb, _WEIGHT_BYTES // (4 * _odd(K))))
+def _analysis_band_groups(M: int, Mb: int, J: int) -> int:
+    return max(1, min(_cdiv(Mb, 4), _ANA_GROUPS,
+                      _WEIGHT_BYTES // (16 * M * J)))
+
+
+def _analysis_max_steps(M: int) -> int:
+    return max(_NT, min(_SYN_MAX_STEPS, _ANA_WINDOW // M))
+
+
+def _analysis_plan_smem(M: int, J: int, CB: int, Tt: int, red: int) -> int:
+    return 4 * (M * J * CB + M * _round4(Tt + J + 4) + red)
+
+
+def _split_plan(B: int, M: int, n_groups: int, split_sum: int, T_out: int,
+                max_steps: int, n_sms: int) -> tuple:
+    """The choice K1 and K2 share: (NT, MS, SG) for a call of ``n_groups``
+    groups of 4 output channels whose sum runs over ``split_sum`` input
+    channels (K1's phases, K2's bands). MS == 1 leaves SG to the caller."""
+    fill = n_sms * _SYN_FILL
+    nt, ms = _NT, 1
+    items = B * _cdiv(T_out, nt) * n_groups
+    while (ms < 16 and 2 * ms <= split_sum
+           and split_sum <= _SPLIT_MAX_BANDS and items * ms < fill):
+        ms *= 2
+    if items * ms < fill:
+        nt = 4
+    sg = 1
+    if ms > 1:
+        while (2 * sg * ms <= _SYN_THREADS and 2 * sg * nt <= max_steps
+               and B * _cdiv(T_out, 2 * sg * nt) * n_groups >= n_sms):
+            sg *= 2
+    return nt, ms, sg
 
 
 def _synthesis_phase_groups(M: int, Mb: int, K: int) -> int:
@@ -119,8 +146,10 @@ def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int) -> int:
     launch plans; Ka/Ks are the analysis/synthesis kernel lengths (the
     other one is ignored)."""
     if which == "analysis":
-        return 4 * (_analysis_chunk(Mb, Ka) * _odd(Ka) + (_ANA_TT - 1) * M
-                    + Ka)
+        J = _cdiv(Ka, M)
+        return _analysis_plan_smem(M, J, 4 * _analysis_band_groups(M, Mb, J),
+                                   _analysis_max_steps(M),
+                                   _SYN_THREADS * _NT * 4)
     if which == "synthesis":
         return _synthesis_plan_smem(
             Mb, Ks, 4 * _synthesis_phase_groups(M, Mb, Ks), _SYN_MAX_STEPS,
@@ -134,8 +163,9 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
                 T_out: int, n_sms: int = N_SMS) -> tuple:
     """The launch of kernel ``which`` for a call of ``T_out`` output steps
     on a card of ``n_sms`` SMs, as the CUDA source plans it: (grid x, y, z,
-    threads, output steps a tile, K2's steps a thread tile / K3's sub-band
-    steps a tile / K1's band chunk, K2's band split, shared memory bytes).
+    threads, output steps a tile, K1/K2's steps a thread tile / K3's
+    sub-band steps a tile, K1's phase split / K2's band split, shared
+    memory bytes).
 
     K2 takes thread tiles of 4 phases x NT steps. It splits the band sum
     over up to 16 threads (for banks of at most 16 bands: a longer split
@@ -143,31 +173,36 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     128 threads an SM, then halves NT, and grows its blocks (<= 128
     threads, <= 256 steps) while there are still as many blocks as SMs. A
     call that needs no split takes tiles of up to 8 phases and runs as
-    many blocks as fit on the card at once, each walking its tiles. K3
-    runs one persistent block an SM over tiles of n_sub sub-band steps."""
+    many blocks as fit on the card at once, each walking its tiles. K1 is
+    K2's plan with its M phases (J = ceil(K/M) taps each) for K2's input
+    bands and its bands for K2's phases; its tiles hold at most 4096/M
+    steps. K3 runs one
+    persistent block an SM over tiles of n_sub sub-band steps."""
     if which == "analysis":
-        cb = _analysis_chunk(Mb, Ka)
-        return (_cdiv(T_out, _ANA_TT), _cdiv(Mb, cb), B, _THREADS, _ANA_TT,
-                cb, 1, smem_bytes("analysis", M, Mb, Ka, Ks))
+        J = _cdiv(Ka, M)
+        n_bg = _cdiv(Mb, 4)
+        max_steps = _analysis_max_steps(M)
+        nt, ms, sg = _split_plan(B, M, n_bg, M, T_out, max_steps, n_sms)
+        pg = 1
+        if ms == 1:
+            pg = _analysis_band_groups(M, Mb, J)
+            sg = max(1, min(max_steps // nt, _SYN_THREADS // pg))
+        threads = sg * pg * ms
+        smem = _analysis_plan_smem(M, J, 4 * pg, nt * sg,
+                                   threads * nt * 4 if ms > 1 else 0)
+        tiles = B * _cdiv(T_out, nt * sg)
+        gy = _cdiv(n_bg, pg)
+        per_sm = max(1, min(2048 // threads, _SMEM_PER_SM // (smem + 1024)))
+        gx = min(tiles, max(1, n_sms * per_sm // gy)) if ms == 1 else tiles
+        return (gx, gy, 1, threads, nt * sg, nt, ms, smem)
     if which == "synthesis":
         n_pg = _cdiv(M, 4)
-        fill = n_sms * _SYN_FILL
-        nt, ms = _NT, 1
-        items = B * _cdiv(T_out, nt) * n_pg
-        while (ms < 16 and 2 * ms <= Mb and Mb <= _SPLIT_MAX_BANDS
-               and items * ms < fill):
-            ms *= 2
-        if items * ms < fill:
-            nt = 4
+        nt, ms, sg = _split_plan(B, M, n_pg, Mb, T_out, _SYN_MAX_STEPS,
+                                 n_sms)
+        pg = 1
         if ms == 1:
             pg = _synthesis_phase_groups(M, Mb, Ks)
             sg = max(1, min(_SYN_MAX_STEPS // nt, _SYN_THREADS // pg))
-        else:
-            pg, sg = 1, 1
-            while (2 * sg * ms <= _SYN_THREADS
-                   and 2 * sg * nt <= _SYN_MAX_STEPS
-                   and B * _cdiv(T_out, 2 * sg * nt) * n_pg >= n_sms):
-                sg *= 2
         threads = sg * pg * ms
         smem = _synthesis_plan_smem(Mb, Ks, 4 * pg, nt * sg,
                                     threads * nt * 4 if ms > 1 else 0)
@@ -212,9 +247,11 @@ def fused_roundtrip_supported(M: int, analysis_taps: int,
 # ---------------------------------------------------------------------------
 
 
-def analysis_conv_plain(x, w, M: int, fuse_mask: bool = True):
-    """Plain K1: ``reverse_half(conv1d(x, w, stride=M))`` -> [B, Mb, T_out]."""
-    y = fb._conv1d(x, w, stride=M)
+def analysis_conv_plain(x, w, M: int, fuse_mask: bool = True,
+                        pad=(0, 0)):
+    """Plain K1: ``reverse_half(conv1d(pad(x, pad), w, stride=M))`` ->
+    [B, Mb, T_out]."""
+    y = fb._conv1d(x, w, stride=M, padding=tuple(int(p) for p in pad))
     return fb.reverse_half(y) if fuse_mask else y
 
 
@@ -271,34 +308,41 @@ def _launch(fn, *args):
             f"{fn} failed: {lib.pqmf_error_string(err).decode()} ({err})")
 
 
-def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True):
-    """K1 — valid stride-M conv of a pre-padded mono signal plus the fused
-    ``reverse_half`` on the output.
+def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
+                          pad=(0, 0)):
+    """K1 — valid stride-M conv of a mono signal zero-padded by ``pad`` =
+    (left, right) samples, plus the fused ``reverse_half`` on the output.
+    The kernel applies the pad while it copies its input window, so the
+    padded signal is never written.
 
-    x: [B, 1, Tpad]; w: [Mb, 1, K]. Returns [B, Mb, T_out] with
-    ``T_out = (Tpad - K) // M + 1``."""
+    x: [B, 1, T]; w: [Mb, 1, K]. Returns [B, Mb, T_out] with
+    ``T_out = (left + T + right - K) // M + 1``."""
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w", w, 3, dev)
-    B, C, Tpad = x.shape
+    B, C, T = x.shape
     Mb, Cw, K = w.shape
     if C != 1 or Cw != 1:
         raise ValueError(f"analysis is mono: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
     if fuse_mask and Mb % 2:
         raise ValueError("band shards must be even-sized (sign-mask parity)")
-    T_out = (Tpad - K) // M + 1
+    pad_l, pad_r = (int(p) for p in pad)
+    if pad_l < 0 or pad_r < 0:
+        raise ValueError(f"pad must be non-negative, got {pad}")
+    T_out = (pad_l + T + pad_r - K) // M + 1
     if B < 1 or T_out < 1:
-        raise ValueError(f"empty analysis output: B={B}, Tpad={Tpad}, K={K}")
+        raise ValueError(f"empty analysis output: B={B}, T={T}, pad={pad}, "
+                         f"K={K}")
     if dev.type == "cpu":
-        return analysis_conv_plain(x, w, M, fuse_mask)
+        return analysis_conv_plain(x, w, M, fuse_mask, (pad_l, pad_r))
     if smem_bytes("analysis", M, Mb, K, 0) > SMEM_LIMIT:
         raise ValueError(f"analysis kernel length {K} exceeds the kernel's "
                          "shared memory; gate with supports()")
     out = torch.empty((B, Mb, T_out), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("pqmf_analysis_conv", x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), B, Tpad, M, Mb, K, T_out, int(fuse_mask))
+                out.data_ptr(), B, T, M, Mb, K, T_out, pad_l, int(fuse_mask))
     LAUNCHES["analysis"] += 1
     return out
 

@@ -110,17 +110,18 @@ def polyphase_roundtrip_plain(x, hk_poly, hk_ipoly):
 # ---------------------------------------------------------------------------
 
 
-def _analysis_input(x, M: int, L: int):
+def _analysis_pad(M: int, L: int) -> tuple:
     """The centered polyphase pad as input padding: window t starts at
     (t - L//2)*M, and the last window ends at T + (L - L//2 - 1)*M."""
-    return F.pad(x, ((L // 2) * M, (L - L // 2 - 1) * M))
+    return (L // 2) * M, (L - L // 2 - 1) * M
 
 
 def analysis_over_k1(x, w2, M: int):
-    """K4's route: K1 over the padded input. x [B, 1, T]; w2 [Mb, 1, L*M]
-    (:func:`analysis_weights`). Returns [B, Mb, T/M]."""
+    """K4's route: K1 with the centered pad, which K1 applies while it
+    copies its window (the padded signal is never written). x [B, 1, T];
+    w2 [Mb, 1, L*M] (:func:`analysis_weights`). Returns [B, Mb, T/M]."""
     L = w2.shape[-1] // M
-    return cc.strided_analysis_conv(_analysis_input(x, M, L), w2, M)
+    return cc.strided_analysis_conv(x, w2, M, pad=_analysis_pad(M, L))
 
 
 def synthesis_over_k2(x, hk_ipoly):
@@ -144,8 +145,8 @@ def roundtrip_over_k3(x, w2, hk_ipoly, M: int):
     B, _, T = x.shape
     L = w2.shape[-1] // M
     Ls = hk_ipoly.shape[-1]
-    out = cc.fused_roundtrip_conv(_analysis_input(x, M, L), w2, hk_ipoly,
-                                  M, (Ls // 2, Ls - Ls // 2))
+    out = cc.fused_roundtrip_conv(F.pad(x, _analysis_pad(M, L)), w2,
+                                  hk_ipoly, M, (Ls // 2, Ls - Ls // 2))
     return out[:, 1:, :].reshape(B, 1, T)
 
 

@@ -132,17 +132,17 @@ def offline_conv(x, w, stride: int = 1, causal: bool = False):
 
 def _cached_analysis(x, hkf, state, mode="offline"):
     """CachedPQMF.forward (pqmf.py:339-343): strided 1->M conv and sign
-    mask, as K1 over the mode's padded input. Returns (state', y)."""
+    mask, as K1 over the mode's padded input (K1 applies the offline and
+    causal zero pads itself). Returns (state', y)."""
     M, _, K = hkf.shape
     if mode == "offline":
-        xx = F.pad(x, centered_padding(K))
-        new_state = state
-    elif mode == "causal":
-        xx = F.pad(x, (K - M, 0))
-        new_state = state
-    else:  # streaming
-        xx = torch.cat([state, x], dim=-1)
-        new_state = xx[..., xx.shape[-1] - (K - M):]
+        return state, cc.strided_analysis_conv(x.contiguous(), hkf, M,
+                                               pad=centered_padding(K))
+    if mode == "causal":
+        return state, cc.strided_analysis_conv(x.contiguous(), hkf, M,
+                                               pad=(K - M, 0))
+    xx = torch.cat([state, x], dim=-1)  # streaming
+    new_state = xx[..., xx.shape[-1] - (K - M):]
     return new_state, cc.strided_analysis_conv(xx, hkf, M)
 
 

@@ -95,6 +95,16 @@ def test_smem_gate_mirrors_the_source(dev):
                 assert tuple(plan) == cc.launch_plan(
                     which, B, M, M, Ka, Ks, T_out, n_sms=n_sms), \
                     (which, M, B, T_out)
+        # K1 over even band shards
+        for Mb in {max(2, M // 2), min(6, M)}:
+            assert lib.pqmf_smem_bytes(1, M, Mb, Ka, Ks) == \
+                cc.smem_bytes("analysis", M, Mb, Ka, Ks), (M, Mb)
+            for B, T_out in [(1, 512), (16, 512), (1, 165376)]:
+                assert lib.pqmf_launch_plan(1, B, M, Mb, Ka, Ks, T_out,
+                                            n_sms, plan) == 0
+                assert tuple(plan) == cc.launch_plan(
+                    "analysis", B, M, Mb, Ka, Ks, T_out, n_sms=n_sms), \
+                    (M, Mb, B, T_out)
 
 
 def _tile(which, B, Ka, Ks, T_out):
@@ -119,6 +129,54 @@ def test_k2_tile_boundaries(dev, B, edge):
                 cc.dense_synthesis_conv(x, hki, True, off),
                 cc.synthesis_conv_plain(x, hki, True, off), **TOL)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("K,pad", [(513, (256, 256)), (512, (256, 240)),
+                                   (513, (0, 0)), (513, (7, 3))])
+def test_k1_tile_boundaries(dev, B, edge, K, pad):
+    """K1 against its plain version at T_out one short of, at and one past
+    a multiple of its tile, for a small call (split phase sum) and a large
+    one (persistent blocks), with the streaming bank (K = 513) and the
+    offline polyphase bank (K = 512) and in-kernel pads."""
+    if K == 513:
+        w = _bank(16, dev)[0]
+    else:
+        hp = torch.tensor(fb.build_filterbank(100, 16)["hk_poly"])
+        w = pk.analysis_weights(hp).to(dev)
+    for t_probe in (512, 40000):
+        tile = _tile("analysis", B, K, 0, t_probe)
+        T_out = (t_probe // tile) * tile + edge
+        g = torch.Generator().manual_seed(B * 10 + edge + 1 + t_probe)
+        T = (T_out - 1) * 16 + K - pad[0] - pad[1] + 5
+        x = torch.randn(B, 1, T, generator=g).to(dev)
+        for fuse in (True, False):
+            got = cc.strided_analysis_conv(x, w, 16, fuse, pad=pad)
+            assert got.shape == (B, 16, T_out)
+            torch.testing.assert_close(
+                got, cc.analysis_conv_plain(x, w, 16, fuse, pad), **TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("M,Mb,B,T_out", [(16, 16, 1, 512), (16, 16, 16, 512),
+                                          (16, 16, 2, 40001), (16, 6, 3, 77),
+                                          (64, 64, 1, 300), (8, 8, 1, 256)])
+def test_k1_writes_every_output(dev, M, Mb, B, T_out):
+    """K1 stores every output of its plan: the output's memory holds NaN
+    before the call (the caching allocator hands the freed block back), and
+    the result is finite and equals the plain version."""
+    w = torch.randn(Mb, 1, 32 * M + 1, generator=torch.Generator().manual_seed(
+        M + Mb)).to(dev) / (32 * M) ** 0.5
+    K = w.shape[-1]
+    x = torch.randn(B, 1, (T_out - 1) * M + K - 2 * M, device=dev)
+    for _ in range(3):
+        junk = torch.full((B, Mb, T_out), float("nan"), device=dev)
+        del junk
+        got = cc.strided_analysis_conv(x, w, M, True, pad=(M, M))
+        assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, cc.analysis_conv_plain(x, w, M, True, (M, M)), **TOL)
 
 
 @pytest.mark.parametrize("B", [1, 3, 215])

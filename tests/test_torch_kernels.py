@@ -215,15 +215,17 @@ def test_plans_fit_and_cover(M, B, T_out):
             which, B, M, M, Ka, Ks, T_out)
         assert smem <= cc.smem_bytes(which, M, M, Ka, Ks) <= cc.SMEM_LIMIT
         assert 1 <= threads <= 256 and gx >= 1 and gy >= 1 and gz >= 1
-        if which == "analysis":
-            assert gx * tile >= T_out and gy * aux >= M and gz == B
-        elif which == "synthesis":
+        if which in ("analysis", "synthesis"):
+            # K1's band groups and K2's phase groups: 4 channels each
             tiles = B * -(-T_out // tile)
-            phase_groups = threads // (tile // aux * split)
-            assert gx <= tiles and gy * 4 * phase_groups >= M
+            groups = threads // (tile // aux * split)
+            assert gx <= tiles and gy * 4 * groups >= M and gz == 1
+            assert (gy - 1) * 4 * groups < M  # no block without a channel
             assert tile % aux == 0 and split <= min(M, 16)
             if split > 1:
                 assert gx == tiles  # one tile a block when the sum is split
+            if which == "analysis":
+                assert tile <= max(8, 4096 // M)  # the window's size
         else:
             assert gx == min(B * -(-T_out // tile), cc.N_SMS)
 
@@ -239,3 +241,166 @@ def test_k2_plan_keeps_big_tiles_for_long_calls():
     # a call with more tiles than fit on the card at once walks them
     many = cc.launch_plan("synthesis", 64, 16, 16, 0, 32, 165375)
     assert many[0] < 64 * -(-165375 // 256)
+
+
+# ---------------------------------------------------------------------------
+# K1: its launch plan and a NumPy model of its tiling
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_k1_plan_fills_the_card_at_block_shapes(B):
+    """K1 at the flagship's block [B, 1, 8192 + 512] launches at least one
+    block per SM of an H100 (its first design ran 8)."""
+    gx, gy, gz, threads, *_ = cc.launch_plan("analysis", B, 16, 16, 513, 0,
+                                             BLOCK_SUB)
+    assert gx * gy * gz >= cc.N_SMS
+    assert 1 <= threads <= 128
+
+
+def test_k1_plan_is_persistent_at_60s():
+    """K4's 60 s call (K1 at [1, 1, 2646000], K = 512, pad (256, 240))
+    splits no sum and runs no more blocks than fit on the card at once,
+    each staging its 8-band bank chunk once and walking 256-step tiles."""
+    T_out = 60 * 44100 // 16
+    gx, gy, gz, threads, tile, nt, split, smem = cc.launch_plan(
+        "analysis", 1, 16, 16, 512, 0, T_out)
+    assert split == 1 and tile == 256 and nt == 8
+    tiles = -(-T_out // tile)
+    assert gx < tiles  # persistent: blocks walk tiles
+    per_sm = min(2048 // threads, cc._SMEM_PER_SM // (smem + 1024))
+    assert gx * gy <= cc.N_SMS * per_sm
+    J = 512 // 16
+    window = 16 * ((tile + J + 4 + 3) & ~3) * 4
+    assert smem == 4 * 16 * J * 8 + window  # bank chunk + one window
+
+
+@pytest.mark.parametrize("M", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("shard", [1, 2])
+@pytest.mark.parametrize("K_kind", ["streaming", "polyphase"])
+def test_k1_plans_fit_band_shards(M, shard, K_kind):
+    """Every K1 plan of the full bank and of an even band shard (half the
+    bands, or 2) fits shared memory, and the shard's plan covers it."""
+    K = {"streaming": 32 * M + 1, "polyphase": 32 * M}[K_kind]
+    if M == 8 and K_kind == "streaming":
+        K = 257  # the M=8 bank pads to 256 taps
+    Mb = M if shard == 1 else max(2, M // 2)
+    assert cc.smem_bytes("analysis", M, Mb, K, 0) <= cc.SMEM_LIMIT
+    for B, T_out in [(1, 1), (1, 256), (16, 512), (1, 165375)]:
+        gx, gy, _, threads, tile, nt, split, smem = cc.launch_plan(
+            "analysis", B, M, Mb, K, 0, T_out)
+        assert smem <= cc.smem_bytes("analysis", M, Mb, K, 0)
+        groups = threads // (tile // nt * split)
+        assert gy * 4 * groups >= Mb > (gy - 1) * 4 * groups
+        assert gx <= B * -(-T_out // tile)
+
+
+def k1_model(x, w, M, fuse_mask=True, pad=(0, 0), n_sms=cc.N_SMS):
+    """K1's arithmetic as its launch plan tiles it, in f32 NumPy: per band
+    chunk, the phase-major bank (zero past the last band); per
+    tile, the polyphase window ``xp[r][tau] = xpad[M*(t0 + tau) + r]`` with
+    zeros outside the input; thread ``ms`` of a split sums its phases
+    ``r = ms, ms + MS, ...`` tap by tap; the split sums add in order of
+    ``ms``; outputs past T_out are dropped; then the sign mask by the global
+    step. Taps and window steps the kernel does not copy are NaN here, so
+    a read of one would show. x [B, 1, T],
+    w [Mb, 1, K] (numpy) -> [B, Mb, T_out]."""
+    B, _, T = x.shape
+    Mb, _, K = w.shape
+    T_out = (pad[0] + T + pad[1] - K) // M + 1
+    gx, gy, _, threads, Tt, NT, MS, _ = cc.launch_plan(
+        "analysis", B, M, Mb, K, 0, T_out, n_sms=n_sms)
+    SG = Tt // NT
+    CB = 4 * (threads // (SG * MS))
+    J = -(-K // M)
+    XR = (Tt + J + 4 + 3) & ~3
+    tiles_x = -(-T_out // Tt)
+    n_tiles = B * tiles_x
+    # every tile's window at once: [n_tiles, M, XR]
+    rows = np.arange(n_tiles) // tiles_x
+    p0 = (np.arange(n_tiles) % tiles_x) * Tt * M - pad[0]
+    p = p0[:, None] + np.arange(M * XR)[None, :]
+    inside = (p >= 0) & (p < T)
+    xp = np.where(inside, x[rows[:, None], 0, np.clip(p, 0, T - 1)], 0)
+    xp = xp.astype(np.float32).reshape(n_tiles, XR, M).transpose(0, 2, 1)
+    xp[:, :, Tt + J - 1:] = np.nan  # not copied: must never be multiplied
+    out = np.full((B, Mb, tiles_x * Tt), np.nan, np.float32)
+    for y in range(gy):
+        c0 = y * CB
+        wa = np.zeros((M, J, CB), np.float32)  # wa[r, j, c]
+        for c in range(min(CB, Mb - c0)):
+            taps = np.full(J * M, np.nan, np.float32)  # past K: not copied
+            taps[:K] = w[c0 + c, 0]
+            wa[:, :, c] = taps.reshape(J, M).T
+        total = np.zeros((n_tiles, CB, Tt), np.float32)
+        for ms in range(MS):
+            acc = np.zeros((n_tiles, CB, Tt), np.float32)
+            for r in range(ms, M, MS):
+                nq = (K - r + M - 1) // M
+                # slide_fma reads x[0 .. nq + NT + 3] from each thread's
+                # first step (inside the window row) and multiplies
+                # x[0 .. nq + NT - 2]
+                assert (SG - 1) * NT + nq + NT + 3 < XR
+                for j in range(nq):
+                    acc += (wa[r, j][None, :, None]
+                            * xp[:, r, None, j:j + Tt])
+            total = total + acc if MS > 1 else acc
+        cb = min(CB, Mb - c0)
+        out[:, c0:c0 + cb] = total[:, :cb].reshape(
+            B, tiles_x, cb, Tt).transpose(0, 2, 1, 3).reshape(B, cb, -1)
+    out = out[..., :T_out]
+    if fuse_mask:
+        out[:, 1::2, 0::2] *= -1
+    return out
+
+
+# (M, Mb, K, B, pad, T_out of the plan whose tile is probed)
+K1_CASES = {
+    "flagship K=513 B=1": (16, 16, 513, 1, (256, 256), 512),
+    "flagship K=513 B=3": (16, 16, 513, 3, (256, 256), 37),
+    "K4 K=512 pad (256,240)": (16, 16, 512, 2, (256, 240), 512),
+    "K4 persistent B=16": (16, 16, 512, 16, (256, 240), 2304),
+    "TA M=8 K=257": (8, 8, 257, 1, (128, 128), 256),
+    "M=32 chunks K=1025": (32, 32, 1025, 1, (0, 0), 600),
+    "M=64 chunks K=2049 causal": (64, 64, 2049, 1, (1985, 0), 300),
+    "shard Mb=6 (short chunk)": (16, 6, 513, 2, (7, 3), 512),
+    "M=2 K=65": (2, 2, 65, 1, (32, 32), 4096),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_k1_tiling_model_matches_plain(case, edge):
+    """The NumPy model of K1's tiling equals analysis_conv_plain within
+    K12_TOL at T_out one short of, at and one past a multiple of the tile
+    (ragged tiles), odd and even K, pads, split and unsplit sums, band
+    chunks at M=32/64 and a band shard with a short last chunk."""
+    M, Mb, K, B, pad, t_probe = K1_CASES[case]
+    tile = cc.launch_plan("analysis", B, M, Mb, K, 0, t_probe)[4]
+    T_out = max(1, (t_probe // tile) * tile + edge)
+    rng = np.random.default_rng(M * 1000 + Mb * 10 + edge + 2)
+    T = (T_out - 1) * M + K - pad[0] - pad[1] + int(rng.integers(0, M))
+    x = rng.standard_normal((B, 1, T)).astype(np.float32)
+    w = (rng.standard_normal((Mb, 1, K)) / np.sqrt(K)).astype(np.float32)
+    for fuse in (True, False):
+        got = k1_model(x, w, M, fuse, pad)
+        ref = cc.analysis_conv_plain(_t(x), _t(w), M, fuse, pad)
+        assert got.shape == tuple(ref.shape) == (B, Mb, T_out)
+        np.testing.assert_allclose(got, ref.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("pad", [(0, 0), (256, 256), (5, 0), (0, 17)])
+def test_k1_pad_is_the_padded_call(pad):
+    """``strided_analysis_conv(x, pad=p)`` equals the call on ``F.pad(x,
+    p)`` (the CPU route is one formula for both)."""
+    hkf, _ = _bank(16)
+    x = _t(np.random.default_rng(sum(pad)).standard_normal(
+        (2, 1, 16 * 40 + 3)).astype(np.float32))
+    padded = torch.nn.functional.pad(x, pad)
+    for fuse in (True, False):
+        got = cc.strided_analysis_conv(x, _t(hkf), 16, fuse, pad=pad)
+        want = cc.strided_analysis_conv(padded, _t(hkf), 16, fuse)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(ValueError, match="non-negative"):
+        cc.strided_analysis_conv(x, _t(hkf), 16, pad=(-1, 0))

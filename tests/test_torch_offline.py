@@ -131,6 +131,44 @@ def test_kernel_routes_match_plain(M, T_sub):
            pk.polyphase_roundtrip_plain(_t(x), hp, hi).numpy())
 
 
+def test_k4_hands_k1_the_unpadded_input_and_its_pad(monkeypatch):
+    """K4's route gives K1 the signal itself and the centered polyphase pad
+    ((L//2)*M, (L - L//2 - 1)*M), which K1 applies in-kernel: the padded
+    signal is never written."""
+    M = 16
+    hp = _t(tfb.build_filterbank(100, M)["hk_poly"])
+    L = hp.shape[-1]
+    x = _t(_rand(3, 2, 1, M * 40))
+    seen = {}
+    real = cc.strided_analysis_conv
+
+    def spy(xx, w, m, fuse_mask=True, pad=(0, 0)):
+        seen.update(x=xx, pad=tuple(pad))
+        return real(xx, w, m, fuse_mask, pad)
+
+    monkeypatch.setattr(cc, "strided_analysis_conv", spy)
+    got = pk.analysis_over_k1(x, pk.analysis_weights(hp), M)
+    assert seen["x"] is x
+    assert seen["pad"] == ((L // 2) * M, (L - L // 2 - 1) * M)
+    _close(got, pk.polyphase_analysis_plain(x, hp).numpy())
+
+
+@pytest.mark.parametrize("M", [4, 16, 32, 64])
+@pytest.mark.parametrize("T_sub", [37, 300])
+def test_k4_tiling_model_matches_plain(M, T_sub):
+    """K1's tiling (the NumPy model of tests/test_torch_kernels.py) at K4's
+    geometry — even K = L*M, the centered pad, band chunks at M=32/64 —
+    equals the polyphase formula within the kernel bar."""
+    from test_torch_kernels import k1_model
+
+    hp = _t(tfb.build_filterbank(100, M)["hk_poly"])
+    L = hp.shape[-1]
+    x = _rand(M + T_sub, 2, 1, M * T_sub)
+    got = k1_model(x, pk.analysis_weights(hp).numpy(), M, True,
+                   pk._analysis_pad(M, L))
+    _close(got, pk.polyphase_analysis_plain(_t(x), hp).numpy())
+
+
 def test_band_shard_plain_matches_pallas():
     """K4/K5 take an even-sized band shard of the bank, as JAX's do."""
     p = jfb.build_filterbank(100, 8)

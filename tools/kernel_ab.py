@@ -6,12 +6,15 @@
 Run from the root of a checkout on a machine with an NVIDIA card and
 ``nvcc``. Each variant is ``pqmf_tpu_torch/csrc/cached_conv.cu`` with a
 few text edits (``VARIANTS``: the source as it is, and each design choice
-of its K2/K3 undone). All variants are built at once, each into its own
+of its K1/K2/K3 undone). All variants are built at once, each into its own
 library loaded with ctypes; each is checked against the plain versions,
 then the device time of its kernels (``torch.profiler``) is taken in turns
-at K2 [1,16,544], K2 [16,16,544], K2 at K5's 60 s shape [1,16,165407] and
-K3 at 60 s [1,1,2646512]. Prints the card's name and power limit, then
-one line per variant and shape: microseconds per call, one per round.
+at K1 [1,1,8704], K1 [16,1,8704], K1 at K4's 60 s shape [1,1,2646000]
+with its in-kernel pad (256, 240), K2 [1,16,544], K2 [16,16,544], K2 at
+K5's 60 s shape [1,16,165407] and K3 at 60 s [1,1,2646512].
+``--variants`` and ``--shapes`` take comma-separated prefixes to run a
+subset. Prints the card's name and power limit, then one line per variant
+and shape: microseconds per call, one per round.
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ sys.path.insert(0, str(ROOT))
 
 _TAPS = "#pragma unroll 8\n  for (; q + 4 <= nq; q += 4) {"
 _GROUPS = "min_i(min_i(cdiv(M, 4), 2), kWeightBytes"
+_K1_SPLIT = "split_choice(B, n_bg, M, T_out"
+_K1_NT = ("const int NT = c.NT, MS = c.MS;\n  int SG = c.SG, PG = 1;\n"
+          "  if (MS == 1) {\n    PG = analysis_band_groups")
+_K1_GX = ("p.gx = MS == 1 ? min_i(tiles, max_i(1, n_sms * per_sm / p.gy))"
+          " : tiles;")
+_K1_G4 = ("kAnaGroups = 2;", "kAnaGroups = 4;")
+_K1_G1 = ("kAnaGroups = 2;", "kAnaGroups = 1;")
+_K1_W8K = ("kAnaWindow = 4096;", "kAnaWindow = 8192;")
 
 # name -> [(text in the source, its replacement)]
 VARIANTS = {
@@ -38,16 +49,29 @@ VARIANTS = {
     "k2_phase_groups_1": [(_GROUPS, _GROUPS.replace("4), 2)", "4), 1)"))],
     "k2_fill_256": [("kSynFill = 128;", "kSynFill = 256;")],
     "k2_max_steps_512": [("kSynMaxSteps = 256;", "kSynMaxSteps = 512;")],
+    "k1_no_split": [(_K1_SPLIT, _K1_SPLIT.replace(" M,", " 1,"))],
+    "k1_split_max_4": [(_K1_SPLIT, _K1_SPLIT.replace(" M,", " min_i(M, 8),"))],
+    "k1_nt_4": [(_K1_NT, _K1_NT.replace("NT = c.NT", "NT = 4"))],
+    "k1_one_tile_a_block": [(_K1_GX, "p.gx = tiles;")],
+    "k1_balanced_grid": [(_K1_GX, "p.gx = MS == 1 ? cdiv(tiles, cdiv(tiles, "
+                          "max_i(1, n_sms * per_sm / p.gy))) : tiles;")],
+    "k1_divide": [("fuse_mask, log2_exact(M));", "fuse_mask, -1);")],
+    "k1_window_8192": [_K1_W8K],
+    "k1_copy_whole_window": [("e < M * (Tt + J - 1); e += blockDim.x",
+                              "e < M * XR; e += blockDim.x")],
+    "k1_groups_4": [_K1_G4],
+    "k1_groups_1": [_K1_G1],
 }
 
 
-def _build_all(out: Path) -> dict:
+def _build_all(out: Path, names) -> dict:
     from pqmf_tpu_torch.kernels import _build
 
     src = _build.SOURCE.read_text()
     nvcc = _build._find_nvcc()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name in names:
+        edits = VARIANTS[name]
         text = src
         for old, new in edits:
             if old not in text:
@@ -70,9 +94,20 @@ def _build_all(out: Path) -> dict:
     return libs
 
 
+def _pick(names, prefixes):
+    if not prefixes:
+        return list(names)
+    want = prefixes.split(",")
+    return [n for n in names if any(n.startswith(w) for w in want)]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--variants", default="",
+                   help="comma-separated prefixes of variant names")
+    p.add_argument("--shapes", default="",
+                   help="comma-separated prefixes of shapes, e.g. K1,K2 [1")
     args = p.parse_args(argv)
 
     import torch
@@ -80,6 +115,8 @@ def main(argv=None) -> int:
 
     from pqmf_tpu_torch import StreamingPQMF
     from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import polyphase as pk
+    from pqmf_tpu_torch.ops import filterbank as fb
 
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -90,67 +127,94 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
+    names = _pick(VARIANTS, args.variants)
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
-        libs = _build_all(Path(tmp))
+        libs = _build_all(Path(tmp), names)
         dev = torch.device("cuda")
         pq = StreamingPQMF(100, 16, device="cpu")
         wa, ws = pq.hkf.to(dev), pq.hki.to(dev)
+        w2 = pk.analysis_weights(torch.tensor(
+            fb.build_filterbank(100, 16)["hk_poly"])).to(dev)
         Ka, Ks = wa.shape[-1], ws.shape[-1]
         g = torch.Generator().manual_seed(0)
-        shapes = {"K2 [1,16,544]": (1, 16, 544),
-                  "K2 [16,16,544]": (16, 16, 544),
-                  "K2 [1,16,165407]": (1, 16, 165407),
-                  "K3 [1,1,2646512]": (1, 1, 60 * 44100 + Ka - 1)}
-        xs = {k: torch.randn(*v, generator=g).to(dev)
+        # shape -> (input shape, K1's bank, K1's pad)
+        shapes = {"K1 [1,1,8704]": ((1, 1, 8704), wa, (0, 0)),
+                  "K1 [16,1,8704]": ((16, 1, 8704), wa, (0, 0)),
+                  "K1 [1,1,2646000]": ((1, 1, 60 * 44100), w2, (256, 240)),
+                  "K2 [1,16,544]": ((1, 16, 544), None, None),
+                  "K2 [16,16,544]": ((16, 16, 544), None, None),
+                  "K2 [1,16,165407]": ((1, 16, 165407), None, None),
+                  "K3 [1,1,2646512]": ((1, 1, 60 * 44100 + Ka - 1), None,
+                                       None)}
+        shapes = {k: shapes[k] for k in _pick(shapes, args.shapes)}
+        xs = {k: torch.randn(*v[0], generator=g).to(dev)
               for k, v in shapes.items()}
         stream = torch.cuda.current_stream().cuda_stream
 
         def call(lib, what, x):
-            B, _, Tpad = x.shape
-            if what.startswith("K2"):
-                out = torch.empty(B, Tpad - Ks + 1, 16, device=dev)
+            B, _, T = x.shape
+            if what.startswith("K1"):
+                _, w, pad = shapes[what]
+                K = w.shape[-1]
+                t_out = (pad[0] + T + pad[1] - K) // 16 + 1
+                out = torch.empty(B, 16, t_out, device=dev)
+                err = lib.pqmf_analysis_conv(
+                    x.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, 16,
+                    16, K, t_out, pad[0], 1, stream)
+            elif what.startswith("K2"):
+                out = torch.empty(B, T - Ks + 1, 16, device=dev)
                 err = lib.pqmf_synthesis_conv(
                     x.data_ptr(), ws.data_ptr(), out.data_ptr(), B, 16,
-                    Tpad, 16, Ks, Tpad - Ks + 1, 1, -16, stream)
+                    T, 16, Ks, T - Ks + 1, 1, -16, stream)
             else:
-                t_ana = (Tpad - Ka) // 16 + 1
+                t_ana = (T - Ka) // 16 + 1
                 out = torch.empty(B, t_ana, 16, device=dev)
                 err = lib.pqmf_roundtrip_conv(
                     x.data_ptr(), wa.data_ptr(), ws.data_ptr(),
-                    out.data_ptr(), B, Tpad, 16, Ka, Ks, t_ana, t_ana,
+                    out.data_ptr(), B, T, 16, Ka, Ks, t_ana, t_ana,
                     Ks // 2, stream)
             if err:
                 raise SystemExit(f"launch failed: {err}")
             return out
 
         for what, x in xs.items():
-            if what.startswith("K2"):
+            tol = dict(atol=2e-5, rtol=1e-4)
+            if what.startswith("K1"):
+                _, w, pad = shapes[what]
+                ref = cc.analysis_conv_plain(x, w, 16, True, pad)
+            elif what.startswith("K2"):
                 ref = cc.synthesis_conv_plain(x, ws, True, -16)
-                tol = dict(atol=2e-5, rtol=1e-4)
             else:
                 ref = cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16))
                 tol = dict(atol=1e-5, rtol=0.0)
             for name, lib in libs.items():
                 torch.testing.assert_close(call(lib, what, x), ref, **tol,
                                            msg=lambda m: f"{name} {what}")
+        def device_us(fn, n):
+            """Device time per call of ``fn``; a trace that lost its device
+            events is taken again."""
+            for _ in range(3):
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+                total = sum(getattr(e, "self_device_time_total", 0.0)
+                            for e in prof.key_averages()
+                            if "_kernel" in e.key)
+                if total > 0:
+                    return total / n
+            raise SystemExit("the profiler recorded no device time")
+
         us = {}
-        names = list(libs)
         for r in range(args.rounds):
             for name in (names if r % 2 == 0 else names[::-1]):
                 for what, x in xs.items():
                     n = 10 if x.numel() > 10 ** 6 else 50
-                    for _ in range(3):
-                        call(libs[name], what, x)
-                    torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(n):
-                            call(libs[name], what, x)
-                        torch.cuda.synchronize()
-                    total = sum(
-                        getattr(e, "self_device_time_total", 0.0)
-                        for e in prof.key_averages()
-                        if "_kernel" in e.key)
-                    us.setdefault((name, what), []).append(total / n)
+                    us.setdefault((name, what), []).append(
+                        device_us(lambda: call(libs[name], what, x), n))
         print(f"device us per call on {card} (torch.profiler), by round:")
         for name in names:
             for what in xs:
