@@ -10,19 +10,28 @@ fails without them; it never falls back to the CPU and imports no JAX.
    for cuDNN and cuBLAS, and builds the CUDA kernels from
    ``pqmf_tpu_torch/csrc`` (timed; ptxas must report no spills). Holds the
    source's shared-memory gates and launch plans (``pqmf_launch_plan``)
-   against their Python mirror in ``kernels/cached_conv.py``.
+   against their Python mirror in ``kernels/cached_conv.py``, the tier
+   kernels' (``pqmf_tc_launch_plan``) too.
 2. Holds each kernel — K1 analysis, K2 synthesis, K3 fused round trip, and
    the offline PQMF's polyphase adapters over them, K4/K5/K6 — against its
    plain PyTorch version on the card, at the main paths' shapes and at edge
    cases (K1 at its tile boundaries with in-kernel pads, small and large
-   calls; K4-K6 at M = 4, 16, 32, 64 and on the 60 s signal).
+   calls; K4-K6 at M = 4, 16, 32, 64 and on the 60 s signal). Then the
+   tensor-core tier kernels K1t/K2t/K3t of ``csrc/cached_conv_tc.cu`` (and
+   K4-K6 over them) at ``bf16x3`` and ``default`` against the plain
+   versions at the same tier: the same shapes, their 64-step tiles +-1
+   with odd and even K and pads, M = 2..64, a band shard, output memory
+   NaN-filled before each call.
 3. Drives the two paths on the card, each with the launch counters zeroed
    just before and read just after:
    - the flagship (``PQMFPitchShiftWrapper``, atten 100, 16 bands,
      8192-sample blocks, 16 fixed shifts): 8 stateful blocks, one 16-stream
      step and one ``forward_fn``, each >= 90 dB against the same wrapper on
      the CPU, carried state included; one K1 + one K2 per pitch-shift step
-     and one K3 per round trip;
+     and one K3 per round trip; a checksum of block 0 from both sides; then
+     the same at ``bf16x3`` and at ``default`` (K1t/K2t/K3t, plain convs
+     refused) against the CPU port at the same tier, and the 60 s round
+     trip at ``bf16x3`` (65.1997 dB);
    - the offline path, with every plain version made to raise: ``PQMF``
      (atten 100, 16 bands) ``forward``/``inverse``/``roundtrip`` on the 60 s
      signal and a stereo batch, the fine-tuned bank, the M=32 round trip,
@@ -31,11 +40,12 @@ fails without them; it never falls back to the CPU and imports no JAX.
      output matches the CPU port, and the 60 s round trips keep the banks'
      SNRs to 0.01 dB (65.1997 dB streaming at delay 16, 55.2262 dB
      designed at delay 0, 104.2123 dB fine-tuned at ``edge_trim=1024``);
+     ``PQMF`` at each tier on 60 s (55.2262 dB at ``bf16x3``);
    - the torchaudio variant (``PQMFPitchShiftWrapperTA``, 16 bands, 8192
      blocks, the reference's shift range) at B = 1 and B = 16, the 8-band x
      2048 edge case (Tb = 256) and a 10 s whole file, plain versions
      refused: one K1 and one K2 per ``pitchshifter``, each >= 90 dB against
-     the CPU port;
+     the CPU port; the B = 1 block at each tier;
    - ``stream_ola`` over the flagship (block 4096, overlap 2048) on 10 s,
      mono and stereo: one K1 + one K2 per block and one K3 per call, the
      pitch stream >= 90 dB and the round-trip stream within OFFLINE_TOL of
@@ -53,7 +63,11 @@ fails without them; it never falls back to the CPU and imports no JAX.
    the flagship block, the 16-stream step, the 60 s round trips, one
    ``PQMFWrapper.process`` block, the TA block at B = 1 and 16,
    ``stream_ola`` on 10 s and the standalone shifters, with CUDA events and
-   the host clock; and profiles the flagship and TA steps.
+   the host clock; and profiles the flagship and TA steps. The tier
+   kernels at the same headline shapes against their plain versions,
+   bounded at the bf16 tensor-core peak (three passes at ``bf16x3``), their
+   device times, the flagship block and 16-stream step at ``default`` and
+   the 60 s round trips at ``bf16x3``.
 
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 Any failure raises and the exit code is non-zero.
@@ -82,6 +96,23 @@ K12_TOL = dict(atol=2e-5, rtol=1e-4)  # pqmf_tpu's own kernel-vs-lax bar
 K3_TOL = dict(atol=1e-5, rtol=0.0)    # recomputed halo: another tap order
 K6_TOL = dict(atol=2e-5, rtol=1e-4)   # K3's order vs the polyphase formula's
 OFFLINE_TOL = dict(atol=2e-5, rtol=1e-4)  # the offline path vs the CPU port
+TIERS = ("bf16x3", "default")
+PASSES = {"highest": 1, "bf16x3": 3, "default": 1}
+# K3t/K6 at bf16x3 against their plain versions: K12_TOL. Their f32 mid is
+# split again, and where it differs from the plain version's by an f32 ulp
+# the lo half's rounding moves by one of its ulps (2^-17 of the mid) on
+# about 2^-6 of the mids, past K3_TOL's 1e-5 on some outputs at M=2.
+K3T_BF16X3_TOL = K12_TOL
+K3T_DEFAULT_OFF = 0.05  # most outputs a flipped mid may take past K3_TOL
+# The pitch-shift paths at "default" against the CPU port: their DFT
+# operands are rounded to bf16, and where the card's f32 value (cuBLAS, the
+# card's atan2/cos/sin) differs from the CPU's by an f32 ulp that rounding
+# flips by a bf16 ulp (2^-8 of the value). A flip on a spectral peak of a
+# tonal block moves the output by ~80-90 dB (an NVIDIA H100 read 81.4-97.9
+# dB on the blocks, 112-138 dB on the round trips and tails). The bar there
+# is BAR_DB or, if lower, DEFAULT_MARGIN_DB under the tier's own error
+# (the card's default output against its highest output of the block).
+DEFAULT_MARGIN_DB = 25.0
 SNR_STREAM_DB = (65.1997, 0.01)   # StreamingPQMF.roundtrip, delay 16
 SNR_60S_DB = (55.2262, 0.01)      # designed M=16 bank, delay 0, whole signal
 SNR_FINETUNED_DB = (104.2123, 0.01)  # fine-tuned M=16 bank, edge_trim=1024
@@ -181,12 +212,17 @@ F32_FLOPS = 67e12   # H100 SXM f32 outside the tensor cores (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 
 
-def _bound(name: str, x, hkf, hki, hp) -> tuple:
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+
+
+def _bound(name: str, x, hkf, hki, hp, precision: str = "highest") -> tuple:
     """(ms, "operations" or "bytes"): the least time the card could take for
     the headline row of kernel ``name`` on input ``x`` — the larger of its
-    f32 FMAs (2 FLOP each) at the f32 peak and the bytes it must move
-    (inputs read once, output written once) at the HBM rate. The work is
-    the function's own: K3's recomputed halo is not counted."""
+    FMAs (2 FLOP each) at the peak of its tier (f32 at "highest"; the bf16
+    tensor cores at "bf16x3", three passes, and "default", one) and the
+    bytes it must move (inputs read once, output written once) at the HBM
+    rate. The work is the function's own: K3's recomputed halo is not
+    counted."""
     B, C, T = x.shape
     M, Ka, Ks = hkf.shape[0], hkf.shape[-1], hki.shape[-1]
     L = hp.shape[-1]
@@ -208,9 +244,31 @@ def _bound(name: str, x, hkf, hki, hp) -> tuple:
         fma, io = B * T * M * M * L, 2 * B * M * T + M * M * L
     else:                           # polyphase_roundtrip, [B, 1, T]
         fma, io = 2 * B * T * M * L, 2 * B * T + 2 * M * M * L
-    ops_ms, bytes_ms = 2 * fma / F32_FLOPS * 1e3, 4 * io / HBM_BYTES * 1e3
+    peak = F32_FLOPS if precision == "highest" else BF16_FLOPS
+    ops_ms = 2 * fma * PASSES[precision] / peak * 1e3
+    bytes_ms = 4 * io / HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else \
         (bytes_ms, "bytes")
+
+
+def _k3t_default_close(got, ref, sub, w_syn, what: str) -> None:
+    """K3t/K6 at "default" against their plain versions. The mid is
+    rounded to bf16 again: where the kernel's f32 sub-band differs from the
+    plain version's by an f32 ulp, that rounding can flip by one bf16 ulp
+    (about 2^-15 of the mids). The tolerance follows from that bound: one
+    bf16 ulp of the largest sub-band times the largest column sum of
+    |w_syn| times M; and all but K3T_DEFAULT_OFF of the outputs stay
+    within K3_TOL (a flip reaches Ks*M outputs)."""
+    import torch
+
+    M = w_syn.shape[0]
+    ulp = 2.0 ** (torch.floor(torch.log2(sub.abs().max())).item() - 7)
+    bound = ulp * w_syn.abs().sum(dim=tuple(range(1, w_syn.ndim))).max() \
+        .item() * M
+    err = (got - ref).abs()
+    off = (err > K3_TOL["atol"]).float().mean().item()
+    assert err.max().item() <= bound + K3_TOL["atol"], (what, err.max(), bound)
+    assert off <= K3T_DEFAULT_OFF, (what, off)
 
 
 def _device_us(fn, n: int) -> float:
@@ -325,6 +383,15 @@ def main() -> int:
         assert tuple(plan) == mirror, (which, args, tuple(plan), mirror)
         print(f"plan {which} {args}: grid {mirror[:3]}, {mirror[3]} "
               f"threads, {mirror[4]} steps a tile, {mirror[7]} B")
+        # the tier kernels' plans (K1t/K2t/K3t, csrc/cached_conv_tc.cu)
+        if which != "roundtrip" or args[1] in (2, 4, 8, 16):
+            assert lib.pqmf_tc_launch_plan(code, *args, n_sms, plan) == 0
+            mirror = cc.launch_plan(which, *args, n_sms=n_sms,
+                                    precision="bf16x3")
+            assert tuple(plan) == mirror, (which, args, tuple(plan), mirror)
+            assert lib.pqmf_tc_smem_bytes(code, *args[1:5]) == mirror[7]
+            print(f"plan {which}t {args}: grid {mirror[:3]}, {mirror[3]} "
+                  f"threads, {mirror[4]} steps a tile, {mirror[7]} B")
     wa, ws = hkf.to(dev), hki.to(dev)
 
     # -- 2. kernels vs plain, on the card -------------------------------------
@@ -449,6 +516,142 @@ def main() -> int:
         print(f"  {what} vs the CPU's plain version: max|err| "
               f"{(got - ref).abs().max().item():.3g}")
 
+    # -- 2b. the tier kernels vs plain at the same tier ------------------------
+    # K1t/K2t/K3t (and K4-K6 over them) at bf16x3 and default: the main
+    # paths' shapes, K1t/K2t at their 64-step tiles +-1 with odd and even K
+    # and in-kernel pads, K3t at its tile, M = 2..64, a band shard, and
+    # output memory NaN-filled before each call
+    terrs = {(k, t): 0.0 for k in errs for t in TIERS}
+
+    def tcheck(name, tier, got, ref, what, sub=None, w_syn=None):
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape, (what, got.shape, ref.shape)
+        assert torch.isfinite(got).all(), what
+        err = (got - ref).abs().max().item()
+        if w_syn is not None and tier == "default":
+            _k3t_default_close(got, ref, sub, w_syn, what)
+        else:
+            tol = K3T_BF16X3_TOL if w_syn is not None else K12_TOL
+            torch.testing.assert_close(got, ref, **tol,
+                                       msg=lambda m: f"{what}: {m}")
+        terrs[name, tier] = max(terrs[name, tier], err)
+        print(f"  {what} [{tier}]: max|err| {err:.3g}")
+
+    def nan_junk():
+        junk = torch.full((1 << 22,), float("nan"), device=dev)
+        del junk
+
+    print("tier kernels vs plain:")
+    tier_banks = {M: tuple(t.to(dev) for t in (
+        StreamingPQMF(100, M, device="cpu").hkf,
+        StreamingPQMF(100, M, device="cpu").hki)) for M in (2, 4, 8, 32, 64)}
+    tier_banks[16] = (wa, ws)
+    hp_cpu = PQMF(100, 16, device="cpu").params["hk_poly"]
+    w2_16 = pk.analysis_weights(hp_cpu).to(dev)
+    for tier in TIERS:
+        for B, T in [(1, BLOCK), (16, BLOCK), (3, 16 * 37 + 5)]:
+            x = rand(B, 1, T + pad_a)
+            for fuse in (True, False):
+                nan_junk()
+                tcheck("analysis", tier,
+                       cc.strided_analysis_conv(x, wa, 16, fuse,
+                                                precision=tier),
+                       cc.analysis_conv_plain(x, wa, 16, fuse,
+                                              precision=tier),
+                       f"K1t x{tuple(x.shape)} fuse_mask={fuse}")
+        for B in (1, 16):
+            for w, pad in [(wa, (256, 256)), (w2_16, (256, 240)),
+                           (wa, (7, 3)), (wa[:6].contiguous(), (0, 0))]:
+                for T_out in (64 - 1, 64, 5 * 64 + 1):
+                    x = rand(B, 1, (T_out - 1) * 16 + w.shape[-1] - sum(pad))
+                    nan_junk()
+                    tcheck("analysis", tier,
+                           cc.strided_analysis_conv(x, w, 16, True, pad,
+                                                    tier),
+                           cc.analysis_conv_plain(x, w, 16, True, pad, tier),
+                           f"K1t Mb={w.shape[0]} K={w.shape[-1]} T_out "
+                           f"{T_out} B={B} pad={pad}")
+            for T_out in (64 - 1, 64, 3 * 64 + 1):
+                x = rand(B, 16, T_out + Ks - 1)
+                for off in (-16, -15, 3):
+                    nan_junk()
+                    tcheck("synthesis", tier,
+                           cc.dense_synthesis_conv(x, ws, True, off, tier),
+                           cc.synthesis_conv_plain(x, ws, True, off, tier),
+                           f"K2t T_out {T_out} B={B} x_offset={off}")
+        for B in (1, 16):
+            x = rand(B, 16, BLOCK // 16 + Ks - 1)
+            nan_junk()
+            tcheck("synthesis", tier,
+                   cc.dense_synthesis_conv(x, ws, True, -16, tier),
+                   cc.synthesis_conv_plain(x, ws, True, -16, tier),
+                   f"K2t x{tuple(x.shape)} x_offset=-16")
+        for M, (bw_a, bw_s) in sorted(tier_banks.items()):
+            ka, ks = bw_a.shape[-1], bw_s.shape[-1]
+            x = rand(2, 1, M * 300 + ka - 1)
+            sub = F.pad(cc.strided_analysis_conv(x, bw_a, M), (ks // 2,) * 2)
+            nan_junk()
+            tcheck("analysis", tier,
+                   cc.strided_analysis_conv(x, bw_a, M, precision=tier),
+                   cc.analysis_conv_plain(x, bw_a, M, precision=tier),
+                   f"K1t M={M} x{tuple(x.shape)}")
+            nan_junk()
+            tcheck("synthesis", tier,
+                   cc.dense_synthesis_conv(sub, bw_s, True, -(ks // 2), tier),
+                   cc.synthesis_conv_plain(sub, bw_s, True, -(ks // 2), tier),
+                   f"K2t M={M} x{tuple(sub.shape)}")
+            if cc.fused_roundtrip_supported(M, ka, ks, tier):
+                for pad in [(ks // 2, ks // 2), (3, 0), (0, 40)]:
+                    nan_junk()
+                    tcheck("roundtrip", tier,
+                           cc.fused_roundtrip_conv(x, bw_a, bw_s, M, pad,
+                                                   tier),
+                           cc.roundtrip_conv_plain(x, bw_a, bw_s, M, pad,
+                                                   tier),
+                           f"K3t M={M} x{tuple(x.shape)} syn_pad={pad}",
+                           sub, bw_s)
+        k3t_tile = cc.launch_plan("roundtrip", 1, 16, 16, Ka, Ks, 1000,
+                                  precision=tier)[4]
+        for x, pad in [(x60, (16, 16)), (rand(1, 1, BLOCK + pad_a), (16, 16)),
+                       (rand(2, 1, 16 * (k3t_tile - 1) + pad_a), (16, 17)),
+                       (rand(3, 1, 16 * (k3t_tile + 1) + pad_a), (3, 0))]:
+            nan_junk()
+            tcheck("roundtrip", tier,
+                   cc.fused_roundtrip_conv(x, wa, ws, 16, pad, tier),
+                   cc.roundtrip_conv_plain(x, wa, ws, 16, pad, tier),
+                   f"K3t x{tuple(x.shape)} syn_pad={pad}",
+                   cc.strided_analysis_conv(x, wa, 16), ws)
+        for M, pq in offline.items():
+            hp_m, hi_m, w2_m = pq.params["hk_poly"], pq.params["hk_ipoly"], \
+                pq._w2
+            L = hp_m.shape[-1]
+            for B in (1, 16):
+                x, sub = rand(B, 1, BLOCK), rand(B, M, BLOCK // M)
+                tcheck("polyphase_analysis", tier,
+                       pk.polyphase_analysis(x, hp_m, w2_m, tier),
+                       pk.polyphase_analysis_plain(x, hp_m, tier),
+                       f"K4 M={M} x{tuple(x.shape)}")
+                tcheck("polyphase_synthesis", tier,
+                       pk.polyphase_synthesis(sub, hi_m, tier),
+                       pk.polyphase_synthesis_plain(sub, hi_m, tier),
+                       f"K5 M={M} x{tuple(sub.shape)}")
+                if pk.roundtrip_supported(M, L * M, L, tier):
+                    tcheck("polyphase_roundtrip", tier,
+                           pk.polyphase_roundtrip(x, hp_m, hi_m, w2_m, tier),
+                           pk.polyphase_roundtrip_plain(x, hp_m, hi_m, tier),
+                           f"K6 M={M} x{tuple(x.shape)}",
+                           pk.polyphase_analysis(x, hp_m, w2_m), hi_m)
+        sub60_t = pk.polyphase_analysis(raw60, hp, w2, tier)
+        tcheck("polyphase_analysis", tier, sub60_t,
+               pk.polyphase_analysis_plain(raw60, hp, tier), "K4 60 s")
+        tcheck("polyphase_synthesis", tier,
+               pk.polyphase_synthesis(sub60, hi, tier),
+               pk.polyphase_synthesis_plain(sub60, hi, tier), "K5 60 s")
+        tcheck("polyphase_roundtrip", tier,
+               pk.polyphase_roundtrip(raw60, hp, hi, w2, tier),
+               pk.polyphase_roundtrip_plain(raw60, hp, hi, tier), "K6 60 s",
+               sub60, hi)
+
     # -- 3. the paths on the card vs the port on the CPU ----------------------
     gpu = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR,
                                 shifts_in_semitones=SHIFTS16, device="cuda")
@@ -474,6 +677,13 @@ def main() -> int:
     for i, blk in enumerate(blocks):
         cs, y = cpu.pitchshift_fn(cs, blk)
         assert g_out[i].shape == (1, BLOCK) and torch.isfinite(g_out[i]).all()
+        if i == 0:
+            # which side moved, if a rerun reads block 0 lower: the float64
+            # sum and sum of |y| of each side's output, as hex floats
+            print(json.dumps({"checksum_block0": {
+                side: [float(v.double().sum()).hex(),
+                       float(v.double().abs().sum()).hex()]
+                for side, v in (("card", g_out[0].cpu()), ("cpu", y))}}))
         db = snr_db(y.numpy(), g_out[i].cpu().numpy())
         print(f"  block {i}: {db:.1f} dB vs CPU")
         assert db >= BAR_DB, (i, db)
@@ -497,6 +707,64 @@ def main() -> int:
                                      pq.centered_delay)
     print(f"60 s round trip (K3) whole-signal SNR: {rt_db:.4f} dB")
     assert abs(rt_db - SNR_STREAM_DB[0]) <= SNR_STREAM_DB[1], rt_db
+
+    # the flagship at each tier: its own main path, counts zeroed just
+    # before and read just after, every plain conv refused; >= 90 dB
+    # against the CPU port at the same tier
+    tier_gpu, tier_launches, tier_db = {}, {}, {}
+    for tier in TIERS:
+        tg = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR, SHIFTS16,
+                                   precision=tier, device="cuda")
+        tc = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR, SHIFTS16,
+                                   precision=tier, device="cpu")
+        tier_gpu[tier] = tg
+        cc.reset_launches()
+        with _plain_versions_refused():
+            ts_, t_out = tg.init_state(), []
+            for blk in blocks:
+                ts_, y = tg.pitchshift_fn(ts_, blk)
+                t_out.append(y)
+            tss, t_streams = tg.pitchshift_streams(tg.init_streams(16),
+                                                   streams)
+            t_rt = tg.forward_fn(blocks[0])
+        torch.cuda.synchronize()
+        tier_launches[tier] = dict(cc.LAUNCHES)
+        print(f"main-path launches at {tier}: {tier_launches[tier]}")
+        assert tier_launches[tier] == {"analysis": 9, "synthesis": 9,
+                                       "roundtrip": 1}, tier_launches[tier]
+        cs, dbs = tc.init_state(), []
+        for i, blk in enumerate(blocks):
+            cs, y = tc.pitchshift_fn(cs, blk)
+            assert torch.isfinite(t_out[i]).all()
+            dbs.append(snr_db(y.numpy(), t_out[i].cpu().numpy()))
+        css, c_streams = tc.pitchshift_streams(tc.init_streams(16), streams)
+        dbs += [snr_db(cs["prev_tail"].numpy(),
+                       ts_["prev_tail"].cpu().numpy()),
+                snr_db(c_streams.numpy(), t_streams.cpu().numpy()),
+                snr_db(css["prev_tail"].numpy(),
+                       tss["prev_tail"].cpu().numpy()),
+                snr_db(tc.forward_fn(blocks[0]).numpy(), t_rt.cpu().numpy())]
+        tier_db[tier] = dbs
+        print(f"  {tier}: 8 blocks, tail, 16 streams, their tails, "
+              f"forward_fn vs CPU: {[round(d, 1) for d in dbs]} dB")
+        bars = [BAR_DB] * len(dbs)
+        if tier == "default":
+            own = [snr_db(g_out[i].cpu().numpy(), t_out[i].cpu().numpy())
+                   for i in range(len(blocks))]
+            own += [snr_db(a.cpu().numpy(), b.cpu().numpy()) for a, b in [
+                (gs["prev_tail"], ts_["prev_tail"]), (g_streams, t_streams),
+                (gss["prev_tail"], tss["prev_tail"]), (g_rt, t_rt)]]
+            bars = [min(BAR_DB, o + DEFAULT_MARGIN_DB) for o in own]
+            print(f"  default tier's own error on the card (vs highest): "
+                  f"{[round(o, 1) for o in own]} dB; bars "
+                  f"{[round(b, 1) for b in bars]} dB")
+        assert all(d >= b for d, b in zip(dbs, bars)), (tier, dbs, bars)
+    y60_t = tier_gpu["bf16x3"].pqmf.roundtrip(
+        torch.from_numpy(sixty).to(dev)[None, None])
+    rt_db_t = aligned_roundtrip_snr_db(sixty, y60_t[0, 0].cpu().numpy(),
+                                       pq.centered_delay)
+    print(f"60 s round trip (K3t, bf16x3) whole-signal SNR: {rt_db_t:.4f} dB")
+    assert abs(rt_db_t - SNR_STREAM_DB[0]) <= SNR_STREAM_DB[1], rt_db_t
 
     # the offline path: PQMF, PQMFWrapper, its artifact and its CLI
     def counted(want_cc, want_pk, fn, *args):
@@ -589,6 +857,37 @@ def main() -> int:
     assert abs(off_db - SNR_60S_DB[0]) <= SNR_60S_DB[1], off_db
     assert abs(ft_db - SNR_FINETUNED_DB[0]) <= SNR_FINETUNED_DB[1], ft_db
 
+    # the offline path at each tier: K4-K6 over K1t-K3t on the 60 s signal,
+    # counts zeroed just before and read just after, plain versions refused
+    off_tier_launches, off_tier = {}, {}
+    for tier in TIERS:
+        og = PQMF(100, 16, precision=tier, device="cuda")
+        oc = PQMF(100, 16, precision=tier, device="cpu")
+        off_tier[tier] = og
+        cc.reset_launches()
+        pk.reset_launches()
+        with _plain_versions_refused():
+            t_sub = counted(ana, ana, og.forward, raw60)
+            t_back = counted(syn, syn, og.inverse, sub60)
+            t_rt = counted(rt, rt, og.roundtrip, raw60)
+        off_tier_launches[tier] = dict(pk.LAUNCHES)
+        c_sub = oc.forward(sixty)
+        torch.testing.assert_close(t_sub.cpu(), c_sub, **OFFLINE_TOL)
+        torch.testing.assert_close(t_back.cpu(), oc.inverse(sub60.cpu()),
+                                   **OFFLINE_TOL)
+        c_rt = oc.roundtrip(sixty)
+        if tier == "bf16x3":
+            torch.testing.assert_close(t_rt.cpu(), c_rt, **OFFLINE_TOL)
+        else:
+            _k3t_default_close(t_rt.cpu(), c_rt, c_sub, hi.cpu(),
+                               "60 s offline round trip at default")
+        t_db = aligned_roundtrip_snr_db(sixty, t_rt[0, 0].cpu().numpy(), 0)
+        print(f"  offline {tier}: launches {off_tier_launches[tier]}, vs CPU "
+              f"max|err| {(t_rt.cpu() - c_rt).abs().max().item():.3g}, 60 s "
+              f"round trip SNR at delay 0 {t_db:.4f} dB")
+        if tier == "bf16x3":
+            assert abs(t_db - SNR_60S_DB[0]) <= SNR_60S_DB[1], t_db
+
     wrap_cpu = PQMFWrapper(100, 16, BLOCK, device="cpu")
     c_wrap = wrap_cpu.process(block_x)
     for what, got in [("PQMFWrapper.process", g_wrap),
@@ -642,6 +941,25 @@ def main() -> int:
         db = snr_db(w["cpu"].pitchshifter(x).numpy(), got.cpu().numpy())
         print(f"  {what}: {db:.1f} dB vs CPU")
         assert db >= BAR_DB, (what, db)
+    # the TA block at each tier, against the CPU port at the same tier
+    ta_tier = {}
+    for tier in TIERS:
+        ta_tier[tier] = {d: PQMFPitchShiftWrapperTA(
+            100, N_BAND, BLOCK, SR, TA_SHIFTS16, precision=tier, device=d)
+            for d in ("cuda", "cpu")}
+        x = ta_in["TA B=1 block"][1]
+        cc.reset_launches()
+        with _plain_versions_refused():
+            got = counted(both, {}, ta_tier[tier]["cuda"].pitchshifter, x)
+        db = snr_db(ta_tier[tier]["cpu"].pitchshifter(x).numpy(),
+                    got.cpu().numpy())
+        own = snr_db(g_ta["TA B=1 block"].cpu().numpy(), got.cpu().numpy())
+        bar = BAR_DB if tier == "bf16x3" else min(BAR_DB,
+                                                   own + DEFAULT_MARGIN_DB)
+        print(f"  TA B=1 block at {tier}: {db:.1f} dB vs CPU (bar {bar:.1f}; "
+              f"the tier's own error {own:.1f} dB), launches "
+              f"{dict(cc.LAUNCHES)}")
+        assert db >= bar, (tier, db, bar)
     c_sub = ta["cpu"].forward(ta_in["TA B=1 block"][1])
     torch.testing.assert_close(ta_sub.cpu(), c_sub, **OFFLINE_TOL)
     torch.testing.assert_close(ta_back.cpu(), ta["cpu"].inverse(c_sub),
@@ -826,6 +1144,65 @@ def main() -> int:
         print(f"  {name}: bound {bound_ms:.5f} ms ({by}), kernel at "
               f"{bound_ms / times[name][0]:.1%} of it")
 
+    # the tier kernels at the headline shapes, against their plain versions
+    # at the same tier; bounds at the bf16 tensor-core peak
+    def tier_calls(name, tier):
+        return {
+            "analysis": (
+                lambda x: cc.strided_analysis_conv(x, wa, 16,
+                                                   precision=tier),
+                lambda x: cc.analysis_conv_plain(x, wa, 16, precision=tier)),
+            "synthesis": (
+                lambda x: cc.dense_synthesis_conv(x, ws, True, -16, tier),
+                lambda x: cc.synthesis_conv_plain(x, ws, True, -16, tier)),
+            "roundtrip": (
+                lambda x: cc.fused_roundtrip_conv(x, wa, ws, 16, (16, 16),
+                                                  tier),
+                lambda x: cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16),
+                                                  tier)),
+            "polyphase_analysis": (
+                lambda x: pk.polyphase_analysis(x, hp, w2, tier),
+                lambda x: pk.polyphase_analysis_plain(x, hp, tier)),
+            "polyphase_synthesis": (
+                lambda x: pk.polyphase_synthesis(x, hi, tier),
+                lambda x: pk.polyphase_synthesis_plain(x, hi, tier)),
+            "polyphase_roundtrip": (
+                lambda x: pk.polyphase_roundtrip(x, hp, hi, w2, tier),
+                lambda x: pk.polyphase_roundtrip_plain(x, hp, hi, tier)),
+        }[name]
+
+    tier_times, tier_bounds = {}, {}
+    for tier in TIERS:
+        for name, rows in cases.items():
+            kern, plain = tier_calls(name, tier)
+            for label, x, iters in rows:
+                k, p, raw = pair_ms(lambda: kern(x), lambda: plain(x), iters)
+                if (name, tier) not in tier_times:  # the headline row
+                    tier_times[name, tier] = (k, p)
+                    tier_bounds[name, tier] = _bound(name, x, hkf, hki, hp,
+                                                     tier)
+                print(f"  {name} {label} [{tier}]: kernel {k:.4f} plain "
+                      f"{p:.4f} (p,k,k,p {[round(v, 4) for v in raw]})")
+            b_ms, by = tier_bounds[name, tier]
+            print(f"  {name} [{tier}]: bound {b_ms:.5f} ms ({by}), kernel "
+                  f"at {b_ms / tier_times[name, tier][0]:.1%} of it")
+    tier_dev_us = {}
+    for tier in TIERS:
+        for what, name, x in [
+                ("K1t [1,1,8704]", "analysis", rand(1, 1, BLOCK + pad_a)),
+                ("K1t [16,1,8704]", "analysis", rand(16, 1, BLOCK + pad_a)),
+                ("K2t [1,16,544]", "synthesis", rand(1, 16, 544)),
+                ("K2t [16,16,544]", "synthesis", rand(16, 16, 544)),
+                ("K3t [1,1,8704]", "roundtrip", rand(1, 1, BLOCK + pad_a)),
+                ("K3t 60 s [1,1,2646512]", "roundtrip", x60),
+                ("K4t 60 s [1,1,2646000]", "polyphase_analysis", raw60)]:
+            fn = tier_calls(name, tier)[0]
+            key = f"{what} {tier}"
+            tier_dev_us[key] = _device_us(lambda: fn(x),
+                                          10 if "60 s" in what else 50)
+            print(f"  device time {key}: {tier_dev_us[key]:.2f} us "
+                  "(profiler)")
+
     # device time of K1-K3 at the block shapes (CUDA events there include
     # the host launch), of K4 at 60 s, and of the lone cuDNN conv of K1's
     # and K2's products beside them: "slower than the library call" is read
@@ -906,6 +1283,19 @@ def main() -> int:
         shifter_times[what] = {"cuda_events_ms": cuda_ms(lambda: fn(xd), 5),
                                "latency_ms_median_p90_n":
                                    latency_ms(lambda: fn(xd), 5)}
+    # the flagship's steps at default, state carried as above
+    dstate = {"s": tier_gpu["default"].init_state(),
+              "ss": tier_gpu["default"].init_streams(16)}
+
+    def default_step():
+        dstate["s"], _ = tier_gpu["default"].pitchshift_fn(dstate["s"],
+                                                           blocks[1])
+
+    def default_streams_step():
+        dstate["ss"], _ = tier_gpu["default"].pitchshift_streams(
+            dstate["ss"], streams)
+
+    default_block_ms = cuda_ms(default_step, 50)
     summary = {
         "card": card,
         "kernel_device_us": dev_us,
@@ -935,12 +1325,23 @@ def main() -> int:
         "stream_ola_stereo_10s_ms_median_p90_n": ola2_lat,
         "stream_ola_stereo_10s_rtf": 10.0 / (ola2_lat[0] / 1e3),
         "shifters_10s": shifter_times,
+        "tier_kernel_device_us": tier_dev_us,
+        "flagship_block_default_ms": default_block_ms,
+        "streams16_step_default_ms": cuda_ms(default_streams_step, 30),
+        "roundtrip_60s_bf16x3_ms": cuda_ms(
+            lambda: tier_gpu["bf16x3"].pqmf.roundtrip(raw60), 20),
+        "roundtrip_60s_bf16x3_snr_db": rt_db_t,
+        "offline_roundtrip_60s_bf16x3_ms": cuda_ms(
+            lambda: off_tier["bf16x3"].roundtrip(raw60), 20),
+        "flagship_tier_db_min": {t: min(v) for t, v in tier_db.items()},
     }
     print(json.dumps(summary))
 
     # where a step's time goes: kernels by device time, and the share of
     # the step's wall time the card is busy at all
     for label, step, ms in [("flagship block", flagship_step, block_ms),
+                            ("flagship block default", default_step,
+                             default_block_ms),
                             ("16-stream step", streams_step, streams_ms),
                             ("TA block B=1", ta_step1, ta1_ms),
                             ("TA blocks B=16", ta_step16, ta16_ms)]:
@@ -974,6 +1375,33 @@ def main() -> int:
                 "device_us": dev_us.get(headline_dev.get(k)),
                 "library_device_us": lib_dev_us.get(headline_dev.get(k))}
                for k, name, where, n in rows]
+    # the tier kernels: K1t-K3t with their launches on the flagship at the
+    # tier, K4-K6 over them with theirs on the offline path at the tier
+    tc_source = "pqmf_tpu_torch/csrc/cached_conv_tc.cu"
+    tier_dev_key = {"analysis": "K1t [1,1,8704]",
+                    "synthesis": "K2t [1,16,544]",
+                    "roundtrip": "K3t 60 s [1,1,2646512]",
+                    "polyphase_analysis": "K4t 60 s [1,1,2646000]"}
+    for tier in TIERS:
+        for k, name, where, _ in rows:
+            t_name = name.replace("K1 ", "K1t ").replace("K2 ", "K2t ") \
+                .replace("K3 ", "K3t ").replace("over K1", "over K1t") \
+                .replace("over K2", "over K2t").replace("over K3", "over K3t")
+            launches_k = (tier_launches[tier][k] if k in tier_launches[tier]
+                          else off_tier_launches[tier][k.split("_")[1]])
+            dk = tier_dev_key.get(k)
+            kernels.append({
+                "name": f"{t_name} [{tier}]", "route": "cuda",
+                "source": tc_source, "replaces": where,
+                "launches": launches_k, "max_abs_err": terrs[k, tier],
+                "ms": tier_times[k, tier][0],
+                "plain_ms": tier_times[k, tier][1],
+                "bound_ms": tier_bounds[k, tier][0],
+                "bound_by": tier_bounds[k, tier][1],
+                # no single PyTorch call computes a tier: cuDNN's bf16 conv
+                # rounds its output to bf16
+                "library_ms": None,
+                "device_us": tier_dev_us.get(f"{dk} {tier}") if dk else None})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,9 @@ class PQMF:
     n_channels : int
         Channels per signal; they fold into the batch of the mono core.
     precision : str
-        Only ``"highest"`` (full f32) is available.
+        The conv tier, as in the JAX package: ``"highest"`` (full f32, K4-K6
+        over K1-K3), ``"bf16x3"`` or ``"default"`` (K4-K6 over the
+        tensor-core K1t-K3t; the classic path's plain convs at the tier).
     device : str or torch.device
         ``"cuda"`` (the default; raises without a card) or ``"cpu"``;
         inputs may be NumPy arrays (copied to the device) or float32
@@ -73,7 +75,7 @@ class PQMF:
                 "restored bank length is not divisible by n_band — it has "
                 "no polyphase form; rebuild with polyphase=False")
         if (self.polyphase and self.device.type == "cuda" and M > 1
-                and not pk.supports(M, L)):
+                and not pk.supports(M, L, self.precision)):
             raise ValueError(
                 f"the CUDA kernels do not take polyphase banks of {L} taps "
                 f"per phase at n_band={M} (see kernels.polyphase.supports)")
@@ -119,9 +121,11 @@ class PQMF:
             return x
         xc, B, T = self._fold(x)
         if self.polyphase:
-            y = pk.polyphase_analysis(xc, self.params["hk_poly"], self._w2)
+            y = pk.polyphase_analysis(xc, self.params["hk_poly"], self._w2,
+                                      self.precision)
         else:
-            y = fb.reverse_half(fb.classic_forward(xc, self.params["hk"]))
+            y = fb.reverse_half(fb.classic_forward(xc, self.params["hk"],
+                                                   self.precision))
         return y.reshape(B, self.n_channels * self.n_band, T // self.n_band)
 
     def inverse(self, x):
@@ -140,9 +144,11 @@ class PQMF:
                 f"got {CM}")
         xc = x.reshape(B * self.n_channels, self.n_band, Tp)
         if self.polyphase:
-            y = pk.polyphase_synthesis(xc, self.params["hk_ipoly"])
+            y = pk.polyphase_synthesis(xc, self.params["hk_ipoly"],
+                                       self.precision)
         else:
-            y = fb.classic_inverse(fb.reverse_half(xc), self.params["hk"])
+            y = fb.classic_inverse(fb.reverse_half(xc), self.params["hk"],
+                                   self.precision)
         return y.reshape(B, self.n_channels, Tp * self.n_band)
 
     def roundtrip(self, x):
@@ -155,10 +161,12 @@ class PQMF:
         M = self.n_band
         hk_poly, hk_ipoly = self.params["hk_poly"], self.params["hk_ipoly"]
         if not (self.polyphase and pk.roundtrip_supported(
-                M, hk_poly.shape[-1] * M, hk_ipoly.shape[-1])):
+                M, hk_poly.shape[-1] * M, hk_ipoly.shape[-1],
+                self.precision)):
             return self.inverse(self.forward(x))
         xc, B, T = self._fold(x)
-        y = pk.polyphase_roundtrip(xc, hk_poly, hk_ipoly, self._w2)
+        y = pk.polyphase_roundtrip(xc, hk_poly, hk_ipoly, self._w2,
+                                   self.precision)
         return y.reshape(B, self.n_channels, T)
 
     __call__ = forward

@@ -1,9 +1,11 @@
-"""Build and bind the hand-written CUDA kernels (``csrc/cached_conv.cu``).
+"""Build and bind the hand-written CUDA kernels (``csrc/cached_conv.cu``,
+the f32 kernels, and ``csrc/cached_conv_tc.cu``, the tensor-core tiers).
 
-The source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface and loaded with ``ctypes`` — no PyTorch
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into an
+object, all at once in parallel, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes`` — no PyTorch
 headers, so the build takes seconds. The library lands in
-``pqmf_tpu_torch/_build/`` (git-ignored), named by a hash of the source and
+``pqmf_tpu_torch/_build/`` (git-ignored), named by a hash of the sources and
 the flags, so an edited source never reuses a stale build. Nothing is built
 or loaded at import time: :func:`load` runs at the first kernel launch.
 """
@@ -17,14 +19,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCE", "BUILD_DIR", "nvcc_command", "build", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "nvcc_command", "link_command", "build",
+           "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "cached_conv.cu"
+SOURCES = (_PKG / "csrc" / "cached_conv.cu", _PKG / "csrc" / "cached_conv_tc.cu")
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -44,34 +47,60 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
+def nvcc_command(nvcc: str, source: Path, out: Path) -> list[str]:
+    """Compile one source into the object ``out``."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(out), str(source)]
+
+
+def link_command(nvcc: str, objects, out: Path) -> list[str]:
+    return [nvcc, "-shared", "-o", str(out), *(str(o) for o in objects)]
 
 
 def _library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest = hashlib.sha256()
+    for source in SOURCES:
+        digest.update(source.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpqmf_cached_conv_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless this source was built already; returns
+    """Compile the kernels unless these sources were built already; returns
     the library's path. The compiler's report (``-Xptxas -v``: registers,
-    shared memory, spills per kernel) is kept beside it as ``.log``."""
+    shared memory, spills per kernel, every source's) is kept beside it as
+    ``.log``."""
     out = _library_path()
     if out.exists():
         return out
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    procs = [subprocess.Popen(nvcc_command(nvcc, src, obj),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(SOURCES, objects)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        stdout, stderr = proc.communicate()
+        logs.append(f"== {src.name}\n{stdout}{stderr}")
+        if proc.returncode:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{src.name}:\n{stderr[-4000:]}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(nvcc, tmp), capture_output=True,
-                          text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode:
+    if not failed:
+        proc = subprocess.run(link_command(nvcc, objects, tmp),
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode:
+            failed.append(f"nvcc failed ({proc.returncode}) linking:\n"
+                          f"{proc.stderr[-4000:]}")
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
-            f"{proc.stderr[-4000:]}")
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
     return out
 
@@ -84,13 +113,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pqmf_synthesis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.pqmf_roundtrip_conv.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                         p]
+    # the tier kernels take the same arguments and the passes (3 or 1)
+    lib.pqmf_tc_analysis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
+                                          i, p]
+    lib.pqmf_tc_synthesis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
+                                           i, p]
+    lib.pqmf_tc_roundtrip_conv.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                           i, i, p]
     for fn in (lib.pqmf_analysis_conv, lib.pqmf_synthesis_conv,
-               lib.pqmf_roundtrip_conv):
+               lib.pqmf_roundtrip_conv, lib.pqmf_tc_analysis_conv,
+               lib.pqmf_tc_synthesis_conv, lib.pqmf_tc_roundtrip_conv):
         fn.restype = ctypes.c_int
-    lib.pqmf_launch_plan.argtypes = [i, i, i, i, i, i, i, i, p]
-    lib.pqmf_launch_plan.restype = ctypes.c_int
-    lib.pqmf_smem_bytes.argtypes = [i, i, i, i, i]
-    lib.pqmf_smem_bytes.restype = ctypes.c_size_t
+    for fn in (lib.pqmf_launch_plan, lib.pqmf_tc_launch_plan):
+        fn.argtypes = [i, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.pqmf_smem_bytes, lib.pqmf_tc_smem_bytes):
+        fn.argtypes = [i, i, i, i, i]
+        fn.restype = ctypes.c_size_t
     lib.pqmf_error_string.argtypes = [i]
     lib.pqmf_error_string.restype = ctypes.c_char_p
     return lib

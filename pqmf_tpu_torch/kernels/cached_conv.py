@@ -1,7 +1,10 @@
 """The streaming path's three conv kernels, their plain versions and gates.
 
 Each public function here is the wrapper of one hand-written Hopper kernel
-in ``pqmf_tpu_torch/csrc/cached_conv.cu`` (built and bound by ``_build``):
+at each precision tier: at ``"highest"`` (full f32) the CUDA-core kernels of
+``pqmf_tpu_torch/csrc/cached_conv.cu``, at ``"bf16x3"`` and ``"default"``
+the tensor-core kernels K1t/K2t/K3t of ``csrc/cached_conv_tc.cu`` (both
+built into one library and bound by ``_build``):
 
 - K1 :func:`strided_analysis_conv` replaces
   ``pqmf_tpu/kernels/cached_conv.py:strided_analysis_conv``;
@@ -10,20 +13,22 @@ in ``pqmf_tpu_torch/csrc/cached_conv.cu`` (built and bound by ``_build``):
 - K3 :func:`fused_roundtrip_conv` replaces
   ``pqmf_tpu/kernels/cached_conv.py:fused_roundtrip_conv``.
 
-All three compute VALID convolutions in f32, so offline (centered), causal
-and streaming modes share them; K2 and K3 take inputs the caller has already
-padded, K1 takes its zero pad as an argument and applies it in-kernel. What
-bounds each kernel on the H100 and what its design does about it is written
-at the top of the CUDA source: they are f32 FMA on the CUDA cores, bound by
-arithmetic and shared-memory bandwidth, and reuse a staged input window and
-bank from shared memory with several outputs per thread in registers. The
-launch plans (grid, tile, shared memory) are mirrored here by
+All three compute VALID convolutions with f32 inputs and outputs, so
+offline (centered), causal and streaming modes share them; K2 and K3 take
+inputs the caller has already padded, K1 takes its zero pad as an argument
+and applies it in-kernel. What bounds each kernel on the H100 and what its
+design does about it is written at the top of each CUDA source: K1-K3 are
+f32 FMA on the CUDA cores, bound by arithmetic and shared-memory
+bandwidth, with several outputs per thread in registers; K1t-K3t are
+``mma.sync`` on the tensor cores over operands split to bf16 once as they
+are staged in shared memory. The launch plans (grid, tile, shared memory) are mirrored here by
 :func:`launch_plan`, so the CPU tests can reason about them.
 
 A wrapper takes its kernel's plain PyTorch version (``*_plain``, on
-``F.conv1d`` in full f32) only for CPU tensors. On a CUDA tensor it launches
-the kernel or raises; no shape falls back to the plain version there. Every
-launch adds one to :data:`LAUNCHES`.
+``ops.filterbank._conv1d`` at the same tier) only for CPU tensors. On a CUDA
+tensor it launches the kernel of its tier or raises; no shape or tier falls
+back to the plain version or to another tier's kernel there. Every launch
+adds one to :data:`LAUNCHES`, whatever the tier.
 """
 
 from __future__ import annotations
@@ -73,7 +78,14 @@ _ANA_WINDOW = 4096           # kAnaWindow
 _ANA_GROUPS = 2              # kAnaGroups
 _SMEM_PER_SM = 233472        # kSmemPerSm
 _SPLIT_MAX_BANDS = 16        # kSplitMaxBands
-_RT_BANDS = (2, 4, 8, 16)    # K3's compiled band counts
+_RT_BANDS = (2, 4, 8, 16)    # K3's (and K3t's) compiled band counts
+# the tensor-core tier kernels (csrc/cached_conv_tc.cu)
+_PASSES = {"bf16x3": 3, "default": 1}  # mma passes a k-step
+_TC_THREADS = 128            # kTcThreads: K1t/K2t
+_TC_ROWS = 64                # kTcRows: K1t/K2t output steps a tile
+_TC_BANK_BYTES = 72 * 1024   # kTcBankBytes
+_RT_TC_THREADS = 256         # kRtTcThreads: K3t
+_RT_TC_OUT = 224             # kRtTcOut
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -82,6 +94,51 @@ def _cdiv(a: int, b: int) -> int:
 
 def _round4(n: int) -> int:
     return (n + 3) & ~3
+
+
+def _round8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _tc_geom(S: int, Q: int, N: int) -> dict:
+    """K1t/K2t's geometry for a conv of stride S whose reduction runs over Q
+    terms into N output channels: CB channels a block (``rows`` staged), the
+    reduction padded to Qp and staged in chunks of QC columns, a window of
+    WL elements; shared memory holds the hi and lo halves of both."""
+    Qp = _round16(Q)
+    CB = 16 if N >= 16 else 8
+    rows = min(CB, N)
+    WL = _round8(S * (_TC_ROWS - 1 + _cdiv(Qp, S)))
+    budget = min(_TC_BANK_BYTES, SMEM_LIMIT - 4 * WL)
+    # floor division: where C's truncation differs, both clamp to 16
+    QC = max(16, min(Qp, (budget // (4 * rows) - 8) // 16 * 16))
+    return {"CB": CB, "QC": QC,
+            "smem": 4 * (rows * (QC + 8) + WL)}
+
+
+def _tc_plan(B: int, S: int, Q: int, N: int, T_out: int, n_sms: int):
+    g = _tc_geom(S, Q, N)
+    gy = _cdiv(N, g["CB"])
+    per_sm = max(1, min(2048 // _TC_THREADS,
+                        _SMEM_PER_SM // (g["smem"] + 1024)))
+    gx = min(B * _cdiv(T_out, _TC_ROWS), max(1, n_sms * per_sm // gy))
+    return (gx, gy, 1, _TC_THREADS, _TC_ROWS, g["QC"], g["CB"], g["smem"])
+
+
+def _rt_tc_geom(M: int, Ka: int, Ks: int) -> dict:
+    """K3t's tile: n_sub sub-band steps (analysis rows) of which Tt are
+    output steps (synthesis rows), both multiples of 16."""
+    Qa, Qs = _round16(Ka), _round16(M * Ks)
+    n_sub = _round16(_RT_TC_OUT + Ks - 1)
+    Tt = (n_sub - Ks + 1) // 16 * 16
+    WLa = _round8(M * (n_sub - 1) + Qa)
+    WLs = _round8(M * n_sub + 16)
+    return {"n_sub": n_sub, "Tt": Tt,
+            "smem": 4 * (M * (Qa + 8) + M * (Qs + 8) + WLa + WLs)}
 
 
 def _analysis_band_groups(M: int, Mb: int, J: int) -> int:
@@ -140,11 +197,20 @@ def _roundtrip_geom(M: int, Ka: int, Ks: int) -> dict:
             "smem": 4 * (M * J * M + M * Ks * M + M * SP + 2 * M * XR)}
 
 
-def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int) -> int:
+def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int,
+               precision: str = "highest") -> int:
     """Shared memory one block of kernel ``which`` ("analysis",
-    "synthesis", "roundtrip") may use — for K2 the most of any of its
-    launch plans; Ka/Ks are the analysis/synthesis kernel lengths (the
-    other one is ignored)."""
+    "synthesis", "roundtrip") at ``precision`` may use — for K2 the most of
+    any of its launch plans; Ka/Ks are the analysis/synthesis kernel
+    lengths (the other one is ignored)."""
+    if fb.check_precision(precision) != "highest":
+        if which == "analysis":
+            return _tc_geom(M, Ka, Mb)["smem"]
+        if which == "synthesis":
+            return _tc_geom(Mb, Mb * Ks, M)["smem"]
+        if which == "roundtrip":
+            return _rt_tc_geom(M, Ka, Ks)["smem"]
+        raise ValueError(f"unknown kernel {which!r}")
     if which == "analysis":
         J = _cdiv(Ka, M)
         return _analysis_plan_smem(M, J, 4 * _analysis_band_groups(M, Mb, J),
@@ -160,12 +226,22 @@ def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int) -> int:
 
 
 def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
-                T_out: int, n_sms: int = N_SMS) -> tuple:
-    """The launch of kernel ``which`` for a call of ``T_out`` output steps
-    on a card of ``n_sms`` SMs, as the CUDA source plans it: (grid x, y, z,
-    threads, output steps a tile, K1/K2's steps a thread tile / K3's
-    sub-band steps a tile, K1's phase split / K2's band split, shared
-    memory bytes).
+                T_out: int, n_sms: int = N_SMS,
+                precision: str = "highest") -> tuple:
+    """The launch of kernel ``which`` at ``precision`` for a call of
+    ``T_out`` output steps on a card of ``n_sms`` SMs, as the CUDA source
+    plans it: (grid x, y, z, threads, output steps a tile, K1/K2's steps a
+    thread tile / K3's sub-band steps a tile, K1's phase split / K2's band
+    split, shared memory bytes). At the tiers the sixth entry is K1t/K2t's
+    reduction chunk (K3t's sub-band steps a tile), the seventh their output
+    channels a block (K3t: 1).
+
+    The tier kernels K1t/K2t run tiles of 64 output steps (one m16 tile a
+    warp of 4) and as many blocks as fit on the card at once, each staging
+    its chunk of 16 (or 8) output channels of the bank once and walking its
+    tiles; a bank chunk past 72 KB is staged per tile in chunks of the
+    reduction. K3t runs tiles of 224 output steps (256 sub-band steps at
+    Ks = 33) on as many blocks as fit.
 
     K2 takes thread tiles of 4 phases x NT steps. It splits the band sum
     over up to 16 threads (for banks of at most 16 bands: a longer split
@@ -178,6 +254,18 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     bands and its bands for K2's phases; its tiles hold at most 4096/M
     steps. K3 runs one
     persistent block an SM over tiles of n_sub sub-band steps."""
+    if fb.check_precision(precision) != "highest":
+        if which == "analysis":
+            return _tc_plan(B, M, Ka, Mb, T_out, n_sms)
+        if which == "synthesis":
+            return _tc_plan(B, Mb, Mb * Ks, M, T_out, n_sms)
+        if which == "roundtrip":
+            g = _rt_tc_geom(M, Ka, Ks)
+            per_sm = max(1, min(2048 // _RT_TC_THREADS,
+                                _SMEM_PER_SM // (g["smem"] + 1024)))
+            return (min(B * _cdiv(T_out, g["Tt"]), n_sms * per_sm), 1, 1,
+                    _RT_TC_THREADS, g["Tt"], g["n_sub"], 1, g["smem"])
+        raise ValueError(f"unknown kernel {which!r}")
     if which == "analysis":
         J = _cdiv(Ka, M)
         n_bg = _cdiv(Mb, 4)
@@ -218,28 +306,45 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     raise ValueError(f"unknown kernel {which!r}")
 
 
-def supports(n_band: int, analysis_taps: int, synthesis_taps: int) -> bool:
-    """Whether K1 and K2 take a full bank of this geometry: K1 and K2 stage
-    a chunk of the bank (at least one band or phase) and their input window
-    in one block's shared memory. Any band count whose banks fit is
-    admitted; the TPU's 128-lane halo limit does not apply here."""
+def supports(n_band: int, analysis_taps: int, synthesis_taps: int,
+             precision: str = "highest") -> bool:
+    """Whether K1 and K2 (K1t and K2t at a tier) take a full bank of this
+    geometry: they stage a chunk of the bank (at least one band or phase)
+    and their input window in one block's shared memory. Any band count
+    whose banks fit is admitted; the TPU's 128-lane halo limit does not
+    apply here. The tiers take every geometry ``"highest"`` takes (K1t and
+    K2t stage a bank too large for a block in chunks of the reduction), so
+    their gate is the f32 kernels' gate and the fit of their own."""
     M = n_band
-    return (M >= 1
+    if not (M >= 1
             and smem_bytes("analysis", M, M, analysis_taps, 0) <= SMEM_LIMIT
             and smem_bytes("synthesis", M, M, 0, synthesis_taps)
-            <= SMEM_LIMIT)
+            <= SMEM_LIMIT):
+        return False
+    return precision == "highest" or (
+        smem_bytes("analysis", M, M, analysis_taps, 0, precision)
+        <= SMEM_LIMIT
+        and smem_bytes("synthesis", M, M, 0, synthesis_taps, precision)
+        <= SMEM_LIMIT)
 
 
 def fused_roundtrip_supported(M: int, analysis_taps: int,
-                              synthesis_taps: int) -> bool:
-    """Whether K3 takes this geometry: a band count it is compiled for
-    (2, 4, 8, 16) whose banks, double-buffered input window and sub-band
-    tile fit in one block's shared memory (true for the atten-100 banks up
-    to M=16; M=32 is past it and its round trip runs as K1 then K2)."""
-    return (M in _RT_BANDS
+                              synthesis_taps: int,
+                              precision: str = "highest") -> bool:
+    """Whether K3 (K3t at a tier) takes this geometry: a band count it is
+    compiled for (2, 4, 8, 16) whose banks, double-buffered input window
+    and sub-band tile fit in one block's shared memory (true for the
+    atten-100 banks up to M=16; M=32 is past it and its round trip runs as
+    K1 then K2). A tier takes the same geometries, where its own tile fits,
+    so a round trip routes alike at every tier."""
+    if not (M in _RT_BANDS
             and _roundtrip_geom(M, analysis_taps, synthesis_taps)["Tt"] > 0
             and smem_bytes("roundtrip", M, M, analysis_taps,
-                           synthesis_taps) <= SMEM_LIMIT)
+                           synthesis_taps) <= SMEM_LIMIT):
+        return False
+    return precision == "highest" or smem_bytes(
+        "roundtrip", M, M, analysis_taps, synthesis_taps,
+        precision) <= SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
@@ -248,31 +353,37 @@ def fused_roundtrip_supported(M: int, analysis_taps: int,
 
 
 def analysis_conv_plain(x, w, M: int, fuse_mask: bool = True,
-                        pad=(0, 0)):
-    """Plain K1: ``reverse_half(conv1d(pad(x, pad), w, stride=M))`` ->
-    [B, Mb, T_out]."""
-    y = fb._conv1d(x, w, stride=M, padding=tuple(int(p) for p in pad))
+                        pad=(0, 0), precision: str = "highest"):
+    """Plain K1 (K1t at a tier): ``reverse_half(conv1d(pad(x, pad), w,
+    stride=M))`` at ``precision`` -> [B, Mb, T_out]."""
+    y = fb._conv1d(x, w, stride=M, padding=tuple(int(p) for p in pad),
+                   precision=precision)
     return fb.reverse_half(y) if fuse_mask else y
 
 
-def synthesis_conv_plain(x, w, fuse_mask: bool = True, x_offset: int = 0):
-    """Plain K2: sign mask on the input (parity from ``x_offset``, the
-    position of x[..., 0] in the unpadded signal), conv, ``*M``, band flip,
-    time-major [B, T_out, M]."""
+def synthesis_conv_plain(x, w, fuse_mask: bool = True, x_offset: int = 0,
+                         precision: str = "highest"):
+    """Plain K2 (K2t at a tier): sign mask on the input (parity from
+    ``x_offset``, the position of x[..., 0] in the unpadded signal), conv
+    at ``precision``, ``*M``, band flip, time-major [B, T_out, M]."""
     M = w.shape[0]
     if fuse_mask:
         x = fb.reverse_half(x, offset=x_offset)
-    y = fb._conv1d(x, w) * M
+    y = fb._conv1d(x, w, precision=precision) * M
     return torch.flip(y, dims=(1,)).transpose(1, 2).contiguous()
 
 
-def roundtrip_conv_plain(x, w_ana, w_syn, M: int, syn_pad):
-    """Plain K3: plain K1, zero pad ``syn_pad``, plain K2 — with both sign
-    masks, the synthesis mask's parity taken from the sub-band signal."""
-    sub = analysis_conv_plain(x, w_ana, M, fuse_mask=True)
+def roundtrip_conv_plain(x, w_ana, w_syn, M: int, syn_pad,
+                         precision: str = "highest"):
+    """Plain K3 (K3t at a tier): plain K1, zero pad ``syn_pad``, plain K2 —
+    with both sign masks, the synthesis mask's parity taken from the
+    sub-band signal. At a tier the f32 sub-bands are split again for the
+    synthesis, as JAX's fused kernel splits its f32 ring."""
+    sub = analysis_conv_plain(x, w_ana, M, fuse_mask=True,
+                              precision=precision)
     sub = torch.nn.functional.pad(sub, tuple(syn_pad))
     return synthesis_conv_plain(sub, w_syn, fuse_mask=True,
-                                x_offset=-syn_pad[0])
+                                x_offset=-syn_pad[0], precision=precision)
 
 
 # ---------------------------------------------------------------------------
@@ -309,14 +420,16 @@ def _launch(fn, *args):
 
 
 def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
-                          pad=(0, 0)):
+                          pad=(0, 0), precision: str = "highest"):
     """K1 — valid stride-M conv of a mono signal zero-padded by ``pad`` =
     (left, right) samples, plus the fused ``reverse_half`` on the output.
     The kernel applies the pad while it copies its input window, so the
     padded signal is never written.
 
     x: [B, 1, T]; w: [Mb, 1, K]. Returns [B, Mb, T_out] with
-    ``T_out = (left + T + right - K) // M + 1``."""
+    ``T_out = (left + T + right - K) // M + 1``. ``precision`` "highest"
+    launches K1, "bf16x3" / "default" K1t."""
+    fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w", w, 3, dev)
@@ -335,19 +448,26 @@ def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
         raise ValueError(f"empty analysis output: B={B}, T={T}, pad={pad}, "
                          f"K={K}")
     if dev.type == "cpu":
-        return analysis_conv_plain(x, w, M, fuse_mask, (pad_l, pad_r))
-    if smem_bytes("analysis", M, Mb, K, 0) > SMEM_LIMIT:
+        return analysis_conv_plain(x, w, M, fuse_mask, (pad_l, pad_r),
+                                   precision)
+    if (smem_bytes("analysis", M, Mb, K, 0) > SMEM_LIMIT
+            or smem_bytes("analysis", M, Mb, K, 0, precision) > SMEM_LIMIT):
         raise ValueError(f"analysis kernel length {K} exceeds the kernel's "
                          "shared memory; gate with supports()")
     out = torch.empty((B, Mb, T_out), dtype=torch.float32, device=dev)
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, M, Mb, K,
+            T_out, pad_l, int(fuse_mask))
     with torch.cuda.device(dev):
-        _launch("pqmf_analysis_conv", x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), B, T, M, Mb, K, T_out, pad_l, int(fuse_mask))
+        if precision == "highest":
+            _launch("pqmf_analysis_conv", *args)
+        else:
+            _launch("pqmf_tc_analysis_conv", *args, _PASSES[precision])
     LAUNCHES["analysis"] += 1
     return out
 
 
-def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0):
+def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
+                         precision: str = "highest"):
     """K2 — valid stride-1 M->M conv of pre-padded sub-bands with the
     synthesis post-amble fused: optional ``reverse_half`` on the input
     (``x_offset`` = index of x[..., 0] in the unpadded signal), ``*M``
@@ -355,7 +475,9 @@ def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0):
     free reshape.
 
     x: [B, Mb, Tpad]; w: [M, Mb, K]. Returns [B, T_out, M] with
-    ``T_out = Tpad - K + 1``."""
+    ``T_out = Tpad - K + 1``. ``precision`` "highest" launches K2, "bf16x3"
+    / "default" K2t."""
+    fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w", w, 3, dev)
@@ -369,20 +491,25 @@ def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0):
     if B < 1 or T_out < 1:
         raise ValueError(f"empty synthesis output: B={B}, Tpad={Tpad}, K={K}")
     if dev.type == "cpu":
-        return synthesis_conv_plain(x, w, fuse_mask, x_offset)
-    if smem_bytes("synthesis", M, Mb, 0, K) > SMEM_LIMIT:
+        return synthesis_conv_plain(x, w, fuse_mask, x_offset, precision)
+    if (smem_bytes("synthesis", M, Mb, 0, K) > SMEM_LIMIT
+            or smem_bytes("synthesis", M, Mb, 0, K, precision) > SMEM_LIMIT):
         raise ValueError(f"synthesis bank [{M}, {Mb}, {K}] exceeds the "
                          "kernel's shared memory; gate with supports()")
     out = torch.empty((B, T_out, M), dtype=torch.float32, device=dev)
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), B, Mb, Tpad, M, K,
+            T_out, int(fuse_mask), int(x_offset))
     with torch.cuda.device(dev):
-        _launch("pqmf_synthesis_conv", x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), B, Mb, Tpad, M, K, T_out, int(fuse_mask),
-                int(x_offset))
+        if precision == "highest":
+            _launch("pqmf_synthesis_conv", *args)
+        else:
+            _launch("pqmf_tc_synthesis_conv", *args, _PASSES[precision])
     LAUNCHES["synthesis"] += 1
     return out
 
 
-def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad):
+def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
+                         precision: str = "highest"):
     """K3 — analysis -> zero pad ``syn_pad`` -> synthesis in one kernel;
     the sub-band intermediate stays in shared memory and the two
     ``reverse_half`` masks cancel, so neither is applied.
@@ -390,7 +517,9 @@ def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad):
     x: [B, 1, Tpad] pre-padded for the analysis; w_ana: [M, 1, Ka];
     w_syn: [M, M, Ks]; syn_pad = (left, right) >= 0. Returns
     [B, T_out, M] with ``T_out = left + T_ana + right - Ks + 1``, equal to
-    :func:`roundtrip_conv_plain`."""
+    :func:`roundtrip_conv_plain`. ``precision`` "highest" launches K3,
+    "bf16x3" / "default" K3t."""
+    fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w_ana", w_ana, 3, dev)
@@ -410,15 +539,19 @@ def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad):
     if B < 1 or T_ana < 1 or T_out < 1:
         raise ValueError(f"empty round trip: B={B}, Tpad={Tpad}")
     if dev.type == "cpu":
-        return roundtrip_conv_plain(x, w_ana, w_syn, M, (pad_l, pad_r))
-    if not fused_roundtrip_supported(M, Ka, Ks):
+        return roundtrip_conv_plain(x, w_ana, w_syn, M, (pad_l, pad_r),
+                                    precision)
+    if not fused_roundtrip_supported(M, Ka, Ks, precision):
         raise ValueError(f"fused round trip of M={M}, Ka={Ka}, Ks={Ks} "
                          "exceeds the kernel's shared memory; gate with "
                          "fused_roundtrip_supported()")
     out = torch.empty((B, T_out, M), dtype=torch.float32, device=dev)
+    args = (x.data_ptr(), w_ana.data_ptr(), w_syn.data_ptr(), out.data_ptr(),
+            B, Tpad, M, Ka, Ks, T_ana, T_out, pad_l)
     with torch.cuda.device(dev):
-        _launch("pqmf_roundtrip_conv", x.data_ptr(), w_ana.data_ptr(),
-                w_syn.data_ptr(), out.data_ptr(), B, Tpad, M, Ka, Ks, T_ana,
-                T_out, pad_l)
+        if precision == "highest":
+            _launch("pqmf_roundtrip_conv", *args)
+        else:
+            _launch("pqmf_tc_roundtrip_conv", *args, _PASSES[precision])
     LAUNCHES["roundtrip"] += 1
     return out

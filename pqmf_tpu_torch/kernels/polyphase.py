@@ -20,8 +20,11 @@ Each has a plain version (``*_plain``) built from the reference's formula in
 ``ops/filterbank.py`` (de-interleave, then an L-tap conv): another tap
 order than the kernels', so the card check compares two formulations. A
 wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
-runs the kernel route (``*_over_k1/k2/k3``) or raises. Every launch adds one
-to :data:`LAUNCHES` (K1/K2/K3 count theirs in ``cached_conv.LAUNCHES``).
+runs the kernel route (``*_over_k1/k2/k3``) or raises. Every op takes the
+JAX package's precision tiers (``precision=``, its ``mxu_precision=``) and
+passes its tier on: at ``"bf16x3"`` and ``"default"`` the routes run K1t,
+K2t and K3t. Every launch adds one to :data:`LAUNCHES` (K1/K2/K3 count
+theirs in ``cached_conv.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -66,20 +69,23 @@ def analysis_weights(hk_poly: torch.Tensor) -> torch.Tensor:
     return hk_poly.permute(0, 2, 1).reshape(Mb, 1, L * M).contiguous()
 
 
-def supports(n_band: int, taps_per_phase: int) -> bool:
+def supports(n_band: int, taps_per_phase: int,
+             precision: str = "highest") -> bool:
     """Whether K1 and K2 take a polyphase bank of ``taps_per_phase`` (L)
     taps per phase: K4 runs K1 with L*M taps, K5 runs K2 with L."""
-    return cc.supports(n_band, taps_per_phase * n_band, taps_per_phase)
+    return cc.supports(n_band, taps_per_phase * n_band, taps_per_phase,
+                       precision)
 
 
 def roundtrip_supported(n_band: int, analysis_taps: int,
-                        synthesis_taps: int) -> bool:
+                        synthesis_taps: int,
+                        precision: str = "highest") -> bool:
     """Whether K6 runs (K3 takes the geometry): the port's shared-memory
     gate ``cached_conv.fused_roundtrip_supported`` — true up to M=16 for
     the atten-100 banks. The JAX gate (128-lane grouping) does not apply
     here; past this gate the round trip runs K4 then K5."""
     return cc.fused_roundtrip_supported(n_band, analysis_taps,
-                                        synthesis_taps)
+                                        synthesis_taps, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -87,20 +93,23 @@ def roundtrip_supported(n_band: int, analysis_taps: int,
 # ---------------------------------------------------------------------------
 
 
-def polyphase_analysis_plain(x, hk_poly):
+def polyphase_analysis_plain(x, hk_poly, precision: str = "highest"):
     """Plain K4: ``reverse_half(polyphase_forward(x, hk_poly))``."""
-    return fb.reverse_half(fb.polyphase_forward(x, hk_poly))
+    return fb.reverse_half(fb.polyphase_forward(x, hk_poly, precision))
 
 
-def polyphase_synthesis_plain(x, hk_ipoly):
+def polyphase_synthesis_plain(x, hk_ipoly, precision: str = "highest"):
     """Plain K5: ``polyphase_inverse(reverse_half(x), hk_ipoly)``."""
-    return fb.polyphase_inverse(fb.reverse_half(x), hk_ipoly)
+    return fb.polyphase_inverse(fb.reverse_half(x), hk_ipoly, precision)
 
 
-def polyphase_roundtrip_plain(x, hk_poly, hk_ipoly):
-    """Plain K6: plain K5 of plain K4 (the two sign masks cancel)."""
-    return polyphase_synthesis_plain(polyphase_analysis_plain(x, hk_poly),
-                                     hk_ipoly)
+def polyphase_roundtrip_plain(x, hk_poly, hk_ipoly,
+                              precision: str = "highest"):
+    """Plain K6: plain K5 of plain K4 (the two sign masks cancel; at a tier
+    the f32 sub-bands are split again)."""
+    return polyphase_synthesis_plain(
+        polyphase_analysis_plain(x, hk_poly, precision), hk_ipoly,
+        precision)
 
 
 # ---------------------------------------------------------------------------
@@ -116,15 +125,16 @@ def _analysis_pad(M: int, L: int) -> tuple:
     return (L // 2) * M, (L - L // 2 - 1) * M
 
 
-def analysis_over_k1(x, w2, M: int):
+def analysis_over_k1(x, w2, M: int, precision: str = "highest"):
     """K4's route: K1 with the centered pad, which K1 applies while it
     copies its window (the padded signal is never written). x [B, 1, T];
     w2 [Mb, 1, L*M] (:func:`analysis_weights`). Returns [B, Mb, T/M]."""
     L = w2.shape[-1] // M
-    return cc.strided_analysis_conv(x, w2, M, pad=_analysis_pad(M, L))
+    return cc.strided_analysis_conv(x, w2, M, pad=_analysis_pad(M, L),
+                                    precision=precision)
 
 
-def synthesis_over_k2(x, hk_ipoly):
+def synthesis_over_k2(x, hk_ipoly, precision: str = "highest"):
     """K5's route: K2 over sub-bands padded (L//2-1, L-L//2), the
     reference's pad L//2+1, ``[..., :-1]`` trim and 2-row delay trim in one;
     the input mask's parity is the sub-band time (``x_offset=-off``).
@@ -133,11 +143,12 @@ def synthesis_over_k2(x, hk_ipoly):
     M, L = hk_ipoly.shape[0], hk_ipoly.shape[-1]
     off = L // 2 - 1
     out = cc.dense_synthesis_conv(F.pad(x, (off, L - 1 - off)), hk_ipoly,
-                                  x_offset=-off)  # [B, T', M]
+                                  x_offset=-off,
+                                  precision=precision)  # [B, T', M]
     return out.reshape(B, 1, Tp * M)
 
 
-def roundtrip_over_k3(x, w2, hk_ipoly, M: int):
+def roundtrip_over_k3(x, w2, hk_ipoly, M: int, precision: str = "highest"):
     """K6's route: K3 with the synthesis pad one wider on each side than
     K5's, which shifts every output window one step later and adds one
     trailing step; dropping output step 0 leaves exactly K5(K4(x))'s
@@ -146,7 +157,8 @@ def roundtrip_over_k3(x, w2, hk_ipoly, M: int):
     L = w2.shape[-1] // M
     Ls = hk_ipoly.shape[-1]
     out = cc.fused_roundtrip_conv(F.pad(x, _analysis_pad(M, L)), w2,
-                                  hk_ipoly, M, (Ls // 2, Ls - Ls // 2))
+                                  hk_ipoly, M, (Ls // 2, Ls - Ls // 2),
+                                  precision)
     return out[:, 1:, :].reshape(B, 1, T)
 
 
@@ -164,7 +176,7 @@ def _check_signal(x, M: int):
         raise ValueError(f"T={x.shape[-1]} must be divisible by M={M}")
 
 
-def polyphase_analysis(x, hk_poly, w2=None):
+def polyphase_analysis(x, hk_poly, w2=None, precision: str = "highest"):
     """K4 — offline polyphase analysis plus the fused ``reverse_half``.
 
     x: [B, 1, T] (T divisible by M); hk_poly: [Mb, M, L]; ``w2`` is
@@ -173,15 +185,15 @@ def polyphase_analysis(x, hk_poly, w2=None):
     M = hk_poly.shape[1]
     _check_signal(x, M)
     if x.device.type == "cpu":
-        return polyphase_analysis_plain(x, hk_poly)
+        return polyphase_analysis_plain(x, hk_poly, precision)
     if w2 is None:
         w2 = analysis_weights(hk_poly)
-    out = analysis_over_k1(x, w2, M)
+    out = analysis_over_k1(x, w2, M, precision)
     LAUNCHES["analysis"] += 1
     return out
 
 
-def polyphase_synthesis(x, hk_ipoly):
+def polyphase_synthesis(x, hk_ipoly, precision: str = "highest"):
     """K5 — ``reverse_half`` plus offline polyphase synthesis.
 
     x: [B, Mb, T'] sub-bands; hk_ipoly: [M, Mb, L], contiguous. Returns
@@ -191,13 +203,14 @@ def polyphase_synthesis(x, hk_ipoly):
     if x.ndim != 3:
         raise ValueError(f"x must be [B, Mb, T'], got {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return polyphase_synthesis_plain(x, hk_ipoly)
-    out = synthesis_over_k2(x, hk_ipoly)
+        return polyphase_synthesis_plain(x, hk_ipoly, precision)
+    out = synthesis_over_k2(x, hk_ipoly, precision)
     LAUNCHES["synthesis"] += 1
     return out
 
 
-def polyphase_roundtrip(x, hk_poly, hk_ipoly, w2=None):
+def polyphase_roundtrip(x, hk_poly, hk_ipoly, w2=None,
+                        precision: str = "highest"):
     """K6 — analysis -> synthesis in one kernel (K3): the sub-bands stay in
     shared memory and the two masks cancel. Equal to
     ``polyphase_synthesis(polyphase_analysis(x, hk_poly), hk_ipoly)`` up to
@@ -206,9 +219,9 @@ def polyphase_roundtrip(x, hk_poly, hk_ipoly, w2=None):
     M = hk_poly.shape[1]
     _check_signal(x, M)
     if x.device.type == "cpu":
-        return polyphase_roundtrip_plain(x, hk_poly, hk_ipoly)
+        return polyphase_roundtrip_plain(x, hk_poly, hk_ipoly, precision)
     if w2 is None:
         w2 = analysis_weights(hk_poly)
-    out = roundtrip_over_k3(x, w2, hk_ipoly, M)
+    out = roundtrip_over_k3(x, w2, hk_ipoly, M, precision)
     LAUNCHES["roundtrip"] += 1
     return out

@@ -3,9 +3,10 @@
 PyTorch counterpart of ``pqmf_tpu/ops/filterbank.py``. The bank build is
 the JAX package's host-side NumPy, copied (importing anything from
 ``pqmf_tpu`` imports JAX), so the banks are bit-equal. The tensor side is
-``reverse_half``, a plain full-f32 ``_conv1d`` and, on it, the offline
-polyphase and classic analysis/synthesis with the reference's exact edge
-semantics. ``_conv1d`` serves the plain versions of the conv kernels,
+``reverse_half``, a plain ``_conv1d`` at the three precision tiers and, on
+it, the offline polyphase and classic analysis/synthesis with the
+reference's exact edge semantics. ``_conv1d`` serves the plain versions of
+the conv kernels,
 ``streaming.streaming_conv`` / ``offline_conv`` and the classic path; the
 polyphase ops are the plain versions of K4/K5/K6
 (``pqmf_tpu_torch.kernels.polyphase``), whose CUDA route runs the kernels
@@ -34,18 +35,36 @@ __all__ = [
     "polyphase_inverse",
     "classic_forward",
     "classic_inverse",
+    "PRECISIONS",
     "check_precision",
+    "split_bf16",
     "full_f32",
 ]
 
+# the conv tiers of the JAX package's kernels (``mxu_precision=``):
+# "highest" full f32; "bf16x3" the split-operand three-pass sum hi*hi +
+# hi*lo + lo*hi with f32 sums; "default" one pass over the bf16 hi halves
+PRECISIONS = ("highest", "bf16x3", "default")
+
 
 def check_precision(precision: str) -> str:
-    """Only the full-f32 ``"highest"`` tier is ported so far."""
-    if precision != "highest":
+    """``precision`` if it names a tier of :data:`PRECISIONS`, else
+    ``ValueError``."""
+    if precision not in PRECISIONS:
         raise ValueError(
-            f"precision {precision!r} is not available in pqmf_tpu_torch: "
-            "only 'highest' (full f32) is ported")
+            f"unknown precision {precision!r}: expected one of "
+            f"{', '.join(repr(p) for p in PRECISIONS)}")
     return precision
+
+
+def split_bf16(a: torch.Tensor):
+    """The hi + lo bf16 halves of an f32 tensor, as f32 values: hi =
+    bf16(a) and lo = bf16(a - hi), each rounded to nearest even (the JAX
+    package's ``_split_bf16``, ``pqmf_tpu/kernels/cached_conv.py:85``). A
+    product of two halves is exact in f32."""
+    hi = a.to(torch.bfloat16).to(a.dtype)
+    lo = (a - hi).to(torch.bfloat16).to(a.dtype)
+    return hi, lo
 
 
 @contextlib.contextmanager
@@ -157,16 +176,32 @@ def reverse_half(x: torch.Tensor, offset: int = 0) -> torch.Tensor:
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-            padding: tuple[int, int] = (0, 0)) -> torch.Tensor:
+            padding: tuple[int, int] = (0, 0),
+            precision: str = "highest") -> torch.Tensor:
     """Cross-correlation of x [B, Cin, T] with w [Cout, Cin, L], zero
-    ``padding`` (left, right), in full f32 on every device."""
+    ``padding`` (left, right), at a precision tier on every device:
+    ``"highest"`` one f32 conv; ``"bf16x3"`` conv(xh, wh) + conv(xh, wl) +
+    conv(xl, wh) over the :func:`split_bf16` halves; ``"default"``
+    conv(xh, wh). The convs run in full f32: a product of bf16 values is
+    exact there, so this is the TPU tier up to the order of summation
+    (TF32 would add error of its own)."""
+    check_precision(precision)
     if padding != (0, 0):
         x = F.pad(x, padding)
     with full_f32():
-        return F.conv1d(x, w, stride=stride)
+        if precision == "highest":
+            return F.conv1d(x, w, stride=stride)
+        xh, xl = split_bf16(x)
+        wh, wl = split_bf16(w)
+        y = F.conv1d(xh, wh, stride=stride)
+        if precision == "bf16x3":
+            y = (y + F.conv1d(xh, wl, stride=stride)
+                 + F.conv1d(xl, wh, stride=stride))
+        return y
 
 
-def polyphase_forward(x: torch.Tensor, hk_poly: torch.Tensor) -> torch.Tensor:
+def polyphase_forward(x: torch.Tensor, hk_poly: torch.Tensor,
+                      precision: str = "highest") -> torch.Tensor:
     """Fast polyphase analysis (reference: pqmf.py:115-130).
 
     x: [B, 1, T] with T divisible by M; hk_poly: [Mb, M, L].
@@ -176,16 +211,19 @@ def polyphase_forward(x: torch.Tensor, hk_poly: torch.Tensor) -> torch.Tensor:
     # "b c (t m) -> b (c m) t": phase index m is the fast axis of time
     xp = x.reshape(B, C, T // M, M).transpose(-1, -2).reshape(B, C * M,
                                                               T // M)
-    return _conv1d(xp, hk_poly, padding=(L // 2, L // 2))[..., :-1]
+    return _conv1d(xp, hk_poly, padding=(L // 2, L // 2),
+                   precision=precision)[..., :-1]
 
 
-def polyphase_inverse(x: torch.Tensor, hk_ipoly: torch.Tensor) -> torch.Tensor:
+def polyphase_inverse(x: torch.Tensor, hk_ipoly: torch.Tensor,
+                      precision: str = "highest") -> torch.Tensor:
     """Fast polyphase synthesis (reference: pqmf.py:133-157).
 
     x: [B, Mb, T'] sub-bands; hk_ipoly: [M, Mb, L]. Returns [B, 1, M*T']."""
     M, L = hk_ipoly.shape[0], hk_ipoly.shape[-1]
     pad = L // 2 + 1
-    y = _conv1d(x, hk_ipoly, padding=(pad, pad))[..., :-1] * M
+    y = _conv1d(x, hk_ipoly, padding=(pad, pad),
+                precision=precision)[..., :-1] * M
     y = torch.flip(y, dims=(1,))  # band-order reversal
     # drop the first 2 polyphase rows == the reference's ``x[..., 2*M:]``
     # trim after the interleave (pqmf.py:156)
@@ -195,16 +233,18 @@ def polyphase_inverse(x: torch.Tensor, hk_ipoly: torch.Tensor) -> torch.Tensor:
     return y.transpose(1, 2).reshape(B, 1, Tp * M)
 
 
-def classic_forward(x: torch.Tensor, hk: torch.Tensor) -> torch.Tensor:
+def classic_forward(x: torch.Tensor, hk: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
     """Slow full-rate analysis (reference: pqmf.py:160-177).
 
     x: [B, 1, T]; hk: [M, P]. Returns [B, M, T/M]."""
     M, P = hk.shape
-    return _conv1d(x, hk[:, None, :], stride=M,
-                   padding=(P // 2, P // 2))[..., :-1]
+    return _conv1d(x, hk[:, None, :], stride=M, padding=(P // 2, P // 2),
+                   precision=precision)[..., :-1]
 
 
-def classic_inverse(x: torch.Tensor, hk: torch.Tensor) -> torch.Tensor:
+def classic_inverse(x: torch.Tensor, hk: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
     """Slow synthesis via zero-stuffing (reference: pqmf.py:180-199): each
     band is zero-stuffed to full rate (``y[..., ::M] = x*M``, M*T' samples
     including the M-1 trailing zeros) and convolved with the time-flipped
@@ -219,4 +259,4 @@ def classic_inverse(x: torch.Tensor, hk: torch.Tensor) -> torch.Tensor:
     y = x.new_zeros((B, M, Tp * M))
     y[..., ::M] = x * M
     w = torch.flip(hk, dims=(-1,))[None]  # [1, M, P]
-    return _conv1d(y, w, padding=(P // 2 - 1, P // 2))
+    return _conv1d(y, w, padding=(P // 2 - 1, P // 2), precision=precision)

@@ -11,7 +11,9 @@ The DFT of the serving paths (``stft_ri`` / ``istft_ri``) is a matmul
 against a cos/sin basis, not ``torch.fft``: on an exactly-zero frame the
 matmul gives +0.0 real parts (phase 0) where an FFT gives -0.0 (phase pi),
 and the pitch shifters' stretch reads that phase. The matmuls run in full
-f32 (:func:`~pqmf_tpu_torch.ops.filterbank.full_f32`). The complex
+f32 (:func:`~pqmf_tpu_torch.ops.filterbank.full_f32`); at the ``"default"``
+precision tier both operands are rounded to bf16 first (:func:`dft_matmul`),
+the TPU's one bf16 pass with f32 sums, on every device. The complex
 :func:`stft` / :func:`istft` on ``torch.fft`` are kept for parity checks,
 as in the JAX package.
 """
@@ -24,12 +26,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pqmf_tpu_torch.ops.filterbank import full_f32
+from pqmf_tpu_torch.ops.filterbank import check_precision, full_f32
 
 __all__ = [
     "hann_window",
     "reflect_pad",
     "frame_count",
+    "dft_matmul",
     "dft_basis",
     "idft_basis",
     "stft",
@@ -115,6 +118,21 @@ def _trim_or_pad(out: torch.Tensor, total: int, center: bool,
     if avail < length:
         out = F.pad(out, (0, length - avail))
     return out
+
+
+def dft_matmul(a: torch.Tensor, b: torch.Tensor,
+               precision: str = "highest") -> torch.Tensor:
+    """``a @ b`` of a DFT at a precision tier (JAX's ``einsum_precision``,
+    ``pqmf_tpu/ops/stft.py:261``): at ``"default"`` both operands are
+    rounded to bf16 (nearest even) and the product runs in full f32, the
+    TPU's one bf16 pass with f32 sums; ``"highest"`` and ``"bf16x3"`` run
+    it in full f32 (the JAX package's bf16x3 changes only its conv
+    kernels)."""
+    if check_precision(precision) == "default":
+        a = a.to(torch.bfloat16).to(a.dtype)
+        b = b.to(torch.bfloat16).to(b.dtype)
+    with full_f32():
+        return torch.matmul(a, b)
 
 
 @functools.lru_cache(maxsize=32)
@@ -231,16 +249,18 @@ def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
 
 def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
             window: torch.Tensor, center: bool = True,
-            normalized: bool = True, pad_mode: str = "constant"):
-    """:func:`stft` with real/imag outputs via a matmul DFT.
+            normalized: bool = True, pad_mode: str = "constant",
+            precision: str = "highest"):
+    """:func:`stft` with real/imag outputs via a matmul DFT at
+    ``precision`` (:func:`dft_matmul`).
 
     x: [B, T] -> (re, im) each [B, F, frames], in x's dtype (float32, or
     float64 over the same float32 basis)."""
     framed = _framed(x, n_fft, hop_length, window, center, pad_mode)
     C, S = dft_basis(n_fft, x.device)
-    with full_f32():
-        # one matmul for both parts: each output column is its own dot
-        both = torch.matmul(framed, torch.cat([C, S], dim=1).to(x.dtype))
+    # one matmul for both parts: each output column is its own dot
+    both = dft_matmul(framed, torch.cat([C, S], dim=1).to(x.dtype),
+                      precision)
     both = both.transpose(1, 2)  # [B, 2F, frames]
     F_ = n_fft // 2 + 1
     re, im = both[:, :F_], -both[:, F_:]
@@ -251,7 +271,7 @@ def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
 
 
 def ta_stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
-               window: torch.Tensor):
+               window: torch.Tensor, precision: str = "highest"):
     """The torchaudio variant's analysis: :func:`stft_ri` of x [B, T] with
     the reflect pad and no normalization, summed in float64 and rounded
     once to float32.
@@ -262,26 +282,30 @@ def ta_stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
     later frame (with a float32 DFT, the standalone shifter on 10 s at
     2756 Hz measured 90.9 dB on an NVIDIA H100 against the CPU). The
     standalone :class:`~pqmf_tpu_torch.shifters.TorchaudioPitchShift`
-    and the fused per-band path of the wrapper share this one analysis."""
+    and the fused per-band path of the wrapper share this one analysis. At
+    the ``"default"`` tier its operands are rounded to bf16 first, as
+    :func:`dft_matmul` rounds them."""
     re, im = stft_ri(x.double(), n_fft, hop_length, window, center=True,
-                     normalized=False, pad_mode="reflect")
+                     normalized=False, pad_mode="reflect",
+                     precision=precision)
     return re.float(), im.float()
 
 
 def istft_ri_parts(re, im, n_fft: int, hop_length: int, window,
-                   normalized: bool = True, frame_mask=None):
+                   normalized: bool = True, frame_mask=None,
+                   precision: str = "highest"):
     """OLA core of the real-valued ISTFT: returns (y, wsq) over the full
     padded length ``n_fft + (frames-1)*hop``.
 
     re/im: [..., F, frames]. ``frame_mask`` [..., frames] of 0/1 (leading
     dims broadcast against re's) drops frames from both sums — the pitch
-    shifters' per-band ``frames_out``."""
+    shifters' per-band ``frames_out``. The IDFT runs at ``precision``
+    (:func:`dft_matmul`)."""
     frames = re.shape[-1]
     w = _padded_window(window, n_fft)
     Ci, Si = idft_basis(n_fft, re.device)
     ri = torch.cat([re, im], dim=-2).transpose(-1, -2)  # [..., frames, 2F]
-    with full_f32():
-        y_f = torch.matmul(ri, torch.cat([Ci, Si], dim=0))
+    y_f = dft_matmul(ri, torch.cat([Ci, Si], dim=0), precision)
     if normalized:
         y_f = y_f * float(np.sqrt(n_fft))
     y_f = y_f * w
@@ -296,10 +320,11 @@ def istft_ri_parts(re, im, n_fft: int, hop_length: int, window,
 
 def istft_ri(re: torch.Tensor, im: torch.Tensor, n_fft: int,
              hop_length: int, window: torch.Tensor, center: bool = True,
-             normalized: bool = True, length: int | None = None):
+             normalized: bool = True, length: int | None = None,
+             precision: str = "highest"):
     """:func:`istft` from real/imag spectra via the matmul IDFT:
     [B, F, frames] each -> [B, length]."""
     y, wsq = istft_ri_parts(re, im, n_fft, hop_length, window,
-                            normalized=normalized)
+                            normalized=normalized, precision=precision)
     out = y / torch.where(wsq > 1e-11, wsq, torch.ones_like(wsq))
     return _trim_or_pad(out, y.shape[-1], center, length, n_fft)

@@ -24,7 +24,11 @@ PyTorch counterpart of ``pqmf_tpu/pipelines.py``:
 
 The middles are plain tensor code over all bands at once; the convs are
 the hand-written kernels on a CUDA device and their plain versions on the
-CPU.
+CPU. Every wrapper takes the JAX package's precision tiers
+(``precision=``): the convs run at the tier (K1t/K2t/K3t at ``"bf16x3"``
+and ``"default"``), the middles' DFT matmuls round their operands to bf16
+at ``"default"`` only, and the resample stays in full f32 (JAX hard-codes
+HIGHEST there, ``pqmf_tpu/pipelines.py:311-313``).
 """
 
 from __future__ import annotations
@@ -102,7 +106,8 @@ def derive_stft_geometry(m_buffer_size: int, n_band: int):
 
 def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
                            fade_in, n_fft, hop, win, Tb, FO_max,
-                           crossfade=True, phase_rule="reference"):
+                           crossfade=True, phase_rule="reference",
+                           precision="highest"):
     """Pitch-shift every sub-band at once.
 
     bands: [B, M, Tb]; rates: [M] f32; frames_out: [M] int64.
@@ -111,6 +116,7 @@ def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
     crossfade "batched" (multi-stream serving): prev_tail [M, B, L] —
     every batch row keeps its own carried tail.
     crossfade False: no blend, the tail is returned untouched.
+    ``precision``: the DFT matmuls' tier (``ops.stft.dft_matmul``).
     Returns (shifted [B, M, Tb], new_tail like prev_tail).
     """
     B, M, _ = bands.shape
@@ -122,7 +128,8 @@ def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
     x = bands.transpose(0, 1).reshape(M * B, Tb)
     if Tb < n_fft:  # reference pads short sub-bands right to n_fft
         x = F.pad(x, (0, n_fft - Tb))
-    re, im = S.stft_ri(x, n_fft, hop, window, normalized=True)
+    re, im = S.stft_ri(x, n_fft, hop, window, normalized=True,
+                       precision=precision)
     F_, frames = re.shape[1], re.shape[2]
     re = re.reshape(M, B, F_, frames)
     im = im.reshape(M, B, F_, frames)
@@ -161,7 +168,8 @@ def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
 
     # masked OLA ISTFT over the full (untrimmed) buffer
     y, wsq = S.istft_ri_parts(re_s, im_s, n_fft, hop, window,
-                              normalized=True, frame_mask=fmask[:, None, :])
+                              normalized=True, frame_mask=fmask[:, None, :],
+                              precision=precision)
     ola = y / torch.where(wsq > 1e-11, wsq, torch.ones_like(wsq))  # [M,B,tot]
     total = ola.shape[-1]
     i = torch.arange(total, device=dev)[None, :]
@@ -174,9 +182,8 @@ def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
 
     # reference 1-frame fallback: direct (normalized-in, unscaled-out)
     # irfft of frame 0, cropped to win, centered in n_fft
-    with fb.full_f32():
-        y1 = (torch.matmul(re_s[..., 0], Ci)
-              + torch.matmul(im_s[..., 0], Si))  # [M, B, n_fft]
+    y1 = (S.dft_matmul(re_s[..., 0], Ci, precision)
+          + S.dft_matmul(im_s[..., 0], Si, precision))  # [M, B, n_fft]
     p_one = torch.zeros_like(ola)
     p_one[..., one_off:one_off + win] = y1[..., :win]
     P = torch.where((frames_out == 1)[:, None, None], p_one, p_multi)
@@ -419,7 +426,8 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         return _fused_band_pitchshift(
             sub, self._rates, frames_out, prev_tail, self._fade_out,
             self._fade_in, self.n_fft, self.hop, self.win, Tb, FO_max,
-            crossfade=crossfade, phase_rule=self.phase_rule)
+            crossfade=crossfade, phase_rule=self.phase_rule,
+            precision=self.precision)
 
     def pitchshift_fn(self, state, x):
         """(state, x [1,T] | [B,1,T]) -> (state', y [B, T]). With B > 1
@@ -531,7 +539,7 @@ def stream_ola(wrapper, x, block: int, overlap: int | None = None):
 # ---------------------------------------------------------------------------
 
 
-def _fused_ta_pitchshift(bands, plan, n_fft, hop, win):
+def _fused_ta_pitchshift(bands, plan, n_fft, hop, win, precision="highest"):
     """torchaudio's pitch shift of every band at once (reference per-band
     loop: PQMFPsWrapper.py:126-144).
 
@@ -541,7 +549,8 @@ def _fused_ta_pitchshift(bands, plan, n_fft, hop, win):
     window starts ``start`` [M, Tb] into the ``pad_left``-offset stretch
     buffer of length Lbuf (see
     :func:`~pqmf_tpu_torch.ops.resample.banded_resample_plan`). The
-    resample is the banded gather ``z[j] = sum_k W[j, k] y[start[j] + k]``.
+    resample is the banded gather ``z[j] = sum_k W[j, k] y[start[j] + k]``
+    (full f32 at every tier). ``precision``: the DFT matmuls' tier.
     Returns shifted [B, M, Tb]."""
     (rates, frames_out, len_stretch, zero_shift, W, start, FO_max, pad_left,
      Lbuf) = plan
@@ -551,7 +560,7 @@ def _fused_ta_pitchshift(bands, plan, n_fft, hop, win):
 
     # torchaudio's STFT of all bands, band-major rows [M*B, Tb]
     x = bands.transpose(0, 1).reshape(M * B, Tb)
-    re, im = S.ta_stft_ri(x, n_fft, hop, window)
+    re, im = S.ta_stft_ri(x, n_fft, hop, window, precision)
     F_, frames = re.shape[1], re.shape[2]
     omega = pv.phase_advance(F_, hop, n_fft, dev)
     re_s, im_s = pv.stretch_accumulate(re.reshape(M, B, F_, frames),
@@ -563,7 +572,8 @@ def _fused_ta_pitchshift(bands, plan, n_fft, hop, win):
     fmask = (torch.arange(FO_max, device=dev)[None, :]
              < frames_out[:, None]).to(torch.float32)  # [M, FO]
     y, wsq = S.istft_ri_parts(re_s, im_s, n_fft, hop, window,
-                              normalized=False, frame_mask=fmask[:, None, :])
+                              normalized=False, frame_mask=fmask[:, None, :],
+                              precision=precision)
     out = y / torch.where(wsq > 1e-11, wsq, torch.ones_like(wsq))
     ystr = out[..., n_fft // 2:]  # [M, B, L]
     L = ystr.shape[-1]
@@ -731,7 +741,8 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
         x = self._block(x)
         plan = self._ta_plan(x.shape[-1] // self.n_band)
         shifted = _fused_ta_pitchshift(self.pqmf.forward(x), plan,
-                                       self._n_fft, self._hop, self._win)
+                                       self._n_fft, self._hop, self._win,
+                                       self.precision)
         return self.pqmf.inverse(shifted)
 
     def pitchshifter_loop(self, x):

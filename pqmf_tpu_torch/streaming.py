@@ -14,8 +14,9 @@ is even (``reverse_half``'s block-local sign; see
 
 Every conv of :class:`StreamingPQMF` goes through the kernel wrappers in
 :mod:`pqmf_tpu_torch.kernels.cached_conv`: on a CUDA device the analysis
-runs K1, the synthesis K2 and :meth:`StreamingPQMF.roundtrip` K3; on the
-CPU the same wrappers run their plain versions.
+runs K1, the synthesis K2 and :meth:`StreamingPQMF.roundtrip` K3 (K1t,
+K2t and K3t at the ``"bf16x3"`` and ``"default"`` tiers); on the CPU the
+same wrappers run their plain versions at the same tier.
 """
 
 from __future__ import annotations
@@ -110,61 +111,68 @@ def conv_state_init(batch: int, in_ch: int, kernel: int, stride: int,
                        device=device)
 
 
-def streaming_conv(state, x, w, stride: int = 1):
-    """One streaming step of a cached Conv1d (plain, full f32).
+def streaming_conv(state, x, w, stride: int = 1,
+                   precision: str = "highest"):
+    """One streaming step of a cached Conv1d (plain, at ``precision``).
 
     state: [B, Cin, K-S] carried past samples; x: [B, Cin, T] (T % S == 0);
     w: [Cout, Cin, K]. Returns (state', y [B, Cout, T/S])."""
     K = w.shape[-1]
     xx = torch.cat([state, x], dim=-1)
-    y = fb._conv1d(xx, w, stride=stride)
+    y = fb._conv1d(xx, w, stride=stride, precision=precision)
     return xx[..., xx.shape[-1] - (K - stride):], y
 
 
-def offline_conv(x, w, stride: int = 1, causal: bool = False):
+def offline_conv(x, w, stride: int = 1, causal: bool = False,
+                 precision: str = "highest"):
     """Offline reference for the streaming property: centered (the
     reference's exported non-cached mode) or causal (what streaming
     reproduces from zero initial state)."""
     K = w.shape[-1]
     pad = (K - stride, 0) if causal else centered_padding(K)
-    return fb._conv1d(x, w, stride=stride, padding=pad)
+    return fb._conv1d(x, w, stride=stride, padding=pad, precision=precision)
 
 
-def _cached_analysis(x, hkf, state, mode="offline"):
+def _cached_analysis(x, hkf, state, mode="offline", precision="highest"):
     """CachedPQMF.forward (pqmf.py:339-343): strided 1->M conv and sign
-    mask, as K1 over the mode's padded input (K1 applies the offline and
-    causal zero pads itself). Returns (state', y)."""
+    mask, as K1 (K1t at a tier) over the mode's padded input (K1 applies
+    the offline and causal zero pads itself). Returns (state', y)."""
     M, _, K = hkf.shape
     if mode == "offline":
         return state, cc.strided_analysis_conv(x.contiguous(), hkf, M,
-                                               pad=centered_padding(K))
+                                               pad=centered_padding(K),
+                                               precision=precision)
     if mode == "causal":
         return state, cc.strided_analysis_conv(x.contiguous(), hkf, M,
-                                               pad=(K - M, 0))
+                                               pad=(K - M, 0),
+                                               precision=precision)
     xx = torch.cat([state, x], dim=-1)  # streaming
     new_state = xx[..., xx.shape[-1] - (K - M):]
-    return new_state, cc.strided_analysis_conv(xx, hkf, M)
+    return new_state, cc.strided_analysis_conv(xx, hkf, M,
+                                               precision=precision)
 
 
-def _cached_synthesis(x, hki, state, mode="offline"):
+def _cached_synthesis(x, hki, state, mode="offline", precision="highest"):
     """CachedPQMF.inverse (pqmf.py:345-354): sign mask, M->M conv * M, band
-    flip, phase interleave, as K2 over the mode's padded input. Returns
-    (state', y [B, 1, T'*M])."""
+    flip, phase interleave, as K2 (K2t at a tier) over the mode's padded
+    input. Returns (state', y [B, 1, T'*M])."""
     M, _, K = hki.shape
     if mode == "offline":
         sl, sr = centered_padding(K)
-        y = cc.dense_synthesis_conv(F.pad(x, (sl, sr)), hki, x_offset=-sl)
+        y = cc.dense_synthesis_conv(F.pad(x, (sl, sr)), hki, x_offset=-sl,
+                                    precision=precision)
         new_state = state
     elif mode == "causal":
         y = cc.dense_synthesis_conv(F.pad(x, (K - 1, 0)), hki,
-                                    x_offset=-(K - 1))
+                                    x_offset=-(K - 1), precision=precision)
         new_state = state
     else:
         # block-local sign mask first: the carried tail keeps the previous
         # block's masked samples
         xx = torch.cat([state, fb.reverse_half(x)], dim=-1)
         new_state = xx[..., xx.shape[-1] - (K - 1):]
-        y = cc.dense_synthesis_conv(xx, hki, fuse_mask=False)
+        y = cc.dense_synthesis_conv(xx, hki, fuse_mask=False,
+                                    precision=precision)
     return new_state, y.reshape(y.shape[0], 1, -1)
 
 
@@ -190,8 +198,10 @@ class StreamingPQMF:
 
     ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``; without
     a card ``"cuda"`` raises. Inputs may be NumPy arrays (copied to the
-    device) or float32 tensors already on it; only ``precision="highest"``
-    (full f32) is available.
+    device) or float32 tensors already on it. ``precision`` is the JAX
+    package's tier of every conv: ``"highest"`` (full f32, K1/K2/K3),
+    ``"bf16x3"`` or ``"default"`` (split-bf16 on the tensor cores,
+    K1t/K2t/K3t).
     """
 
     def __init__(self, attenuation: float, n_band: int,
@@ -217,7 +227,7 @@ class StreamingPQMF:
         M = self.n_band
         Ka, Ks = self.hkf.shape[-1], self.hki.shape[-1]
         if (self.device.type == "cuda" and M > 1
-                and not cc.supports(M, Ka, Ks)):
+                and not cc.supports(M, Ka, Ks, self.precision)):
             raise ValueError(
                 f"the CUDA kernels do not take banks of {Ka}/{Ks} taps at "
                 f"n_band={M} (see kernels.cached_conv.supports)")
@@ -290,7 +300,8 @@ class StreamingPQMF:
         xf, B = self._fold(x)
         if self.n_band == 1:
             return xf.reshape(B, self.n_channels, -1)
-        _, y = _cached_analysis(xf, self.hkf, None, mode="offline")
+        _, y = _cached_analysis(xf, self.hkf, None, mode="offline",
+                                precision=self.precision)
         return y.reshape(B, self.n_channels * self.n_band, -1)
 
     def inverse(self, x):
@@ -298,22 +309,25 @@ class StreamingPQMF:
         xf, B = self._fold_bands(x)
         if self.n_band == 1:
             return xf.reshape(B, self.n_channels, -1)
-        _, y = _cached_synthesis(xf, self.hki, None, mode="offline")
+        _, y = _cached_synthesis(xf, self.hki, None, mode="offline",
+                                 precision=self.precision)
         return y.reshape(B, self.n_channels, -1)
 
     def roundtrip(self, x):
         """``inverse(forward(x))`` as one kernel, K3 ([B, C, T] ->
         [B, C, T]): the sub-bands never leave the card's shared memory and
-        the two ``reverse_half`` masks cancel. Geometries K3 does not take
-        (see ``fused_roundtrip_supported``) run as K1 then K2."""
+        the two ``reverse_half`` masks cancel (K3t at a tier). Geometries
+        K3 does not take (see ``fused_roundtrip_supported``) run as K1 then
+        K2."""
         M = self.n_band
         Ka, Ks = self.hkf.shape[-1], self.hki.shape[-1]
-        if M == 1 or not cc.fused_roundtrip_supported(M, Ka, Ks):
+        if M == 1 or not cc.fused_roundtrip_supported(M, Ka, Ks,
+                                                      self.precision):
             return self.inverse(self.forward(x))
         xf, B = self._fold(x)
         xx = F.pad(xf, centered_padding(Ka))
         out = cc.fused_roundtrip_conv(xx, self.hkf, self.hki, M,
-                                      centered_padding(Ks))
+                                      centered_padding(Ks), self.precision)
         return out.reshape(B, self.n_channels, -1)
 
     # -- streaming ----------------------------------------------------------
@@ -349,7 +363,7 @@ class StreamingPQMF:
                 f"n_band={self.n_band}")
         self._check_block_parity(T // self.n_band, "analysis")
         new, y = _cached_analysis(xf, self.hkf, state["analysis"],
-                                  mode="streaming")
+                                  mode="streaming", precision=self.precision)
         return ({**state, "analysis": new},
                 y.reshape(B, self.n_channels * self.n_band, -1))
 
@@ -357,7 +371,8 @@ class StreamingPQMF:
         xf, B = self._fold_bands(x)
         self._check_block_parity(xf.shape[-1], "synthesis")
         new, y = _cached_synthesis(xf, self.hki, state["synthesis"],
-                                   mode="streaming")
+                                   mode="streaming",
+                                   precision=self.precision)
         return ({**state, "synthesis": new},
                 y.reshape(B, self.n_channels, -1))
 
@@ -370,10 +385,12 @@ class StreamingPQMF:
 
     def forward_causal(self, x):
         xf, B = self._fold(x)
-        _, y = _cached_analysis(xf, self.hkf, None, mode="causal")
+        _, y = _cached_analysis(xf, self.hkf, None, mode="causal",
+                                precision=self.precision)
         return y.reshape(B, self.n_channels * self.n_band, -1)
 
     def inverse_causal(self, x):
         xf, B = self._fold_bands(x)
-        _, y = _cached_synthesis(xf, self.hki, None, mode="causal")
+        _, y = _cached_synthesis(xf, self.hki, None, mode="causal",
+                                 precision=self.precision)
         return y.reshape(B, self.n_channels, -1)

@@ -12,7 +12,14 @@ K3 against the plain composition atol=1e-5 (it sums the analysis taps
 phase by phase, another order); K4/K5 against the polyphase formula 2e-5 / 1e-4
 and K6 2e-5 / 1e-4 (another tap order again); the slice, the
 torchaudio variant, the block harness's pitch stream and the standalone
-shifters >= 90 dB.
+shifters >= 90 dB. The tier kernels K1t/K2t/K3t (``precision="bf16x3"``
+and ``"default"``) keep those bars against the plain versions at the same
+tier, but for the ``default`` K3t: its f32 sub-bands are rounded to bf16
+again, and where they differ from the plain version's by an f32 ulp one
+such rounding can flip by a bf16 ulp, so its bound is one bf16 ulp of the
+largest sub-band times the largest column sum of |w_syn| times M, with
+all but 5% of the outputs inside the K3 bar (a flip reaches Ks*M outputs
+and happens on about 2^-15 of the mids: ~1.6% measured).
 """
 
 import numpy as np
@@ -411,3 +418,229 @@ def test_standalone_shifter_on_card(dev):
     got = sh(torch.from_numpy(x).to(dev))
     assert got.device.type == "cuda"
     assert snr_db(sh(x).numpy(), got.cpu().numpy()) >= 90
+
+
+# ---------------------------------------------------------------------------
+# the precision tiers: K1t, K2t, K3t (csrc/cached_conv_tc.cu)
+# ---------------------------------------------------------------------------
+
+TIERS = ("bf16x3", "default")
+K3_TOL = dict(atol=1e-5, rtol=0.0)
+
+
+def assert_k3t_close(got, ref, sub, w_syn, tier):
+    """K3t against its plain version: K1t's and K2t's bar at bf16x3 (the
+    f32 mid is split again, and where it differs from the plain version's
+    by an f32 ulp the lo half's rounding moves by one of its ulps, 2^-17 of
+    the mid, on about 2^-6 of the mids); at default the bound of a flipped
+    bf16 rounding of the mid (module docstring)."""
+    if tier == "bf16x3":
+        torch.testing.assert_close(got, ref, **TOL)
+        return
+    M = w_syn.shape[0]
+    ulp = 2.0 ** (torch.floor(torch.log2(sub.abs().max())).item() - 7)
+    bound = ulp * w_syn.abs().sum(dim=(1, 2)).max().item() * M
+    err = (got - ref).abs()
+    assert err.max().item() <= bound + K3_TOL["atol"], (err.max(), bound)
+    assert (err > K3_TOL["atol"]).float().mean().item() <= 0.05
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("M", [2, 8, 16, 32, 64])
+@pytest.mark.parametrize("B,T_sub", [(1, 512), (16, 512), (3, 37)])
+def test_tier_kernels_match_plain(dev, tier, M, B, T_sub):
+    hkf, hki = _bank(M, dev)
+    Ka, Ks = hkf.shape[-1], hki.shape[-1]
+    g = torch.Generator().manual_seed(M * 100 + B + len(tier))
+    x = torch.randn(B, 1, M * T_sub + Ka - 1, generator=g).to(dev)
+    for fuse in (True, False):
+        torch.testing.assert_close(
+            cc.strided_analysis_conv(x, hkf, M, fuse, precision=tier),
+            cc.analysis_conv_plain(x, hkf, M, fuse, precision=tier), **TOL)
+    sub = F.pad(cc.strided_analysis_conv(x, hkf, M), (Ks // 2, Ks // 2))
+    for fuse, off in [(True, -(Ks // 2)), (True, -15), (True, 3),
+                      (False, 0)]:
+        torch.testing.assert_close(
+            cc.dense_synthesis_conv(sub, hki, fuse, off, precision=tier),
+            cc.synthesis_conv_plain(sub, hki, fuse, off, precision=tier),
+            **TOL)
+    if cc.fused_roundtrip_supported(M, Ka, Ks, tier):
+        for pad in [(Ks // 2, Ks // 2), (3, 0)]:
+            assert_k3t_close(
+                cc.fused_roundtrip_conv(x, hkf, hki, M, pad, tier),
+                cc.roundtrip_conv_plain(x, hkf, hki, M, pad, tier),
+                sub, hki, tier)
+    torch.cuda.synchronize()
+
+
+def test_tier_plans_mirror_the_source(dev):
+    import ctypes
+
+    lib = _build.load()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = (ctypes.c_longlong * 8)()
+    for M, Ka, Ks in [(8, 257, 17), (16, 513, 33), (32, 1025, 33),
+                      (64, 2049, 33), (2, 65, 33), (16, 512, 32),
+                      (16, 9001, 600)]:
+        for i, which in enumerate(("analysis", "synthesis", "roundtrip"), 1):
+            for Mb in {M, max(2, M // 2)} if i == 1 else {M}:
+                assert lib.pqmf_tc_smem_bytes(i, M, Mb, Ka, Ks) == \
+                    cc.smem_bytes(which, M, Mb, Ka, Ks, "bf16x3"), (which, M)
+                for B, T_out in [(1, 37), (1, 512), (16, 512), (215, 256),
+                                 (1, 165376)]:
+                    assert lib.pqmf_tc_launch_plan(i, B, M, Mb, Ka, Ks,
+                                                   T_out, n_sms, plan) == 0
+                    assert tuple(plan) == cc.launch_plan(
+                        which, B, M, Mb, Ka, Ks, T_out, n_sms=n_sms,
+                        precision="default"), (which, M, Mb, B, T_out)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_tier_tile_boundaries(dev, tier, B, edge):
+    """K1t and K2t at T_out one short of, at and one past a multiple of
+    their 64-step tile (odd and even K, in-kernel pads, odd negative
+    x_offset); K3t at its tile with lopsided synthesis pads."""
+    hkf, hki = _bank(16, dev)
+    Ka, Ks = hkf.shape[-1], hki.shape[-1]
+    hp = torch.tensor(fb.build_filterbank(100, 16)["hk_poly"])
+    w2 = pk.analysis_weights(hp).to(dev)
+    g = torch.Generator().manual_seed(B * 10 + edge + 1)
+    for w, pad in [(hkf, (256, 256)), (w2, (256, 240)), (hkf, (7, 3))]:
+        K = w.shape[-1]
+        for T_out in (64 + edge, 5 * 64 + edge):
+            x = torch.randn(B, 1, (T_out - 1) * 16 + K - sum(pad) + 5,
+                            generator=g).to(dev)
+            got = cc.strided_analysis_conv(x, w, 16, True, pad, tier)
+            assert got.shape == (B, 16, T_out)
+            torch.testing.assert_close(
+                got, cc.analysis_conv_plain(x, w, 16, True, pad, tier), **TOL)
+    for T_out in (64 + edge, 3 * 64 + edge):
+        x = torch.randn(B, 16, T_out + Ks - 1, generator=g).to(dev)
+        for off in (-15, -16, 0):
+            torch.testing.assert_close(
+                cc.dense_synthesis_conv(x, hki, True, off, tier),
+                cc.synthesis_conv_plain(x, hki, True, off, tier), **TOL)
+    Tt = cc.launch_plan("roundtrip", B, 16, 16, Ka, Ks, 1000,
+                        precision=tier)[4]
+    for pad in [(16, 16), (3, 0), (0, 40)]:
+        T_out = Tt + edge
+        T_ana = T_out - pad[0] - pad[1] + Ks - 1
+        x = torch.randn(B, 1, 16 * (T_ana - 1) + Ka + 5, generator=g).to(dev)
+        got = cc.fused_roundtrip_conv(x, hkf, hki, 16, pad, tier)
+        assert got.shape == (B, T_out, 16)
+        assert_k3t_close(got, cc.roundtrip_conv_plain(x, hkf, hki, 16, pad,
+                                                      tier),
+                         cc.strided_analysis_conv(x, hkf, 16), hki, tier)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("M,Mb,K,Ks", [(16, 16, 513, 33), (16, 6, 513, 33),
+                                       (64, 64, 2049, 33), (2, 2, 65, 33),
+                                       (16, 16, 9001, 600)])
+def test_tier_kernels_write_every_output(dev, tier, M, Mb, K, Ks):
+    """K1t/K2t/K3t store every output of their plan: the output memory
+    holds NaN before each call, and the result is finite and equals the
+    plain version. The last case stages its banks in chunks of the
+    reduction (K1t/K2t) and a band shard (Mb=6) leaves a short chunk."""
+    g = torch.Generator().manual_seed(M + Mb + K)
+    # outputs of about unit size, as the designed banks give (the bars are
+    # absolute): the gain M is undone in the synthesis bank
+    wa = (torch.randn(Mb, 1, K, generator=g) / K ** 0.5).to(dev)
+    ws = (torch.randn(M, Mb, Ks, generator=g) / (M * (Mb * Ks) ** 0.5)).to(
+        dev)
+    x = torch.randn(2, 1, 300 * M + K, generator=g).to(dev)
+    s = torch.randn(2, Mb, 300 + Ks, generator=g).to(dev)
+    for _ in range(3):
+        junk = torch.full((2, 1 << 20), float("nan"), device=dev)
+        del junk
+        a = cc.strided_analysis_conv(x, wa, M, True, (M, M), tier)
+        y = cc.dense_synthesis_conv(s, ws, True, -3, tier)
+        assert torch.isfinite(a).all() and torch.isfinite(y).all()
+    torch.testing.assert_close(
+        a, cc.analysis_conv_plain(x, wa, M, True, (M, M), tier), **TOL)
+    torch.testing.assert_close(
+        y, cc.synthesis_conv_plain(s, ws, True, -3, tier), **TOL)
+    if Mb == M and cc.fused_roundtrip_supported(M, K, Ks, tier):
+        for _ in range(3):
+            junk = torch.full((2, 1 << 20), float("nan"), device=dev)
+            del junk
+            r = cc.fused_roundtrip_conv(x, wa, ws, M, (Ks // 2, Ks // 2),
+                                        tier)
+            assert torch.isfinite(r).all()
+        assert_k3t_close(r, cc.roundtrip_conv_plain(
+            x, wa, ws, M, (Ks // 2, Ks // 2), tier),
+            cc.strided_analysis_conv(x, wa, M), ws, tier)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("M", [4, 16, 32, 64])
+def test_tier_polyphase_kernels_match_plain(dev, tier, M):
+    p = fb.build_filterbank(100, M)
+    hp = torch.tensor(p["hk_poly"], device=dev)
+    hi = torch.tensor(p["hk_ipoly"], device=dev)
+    g = torch.Generator().manual_seed(M * 7)
+    x = torch.randn(2, 1, M * 300, generator=g).to(dev)
+    s = torch.randn(2, M, 300, generator=g).to(dev)
+    torch.testing.assert_close(pk.polyphase_analysis(x, hp, precision=tier),
+                               pk.polyphase_analysis_plain(x, hp, tier),
+                               **TOL)
+    torch.testing.assert_close(pk.polyphase_synthesis(s, hi, precision=tier),
+                               pk.polyphase_synthesis_plain(s, hi, tier),
+                               **TOL)
+    L = hp.shape[-1]
+    if pk.roundtrip_supported(M, L * M, L, tier):
+        got = pk.polyphase_roundtrip(x, hp, hi, precision=tier)
+        ref = pk.polyphase_roundtrip_plain(x, hp, hi, tier)
+        if tier == "bf16x3":
+            torch.testing.assert_close(got, ref, **TOL)
+        else:
+            assert_k3t_close(got, ref, pk.polyphase_analysis(x, hp), hi,
+                             tier)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_tier_flagship_and_ta_on_kernels(dev, monkeypatch, tier):
+    """The flagship and the TA wrapper at a tier: one K1t + one K2t per
+    step, one K3t per round trip, no plain conv; >= 90 dB against the CPU
+    port at the same tier."""
+    gpu = PQMFPitchShiftWrapper(100, 16, 2048, 44100, SHIFTS16,
+                                precision=tier, device="cuda")
+    cpu = PQMFPitchShiftWrapper(100, 16, 2048, 44100, SHIFTS16,
+                                precision=tier, device="cpu")
+    ta = {d: PQMFPitchShiftWrapperTA(100, 8, 2048, precision=tier,
+                                     shifts_in_semitones=TA_SHIFTS8,
+                                     device=d) for d in ("cuda", "cpu")}
+    x = np.random.default_rng(9).standard_normal((1, 2 * 2048)).astype(
+        np.float32) * 0.3
+    xt = x[None, :, :2048]
+    c_y = [cpu.pitchshift_fn(cpu.init_state(), x[:, :2048])[1],
+           cpu.forward_fn(x[:, :2048]), ta["cpu"].pitchshifter(xt)]
+    _refuse_plain(monkeypatch)
+    cc.reset_launches()
+    g_y = [gpu.pitchshift_fn(gpu.init_state(), x[:, :2048])[1],
+           gpu.forward_fn(x[:, :2048]), ta["cuda"].pitchshifter(xt)]
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"analysis": 2, "synthesis": 2, "roundtrip": 1}
+    for c, g in zip(c_y, g_y):
+        assert snr_db(c.numpy(), g.cpu().numpy()) >= 90
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_tier_kernels_at_odd_strides(dev, tier):
+    """K1t at stride M=1 and K2t over Mb=1 band load their A pairs 16 bits
+    at a time (the other instance of the kernels)."""
+    g = torch.Generator().manual_seed(3)
+    w1 = torch.randn(2, 1, 31, generator=g).to(dev)
+    x1 = torch.randn(2, 1, 500, generator=g).to(dev)
+    torch.testing.assert_close(
+        cc.strided_analysis_conv(x1, w1, 1, True, (5, 2), tier),
+        cc.analysis_conv_plain(x1, w1, 1, True, (5, 2), tier), **TOL)
+    ws = torch.randn(4, 1, 33, generator=g).to(dev)
+    s = torch.randn(2, 1, 300, generator=g).to(dev)
+    torch.testing.assert_close(
+        cc.dense_synthesis_conv(s, ws, False, 0, tier),
+        cc.synthesis_conv_plain(s, ws, False, 0, tier), **TOL)

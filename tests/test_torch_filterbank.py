@@ -112,12 +112,14 @@ def test_params_from_jax():
 
 
 def test_precision_tiers_refused():
+    """An unknown tier is refused, naming the three the port takes."""
     from pqmf_tpu_torch import PQMFPitchShiftWrapper, StreamingPQMF
 
-    for tier in ("bf16x3", "default"):
-        with pytest.raises(ValueError, match="only 'highest'"):
+    for tier in ("high", "bf16", "HIGHEST"):
+        with pytest.raises(ValueError, match="'highest', 'bf16x3', "
+                                             "'default'"):
             StreamingPQMF(100, 16, precision=tier, device="cpu")
-        with pytest.raises(ValueError, match="only 'highest'"):
+        with pytest.raises(ValueError, match="unknown precision"):
             PQMFPitchShiftWrapper(100, 16, 2048, precision=tier, device="cpu")
 
 

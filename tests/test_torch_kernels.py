@@ -143,13 +143,19 @@ def test_gates(M):
 
 
 def test_build_targets_hopper():
-    cmd = _build.nvcc_command("nvcc", _build.BUILD_DIR / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert str(_build.SOURCE) in cmd
-    assert _build.SOURCE.exists()
-    text = _build.SOURCE.read_text()
+    """Every source compiles for sm_90a into an object, and the objects
+    link into one library that holds every C entry the binding declares."""
+    for source in _build.SOURCES:
+        cmd = _build.nvcc_command("nvcc", source, _build.BUILD_DIR / "k.o")
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+        assert str(source) in cmd and source.exists()
+    objects = [_build.BUILD_DIR / f"{s.stem}.o" for s in _build.SOURCES]
+    cmd = _build.link_command("nvcc", objects, _build.BUILD_DIR / "lib.so")
+    assert "-shared" in cmd and all(str(o) in cmd for o in objects)
+    text = "".join(s.read_text() for s in _build.SOURCES)
     for entry in ("pqmf_analysis_conv", "pqmf_synthesis_conv",
-                  "pqmf_roundtrip_conv"):
+                  "pqmf_roundtrip_conv", "pqmf_tc_analysis_conv",
+                  "pqmf_tc_synthesis_conv", "pqmf_tc_roundtrip_conv"):
         assert f"int {entry}(" in text
 
 

@@ -142,14 +142,15 @@ def test_k4_hands_k1_the_unpadded_input_and_its_pad(monkeypatch):
     seen = {}
     real = cc.strided_analysis_conv
 
-    def spy(xx, w, m, fuse_mask=True, pad=(0, 0)):
-        seen.update(x=xx, pad=tuple(pad))
-        return real(xx, w, m, fuse_mask, pad)
+    def spy(xx, w, m, fuse_mask=True, pad=(0, 0), precision="highest"):
+        seen.update(x=xx, pad=tuple(pad), precision=precision)
+        return real(xx, w, m, fuse_mask, pad, precision)
 
     monkeypatch.setattr(cc, "strided_analysis_conv", spy)
     got = pk.analysis_over_k1(x, pk.analysis_weights(hp), M)
     assert seen["x"] is x
     assert seen["pad"] == ((L // 2) * M, (L - L // 2 - 1) * M)
+    assert seen["precision"] == "highest"
     _close(got, pk.polyphase_analysis_plain(x, hp).numpy())
 
 
@@ -281,8 +282,8 @@ def test_pqmf_errors():
         pq.inverse(np.zeros((1, 4, 10), np.float32))
     with pytest.raises(ValueError, match="rank"):
         pq.forward(np.zeros((1, 1, 1, 8), np.float32))
-    with pytest.raises(ValueError, match="only 'highest'"):
-        PQMF(100, 8, precision="bf16x3", device="cpu")
+    with pytest.raises(ValueError, match="unknown precision"):
+        PQMF(100, 8, precision="bf16x2", device="cpu")
     with pytest.raises(ValueError, match="no polyphase form"):
         pq.set_weights(tfb.params_from_hk(_rand(5, 8, 100)))
     with pytest.raises(ValueError, match="is on"):

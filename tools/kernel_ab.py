@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an NVIDIA card and
 ``nvcc``. Each variant is ``pqmf_tpu_torch/csrc/cached_conv.cu`` with a
 few text edits (``VARIANTS``: the source as it is, and each design choice
 of its K1/K2/K3 undone). All variants are built at once, each into its own
-library loaded with ctypes; each is checked against the plain versions,
+library (with the tier kernels' source as it is) loaded with ctypes; each is checked against the plain versions,
 then the device time of its kernels (``torch.profiler``) is taken in turns
 at K1 [1,1,8704], K1 [16,1,8704], K1 at K4's 60 s shape [1,1,2646000]
 with its in-kernel pad (256, 240), K2 [1,16,544], K2 [16,16,544], K2 at
@@ -67,7 +67,7 @@ VARIANTS = {
 def _build_all(out: Path, names) -> dict:
     from pqmf_tpu_torch.kernels import _build
 
-    src = _build.SOURCE.read_text()
+    src = _build.SOURCES[0].read_text()
     nvcc = _build._find_nvcc()
     procs = {}
     for name in names:
@@ -79,8 +79,9 @@ def _build_all(out: Path, names) -> dict:
             text = text.replace(old, new)
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu")],
+            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+             str(out / f"{name}.so"), str(out / f"{name}.cu"),
+             str(_build.SOURCES[1])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
