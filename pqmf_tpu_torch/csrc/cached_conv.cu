@@ -5,9 +5,9 @@
 // pqmf_tpu_torch/kernels/cached_conv.py.
 //
 // Every kernel computes a VALID convolution in f32, launches on the stream it
-// is given and allocates nothing.  K2 and K3 take an input the caller has
-// already padded; K1 takes a zero pad (pad_left, and zeros past the input)
-// and applies it while it copies its window.
+// is given and allocates nothing.  K3 takes an input the caller has already
+// padded; K1 and K2 take a zero pad (pad_left, and zeros past the input)
+// and apply it while they copy their window.
 //
 // K1 analysis   replaces pqmf_tpu/kernels/cached_conv.py:strided_analysis_conv
 //   out[b,c,t] = sum_k w[c,0,k] * xpad[b,0,t*M+k]  (x -1 where c odd, t even)
@@ -504,9 +504,9 @@ analysis_kernel(const float* __restrict__ x, const float* __restrict__ w,
 template <int NT>
 __global__ void __launch_bounds__(kSynThreads)
 synthesis_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ out, int B, int Mb, int Tpad, int M,
-                 int K, int T_out, int SG, int PG, int MS, int fuse_mask,
-                 int x_offset) {
+                 float* __restrict__ out, int B, int Mb, int Tx, int M,
+                 int K, int T_out, int pad_left, int SG, int PG, int MS,
+                 int fuse_mask, int x_offset) {
   extern __shared__ float4 syn_smem[];
   float* smem = reinterpret_cast<float*>(syn_smem);
   const int CG = 4 * PG;
@@ -535,30 +535,36 @@ synthesis_kernel(const float* __restrict__ x, const float* __restrict__ w,
       cp_async4(w_s + f * CG + c, src + f, in ? 4 : 0);
   }
   const float gain = (float)M;
-  const bool rows16 = (Tpad & 3) == 0 && aligned16(x);
+  // 16-byte copies where whole groups of 4 steps lie inside or outside the
+  // input (the pad a multiple of 4)
+  const bool rows16 = (Tx & 3) == 0 && (pad_left & 3) == 0 && aligned16(x);
   const int XW4 = XW >> 2;
+  const int xo = x_offset - pad_left;  // the position of window step 0
   for (int tile = blockIdx.x; tile < B * tiles_x; tile += gridDim.x) {
     const int b = tile / tiles_x;
     const int t0 = (tile % tiles_x) * Tt;
     if (tile != blockIdx.x) __syncthreads();  // the last tile is done
-    // the window, 4 steps a copy (16 bytes where rows are aligned), zeros
-    // past the input; then reverse_half on the input, by the sample's
-    // position in the unpadded signal (& 1 keeps the parity right where
-    // it is negative), each thread on the steps it copied
-    const float* xb = x + (long long)b * Mb * Tpad;
+    // the window, 4 steps a copy (16 bytes where rows are aligned), the
+    // zero pad (pad_left, and past the input) as the copies' zero-fill;
+    // then reverse_half on the input, by the sample's position in the
+    // unpadded signal (& 1 keeps the parity right where it is negative),
+    // each thread on the steps it copied
+    const float* xb = x + (long long)b * Mb * Tx;
 #pragma unroll 4
     for (int e = tid; e < Mb * XW4; e += blockDim.x) {
       const int m = e / XW4;
       const int tau = t0 + 4 * (e - m * XW4);
-      const float* src = xb + (long long)m * Tpad + tau;
+      const int s = tau - pad_left;  // the input step of window step tau
+      const float* src = xb + (long long)m * Tx + s;
       if (rows16) {
-        const int n = min(max(Tpad - tau, 0), 4);
+        const int n = s < 0 ? 0 : min(max(Tx - s, 0), 4);
         cp_async16(x_s + 4 * e, n ? src : xb, 4 * n);
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          cp_async4(x_s + 4 * e + j, tau + j < Tpad ? src + j : xb,
-                    tau + j < Tpad ? 4 : 0);
+        for (int j = 0; j < 4; ++j) {
+          const bool in = s + j >= 0 && s + j < Tx;
+          cp_async4(x_s + 4 * e + j, in ? src + j : xb, in ? 4 : 0);
+        }
       }
     }
     cp_async_commit();
@@ -568,7 +574,7 @@ synthesis_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const int m = e / XW4;
         if (m & 1) {
           const int tau = t0 + 4 * (e - m * XW4);
-          float* v = x_s + 4 * e + ((tau + x_offset) & 1 ? 1 : 0);
+          float* v = x_s + 4 * e + ((tau + xo) & 1 ? 1 : 0);
           v[0] = -v[0];  // the first and third even steps of the four
           v[2] = -v[2];
         }
@@ -855,9 +861,13 @@ int pqmf_analysis_conv(const float* x, const float* w, float* out, int B,
   return (int)cudaGetLastError();
 }
 
+// x: [B, Mb, Tx], zero-padded by pad_left on the left and by zeros past Tx;
+// x_offset is the position of x[..., 0] in the signal whose parity the sign
+// mask counts.
 int pqmf_synthesis_conv(const float* x, const float* w, float* out, int B,
-                        int Mb, int Tpad, int M, int K, int T_out,
-                        int fuse_mask, int x_offset, void* stream) {
+                        int Mb, int Tx, int M, int K, int T_out,
+                        int pad_left, int fuse_mask, int x_offset,
+                        void* stream) {
   int n_sms = 0;
   cudaError_t err = sm_count(&n_sms);
   if (err != cudaSuccess) return (int)err;
@@ -869,8 +879,8 @@ int pqmf_synthesis_conv(const float* x, const float* w, float* out, int B,
   err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
-      x, w, out, B, Mb, Tpad, M, K, T_out, SG, PG, p.split, fuse_mask,
-      x_offset);
+      x, w, out, B, Mb, Tx, M, K, T_out, pad_left, SG, PG, p.split,
+      fuse_mask, x_offset);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.kernels import polyphase as pk
 from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.streaming import _on, as_device_tensor, resolve_device
@@ -66,7 +67,8 @@ class PQMF:
         """Install filterbank weights (an artifact's, a fine-tuned bank
         from ``parallel.training.load_pretrained_bank``, or a ``pqmf_tpu``
         bank through ``params_from_jax``) in place of the designed ones.
-        Builds the kernels' layout of the bank here, once."""
+        Builds the kernels' layout of the bank here, once (K1's ``w2``, and
+        at a tier K1t's and K2t's arranged banks)."""
         params = {k: _on(v, self.device) for k, v in params.items()}
         M = self.n_band
         L = params["hk_poly"].shape[-1]
@@ -81,6 +83,14 @@ class PQMF:
                 f"per phase at n_band={M} (see kernels.polyphase.supports)")
         self.params = params
         self._w2 = pk.analysis_weights(params["hk_poly"]) if L else None
+        # K1t/K2t's banks at a tier, arranged here once
+        self.tc_banks = {"analysis": None, "synthesis": None}
+        if self.polyphase and L and M > 1 and self.precision != "highest":
+            self.tc_banks = {
+                "analysis": cc.arrange_tc_bank(self._w2, "analysis",
+                                               self.precision),
+                "synthesis": cc.arrange_tc_bank(params["hk_ipoly"],
+                                                "synthesis", self.precision)}
         # aliases mirroring the reference's buffers
         self.h = params["h"]
         self.hk = params["hk"]
@@ -122,7 +132,8 @@ class PQMF:
         xc, B, T = self._fold(x)
         if self.polyphase:
             y = pk.polyphase_analysis(xc, self.params["hk_poly"], self._w2,
-                                      self.precision)
+                                      self.precision,
+                                      self.tc_banks["analysis"])
         else:
             y = fb.reverse_half(fb.classic_forward(xc, self.params["hk"],
                                                    self.precision))
@@ -145,7 +156,8 @@ class PQMF:
         xc = x.reshape(B * self.n_channels, self.n_band, Tp)
         if self.polyphase:
             y = pk.polyphase_synthesis(xc, self.params["hk_ipoly"],
-                                       self.precision)
+                                       self.precision,
+                                       self.tc_banks["synthesis"])
         else:
             y = fb.classic_inverse(fb.reverse_half(xc), self.params["hk"],
                                    self.precision)

@@ -110,14 +110,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ctypes would pass them as 32-bit ints and cut them."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pqmf_analysis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.pqmf_synthesis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.pqmf_synthesis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
+                                        p]
     lib.pqmf_roundtrip_conv.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                         p]
-    # the tier kernels take the same arguments and the passes (3 or 1)
+    # the tier kernels take the same arguments (K1t/K2t the arranged bank
+    # in place of w) and the passes (3 or 1)
     lib.pqmf_tc_analysis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                           i, p]
     lib.pqmf_tc_synthesis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
-                                           i, p]
+                                           i, i, p]
     lib.pqmf_tc_roundtrip_conv.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            i, i, p]
     for fn in (lib.pqmf_analysis_conv, lib.pqmf_synthesis_conv,

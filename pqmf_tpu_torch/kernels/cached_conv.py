@@ -14,9 +14,11 @@ built into one library and bound by ``_build``):
   ``pqmf_tpu/kernels/cached_conv.py:fused_roundtrip_conv``.
 
 All three compute VALID convolutions with f32 inputs and outputs, so
-offline (centered), causal and streaming modes share them; K2 and K3 take
-inputs the caller has already padded, K1 takes its zero pad as an argument
-and applies it in-kernel. What bounds each kernel on the H100 and what its
+offline (centered), causal and streaming modes share them; K3 takes an
+input the caller has already padded, K1 and K2 take their zero pad as an
+argument and apply it in-kernel. At the tiers K1t and K2t read their bank
+arranged (:func:`arrange_tc_bank`), built once where the weights are
+installed. What bounds each kernel on the H100 and what its
 design does about it is written at the top of each CUDA source: K1-K3 are
 f32 FMA on the CUDA cores, bound by arithmetic and shared-memory
 bandwidth, with several outputs per thread in registers; K1t-K3t are
@@ -33,6 +35,10 @@ adds one to :data:`LAUNCHES`, whatever the tier.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from pqmf_tpu_torch.ops import filterbank as fb
@@ -48,6 +54,8 @@ __all__ = [
     "roundtrip_conv_plain",
     "supports",
     "fused_roundtrip_supported",
+    "TcBank",
+    "arrange_tc_bank",
     "smem_bytes",
     "launch_plan",
 ]
@@ -82,8 +90,11 @@ _RT_BANDS = (2, 4, 8, 16)    # K3's (and K3t's) compiled band counts
 # the tensor-core tier kernels (csrc/cached_conv_tc.cu)
 _PASSES = {"bf16x3": 3, "default": 1}  # mma passes a k-step
 _TC_THREADS = 128            # kTcThreads: K1t/K2t
-_TC_ROWS = 64                # kTcRows: K1t/K2t output steps a tile
-_TC_BANK_BYTES = 72 * 1024   # kTcBankBytes
+_TC_WARPS = _TC_THREADS // 32
+_TC_BANK_BYTES = 144 * 1024  # kTcBankBytes
+_TC_FILL_WARPS = 8           # kTcFillWarps
+_TC_PERSIST_M16 = 16         # kTcPersistM16
+_TC_SHAPES = ((2, 1), (1, 1), (1, 2), (1, 4))  # kTcShapes: (MT, WK)
 _RT_TC_THREADS = 256         # kRtTcThreads: K3t
 _RT_TC_OUT = 224             # kRtTcOut
 
@@ -104,29 +115,59 @@ def _round16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def _tc_geom(S: int, Q: int, N: int) -> dict:
-    """K1t/K2t's geometry for a conv of stride S whose reduction runs over Q
-    terms into N output channels: CB channels a block (``rows`` staged), the
-    reduction padded to Qp and staged in chunks of QC columns, a window of
-    WL elements; shared memory holds the hi and lo halves of both."""
+def _tc_win(g: dict, R: int) -> dict:
+    """The window of a K1t/K2t tile of R rows (``tc_win``): nT steps of S
+    elements (WL, split into halves) and its raw copy (K2t: Mb rows of XR
+    steps, band-major as the input)."""
+    nT = R - 1 + _cdiv(g["Qp"], g["S"])
+    XR = _round8(nT) + 4 if g["kind"] == 2 else 0
+    WL = -(-g["S"] * nT // 64) * 64  # whole groups of 8 swizzled chunks
+    return {"nT": nT, "WL": WL, "XR": XR,
+            "raw": g["S"] * XR if g["kind"] == 2 else WL}
+
+
+def _tc_rest_bytes(g: dict, MT: int, WK: int) -> int:
+    """Shared memory of a K1t/K2t plan besides the staged bank: the raw
+    window, its split halves and the reduction slices' partial sums."""
+    WM = _TC_WARPS // WK
+    w = _tc_win(g, 16 * MT * WM)
+    return 4 * w["raw"] + 4 * w["WL"] + 16 * (WK - 1) * WM * 32 * MT * g["NN"]
+
+
+def _tc_geom(kind: int, S: int, Q: int, N: int) -> dict:
+    """K1t (kind 1) / K2t (kind 2) for a conv of stride S whose reduction
+    runs over Q terms into N output channels: the reduction padded to Qp
+    (n_k k-steps), NN n8 tiles a channel block, n_cb blocks, the arranged
+    bank of one block (both halves) and whether a block stages it."""
     Qp = _round16(Q)
-    CB = 16 if N >= 16 else 8
-    rows = min(CB, N)
-    WL = _round8(S * (_TC_ROWS - 1 + _cdiv(Qp, S)))
-    budget = min(_TC_BANK_BYTES, SMEM_LIMIT - 4 * WL)
-    # floor division: where C's truncation differs, both clamp to 16
-    QC = max(16, min(Qp, (budget // (4 * rows) - 8) // 16 * 16))
-    return {"CB": CB, "QC": QC,
-            "smem": 4 * (rows * (QC + 8) + WL)}
+    NN = 2 if N > 8 else 1
+    g = {"kind": kind, "S": S, "Qp": Qp, "n_k": Qp // 16, "NN": NN,
+         "n_cb": _cdiv(N, 8 * NN), "bank": 2 * (Qp // 16) * 32 * 4 * NN * 2}
+    rest = max(_tc_rest_bytes(g, mt, wk) for mt, wk in _TC_SHAPES)
+    g["stage"] = (g["bank"] <= _TC_BANK_BYTES
+                  and g["bank"] + rest <= SMEM_LIMIT)
+    g["gate"] = (g["bank"] if g["stage"] else 0) + rest
+    return g
 
 
-def _tc_plan(B: int, S: int, Q: int, N: int, T_out: int, n_sms: int):
-    g = _tc_geom(S, Q, N)
-    gy = _cdiv(N, g["CB"])
-    per_sm = max(1, min(2048 // _TC_THREADS,
-                        _SMEM_PER_SM // (g["smem"] + 1024)))
-    gx = min(B * _cdiv(T_out, _TC_ROWS), max(1, n_sms * per_sm // gy))
-    return (gx, gy, 1, _TC_THREADS, _TC_ROWS, g["QC"], g["CB"], g["smem"])
+def _tc_plan(kind: int, B: int, S: int, Q: int, N: int, T_out: int,
+             n_sms: int) -> tuple:
+    g = _tc_geom(kind, S, Q, N)
+    m16 = B * _cdiv(T_out, 16) * g["n_cb"]
+    persist = m16 >= n_sms * _TC_PERSIST_M16
+    MT, WK = (2, 1) if persist else (1, 1)
+    while (not persist and WK < _TC_WARPS and 2 * WK <= g["n_k"]
+           and m16 * WK < n_sms * _TC_FILL_WARPS):
+        WK *= 2
+    R = 16 * MT * (_TC_WARPS // WK)
+    tiles = B * _cdiv(T_out, R)
+    # staged where a block walks many tiles or the card holds every block
+    stage = g["stage"] and (persist or tiles * g["n_cb"] <= n_sms)
+    smem = (g["bank"] if stage else 0) + _tc_rest_bytes(g, MT, WK)
+    per_sm = max(1, min(2048 // _TC_THREADS, _SMEM_PER_SM // (smem + 1024)))
+    gx = min(tiles, max(1, n_sms * per_sm // g["n_cb"])) if persist \
+        else tiles
+    return (gx, g["n_cb"], 1, _TC_THREADS, R, WK, 8 * g["NN"], smem)
 
 
 def _rt_tc_geom(M: int, Ka: int, Ks: int) -> dict:
@@ -205,9 +246,9 @@ def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int,
     lengths (the other one is ignored)."""
     if fb.check_precision(precision) != "highest":
         if which == "analysis":
-            return _tc_geom(M, Ka, Mb)["smem"]
+            return _tc_geom(1, M, Ka, Mb)["gate"]
         if which == "synthesis":
-            return _tc_geom(Mb, Mb * Ks, M)["smem"]
+            return _tc_geom(2, Mb, Mb * Ks, M)["gate"]
         if which == "roundtrip":
             return _rt_tc_geom(M, Ka, Ks)["smem"]
         raise ValueError(f"unknown kernel {which!r}")
@@ -233,15 +274,19 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     plans it: (grid x, y, z, threads, output steps a tile, K1/K2's steps a
     thread tile / K3's sub-band steps a tile, K1's phase split / K2's band
     split, shared memory bytes). At the tiers the sixth entry is K1t/K2t's
-    reduction chunk (K3t's sub-band steps a tile), the seventh their output
-    channels a block (K3t: 1).
+    reduction split WK (K3t's sub-band steps a tile), the seventh their
+    output channels a block (K3t: 1).
 
-    The tier kernels K1t/K2t run tiles of 64 output steps (one m16 tile a
-    warp of 4) and as many blocks as fit on the card at once, each staging
-    its chunk of 16 (or 8) output channels of the bank once and walking its
-    tiles; a bank chunk past 72 KB is staged per tile in chunks of the
-    reduction. K3t runs tiles of 224 output steps (256 sub-band steps at
-    Ks = 33) on as many blocks as fit.
+    The tier kernels K1t/K2t run blocks of 4 warps over a channel block of
+    16 (or 8) output channels. A call of fewer than 16 m16 tiles an SM
+    (one host block) splits the reduction over WK = 1, 2 or 4 warps, until
+    the card holds 8 warps an SM, and runs one tile of 16 * 4/WK output
+    steps a block; a larger call (a whole file) runs as many persistent
+    blocks as fit, each staging its arranged bank chunk once and walking
+    tiles of 128 steps (4 warps x 2 m16 tiles). A small call of more
+    blocks than SMs, and a bank chunk past 144 KB, read the bank from
+    global memory (L2) instead of staging it. K3t runs tiles of 224 output steps
+    (256 sub-band steps at Ks = 33) on as many blocks as fit.
 
     K2 takes thread tiles of 4 phases x NT steps. It splits the band sum
     over up to 16 threads (for banks of at most 16 bands: a longer split
@@ -256,9 +301,9 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     persistent block an SM over tiles of n_sub sub-band steps."""
     if fb.check_precision(precision) != "highest":
         if which == "analysis":
-            return _tc_plan(B, M, Ka, Mb, T_out, n_sms)
+            return _tc_plan(1, B, M, Ka, Mb, T_out, n_sms)
         if which == "synthesis":
-            return _tc_plan(B, Mb, Mb * Ks, M, T_out, n_sms)
+            return _tc_plan(2, B, Mb, Mb * Ks, M, T_out, n_sms)
         if which == "roundtrip":
             g = _rt_tc_geom(M, Ka, Ks)
             per_sm = max(1, min(2048 // _RT_TC_THREADS,
@@ -313,8 +358,8 @@ def supports(n_band: int, analysis_taps: int, synthesis_taps: int,
     and their input window in one block's shared memory. Any band count
     whose banks fit is admitted; the TPU's 128-lane halo limit does not
     apply here. The tiers take every geometry ``"highest"`` takes (K1t and
-    K2t stage a bank too large for a block in chunks of the reduction), so
-    their gate is the f32 kernels' gate and the fit of their own."""
+    K2t read a bank too large for a block from global memory), so their
+    gate is the f32 kernels' gate and the fit of their own."""
     M = n_band
     if not (M >= 1
             and smem_bytes("analysis", M, M, analysis_taps, 0) <= SMEM_LIMIT
@@ -362,14 +407,16 @@ def analysis_conv_plain(x, w, M: int, fuse_mask: bool = True,
 
 
 def synthesis_conv_plain(x, w, fuse_mask: bool = True, x_offset: int = 0,
-                         precision: str = "highest"):
+                         precision: str = "highest", pad=(0, 0)):
     """Plain K2 (K2t at a tier): sign mask on the input (parity from
-    ``x_offset``, the position of x[..., 0] in the unpadded signal), conv
-    at ``precision``, ``*M``, band flip, time-major [B, T_out, M]."""
+    ``x_offset``, the position of x[..., 0] in the unpadded signal), zero
+    pad ``pad`` = (left, right), conv at ``precision``, ``*M``, band flip,
+    time-major [B, T_out, M]."""
     M = w.shape[0]
     if fuse_mask:
         x = fb.reverse_half(x, offset=x_offset)
-    y = fb._conv1d(x, w, precision=precision) * M
+    y = fb._conv1d(x, w, padding=tuple(int(p) for p in pad),
+                   precision=precision) * M
     return torch.flip(y, dims=(1,)).transpose(1, 2).contiguous()
 
 
@@ -384,6 +431,93 @@ def roundtrip_conv_plain(x, w_ana, w_syn, M: int, syn_pad,
     sub = torch.nn.functional.pad(sub, tuple(syn_pad))
     return synthesis_conv_plain(sub, w_syn, fuse_mask=True,
                                 x_offset=-syn_pad[0], precision=precision)
+
+
+# ---------------------------------------------------------------------------
+# the tier kernels' bank, arranged once when the weights are installed
+# ---------------------------------------------------------------------------
+
+
+class TcBank(NamedTuple):
+    """A bank as K1t/K2t read it (:func:`arrange_tc_bank`): ``words`` bf16
+    [halves, n_cb, n_k, 32, 4*NN] and what it was built for."""
+
+    words: torch.Tensor
+    kind: str
+    precision: str
+    w_shape: tuple
+
+
+@functools.lru_cache(maxsize=64)
+def _tc_fragment_index(Qp: int, Np: int, NN: int):
+    """(q, c) of every element of the arranged bank: lane (g, tq) of k-step
+    ks in channel block cb holds, for n8 tile nn and the mma's fragments
+    j = b0, b1, the pair B[16ks + 2tq + 8j + e, cb*8NN + 8nn + g], e = 0, 1
+    (the lower k in the lower half of the 32-bit word)."""
+    n_cb, n_k = Np // (8 * NN), Qp // 16
+    cb, ks, lane, nn, j, e = np.ix_(np.arange(n_cb), np.arange(n_k),
+                                    np.arange(32), np.arange(NN),
+                                    np.arange(2), np.arange(2))
+    q = 16 * ks + 2 * (lane % 4) + 8 * j + e
+    c = cb * 8 * NN + 8 * nn + lane // 4
+    full, shape = (n_cb, n_k, 32, NN, 2, 2), (n_cb, n_k, 32, 4 * NN)
+    return (np.broadcast_to(q, full).reshape(shape).copy(),
+            np.broadcast_to(c, full).reshape(shape).copy())
+
+
+def _tc_b_matrix(w: torch.Tensor, kind: str) -> torch.Tensor:
+    """The B operand of K1t / K2t's GEMM, f32 [Q, N]: ``"analysis"`` (w
+    [Mb, 1, K]) B[q, c] = w[c, 0, q]; ``"synthesis"`` (w [M, Mb, K])
+    B[k*Mb + m, c] = w[M-1-c, m, k], the band flip and the time-major
+    window's column order."""
+    if kind == "analysis":
+        return w[:, 0, :].t()
+    if kind == "synthesis":
+        M, Mb, K = w.shape
+        return w.flip(0).permute(2, 1, 0).reshape(K * Mb, M)
+    raise ValueError(f"unknown kernel {kind!r}")
+
+
+def arrange_tc_bank(w: torch.Tensor, kind: str, precision: str) -> TcBank:
+    """The bank of K1t (``kind="analysis"``) or K2t (``"synthesis"``) at a
+    tier, as the kernel reads it: B (:func:`_tc_b_matrix`) zero-padded to
+    [Qp, n_cb*8*NN], split into bf16 hi (and lo at ``"bf16x3"``) to nearest
+    even (``ops.filterbank.split_bf16``, JAX's ``_split_bf16``), each laid
+    out in the order of the mma's B fragments (:func:`_tc_fragment_index`),
+    so a lane loads a k-step's fragments as one 16-byte word. On the bank's
+    device; a few small launches. Built when weights are installed
+    (``StreamingPQMF``, ``PQMF``) and passed to the wrappers as ``bank=``."""
+    if fb.check_precision(precision) == "highest":
+        raise ValueError("the arranged bank is for the tiers 'bf16x3' and "
+                         "'default'")
+    Bm = _tc_b_matrix(w, kind)
+    Q, N = Bm.shape
+    NN = 2 if N > 8 else 1
+    Qp, Np = _round16(Q), _cdiv(N, 8 * NN) * 8 * NN
+    Bp = torch.zeros((Qp, Np), dtype=torch.float32, device=w.device)
+    Bp[:Q, :N] = Bm
+    hi, lo = fb.split_bf16(Bp)
+    qi, ci = (torch.as_tensor(a, device=w.device)
+              for a in _tc_fragment_index(Qp, Np, NN))
+    halves = (hi, lo) if precision == "bf16x3" else (hi,)
+    words = torch.stack([h[qi, ci] for h in halves]).to(torch.bfloat16)
+    return TcBank(words.contiguous(), kind, precision, tuple(w.shape))
+
+
+def _tc_bank(bank, w, kind: str, precision: str) -> TcBank:
+    """``bank`` checked against the call, or the call's bank arranged now."""
+    if bank is None:
+        return arrange_tc_bank(w, kind, precision)
+    if (bank.kind, bank.precision, bank.w_shape) != (kind, precision,
+                                                     tuple(w.shape)):
+        raise ValueError(
+            f"the arranged bank is for {bank.kind} at {bank.precision} of "
+            f"{bank.w_shape}; this call is {kind} at {precision} of "
+            f"{tuple(w.shape)}")
+    if bank.words.device != w.device or not bank.words.is_contiguous():
+        raise ValueError(f"the arranged bank is on {bank.words.device}, "
+                         f"expected {w.device}, contiguous")
+    return bank
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +554,8 @@ def _launch(fn, *args):
 
 
 def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
-                          pad=(0, 0), precision: str = "highest"):
+                          pad=(0, 0), precision: str = "highest",
+                          bank: TcBank | None = None):
     """K1 — valid stride-M conv of a mono signal zero-padded by ``pad`` =
     (left, right) samples, plus the fused ``reverse_half`` on the output.
     The kernel applies the pad while it copies its input window, so the
@@ -428,7 +563,9 @@ def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
 
     x: [B, 1, T]; w: [Mb, 1, K]. Returns [B, Mb, T_out] with
     ``T_out = (left + T + right - K) // M + 1``. ``precision`` "highest"
-    launches K1, "bf16x3" / "default" K1t."""
+    launches K1, "bf16x3" / "default" K1t, which reads ``bank`` =
+    ``arrange_tc_bank(w, "analysis", precision)`` where the caller keeps
+    one (else it is arranged for the call)."""
     fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
@@ -454,56 +591,70 @@ def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
             or smem_bytes("analysis", M, Mb, K, 0, precision) > SMEM_LIMIT):
         raise ValueError(f"analysis kernel length {K} exceeds the kernel's "
                          "shared memory; gate with supports()")
+    if precision != "highest":
+        bank = _tc_bank(bank, w, "analysis", precision)
     out = torch.empty((B, Mb, T_out), dtype=torch.float32, device=dev)
-    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, M, Mb, K,
-            T_out, pad_l, int(fuse_mask))
+    args = (out.data_ptr(), B, T, M, Mb, K, T_out, pad_l, int(fuse_mask))
     with torch.cuda.device(dev):
         if precision == "highest":
-            _launch("pqmf_analysis_conv", *args)
+            _launch("pqmf_analysis_conv", x.data_ptr(), w.data_ptr(), *args)
         else:
-            _launch("pqmf_tc_analysis_conv", *args, _PASSES[precision])
+            _launch("pqmf_tc_analysis_conv", x.data_ptr(),
+                    bank.words.data_ptr(), *args, _PASSES[precision])
     LAUNCHES["analysis"] += 1
     return out
 
 
 def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
-                         precision: str = "highest"):
-    """K2 — valid stride-1 M->M conv of pre-padded sub-bands with the
-    synthesis post-amble fused: optional ``reverse_half`` on the input
-    (``x_offset`` = index of x[..., 0] in the unpadded signal), ``*M``
-    gain, band flip, and time-major output so the phase interleave is a
-    free reshape.
+                         precision: str = "highest", pad=(0, 0),
+                         bank: TcBank | None = None):
+    """K2 — valid stride-1 M->M conv of sub-bands zero-padded by ``pad`` =
+    (left, right) steps, with the synthesis post-amble fused: optional
+    ``reverse_half`` on the input (``x_offset`` = index of x[..., 0] in the
+    unpadded signal), ``*M`` gain, band flip, and time-major output so the
+    phase interleave is a free reshape. The kernel applies the pad while it
+    copies its input window, so the padded sub-bands are never written.
 
-    x: [B, Mb, Tpad]; w: [M, Mb, K]. Returns [B, T_out, M] with
-    ``T_out = Tpad - K + 1``. ``precision`` "highest" launches K2, "bf16x3"
-    / "default" K2t."""
+    x: [B, Mb, T]; w: [M, Mb, K]. Returns [B, T_out, M] with
+    ``T_out = left + T + right - K + 1``. ``precision`` "highest" launches
+    K2, "bf16x3" / "default" K2t, which reads ``bank`` =
+    ``arrange_tc_bank(w, "synthesis", precision)`` where the caller keeps
+    one (else it is arranged for the call)."""
     fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w", w, 3, dev)
-    B, Mb, Tpad = x.shape
+    B, Mb, T = x.shape
     M, Mw, K = w.shape
     if Mw != Mb:
         raise ValueError(f"band dims disagree: x has {Mb}, bank has {Mw}")
     if fuse_mask and Mb % 2:
         raise ValueError("band shards must be even-sized (sign-mask parity)")
-    T_out = Tpad - K + 1
+    pad_l, pad_r = (int(p) for p in pad)
+    if pad_l < 0 or pad_r < 0:
+        raise ValueError(f"pad must be non-negative, got {pad}")
+    T_out = pad_l + T + pad_r - K + 1
     if B < 1 or T_out < 1:
-        raise ValueError(f"empty synthesis output: B={B}, Tpad={Tpad}, K={K}")
+        raise ValueError(f"empty synthesis output: B={B}, T={T}, pad={pad}, "
+                         f"K={K}")
     if dev.type == "cpu":
-        return synthesis_conv_plain(x, w, fuse_mask, x_offset, precision)
+        return synthesis_conv_plain(x, w, fuse_mask, x_offset, precision,
+                                    (pad_l, pad_r))
     if (smem_bytes("synthesis", M, Mb, 0, K) > SMEM_LIMIT
             or smem_bytes("synthesis", M, Mb, 0, K, precision) > SMEM_LIMIT):
         raise ValueError(f"synthesis bank [{M}, {Mb}, {K}] exceeds the "
                          "kernel's shared memory; gate with supports()")
+    if precision != "highest":
+        bank = _tc_bank(bank, w, "synthesis", precision)
     out = torch.empty((B, T_out, M), dtype=torch.float32, device=dev)
-    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), B, Mb, Tpad, M, K,
-            T_out, int(fuse_mask), int(x_offset))
+    args = (out.data_ptr(), B, Mb, T, M, K, T_out, pad_l, int(fuse_mask),
+            int(x_offset))
     with torch.cuda.device(dev):
         if precision == "highest":
-            _launch("pqmf_synthesis_conv", *args)
+            _launch("pqmf_synthesis_conv", x.data_ptr(), w.data_ptr(), *args)
         else:
-            _launch("pqmf_tc_synthesis_conv", *args, _PASSES[precision])
+            _launch("pqmf_tc_synthesis_conv", x.data_ptr(),
+                    bank.words.data_ptr(), *args, _PASSES[precision])
     LAUNCHES["synthesis"] += 1
     return out
 

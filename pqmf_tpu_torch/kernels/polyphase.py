@@ -125,26 +125,34 @@ def _analysis_pad(M: int, L: int) -> tuple:
     return (L // 2) * M, (L - L // 2 - 1) * M
 
 
-def analysis_over_k1(x, w2, M: int, precision: str = "highest"):
+def analysis_over_k1(x, w2, M: int, precision: str = "highest",
+                     tc_bank=None):
     """K4's route: K1 with the centered pad, which K1 applies while it
     copies its window (the padded signal is never written). x [B, 1, T];
-    w2 [Mb, 1, L*M] (:func:`analysis_weights`). Returns [B, Mb, T/M]."""
+    w2 [Mb, 1, L*M] (:func:`analysis_weights`); at a tier K1t reads
+    ``tc_bank`` (``cached_conv.arrange_tc_bank(w2, "analysis", tier)``)
+    where the caller keeps one. Returns [B, Mb, T/M]."""
     L = w2.shape[-1] // M
     return cc.strided_analysis_conv(x, w2, M, pad=_analysis_pad(M, L),
-                                    precision=precision)
+                                    precision=precision, bank=tc_bank)
 
 
-def synthesis_over_k2(x, hk_ipoly, precision: str = "highest"):
-    """K5's route: K2 over sub-bands padded (L//2-1, L-L//2), the
-    reference's pad L//2+1, ``[..., :-1]`` trim and 2-row delay trim in one;
-    the input mask's parity is the sub-band time (``x_offset=-off``).
-    x [B, Mb, T']; hk_ipoly [M, Mb, L]. Returns [B, 1, M*T']."""
+def synthesis_over_k2(x, hk_ipoly, precision: str = "highest",
+                      tc_bank=None):
+    """K5's route: K2 with the pad (L//2-1, L-L//2), the reference's pad
+    L//2+1, ``[..., :-1]`` trim and 2-row delay trim in one, applied by K2
+    while it copies its window (the padded sub-bands are never written);
+    the input mask's parity is the sub-band time. x [B, Mb, T'];
+    hk_ipoly [M, Mb, L]; at a tier K2t reads ``tc_bank``
+    (``arrange_tc_bank(hk_ipoly, "synthesis", tier)``) where the caller
+    keeps one. Returns [B, 1, M*T']."""
     B, _, Tp = x.shape
     M, L = hk_ipoly.shape[0], hk_ipoly.shape[-1]
     off = L // 2 - 1
-    out = cc.dense_synthesis_conv(F.pad(x, (off, L - 1 - off)), hk_ipoly,
-                                  x_offset=-off,
-                                  precision=precision)  # [B, T', M]
+    out = cc.dense_synthesis_conv(x.contiguous(), hk_ipoly, x_offset=0,
+                                  precision=precision,
+                                  pad=(off, L - 1 - off),
+                                  bank=tc_bank)  # [B, T', M]
     return out.reshape(B, 1, Tp * M)
 
 
@@ -176,27 +184,31 @@ def _check_signal(x, M: int):
         raise ValueError(f"T={x.shape[-1]} must be divisible by M={M}")
 
 
-def polyphase_analysis(x, hk_poly, w2=None, precision: str = "highest"):
+def polyphase_analysis(x, hk_poly, w2=None, precision: str = "highest",
+                       tc_bank=None):
     """K4 — offline polyphase analysis plus the fused ``reverse_half``.
 
     x: [B, 1, T] (T divisible by M); hk_poly: [Mb, M, L]; ``w2`` is
-    ``analysis_weights(hk_poly)`` when the caller keeps it. Returns
-    [B, Mb, T/M], equal to ``reverse_half(polyphase_forward(x, hk_poly))``."""
+    ``analysis_weights(hk_poly)`` and ``tc_bank`` its arrangement for K1t
+    at a tier, when the caller keeps them. Returns [B, Mb, T/M], equal to
+    ``reverse_half(polyphase_forward(x, hk_poly))``."""
     M = hk_poly.shape[1]
     _check_signal(x, M)
     if x.device.type == "cpu":
         return polyphase_analysis_plain(x, hk_poly, precision)
     if w2 is None:
         w2 = analysis_weights(hk_poly)
-    out = analysis_over_k1(x, w2, M, precision)
+    out = analysis_over_k1(x, w2, M, precision, tc_bank)
     LAUNCHES["analysis"] += 1
     return out
 
 
-def polyphase_synthesis(x, hk_ipoly, precision: str = "highest"):
+def polyphase_synthesis(x, hk_ipoly, precision: str = "highest",
+                        tc_bank=None):
     """K5 — ``reverse_half`` plus offline polyphase synthesis.
 
-    x: [B, Mb, T'] sub-bands; hk_ipoly: [M, Mb, L], contiguous. Returns
+    x: [B, Mb, T'] sub-bands; hk_ipoly: [M, Mb, L], contiguous; ``tc_bank``
+    its arrangement for K2t at a tier, when the caller keeps one. Returns
     [B, 1, M*T'], equal to ``polyphase_inverse(reverse_half(x), hk_ipoly)``."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"x must be a torch.Tensor, got {type(x)}")
@@ -204,7 +216,7 @@ def polyphase_synthesis(x, hk_ipoly, precision: str = "highest"):
         raise ValueError(f"x must be [B, Mb, T'], got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return polyphase_synthesis_plain(x, hk_ipoly, precision)
-    out = synthesis_over_k2(x, hk_ipoly, precision)
+    out = synthesis_over_k2(x, hk_ipoly, precision, tc_bank)
     LAUNCHES["synthesis"] += 1
     return out
 

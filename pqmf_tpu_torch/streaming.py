@@ -133,38 +133,41 @@ def offline_conv(x, w, stride: int = 1, causal: bool = False,
     return fb._conv1d(x, w, stride=stride, padding=pad, precision=precision)
 
 
-def _cached_analysis(x, hkf, state, mode="offline", precision="highest"):
+def _cached_analysis(x, hkf, state, mode="offline", precision="highest",
+                     bank=None):
     """CachedPQMF.forward (pqmf.py:339-343): strided 1->M conv and sign
-    mask, as K1 (K1t at a tier) over the mode's padded input (K1 applies
-    the offline and causal zero pads itself). Returns (state', y)."""
+    mask, as K1 (K1t at a tier, reading the arranged ``bank``) over the
+    mode's padded input (K1 applies the offline and causal zero pads
+    itself). Returns (state', y)."""
     M, _, K = hkf.shape
     if mode == "offline":
         return state, cc.strided_analysis_conv(x.contiguous(), hkf, M,
                                                pad=centered_padding(K),
-                                               precision=precision)
+                                               precision=precision,
+                                               bank=bank)
     if mode == "causal":
         return state, cc.strided_analysis_conv(x.contiguous(), hkf, M,
                                                pad=(K - M, 0),
-                                               precision=precision)
+                                               precision=precision,
+                                               bank=bank)
     xx = torch.cat([state, x], dim=-1)  # streaming
     new_state = xx[..., xx.shape[-1] - (K - M):]
     return new_state, cc.strided_analysis_conv(xx, hkf, M,
-                                               precision=precision)
+                                               precision=precision,
+                                               bank=bank)
 
 
-def _cached_synthesis(x, hki, state, mode="offline", precision="highest"):
+def _cached_synthesis(x, hki, state, mode="offline", precision="highest",
+                      bank=None):
     """CachedPQMF.inverse (pqmf.py:345-354): sign mask, M->M conv * M, band
-    flip, phase interleave, as K2 (K2t at a tier) over the mode's padded
-    input. Returns (state', y [B, 1, T'*M])."""
+    flip, phase interleave, as K2 (K2t at a tier, reading the arranged
+    ``bank``) over the mode's padded input (K2 applies the offline and
+    causal zero pads itself). Returns (state', y [B, 1, T'*M])."""
     M, _, K = hki.shape
-    if mode == "offline":
-        sl, sr = centered_padding(K)
-        y = cc.dense_synthesis_conv(F.pad(x, (sl, sr)), hki, x_offset=-sl,
-                                    precision=precision)
-        new_state = state
-    elif mode == "causal":
-        y = cc.dense_synthesis_conv(F.pad(x, (K - 1, 0)), hki,
-                                    x_offset=-(K - 1), precision=precision)
+    if mode in ("offline", "causal"):
+        pad = centered_padding(K) if mode == "offline" else (K - 1, 0)
+        y = cc.dense_synthesis_conv(x.contiguous(), hki, x_offset=0,
+                                    precision=precision, pad=pad, bank=bank)
         new_state = state
     else:
         # block-local sign mask first: the carried tail keeps the previous
@@ -172,7 +175,7 @@ def _cached_synthesis(x, hki, state, mode="offline", precision="highest"):
         xx = torch.cat([state, fb.reverse_half(x)], dim=-1)
         new_state = xx[..., xx.shape[-1] - (K - 1):]
         y = cc.dense_synthesis_conv(xx, hki, fuse_mask=False,
-                                    precision=precision)
+                                    precision=precision, bank=bank)
     return new_state, y.reshape(y.shape[0], 1, -1)
 
 
@@ -221,23 +224,32 @@ class StreamingPQMF:
     def _install(self, params, hkf=None, hki=None):
         if hkf is None or hki is None:
             hkf, hki = kernels_from_params(params, self.device)
-        self.params = {k: _on(v, self.device) for k, v in params.items()}
-        self.hkf = _on(hkf, self.device)
-        self.hki = _on(hki, self.device)
+        hkf, hki = _on(hkf, self.device), _on(hki, self.device)
         M = self.n_band
-        Ka, Ks = self.hkf.shape[-1], self.hki.shape[-1]
+        Ka, Ks = hkf.shape[-1], hki.shape[-1]
         if (self.device.type == "cuda" and M > 1
                 and not cc.supports(M, Ka, Ks, self.precision)):
             raise ValueError(
                 f"the CUDA kernels do not take banks of {Ka}/{Ks} taps at "
                 f"n_band={M} (see kernels.cached_conv.supports)")
+        self.params = {k: _on(v, self.device) for k, v in params.items()}
+        self.hkf, self.hki = hkf, hki
+        # K1t/K2t's banks, arranged here once (none at "highest")
+        self.tc_banks = {"analysis": None, "synthesis": None}
+        if self.precision != "highest" and M > 1:
+            self.tc_banks = {
+                "analysis": cc.arrange_tc_bank(hkf, "analysis",
+                                               self.precision),
+                "synthesis": cc.arrange_tc_bank(hki, "synthesis",
+                                                self.precision)}
         self._update_delays()
 
     def set_weights(self, params, hkf=None, hki=None):
         """Install filterbank weights (restored from an artifact, carried
         over from ``pqmf_tpu`` with ``params_from_jax``, or fine-tuned) in
         place of the designed ones; the conv kernels derive from ``params``
-        unless given. Recomputes the latency bookkeeping and bumps
+        unless given, and K1t/K2t's arranged banks are built again.
+        Recomputes the latency bookkeeping and bumps
         ``weights_version`` so caches keyed on it see the swap."""
         self._install(params, hkf, hki)
         self.weights_version += 1
@@ -301,7 +313,8 @@ class StreamingPQMF:
         if self.n_band == 1:
             return xf.reshape(B, self.n_channels, -1)
         _, y = _cached_analysis(xf, self.hkf, None, mode="offline",
-                                precision=self.precision)
+                                precision=self.precision,
+                                bank=self.tc_banks["analysis"])
         return y.reshape(B, self.n_channels * self.n_band, -1)
 
     def inverse(self, x):
@@ -310,7 +323,8 @@ class StreamingPQMF:
         if self.n_band == 1:
             return xf.reshape(B, self.n_channels, -1)
         _, y = _cached_synthesis(xf, self.hki, None, mode="offline",
-                                 precision=self.precision)
+                                 precision=self.precision,
+                                 bank=self.tc_banks["synthesis"])
         return y.reshape(B, self.n_channels, -1)
 
     def roundtrip(self, x):
@@ -363,7 +377,8 @@ class StreamingPQMF:
                 f"n_band={self.n_band}")
         self._check_block_parity(T // self.n_band, "analysis")
         new, y = _cached_analysis(xf, self.hkf, state["analysis"],
-                                  mode="streaming", precision=self.precision)
+                                  mode="streaming", precision=self.precision,
+                                  bank=self.tc_banks["analysis"])
         return ({**state, "analysis": new},
                 y.reshape(B, self.n_channels * self.n_band, -1))
 
@@ -372,7 +387,8 @@ class StreamingPQMF:
         self._check_block_parity(xf.shape[-1], "synthesis")
         new, y = _cached_synthesis(xf, self.hki, state["synthesis"],
                                    mode="streaming",
-                                   precision=self.precision)
+                                   precision=self.precision,
+                                   bank=self.tc_banks["synthesis"])
         return ({**state, "synthesis": new},
                 y.reshape(B, self.n_channels, -1))
 
@@ -386,11 +402,13 @@ class StreamingPQMF:
     def forward_causal(self, x):
         xf, B = self._fold(x)
         _, y = _cached_analysis(xf, self.hkf, None, mode="causal",
-                                precision=self.precision)
+                                precision=self.precision,
+                                bank=self.tc_banks["analysis"])
         return y.reshape(B, self.n_channels * self.n_band, -1)
 
     def inverse_causal(self, x):
         xf, B = self._fold_bands(x)
         _, y = _cached_synthesis(xf, self.hki, None, mode="causal",
-                                 precision=self.precision)
+                                 precision=self.precision,
+                                 bank=self.tc_banks["synthesis"])
         return y.reshape(B, self.n_channels, -1)

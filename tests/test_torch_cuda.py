@@ -22,19 +22,31 @@ all but 5% of the outputs inside the K3 bar (a flip reaches Ks*M outputs
 and happens on about 2^-15 of the mids: ~1.6% measured).
 """
 
-import numpy as np
-import pytest
-import torch
-import torch.nn.functional as F
+import os
+import sys
 
-from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper,
+# The CPU reference of the card-against-CPU tests takes one code path on
+# every host, as chip_smoke.py pins it: MKL's reproducible mode and ATen's
+# AVX2 kernels, set before torch loads. On the card this module is the
+# first to import torch (pytest --noconftest); where another module has
+# imported it already, nothing is changed.
+if "torch" not in sys.modules:
+    os.environ.update({"MKL_CBWR": "COMPATIBLE",
+                       "ATEN_CPU_CAPABILITY": "avx2"})
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper,  # noqa: E402
                             PQMFPitchShiftWrapperTA, PQMFWrapper,
                             StreamingPQMF, TorchaudioPitchShift, stream_ola)
-from pqmf_tpu_torch.kernels import _build
-from pqmf_tpu_torch.kernels import cached_conv as cc
-from pqmf_tpu_torch.kernels import polyphase as pk
-from pqmf_tpu_torch.ops import filterbank as fb
-from pqmf_tpu_torch.utils.metrics import snr_db
+from pqmf_tpu_torch.kernels import _build  # noqa: E402
+from pqmf_tpu_torch.kernels import cached_conv as cc  # noqa: E402
+from pqmf_tpu_torch.kernels import polyphase as pk  # noqa: E402
+from pqmf_tpu_torch.ops import filterbank as fb  # noqa: E402
+from pqmf_tpu_torch.utils.metrics import snr_db  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -644,3 +656,140 @@ def test_tier_kernels_at_odd_strides(dev, tier):
     torch.testing.assert_close(
         cc.dense_synthesis_conv(s, ws, False, 0, tier),
         cc.synthesis_conv_plain(s, ws, False, 0, tier), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# K1t/K2t redesigned: arranged banks, call-sized plans, K2's in-kernel pad
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_reference_is_pinned(dev):
+    """The card-against-CPU tests of this module hold the card against a CPU
+    reference that takes one code path on every host."""
+    assert os.environ.get("MKL_CBWR") == "COMPATIBLE"
+    assert torch.backends.cpu.get_cpu_capability() == "AVX2"
+
+
+def _nan_fill():
+    junk = torch.full((1 << 22,), float("nan"), device="cuda")
+    del junk
+
+
+def _tier_bank(M, dev, g):
+    """The designed banks at M >= 2; at M = 1 random ones of unit-size
+    outputs (stride 1 and one input band: the kernels' 16-bit A loads)."""
+    if M > 1:
+        return _bank(M, dev)
+    wa = (torch.randn(2, 1, 31, generator=g) / 31 ** 0.5).to(dev)
+    ws = (torch.randn(4, 1, 33, generator=g) / (4 * 33 ** 0.5)).to(dev)
+    return wa, ws
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 16, 32, 64])
+def test_tier_k1t_k2t_at_their_tiles(dev, tier, B, M):
+    """K1t and K2t against their plain versions at T_out one short of, at
+    and one past a multiple of the tile their plan takes, for a call of one
+    host block (split reduction, one tile a block) and a whole file
+    (persistent blocks), output memory NaN-filled before each call."""
+    g = torch.Generator().manual_seed(M * 31 + B)
+    wa, ws = _tier_bank(M, dev, g)
+    Mb, Ka = wa.shape[0], wa.shape[-1]
+    Ms, Ks = ws.shape[0], ws.shape[-1]
+    S = max(M, 1)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for t_probe in (512, -(-n_sms * 256 // B) + 64):
+        for which in ("analysis", "synthesis"):
+            if which == "analysis":
+                plan = cc.launch_plan(which, B, S, Mb, Ka, 0, t_probe,
+                                      n_sms=n_sms, precision=tier)
+            else:
+                plan = cc.launch_plan(which, B, Ms, ws.shape[1], 0, Ks,
+                                      t_probe, n_sms=n_sms, precision=tier)
+            tile = plan[4]
+            for edge in (-1, 0, 1):
+                T_out = (t_probe // tile) * tile + edge
+                if which == "analysis":
+                    pad = (Ka // 2, Ka // 2)
+                    x = torch.randn(B, 1, (T_out - 1) * S + 1, generator=g
+                                    ).to(dev)
+                    _nan_fill()
+                    got = cc.strided_analysis_conv(x, wa, S, Mb % 2 == 0,
+                                                   pad, tier)
+                    ref = cc.analysis_conv_plain(x, wa, S, Mb % 2 == 0, pad,
+                                                 tier)
+                else:
+                    pad = (Ks // 2, Ks // 2)
+                    x = torch.randn(B, ws.shape[1], T_out, generator=g
+                                    ).to(dev) / max(M, 1) ** 0.5
+                    _nan_fill()
+                    fuse = ws.shape[1] % 2 == 0
+                    got = cc.dense_synthesis_conv(x, ws, fuse, 3, tier, pad)
+                    ref = cc.synthesis_conv_plain(x, ws, fuse, 3, tier, pad)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all(), (which, T_out)
+                torch.testing.assert_close(got, ref, **TOL,
+                                           msg=lambda m: f"{which} {T_out}")
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_tier_kept_bank_is_bit_equal_to_one_arranged_per_call(dev, tier):
+    hkf, hki = _bank(16, dev)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 1, 8192, generator=g).to(dev)
+    s = torch.randn(2, 16, 512, generator=g).to(dev)
+    ba = cc.arrange_tc_bank(hkf, "analysis", tier)
+    bs = cc.arrange_tc_bank(hki, "synthesis", tier)
+    for _ in range(2):
+        _nan_fill()
+        assert torch.equal(
+            cc.strided_analysis_conv(x, hkf, 16, True, (256, 256), tier, ba),
+            cc.strided_analysis_conv(x, hkf, 16, True, (256, 256), tier))
+        _nan_fill()
+        assert torch.equal(
+            cc.dense_synthesis_conv(s, hki, True, 0, tier, (16, 16), bs),
+            cc.dense_synthesis_conv(s, hki, True, 0, tier, (16, 16)))
+    with pytest.raises(ValueError, match="arranged bank is for"):
+        cc.dense_synthesis_conv(s, hki, True, 0, tier, (16, 16), ba)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_tier_output_follows_set_weights(dev, tier):
+    """After set_weights the card reads the new arranged banks: its output
+    equals the CPU port's with the new bank, and differs from the old."""
+    from pqmf_tpu_torch.parallel.training import load_pretrained_bank
+
+    ft = load_pretrained_bank("hk16_atten100_finetuned")
+    x = np.random.default_rng(11).standard_normal((1, 1, 8192)).astype(
+        np.float32) * 0.3
+    for make in (lambda d: StreamingPQMF(100, 16, precision=tier, device=d),
+                 lambda d: PQMF(100, 16, precision=tier, device=d)):
+        gpu, cpu = make("cuda"), make("cpu")
+        before = gpu.inverse(gpu.forward(x)).cpu()
+        gpu.set_weights(ft)
+        cpu.set_weights(ft)
+        sub = gpu.forward(x)
+        torch.testing.assert_close(sub.cpu(), cpu.forward(x), **TOL)
+        after = gpu.inverse(sub).cpu()
+        torch.testing.assert_close(after, cpu.inverse(sub.cpu()), **TOL)
+        assert (after - before).abs().max().item() > 1e-3
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("B,T", [(1, 512), (16, 512), (1, 165375)])
+def test_k2_applies_its_pad_in_kernel(dev, tier, B, T):
+    """K2 and K2t with the pad in the kernel's window copy (16-byte copies
+    where the pad and the rows are multiples of 4, single floats where not)
+    against their plain versions, output memory NaN-filled first."""
+    _, hki = _bank(16, dev)
+    g = torch.Generator().manual_seed(B + T)
+    x = torch.randn(B, 16, T, generator=g).to(dev)
+    for pad, off in [((16, 16), 0), ((15, 16), 0), ((32, 0), 3),
+                     ((0, 7), -1)]:
+        _nan_fill()
+        got = cc.dense_synthesis_conv(x, hki, True, off, tier, pad)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(
+            got, cc.synthesis_conv_plain(x, hki, True, off, tier, pad), **TOL)

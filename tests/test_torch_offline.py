@@ -142,15 +142,16 @@ def test_k4_hands_k1_the_unpadded_input_and_its_pad(monkeypatch):
     seen = {}
     real = cc.strided_analysis_conv
 
-    def spy(xx, w, m, fuse_mask=True, pad=(0, 0), precision="highest"):
-        seen.update(x=xx, pad=tuple(pad), precision=precision)
-        return real(xx, w, m, fuse_mask, pad, precision)
+    def spy(xx, w, m, fuse_mask=True, pad=(0, 0), precision="highest",
+            bank=None):
+        seen.update(x=xx, pad=tuple(pad), precision=precision, bank=bank)
+        return real(xx, w, m, fuse_mask, pad, precision, bank)
 
     monkeypatch.setattr(cc, "strided_analysis_conv", spy)
     got = pk.analysis_over_k1(x, pk.analysis_weights(hp), M)
     assert seen["x"] is x
     assert seen["pad"] == ((L // 2) * M, (L - L // 2 - 1) * M)
-    assert seen["precision"] == "highest"
+    assert seen["precision"] == "highest" and seen["bank"] is None
     _close(got, pk.polyphase_analysis_plain(x, hp).numpy())
 
 

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""A/B of edited copies of the PyTorch port's CUDA source, on one card.
+"""A/B of edited copies of the PyTorch port's CUDA sources, on one card.
 
-    python3 tools/kernel_ab.py [--rounds 2]
+    python3 tools/kernel_ab.py [--rounds 2] [--variants as_is,tc_]
+                               [--shapes K1t,K2t]
 
 Run from the root of a checkout on a machine with an NVIDIA card and
-``nvcc``. Each variant is ``pqmf_tpu_torch/csrc/cached_conv.cu`` with a
-few text edits (``VARIANTS``: the source as it is, and each design choice
-of its K1/K2/K3 undone). All variants are built at once, each into its own
-library (with the tier kernels' source as it is) loaded with ctypes; each is checked against the plain versions,
+``nvcc``. Each variant is the two sources of ``pqmf_tpu_torch/csrc``
+(``cached_conv.cu``, the f32 kernels; ``cached_conv_tc.cu``, the tiers)
+with a few text edits (``VARIANTS``: the sources as they are, and each
+design choice of K1/K2/K3 or of K1t/K2t undone); every edit must match its
+source exactly once. All variants are built at once, each into its own
+library loaded with ctypes; each is checked against the plain versions,
 then the device time of its kernels (``torch.profiler``) is taken in turns
 at K1 [1,1,8704], K1 [16,1,8704], K1 at K4's 60 s shape [1,1,2646000]
 with its in-kernel pad (256, 240), K2 [1,16,544], K2 [16,16,544], K2 at
-K5's 60 s shape [1,16,165407] and K3 at 60 s [1,1,2646512].
-``--variants`` and ``--shapes`` take comma-separated prefixes to run a
-subset. Prints the card's name and power limit, then one line per variant
-and shape: microseconds per call, one per round.
+K5's 60 s shape [1,16,165375] with its in-kernel pad (15, 16), K3 at 60 s
+[1,1,2646512], and K1t/K2t at the same K1/K2 shapes at "bf16x3" and
+"default" (reading their arranged banks). ``--variants`` and ``--shapes``
+take comma-separated prefixes to run a subset. Prints the card's name and
+power limit, then one line per variant and shape: microseconds per call,
+one per round.
 """
 
 from __future__ import annotations
@@ -40,48 +45,70 @@ _K1_G4 = ("kAnaGroups = 2;", "kAnaGroups = 4;")
 _K1_G1 = ("kAnaGroups = 2;", "kAnaGroups = 1;")
 _K1_W8K = ("kAnaWindow = 4096;", "kAnaWindow = 8192;")
 
-# name -> [(text in the source, its replacement)]
+_TC_LD = "const int LD = S % 8 == 0 ? 0 : S % 2 == 0 ? 1 : 2;"
+
+# name -> [(source index, text in that source, its replacement)]: source
+# 0 is cached_conv.cu, 1 cached_conv_tc.cu
 VARIANTS = {
     "as_is": [],
-    "tap_loop_unroll_4": [(_TAPS, _TAPS.replace("unroll 8", "unroll 4"))],
-    "tap_loop_unroll_2": [(_TAPS, _TAPS.replace("unroll 8", "unroll 2"))],
-    "k2_phase_groups_4": [(_GROUPS, _GROUPS.replace("4), 2)", "4), 4)"))],
-    "k2_phase_groups_1": [(_GROUPS, _GROUPS.replace("4), 2)", "4), 1)"))],
-    "k2_fill_256": [("kSynFill = 128;", "kSynFill = 256;")],
-    "k2_max_steps_512": [("kSynMaxSteps = 256;", "kSynMaxSteps = 512;")],
-    "k1_no_split": [(_K1_SPLIT, _K1_SPLIT.replace(" M,", " 1,"))],
-    "k1_split_max_4": [(_K1_SPLIT, _K1_SPLIT.replace(" M,", " min_i(M, 8),"))],
-    "k1_nt_4": [(_K1_NT, _K1_NT.replace("NT = c.NT", "NT = 4"))],
-    "k1_one_tile_a_block": [(_K1_GX, "p.gx = tiles;")],
-    "k1_balanced_grid": [(_K1_GX, "p.gx = MS == 1 ? cdiv(tiles, cdiv(tiles, "
-                          "max_i(1, n_sms * per_sm / p.gy))) : tiles;")],
-    "k1_divide": [("fuse_mask, log2_exact(M));", "fuse_mask, -1);")],
-    "k1_window_8192": [_K1_W8K],
-    "k1_copy_whole_window": [("e < M * (Tt + J - 1); e += blockDim.x",
+    "tap_loop_unroll_4": [(0, _TAPS, _TAPS.replace("unroll 8", "unroll 4"))],
+    "tap_loop_unroll_2": [(0, _TAPS, _TAPS.replace("unroll 8", "unroll 2"))],
+    "k2_phase_groups_4": [(0, _GROUPS, _GROUPS.replace("4), 2)", "4), 4)"))],
+    "k2_phase_groups_1": [(0, _GROUPS, _GROUPS.replace("4), 2)", "4), 1)"))],
+    "k2_fill_256": [(0, "kSynFill = 128;", "kSynFill = 256;")],
+    "k2_max_steps_512": [(0, "kSynMaxSteps = 256;", "kSynMaxSteps = 512;")],
+    "k1_no_split": [(0, _K1_SPLIT, _K1_SPLIT.replace(" M,", " 1,"))],
+    "k1_split_max_4": [(0, _K1_SPLIT,
+                        _K1_SPLIT.replace(" M,", " min_i(M, 8),"))],
+    "k1_nt_4": [(0, _K1_NT, _K1_NT.replace("NT = c.NT", "NT = 4"))],
+    "k1_one_tile_a_block": [(0, _K1_GX, "p.gx = tiles;")],
+    "k1_balanced_grid": [(0, _K1_GX, "p.gx = MS == 1 ? cdiv(tiles, cdiv("
+                          "tiles, max_i(1, n_sms * per_sm / p.gy))) : "
+                          "tiles;")],
+    "k1_divide": [(0, "fuse_mask, log2_exact(M));", "fuse_mask, -1);")],
+    "k1_window_8192": [(0, *_K1_W8K)],
+    "k1_copy_whole_window": [(0, "e < M * (Tt + J - 1); e += blockDim.x",
                               "e < M * XR; e += blockDim.x")],
-    "k1_groups_4": [_K1_G4],
-    "k1_groups_1": [_K1_G1],
+    "k1_groups_4": [(0, *_K1_G4)],
+    "k1_groups_1": [(0, *_K1_G1)],
+    # K1t/K2t: each design choice undone
+    "tc_no_swizzle": [(1, "a.swz = LD == 0 && log2_exact(S) >= 3 ? "
+                          "min_i(S / 8, 8) - 1 : 0;", "a.swz = 0;")],
+    "tc_stage_always": [(1, "p.stage = g.stage && (c.persist || (long long)"
+                            "tiles * p.gy <= n_sms);", "p.stage = g.stage;")],
+    "tc_no_ldmatrix": [(1, _TC_LD,
+                        "const int LD = S % 2 == 0 ? 1 : 2;")],
+    "tc_bank_global": [(1, "g.stage = g.bank_bytes <= kTcBankBytes &&",
+                        "g.stage = false && g.bank_bytes <= kTcBankBytes "
+                        "&&")],
+    "tc_fill_16": [(1, "kTcFillWarps = 8;", "kTcFillWarps = 16;")],
+    "tc_no_split_k": [(1, "while (wk < kTcWarps && 2 * wk <= g.n_k",
+                       "while (false && 2 * wk <= g.n_k")],
+    "tc_persist_m16_64": [(1, "kTcPersistM16 = 16;",
+                           "kTcPersistM16 = 64;")],
 }
 
 
 def _build_all(out: Path, names) -> dict:
     from pqmf_tpu_torch.kernels import _build
 
-    src = _build.SOURCES[0].read_text()
+    srcs = [src.read_text() for src in _build.SOURCES]
     nvcc = _build._find_nvcc()
     procs = {}
     for name in names:
-        edits = VARIANTS[name]
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"{name}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
+        texts = list(srcs)
+        for which, old, new in VARIANTS[name]:
+            if texts[which].count(old) != 1:
+                raise SystemExit(f"{name}: {old!r} is not once in "
+                                 f"{_build.SOURCES[which].name}")
+            texts[which] = texts[which].replace(old, new)
+        files = []
+        for src, text in zip(_build.SOURCES, texts):
+            files.append(out / f"{name}.{src.name}")
+            files[-1].write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
-             str(out / f"{name}.so"), str(out / f"{name}.cu"),
-             str(_build.SOURCES[1])],
+             str(out / f"{name}.so"), *(str(f) for f in files)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -138,35 +165,63 @@ def main(argv=None) -> int:
             fb.build_filterbank(100, 16)["hk_poly"])).to(dev)
         Ka, Ks = wa.shape[-1], ws.shape[-1]
         g = torch.Generator().manual_seed(0)
-        # shape -> (input shape, K1's bank, K1's pad)
-        shapes = {"K1 [1,1,8704]": ((1, 1, 8704), wa, (0, 0)),
-                  "K1 [16,1,8704]": ((16, 1, 8704), wa, (0, 0)),
-                  "K1 [1,1,2646000]": ((1, 1, 60 * 44100), w2, (256, 240)),
-                  "K2 [1,16,544]": ((1, 16, 544), None, None),
-                  "K2 [16,16,544]": ((16, 16, 544), None, None),
-                  "K2 [1,16,165407]": ((1, 16, 165407), None, None),
-                  "K3 [1,1,2646512]": ((1, 1, 60 * 44100 + Ka - 1), None,
-                                       None)}
+        hi = torch.tensor(fb.build_filterbank(100, 16)["hk_ipoly"]).to(dev)
+        T60 = 60 * 44100
+        # shape -> (input shape, bank, pad, tier)
+        shapes = {}
+        for tier in ("highest", "bf16x3", "default"):
+            k1, k2 = ("K1", "K2") if tier == "highest" else ("K1t", "K2t")
+            sfx = "" if tier == "highest" else f" {tier}"
+            shapes.update({
+                f"{k1} [1,1,8704]{sfx}": ((1, 1, 8704), wa, (0, 0), tier),
+                f"{k1} [16,1,8704]{sfx}": ((16, 1, 8704), wa, (0, 0), tier),
+                f"{k1} [1,1,2646000]{sfx}": ((1, 1, T60), w2, (256, 240),
+                                             tier),
+                f"{k2} [1,16,544]{sfx}": ((1, 16, 544), ws, (0, 0), tier),
+                f"{k2} [16,16,544]{sfx}": ((16, 16, 544), ws, (0, 0), tier),
+                f"{k2} [1,16,165375]{sfx}": ((1, 16, T60 // 16), hi,
+                                             (15, 16), tier)})
+        shapes["K3 [1,1,2646512]"] = ((1, 1, T60 + Ka - 1), None, None,
+                                      "highest")
         shapes = {k: shapes[k] for k in _pick(shapes, args.shapes)}
         xs = {k: torch.randn(*v[0], generator=g).to(dev)
               for k, v in shapes.items()}
+        banks = {}
+        for k, (_, w, _, tier) in shapes.items():
+            if tier != "highest":
+                kind = "analysis" if k.startswith("K1") else "synthesis"
+                banks[k] = cc.arrange_tc_bank(w, kind, tier).words
+        passes = {"bf16x3": 3, "default": 1}
         stream = torch.cuda.current_stream().cuda_stream
 
         def call(lib, what, x):
-            B, _, T = x.shape
+            B, C, T = x.shape
+            _, w, pad, tier = shapes[what]
             if what.startswith("K1"):
-                _, w, pad = shapes[what]
                 K = w.shape[-1]
                 t_out = (pad[0] + T + pad[1] - K) // 16 + 1
                 out = torch.empty(B, 16, t_out, device=dev)
-                err = lib.pqmf_analysis_conv(
-                    x.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, 16,
-                    16, K, t_out, pad[0], 1, stream)
+                tail = (out.data_ptr(), B, T, 16, 16, K, t_out, pad[0], 1)
+                if tier == "highest":
+                    err = lib.pqmf_analysis_conv(x.data_ptr(), w.data_ptr(),
+                                                 *tail, stream)
+                else:
+                    err = lib.pqmf_tc_analysis_conv(
+                        x.data_ptr(), banks[what].data_ptr(), *tail,
+                        passes[tier], stream)
             elif what.startswith("K2"):
-                out = torch.empty(B, T - Ks + 1, 16, device=dev)
-                err = lib.pqmf_synthesis_conv(
-                    x.data_ptr(), ws.data_ptr(), out.data_ptr(), B, 16,
-                    T, 16, Ks, T - Ks + 1, 1, -16, stream)
+                K = w.shape[-1]
+                t_out = pad[0] + T + pad[1] - K + 1
+                out = torch.empty(B, t_out, 16, device=dev)
+                tail = (out.data_ptr(), B, 16, T, 16, K, t_out, pad[0], 1,
+                        -16 if pad == (0, 0) else 0)
+                if tier == "highest":
+                    err = lib.pqmf_synthesis_conv(x.data_ptr(), w.data_ptr(),
+                                                  *tail, stream)
+                else:
+                    err = lib.pqmf_tc_synthesis_conv(
+                        x.data_ptr(), banks[what].data_ptr(), *tail,
+                        passes[tier], stream)
             else:
                 t_ana = (T - Ka) // 16 + 1
                 out = torch.empty(B, t_ana, 16, device=dev)
@@ -180,17 +235,21 @@ def main(argv=None) -> int:
 
         for what, x in xs.items():
             tol = dict(atol=2e-5, rtol=1e-4)
+            _, w, pad, tier = shapes[what]
             if what.startswith("K1"):
-                _, w, pad = shapes[what]
-                ref = cc.analysis_conv_plain(x, w, 16, True, pad)
+                ref = cc.analysis_conv_plain(x, w, 16, True, pad, tier)
             elif what.startswith("K2"):
-                ref = cc.synthesis_conv_plain(x, ws, True, -16)
+                ref = cc.synthesis_conv_plain(
+                    x, w, True, -16 if pad == (0, 0) else 0, tier, pad)
             else:
                 ref = cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16))
                 tol = dict(atol=1e-5, rtol=0.0)
             for name, lib in libs.items():
-                torch.testing.assert_close(call(lib, what, x), ref, **tol,
+                got = call(lib, what, x)
+                torch.testing.assert_close(got, ref, **tol,
                                            msg=lambda m: f"{name} {what}")
+                print(f"  {name:20s} {what:28s} max|err| "
+                      f"{(got - ref).abs().max().item():.3g}")
         def device_us(fn, n):
             """Device time per call of ``fn``; a trace that lost its device
             events is taken again."""
@@ -220,7 +279,7 @@ def main(argv=None) -> int:
         for name in names:
             for what in xs:
                 vals = ", ".join(f"{v:.2f}" for v in us[(name, what)])
-                print(f"  {name:20s} {what:18s} {vals}")
+                print(f"  {name:20s} {what:28s} {vals}")
     return 0
 
 
