@@ -25,8 +25,12 @@ fails without them; it never falls back to the CPU and imports no JAX.
    versions at the same tier: the same shapes; K1t/K2t at the tiles their
    plan takes +-1 for a host block and a whole file, with odd and even K,
    pads and a kept arranged bank (bit-equal to one arranged per call),
-   M = 1..64 at both sizes, K = 9001, a band shard; output memory
-   NaN-filled before each call. K2 with its in-kernel pad.
+   M = 1..64 at both sizes, K = 9001, a band shard; K3t at the tiles its
+   plans take +-1 at [1,1,8704], [16,1,8704], ``stream_ola``'s 215 x 4096
+   and 60 s, with the analysis pad in the kernel (bit-equal to ``F.pad``
+   and the call) and its kept banks (bit-equal to banks arranged per
+   call); output memory NaN-filled before each call. K2's and K3's
+   in-kernel pads.
 3. Drives the two paths on the card, each with the launch counters zeroed
    just before and read just after:
    - the flagship (``PQMFPitchShiftWrapper``, atten 100, 16 bands,
@@ -74,10 +78,12 @@ fails without them; it never falls back to the CPU and imports no JAX.
    the host clock; and profiles the flagship and TA steps. The tier
    kernels at the same headline shapes against their plain versions,
    bounded at the bf16 tensor-core peak (three passes at ``bf16x3``), their
-   device times, one TF32 ``F.conv1d`` computing K1t's and K2t's product
-   (``library_ms``, its device time and error), K1t/K2t reading their kept
-   arranged banks, the flagship block and 16-stream step at ``default``
-   and the 60 s round trips at ``bf16x3``.
+   device times, one TF32 ``F.conv1d`` computing K1t's, K2t's, K4t's and
+   K5t's products (``library_ms``, its device time and error), every tier
+   kernel reading its kept arranged banks, K3t's device time beside K1t +
+   K2t's at [1,1,8704] and [16,1,8704] and beside K6t's and K4t + K5t's on
+   60 s, the flagship block and 16-stream step at ``default`` and the 60 s
+   round trips at ``bf16x3``.
 
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 Any failure raises and the exit code is non-zero.
@@ -460,6 +466,8 @@ def main() -> int:
             ("synthesis", (1, 64, 64, 0, 32, 2048)),
             ("roundtrip", (1, 16, 16, Ka, Ks, 60 * SR // 16 + 1)),
             ("roundtrip", (1, 16, 16, 512, 32, 60 * SR // 16 + 1)),
+            ("roundtrip", (1, 16, 16, Ka, Ks, BLOCK // 16)),
+            ("roundtrip", (16, 16, 16, Ka, Ks, BLOCK // 16)),
             ("roundtrip", (215, 16, 16, Ka, Ks, OLA_BLOCK // 16)),
             ("roundtrip", (1, 8, 8, 257, 33, 300))]:
         code = {"analysis": 1, "synthesis": 2, "roundtrip": 3}[which]
@@ -546,6 +554,14 @@ def main() -> int:
         check("roundtrip", cc.fused_roundtrip_conv(x, wa, ws, 16, pad),
               cc.roundtrip_conv_plain(x, wa, ws, 16, pad), K3_TOL,
               f"K3 x{tuple(x.shape)} syn_pad={pad}")
+
+    # K3 with the analysis pad in its window copy: the bits of F.pad and
+    # the call
+    for x in (rand(1, 1, BLOCK), rand(3, 1, 16 * 301 + 5)):
+        got = cc.fused_roundtrip_conv(x, wa, ws, 16, (16, 16), pad=(256, 256))
+        assert torch.equal(got, cc.fused_roundtrip_conv(
+            F.pad(x, (256, 256)), wa, ws, 16, (16, 16))), "K3 pad"
+    print("  K3 pad=(256, 256) bit-equal to F.pad and the call")
 
     # the plain version on the card may sum in the kernel's own order; the
     # CPU's plain version sums in another, an independent check
@@ -759,15 +775,48 @@ def main() -> int:
                            sub, bw_s)
         k3t_tile = cc.launch_plan("roundtrip", 1, 16, 16, Ka, Ks, 1000,
                                   precision=tier)[4]
+        # one step short of and one past a multiple of the tile, with
+        # lopsided synthesis pads (T_ana = T_out - pads + Ks - 1)
+        t_rt = (1000 // k3t_tile) * k3t_tile
         for x, pad in [(x60, (16, 16)), (rand(1, 1, BLOCK + pad_a), (16, 16)),
-                       (rand(2, 1, 16 * (k3t_tile - 1) + pad_a), (16, 17)),
-                       (rand(3, 1, 16 * (k3t_tile + 1) + pad_a), (3, 0))]:
+                       (rand(2, 1, 16 * (t_rt - 3) + Ka), (16, 17)),
+                       (rand(3, 1, 16 * (t_rt + 29) + Ka), (3, 0))]:
             nan_junk()
             tcheck("roundtrip", tier,
                    cc.fused_roundtrip_conv(x, wa, ws, 16, pad, tier),
                    cc.roundtrip_conv_plain(x, wa, ws, 16, pad, tier),
                    f"K3t x{tuple(x.shape)} syn_pad={pad}",
                    cc.strided_analysis_conv(x, wa, 16), ws)
+        # K3t at the tiles of its plans +-1 (a host block and 16 streams:
+        # tiles of 16-64 steps; stream_ola's 215 x 4096 and 60 s: persistent
+        # tiles), the centered analysis pad in the kernel, the kept banks
+        # (the same bits as banks arranged for the call) and pad= (the same
+        # bits as F.pad and the call)
+        rt_kept = (cc.arrange_tc_bank(wa, "analysis", tier),
+                   cc.arrange_tc_bank(ws, "synthesis", tier))
+        for B, t_probe in [(1, BLOCK // 16), (16, BLOCK // 16),
+                           (215, OLA_BLOCK // 16), (1, 60 * SR // 16)]:
+            tile = cc.launch_plan("roundtrip", B, 16, 16, Ka, Ks, t_probe,
+                                  n_sms=n_sms, precision=tier)[4]
+            for edge in (-1, 0, 1):
+                T_out = (t_probe // tile) * tile + edge
+                x = rand(B, 1, 16 * T_out)
+                nan_junk()
+                got = cc.fused_roundtrip_conv(x, wa, ws, 16, (16, 16), tier,
+                                              (256, 256), rt_kept)
+                tcheck("roundtrip", tier, got,
+                       cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16), tier,
+                                               (256, 256)),
+                       f"K3t tile {tile} T_out {T_out} B={B} pad (256, 256)",
+                       cc.strided_analysis_conv(x, wa, 16, pad=(256, 256)),
+                       ws)
+                nan_junk()
+                assert torch.equal(got, cc.fused_roundtrip_conv(
+                    x, wa, ws, 16, (16, 16), tier, (256, 256))), "kept banks"
+                nan_junk()
+                assert torch.equal(got, cc.fused_roundtrip_conv(
+                    F.pad(x, (256, 256)), wa, ws, 16, (16, 16), tier,
+                    banks=rt_kept)), "K3t pad"
         for M, pq in offline.items():
             hp_m, hi_m, w2_m = pq.params["hk_poly"], pq.params["hk_ipoly"], \
                 pq._w2
@@ -1376,7 +1425,8 @@ def main() -> int:
                 lambda x: cc.synthesis_conv_plain(x, ws, True, -16, tier)),
             "roundtrip": (
                 lambda x: cc.fused_roundtrip_conv(x, wa, ws, 16, (16, 16),
-                                                  tier),
+                                                  tier,
+                                                  banks=(kb["wa"], kb["ws"])),
                 lambda x: cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16),
                                                   tier)),
             "polyphase_analysis": (
@@ -1386,35 +1436,44 @@ def main() -> int:
                 lambda x: pk.polyphase_synthesis(x, hi, tier, kb["hi"]),
                 lambda x: pk.polyphase_synthesis_plain(x, hi, tier)),
             "polyphase_roundtrip": (
-                lambda x: pk.polyphase_roundtrip(x, hp, hi, w2, tier),
+                lambda x: pk.polyphase_roundtrip(x, hp, hi, w2, tier,
+                                                 (kb["w2"], kb["hi"])),
                 lambda x: pk.polyphase_roundtrip_plain(x, hp, hi, tier)),
         }[name]
 
     def tier_library(name, tier, x):
-        """One F.conv1d that computes K1t's / K2t's product at the tier,
-        with cuDNN's TF32 on (bf16 values are exact in TF32): "default"
-        conv(xh, wh); "bf16x3" one conv over channel-stacked operands,
-        cat(xh, xl, xh) with cat(wh, wh, wl). Returns (the call on its
-        prepared operands, its output in the kernel's layout)."""
-        w = wa if name == "analysis" else ws
-        xin = x if name == "analysis" else fb_ops.reverse_half(x, -16)
+        """One F.conv1d that computes K1t's / K2t's product at the tier (and
+        K4t's / K5t's, on their adapters' padded operands), with cuDNN's
+        TF32 on (bf16 values are exact in TF32): "default" conv(xh, wh);
+        "bf16x3" one conv over channel-stacked operands, cat(xh, xl, xh)
+        with cat(wh, wh, wl). Returns (the call on its prepared operands,
+        its output in the kernel's layout)."""
+        w = {"analysis": wa, "synthesis": ws, "polyphase_analysis": w2,
+             "polyphase_synthesis": hi}[name]
+        xin = {"analysis": lambda v: v,
+               "synthesis": lambda v: fb_ops.reverse_half(v, -16),
+               "polyphase_analysis": lambda v: F.pad(v, (256, 240)),
+               "polyphase_synthesis": lambda v: F.pad(
+                   fb_ops.reverse_half(v), (15, 16))}[name](x)
         xh, xl = fb_ops.split_bf16(xin)
         wh, wl = fb_ops.split_bf16(w)
         if tier == "bf16x3":
             xs, wst = torch.cat([xh, xl, xh], 1), torch.cat([wh, wh, wl], 1)
         else:
             xs, wst = xh, wh
-        stride = 16 if name == "analysis" else 1
+        stride = 16 if name.endswith("analysis") else 1
 
         def call():
             return F.conv1d(xs, wst, stride=stride)
 
         with _tf32():
             y = call()
-        if name == "analysis":
+        if name.endswith("analysis"):
             y = fb_ops.reverse_half(y)
         else:
             y = torch.flip(y * 16, dims=(1,)).transpose(1, 2)
+            if name == "polyphase_synthesis":
+                y = y.reshape(y.shape[0], 1, -1)
         return call, y
 
     tier_times, tier_bounds = {}, {}
@@ -1437,13 +1496,15 @@ def main() -> int:
     # version; timed here, never called by the port
     tier_lib = {}
     for tier in TIERS:
-        for name in ("analysis", "synthesis"):
+        for name in ("analysis", "synthesis", "polyphase_analysis",
+                     "polyphase_synthesis"):
             x = cases[name][0][1]
+            n_it = 20 if name.startswith("polyphase") else 200
             call, y = tier_library(name, tier, x)
             ref = tier_calls(name, tier)[1](x)
             with _tf32():
-                ms = min(cuda_ms(call, 200) for _ in range(2))
-                dev_lib = _device_us(call, 50)
+                ms = min(cuda_ms(call, n_it) for _ in range(2))
+                dev_lib = _device_us(call, 10 if n_it == 20 else 50)
             err = (y - ref).abs().max().item()
             tier_lib[name, tier] = (ms, dev_lib, err)
             print(f"  {name} [{tier}] library F.conv1d (TF32): {ms:.4f} ms, "
@@ -1456,7 +1517,9 @@ def main() -> int:
                 ("K2t [1,16,544]", "synthesis", rand(1, 16, 544)),
                 ("K2t [16,16,544]", "synthesis", rand(16, 16, 544)),
                 ("K3t [1,1,8704]", "roundtrip", rand(1, 1, BLOCK + pad_a)),
+                ("K3t [16,1,8704]", "roundtrip", rand(16, 1, BLOCK + pad_a)),
                 ("K3t 60 s [1,1,2646512]", "roundtrip", x60),
+                ("K6t 60 s [1,1,2646000]", "polyphase_roundtrip", raw60),
                 ("K4t 60 s [1,1,2646000]", "polyphase_analysis", raw60),
                 ("K5t 60 s [1,16,165375]", "polyphase_synthesis", sub60)]:
             fn = tier_calls(name, tier)[0]
@@ -1465,6 +1528,17 @@ def main() -> int:
                                           10 if "60 s" in what else 50)
             print(f"  device time {key}: {tier_dev_us[key]:.2f} us "
                   "(profiler)")
+        # the fused round trip beside its two halves run as two launches
+        d = {k[:-len(tier) - 1]: v for k, v in tier_dev_us.items()
+             if k.endswith(f" {tier}")}
+        print(f"  K3t vs its halves [{tier}], device us: [1,1,8704] K3t "
+              f"{d['K3t [1,1,8704]']:.2f}, K1t + K2t "
+              f"{d['K1t [1,1,8704]'] + d['K2t [1,16,544]']:.2f}; [16,1,8704] "
+              f"K3t {d['K3t [16,1,8704]']:.2f}, K1t + K2t "
+              f"{d['K1t [16,1,8704]'] + d['K2t [16,16,544]']:.2f}; 60 s K3t "
+              f"{d['K3t 60 s [1,1,2646512]']:.2f}, K6t "
+              f"{d['K6t 60 s [1,1,2646000]']:.2f}, K4t + K5t "
+              f"{d['K4t 60 s [1,1,2646000]'] + d['K5t 60 s [1,16,165375]']:.2f}")
 
     # device time of K1-K3 at the block shapes (CUDA events there include
     # the host launch), of K4 at 60 s, and of the lone cuDNN conv of K1's
@@ -1646,7 +1720,8 @@ def main() -> int:
                     "synthesis": "K2t [1,16,544]",
                     "roundtrip": "K3t 60 s [1,1,2646512]",
                     "polyphase_analysis": "K4t 60 s [1,1,2646000]",
-                    "polyphase_synthesis": "K5t 60 s [1,16,165375]"}
+                    "polyphase_synthesis": "K5t 60 s [1,16,165375]",
+                    "polyphase_roundtrip": "K6t 60 s [1,1,2646000]"}
     for tier in TIERS:
         for k, name, where, _ in rows:
             t_name = name.replace("K1 ", "K1t ").replace("K2 ", "K2t ") \
@@ -1663,8 +1738,9 @@ def main() -> int:
                 "plain_ms": tier_times[k, tier][1],
                 "bound_ms": tier_bounds[k, tier][0],
                 "bound_by": tier_bounds[k, tier][1],
-                # one TF32 F.conv1d computes K1t's and K2t's product; none
-                # computes the fused round trip or K4/K5's pads and layouts
+                # one TF32 F.conv1d computes K1t's, K2t's, K4t's and K5t's
+                # products (on their padded operands); none computes the
+                # fused round trip
                 "library_ms": (tier_lib[k, tier][0] if (k, tier) in tier_lib
                                else None),
                 "library_max_abs_err": (tier_lib[k, tier][2]
@@ -1674,7 +1750,10 @@ def main() -> int:
                 "device_us": tier_dev_us.get(f"{dk} {tier}") if dk else None,
                 "device_us_b16": tier_dev_us.get(
                     {"analysis": "K1t [16,1,8704]",
-                     "synthesis": "K2t [16,16,544]"}.get(k, "") + f" {tier}")})
+                     "synthesis": "K2t [16,16,544]",
+                     "roundtrip": "K3t [16,1,8704]"}.get(k, "") + f" {tier}"),
+                "device_us_block": tier_dev_us.get(f"K3t [1,1,8704] {tier}")
+                if k == "roundtrip" else None})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

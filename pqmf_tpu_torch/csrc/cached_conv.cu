@@ -5,16 +5,17 @@
 // pqmf_tpu_torch/kernels/cached_conv.py.
 //
 // Every kernel computes a VALID convolution in f32, launches on the stream it
-// is given and allocates nothing.  K3 takes an input the caller has already
-// padded; K1 and K2 take a zero pad (pad_left, and zeros past the input)
-// and apply it while they copy their window.
+// is given and allocates nothing.  Each takes a zero pad of its input
+// (pad_left, or K3's analysis pad pad_a, and zeros past the input) and
+// applies it while it copies its window.
 //
 // K1 analysis   replaces pqmf_tpu/kernels/cached_conv.py:strided_analysis_conv
 //   out[b,c,t] = sum_k w[c,0,k] * xpad[b,0,t*M+k]  (x -1 where c odd, t even)
 // K2 synthesis  replaces pqmf_tpu/kernels/cached_conv.py:dense_synthesis_conv
 //   out[b,t,c] = M * sum_{m,k} w[M-1-c,m,k] * s(m,t+k) * x[b,m,t+k]
 // K3 roundtrip  replaces pqmf_tpu/kernels/cached_conv.py:fused_roundtrip_conv
-//   K2(pad(K1(x), pad_left), w_syn) with both sign masks, which cancel.
+//   K2(pad(K1(pad(x, pad_a)), pad_left), w_syn) with both sign masks,
+//   which cancel.
 //
 // What bounds them on the H100: all three are f32 FMA on the CUDA cores
 // (the "highest" tier is full f32, so no tensor-core tier applies), at about
@@ -638,8 +639,9 @@ template <int M>
 __global__ void __launch_bounds__(kThreads, 1)
 roundtrip_kernel(const float* __restrict__ x, const float* __restrict__ wa,
                  const float* __restrict__ ws, float* __restrict__ out,
-                 int B, int Tpad, int Ka, int Ks, int T_ana, int T_out,
-                 int pad_left, int n_sub, int Tt, int J, int XR, int SP) {
+                 int B, int Tx, int Ka, int Ks, int T_ana, int T_out,
+                 int pad_a, int pad_left, int n_sub, int Tt, int J, int XR,
+                 int SP) {
   constexpr int NB = M < 4 ? M : 4;
   constexpr int BG = M / NB;
   extern __shared__ float4 rt_smem[];
@@ -652,14 +654,16 @@ roundtrip_kernel(const float* __restrict__ x, const float* __restrict__ wa,
   const int n_tiles = B * tiles_per_row;
 
   // the window of tile `tl` into buffer `buf`, zeros outside the input
+  // (the analysis pad pad_a, and past its end)
   auto load_window = [&](int tl, int buf) {
     const int row = tl / tiles_per_row;
-    const long long p0 = (long long)((tl % tiles_per_row) * Tt - pad_left) * M;
-    const float* xb = x + (long long)row * Tpad;
+    const long long p0 =
+        (long long)((tl % tiles_per_row) * Tt - pad_left) * M - pad_a;
+    const float* xb = x + (long long)row * Tx;
     float* dst = xp_s + buf * M * XR;
     for (int e = tid; e < M * XR; e += kThreads) {
       const long long p = p0 + e;
-      const bool in = p >= 0 && p < Tpad;
+      const bool in = p >= 0 && p < Tx;
       cp_async4(dst + (e % M) * XR + e / M, in ? xb + p : xb, in ? 4 : 0);
     }
   };
@@ -791,13 +795,14 @@ cudaError_t sm_count(int* n) {
 template <int M>
 cudaError_t launch_roundtrip(const RtGeom& g, const Plan& p, const float* x,
                              const float* wa, const float* ws, float* out,
-                             int B, int Tpad, int Ka, int Ks, int T_ana,
-                             int T_out, int pad_left, cudaStream_t stream) {
+                             int B, int Tx, int Ka, int Ks, int T_ana,
+                             int T_out, int pad_a, int pad_left,
+                             cudaStream_t stream) {
   cudaError_t err = allow_smem(roundtrip_kernel<M>, p.smem);
   if (err != cudaSuccess) return err;
   roundtrip_kernel<M><<<p.gx, p.threads, p.smem, stream>>>(
-      x, wa, ws, out, B, Tpad, Ka, Ks, T_ana, T_out, pad_left, g.n_sub, g.Tt,
-      g.J, g.XR, g.SP);
+      x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out, pad_a, pad_left, g.n_sub,
+      g.Tt, g.J, g.XR, g.SP);
   return cudaGetLastError();
 }
 
@@ -884,9 +889,13 @@ int pqmf_synthesis_conv(const float* x, const float* w, float* out, int B,
   return (int)cudaGetLastError();
 }
 
+// x: [B, 1, Tx], zero-padded by pad_a on the left and by zeros past Tx
+// (the analysis input); the sub-bands (T_ana steps) zero-padded by pad_left
+// on the left and by zeros past T_ana.  Output [B, T_out, M].
 int pqmf_roundtrip_conv(const float* x, const float* wa, const float* ws,
-                        float* out, int B, int Tpad, int M, int Ka, int Ks,
-                        int T_ana, int T_out, int pad_left, void* stream) {
+                        float* out, int B, int Tx, int M, int Ka, int Ks,
+                        int T_ana, int T_out, int pad_a, int pad_left,
+                        void* stream) {
   if (!roundtrip_templated(M)) return (int)cudaErrorInvalidValue;
   int n_sms = 0;
   cudaError_t err = sm_count(&n_sms);
@@ -896,14 +905,14 @@ int pqmf_roundtrip_conv(const float* x, const float* wa, const float* ws,
   if (g.Tt <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (M) {
-    case 2: err = launch_roundtrip<2>(g, p, x, wa, ws, out, B, Tpad, Ka, Ks,
-                                      T_ana, T_out, pad_left, s); break;
-    case 4: err = launch_roundtrip<4>(g, p, x, wa, ws, out, B, Tpad, Ka, Ks,
-                                      T_ana, T_out, pad_left, s); break;
-    case 8: err = launch_roundtrip<8>(g, p, x, wa, ws, out, B, Tpad, Ka, Ks,
-                                      T_ana, T_out, pad_left, s); break;
-    default: err = launch_roundtrip<16>(g, p, x, wa, ws, out, B, Tpad, Ka,
-                                        Ks, T_ana, T_out, pad_left, s);
+    case 2: err = launch_roundtrip<2>(g, p, x, wa, ws, out, B, Tx, Ka, Ks,
+                                      T_ana, T_out, pad_a, pad_left, s); break;
+    case 4: err = launch_roundtrip<4>(g, p, x, wa, ws, out, B, Tx, Ka, Ks,
+                                      T_ana, T_out, pad_a, pad_left, s); break;
+    case 8: err = launch_roundtrip<8>(g, p, x, wa, ws, out, B, Tx, Ka, Ks,
+                                      T_ana, T_out, pad_a, pad_left, s); break;
+    default: err = launch_roundtrip<16>(g, p, x, wa, ws, out, B, Tx, Ka, Ks,
+                                        T_ana, T_out, pad_a, pad_left, s);
   }
   return (int)err;
 }

@@ -10,7 +10,8 @@
 // K2t synthesis replaces pqmf_tpu/kernels/cached_conv.py:dense_synthesis_conv
 //   at those tiers (_slice_dots, :207)
 // K3t roundtrip replaces pqmf_tpu/kernels/cached_conv.py:fused_roundtrip_conv
-//   at those tiers (_fused_rt_kernel, :632: the f32 mid is split again)
+//   at those tiers (_fused_roundtrip_single, :715, its pallas_call :751:
+//   the f32 mid is split again)
 //
 // The tiers: every f32 operand is split into hi = bf16(a) and lo =
 // bf16(a - hi), both rounded to nearest even (JAX's _split_bf16).  "bf16x3"
@@ -26,9 +27,10 @@
 // - K2t: buf is the sub-band window time-major, win[tau][m], from t0 -
 //   pad_left on, the input sign mask applied; S = Mb, q = k*Mb + m,
 //   B[q, c] = w[M-1-c, m, k] (band flip); the gain M goes on the sums.
-// - K3t: K1t's GEMM writes its sub-band tile time-major, split, straight
-//   from the accumulators into shared memory, where it is K2t's window; the
-//   two sign masks cancel, so neither is applied.
+// - K3t: K1t's GEMM (its signal window from M*t0 - pad_a on) writes its
+//   sub-band tile time-major, split again, straight from the sums into
+//   shared memory, where it is K2t's window; the two sign masks cancel, so
+//   neither is applied.
 // The reduction is padded to a multiple of 16 with zero bank columns, and
 // every window element a padded column reads is staged (input or zero): 0
 // times stale shared memory could be 0 * NaN.
@@ -67,6 +69,33 @@
 //   shared memory in a fixed order) and runs one tile a block, so it reaches
 //   32-512 blocks; a whole file runs persistent blocks of 4 warps x 2 m16
 //   tiles (128 output steps a tile) that stage their bank chunk once.
+//
+// K3t (redesigned for Hopper), one kernel roundtrip_tc_kernel<P,NN,MT,LD>
+// on K1t/K2t's parts (tc_mma, the swizzle, the raw cp.async window):
+// - Both banks come arranged (arrange_tc_bank of the analysis and synthesis
+//   banks: exactly K1t's and K2t's, which StreamingPQMF and PQMF keep) and
+//   are staged as they are by 16-byte cp.async, once a block, where the
+//   block walks tiles or the card holds every block; no tap is split,
+//   divided or reordered here.  One 16-byte B load a lane a k-step feeds
+//   two n8 tiles.
+// - A fragments by ldmatrix.x4 (M = 8, 16; 32-bit pairs at M = 2, 4) from
+//   two swizzled windows: the split signal window and the split sub-band
+//   tile, which the analysis epilogue writes through the same map.  Where
+//   the analysis is one warp item each, the sub-band tile takes the split
+//   window's place (the window is read by then): at M = 16, bf16x3 a whole-
+//   file block takes 104 KB, the banks 67.6 KB of it, so 2 fit an SM.
+// - The raw signal window (f32, the analysis pad as the copy's zero-fill)
+//   of the next tile is copied while this tile's mma run; no phase waits
+//   on device memory but the first.
+// - The plan follows the call (rt_tc_choice): whole files run persistent
+//   blocks of 8 warps over tiles of 256 sub-band steps, 224 output steps
+//   at M = 16 (the halo's recomputed 32 analysis rows: 1.14x), 2 m16 tiles
+//   a warp item; host blocks take tiles of 16-64 output steps, one tile a
+//   block (32 blocks at [1,1,8704]), and split each phase's reduction over
+//   the idle warps, summed in shared memory in slice order (deterministic).
+// - What bounds it: at 60 s the work of both GEMMs (bf16x3: 3 mma a k-step)
+//   near the bf16 line, plus the halo; a host block's latency: the banks'
+//   copy, then the dependent k-steps of two phases.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,15 +111,13 @@ constexpr int kTcFillWarps = 8;   // small calls: warps an SM should get
 constexpr int kTcPersistM16 = 16; // whole files: from n_sms * 16 m16 tiles on
 constexpr int kRtTcThreads = 256;              // K3t: threads a block
 constexpr int kRtTcWarps = kRtTcThreads / 32;
-constexpr int kRtTcOut = 224;                  // K3t: output steps a tile
+constexpr int kRtTcSub = 256;     // K3t whole files: sub-band steps a tile
+constexpr int kRtTcPersistM16 = 16;  // K3t: from n_sms * 16 m16 output tiles on
+constexpr int kRtTcFillDiv = 4;   // K3t small calls: at least n_sms / 4 blocks
 // blocks an SM the register allocation plans for: without them ptxas kept
-// K1t and K3t at 48 registers and spilled one (4 bytes)
+// K1t at 48 registers and spilled one (4 bytes)
 constexpr int kTcMinBlocks = 4;
 constexpr int kRtTcMinBlocks = 2;
-// staging loops unrolled so that a thread has several global loads in
-// flight (K1t at [1,1,8704] on an H100: 21.7 us unrolled once, 10.6 four
-// times, 9.8 eight times)
-constexpr int kStageUnroll = 8;
 constexpr long long kSmemLimit = 232448;       // shared memory one block may use
 constexpr size_t kSmemPerSm = 233472;          // shared memory of one SM
 constexpr size_t kStaticSmem = 48 * 1024;
@@ -212,46 +239,120 @@ Plan tc_plan(const TcGeom& g, int B, int T_out, int n_sms) {
   return p;
 }
 
-// K3t: n_sub sub-band steps a tile (analysis rows), Tt output steps of them
-// (synthesis rows), both multiples of 16; both banks, the signal window
-// and the split sub-band tile (+16 zeros for the padded columns).
+// K3t: the two arranged banks (one channel block each, N = M <= 16 output
+// channels in NN n8 tiles), their k-steps, and the sub-band rows one output
+// step reads (rows_s); both banks staged where they fit beside the largest
+// tile of any plan.
 struct RtTcGeom {
-  int Qa, Qs, n_sub, Tt, WLa, WLs;
-  size_t smem;
+  int M, Qa, n_ka, n_ks, NN, rows_s;
+  long long bank_bytes;
+  bool stage;
 };
+
+// A K3t tile: Tt output steps (synthesis rows) of n_sub sub-band steps
+// (analysis rows), MT m16 tiles a warp item, each phase's reduction split
+// over WK warps (WKa analysis, WKs synthesis); the split window of WL
+// elements (raw f32 and bf16 halves), the split sub-band tile (SL elements
+// a half; 0: it takes the split window's place, which it may where the
+// analysis is one item a warp) and the partial sums of the split
+// reductions.
+struct RtTcTile {
+  int Tt, n_sub, MT, WKa, WKs, WL, SL;
+  long long rest;  // bytes besides the banks
+};
+
+// warps a reduction of n_k k-steps is split over, for `items` m16 groups
+int rt_tc_wk(int items, int n_k) {
+  int wk = 1;
+  while (2 * wk * items <= kRtTcWarps && 2 * wk <= n_k) wk *= 2;
+  return wk;
+}
+
+RtTcTile rt_tc_tile(const RtTcGeom& g, int Tt, bool persist) {
+  RtTcTile t;
+  t.Tt = Tt;
+  t.MT = persist ? 2 : 1;
+  const int r = 16 * t.MT;
+  t.n_sub = cdiv(Tt - 1 + g.rows_s, r) * r;
+  t.WL = round64(g.M * (t.n_sub - 1) + 16 * g.n_ka);
+  const int ga = t.n_sub / r, gs = Tt / r;
+  t.WKa = rt_tc_wk(ga, g.n_ka);
+  t.WKs = rt_tc_wk(gs, g.n_ks);
+  t.SL = ga * t.WKa <= kRtTcWarps ? 0 : round64(g.M * t.n_sub);
+  const long long red = (long long)max_i((t.WKa - 1) * ga, (t.WKs - 1) * gs) *
+                        32 * t.MT * g.NN * 4;
+  t.rest = 4LL * t.WL + 4LL * t.WL + 4LL * t.SL + 4 * red;
+  return t;
+}
+
+// whole files: tiles of kRtTcSub sub-band steps (more where one output step
+// reads more), as many output steps of them as are whole m16 pairs
+int rt_tc_persist_steps(const RtTcGeom& g) {
+  const int n_sub = cdiv(max_i(kRtTcSub, 32 + g.rows_s - 1), 32) * 32;
+  return (n_sub - g.rows_s + 1) / 32 * 32;
+}
+
+// the shapes a plan can take: whole files, and small calls' 16-64 steps
+constexpr int kRtTcSmall[3] = {16, 32, 64};
+
+long long rt_tc_rest_max(const RtTcGeom& g) {
+  long long m = rt_tc_tile(g, rt_tc_persist_steps(g), true).rest;
+  for (int Tt : kRtTcSmall) m = max_ll(m, rt_tc_tile(g, Tt, false).rest);
+  return m;
+}
 
 RtTcGeom rt_tc_geom(int M, int Ka, int Ks) {
   RtTcGeom g;
+  g.M = M;
   g.Qa = round16(Ka);
-  g.Qs = round16(M * Ks);
-  g.n_sub = round16(kRtTcOut + Ks - 1);
-  g.Tt = (g.n_sub - Ks + 1) / 16 * 16;
-  g.WLa = round8(M * (g.n_sub - 1) + g.Qa);
-  g.WLs = round8(M * g.n_sub + 16);
-  g.smem = 4 * ((size_t)M * (g.Qa + 8) + (size_t)M * (g.Qs + 8) +
-                (size_t)g.WLa + (size_t)g.WLs);
+  g.n_ka = g.Qa / 16;
+  g.n_ks = round16(M * Ks) / 16;
+  g.NN = M > 8 ? 2 : 1;
+  g.rows_s = cdiv(16 * g.n_ks, M);
+  g.bank_bytes = 2LL * (g.n_ka + g.n_ks) * 32 * 4 * g.NN * 2;
+  g.stage = g.bank_bytes + rt_tc_rest_max(g) <= kSmemLimit;
   return g;
+}
+
+long long rt_tc_smem_gate(const RtTcGeom& g) {
+  return (g.stage ? g.bank_bytes : 0) + rt_tc_rest_max(g);
 }
 
 bool rt_tc_templated(int M) {
   return M == 2 || M == 4 || M == 8 || M == 16;
 }
 
-Plan rt_tc_plan(int B, int M, int Ka, int Ks, int T_out, int n_sms) {
-  const RtTcGeom g = rt_tc_geom(M, Ka, Ks);
+// A call of B rows of T_out output steps: whole files (from n_sms * 16 m16
+// output tiles) run persistent blocks over rt_tc_persist_steps tiles; a
+// smaller call (host blocks) takes tiles of 64, 32 or 16 steps, the
+// largest that gives n_sms / 4 blocks, one tile a block.
+RtTcTile rt_tc_choice(const RtTcGeom& g, int B, int T_out, int n_sms,
+                      bool* persist) {
+  *persist = (long long)B * cdiv(T_out, 16) >= (long long)n_sms * kRtTcPersistM16;
+  if (*persist) return rt_tc_tile(g, rt_tc_persist_steps(g), true);
+  int Tt = 64;
+  while (Tt > 16 && (long long)B * cdiv(T_out, Tt) < n_sms / kRtTcFillDiv)
+    Tt /= 2;
+  return rt_tc_tile(g, Tt, false);
+}
+
+Plan rt_tc_plan(const RtTcGeom& g, int B, int T_out, int n_sms) {
+  bool persist = false;
+  const RtTcTile t = rt_tc_choice(g, B, T_out, n_sms, &persist);
+  const int n_tiles = B * cdiv(T_out, t.Tt);
   Plan p;
-  const int n_tiles = B * cdiv(T_out, g.Tt);
+  // staged where a block walks many tiles or the card holds every block
+  p.stage = g.stage && (persist || n_tiles <= n_sms);
+  p.smem = (size_t)((p.stage ? g.bank_bytes : 0) + t.rest);
   const int per_sm = max_i(1, min_i(2048 / kRtTcThreads,
-                                    (int)(kSmemPerSm / (g.smem + 1024))));
-  p.gx = min_i(n_tiles, n_sms * per_sm);
+                                    (int)(kSmemPerSm / (p.smem + 1024))));
+  p.gx = persist ? min_i(n_tiles, n_sms * per_sm) : n_tiles;
   p.gy = 1;
   p.gz = 1;
   p.threads = kRtTcThreads;
-  p.tile_steps = g.Tt;
-  p.aux = g.n_sub;
+  p.tile_steps = t.Tt;
+  p.aux = t.n_sub;
   p.split = 1;
-  p.smem = g.smem;
-  p.stage = false;
   return p;
 }
 
@@ -262,17 +363,8 @@ __device__ __forceinline__ uint16_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-// the halves of v at index i: hi (and lo at PASSES == 3), to nearest even;
-// v - hi is exact in f32
-template <int P>
-__device__ __forceinline__ void put_split(uint16_t* h, uint16_t* l, int i,
-                                          float v) {
-  const uint16_t hb = bf16_bits(v);
-  h[i] = hb;
-  if (P == 3) l[i] = bf16_bits(v - __bfloat162float(__ushort_as_bfloat16(hb)));
-}
-
-// the halves of v0, v1 at the even index i, one 32-bit store each
+// the halves of v0, v1 at the even index i, one 32-bit store each: hi (and
+// lo at PASSES == 3), to nearest even; v - hi is exact in f32
 template <int P>
 __device__ __forceinline__ void put_split2(uint16_t* h, uint16_t* l, int i,
                                            float v0, float v1) {
@@ -648,186 +740,227 @@ conv_tc_kernel(const TcArgs a) {
   cp_async_wait_all();  // no copy outlives the block
 }
 
-// K3t's fragment loads: acc[n] += rows r0 .. r0+15 of A times B over n_k steps of 16, where
-// A[t, q] = a[as*t + aq0 + q] (halves ah, al) and B[q, n] = b[n*bs + q]
-// (halves bh, bl) for the nb channels staged, zero past them.  The
-// fragments follow PTX's m16n8k16 layout: lane (g, tq) = (lane/4, lane%4)
-// holds A rows g and g+8 at columns 2tq, 2tq+1 and 2tq+8, 2tq+9, B column g
-// at rows 2tq, 2tq+1 and 2tq+8, 2tq+9, and C rows g, g+8 at columns 2tq,
-// 2tq+1.  P = 3: hi*hi + hi*lo + lo*hi; P = 1: hi*hi.  EVEN: the stride
-// `as` is even, so an A pair is one 32-bit load (a runtime choice here
-// made ptxas spill K1t's registers).
-template <int P, int NN, bool EVEN>
-__device__ __forceinline__ void mma_tile(float (&acc)[NN][4],
-                                         const uint16_t* ah,
-                                         const uint16_t* al, int as, int aq0,
-                                         int r0, const uint16_t* bh,
-                                         const uint16_t* bl, int bs, int nb,
-                                         int n_k) {
+// ---------------------------------------------------------------------------
+// K3t: fused round trip.  Block (tile walk): a tile is Tt output steps of
+// one batch row.  Per tile the raw window of the signal lands by cp.async
+// (issued during the previous tile's mma), is split once into the swizzled
+// bf16 halves, and the analysis GEMM (A rows = n_sub sub-band steps, B =
+// the arranged analysis bank) writes the sub-band tile split again, time-
+// major and swizzled, where the synthesis GEMM (A rows = Tt output steps,
+// B = the arranged synthesis bank) reads it.  Warps take items of MT m16
+// tiles x one of WK slices of a phase's reduction; slices meet in shared
+// memory, summed in slice order.
+// ---------------------------------------------------------------------------
+struct RtTcArgs {
+  const float* x;
+  const uint16_t* bank_a;  // arrange_tc_bank(w_ana, "analysis"): [half][n_ka][32][4*NN]
+  const uint16_t* bank_s;  // arrange_tc_bank(w_syn, "synthesis"): [half][n_ks][32][4*NN]
+  float* out;
+  int B, Tx, M;
+  int T_ana, T_out;
+  int pad_a, pad_s;        // the analysis input's and the sub-bands' left pads
+  int n_ka, n_ks, Tt, n_sub, WL, SL, WKa, WKs, stage;
+  int swz;                 // the split window's swizzle (0: none)
+};
+
+// One phase of K3t: groups of MT m16 row tiles of A[t, q] = a[S*t + q]
+// (halves ah, al) times the arranged bank over n_k k-steps, split over WK
+// warps; done(grp, acc) gets each group's full sum.  Where every item has a
+// warp of its own (groups * WK <= warps), the block meets in a barrier
+// before the sums are done (with `sync`, or to add the slices); else each
+// warp walks its groups and finishes each at once.
+template <int P, int NN, int MT, int LD, typename Done>
+__device__ __forceinline__ void rt_phase(const uint16_t* ah,
+                                         const uint16_t* al, int S, int swz,
+                                         const uint16_t* bank, int plane,
+                                         int n_k, int groups, int WK,
+                                         float* red, bool sync, Done done) {
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int ao = as * (r0 + g) + aq0 + 2 * tq;
-  const int ao8 = ao + 8 * as;
-  int bo[NN];
-  bool bv[NN];
+  float acc[MT][NN][4];
+  auto zero = [&]() {
 #pragma unroll
-  for (int nn = 0; nn < NN; ++nn) {
-    bv[nn] = nn * 8 + g < nb;
-    bo[nn] = (bv[nn] ? nn * 8 + g : 0) * bs + 2 * tq;
-  }
-  for (int ks = 0; ks < n_k; ++ks) {
-    const int k = 16 * ks;
-    uint32_t a_h[4], a_l[4];
-    a_h[0] = ld_pair(ah + ao + k, EVEN);
-    a_h[1] = ld_pair(ah + ao8 + k, EVEN);
-    a_h[2] = ld_pair(ah + ao + k + 8, EVEN);
-    a_h[3] = ld_pair(ah + ao8 + k + 8, EVEN);
-    if (P == 3) {
-      a_l[0] = ld_pair(al + ao + k, EVEN);
-      a_l[1] = ld_pair(al + ao8 + k, EVEN);
-      a_l[2] = ld_pair(al + ao + k + 8, EVEN);
-      a_l[3] = ld_pair(al + ao8 + k + 8, EVEN);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nn][j] = 0.0f;
+  };
+  if (groups * WK > kRtTcWarps) {  // WK == 1: a warp walks its groups
+    for (int grp = warp; grp < groups; grp += kRtTcWarps) {
+      zero();
+      tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * grp, bank, plane,
+                            0, n_k);
+      done(grp, acc);
     }
+    return;
+  }
+  const int grp = warp % groups;
+  const int wk = warp / groups;
+  const bool on = warp < groups * WK;
+  constexpr int V = MT * NN * 4;  // sums a lane holds
+  float* rp = red + grp * V * 32 + lane;
+  zero();
+  if (on) {
+    tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * grp, bank, plane,
+                          n_k * wk / WK, n_k * (wk + 1) / WK);
+    if (wk > 0) {
 #pragma unroll
-    for (int nn = 0; nn < NN; ++nn) {
-      uint32_t bh0 = ld_pair(bh + bo[nn] + k, true);
-      uint32_t bh1 = ld_pair(bh + bo[nn] + k + 8, true);
-      if (!bv[nn]) bh0 = bh1 = 0;
-      // the step's sum starts from zero and joins acc by f32 adds, rounded
-      // to nearest: the tensor cores' f32 accumulation truncates, and
-      // accumulating into acc itself cost one ulp of the running sum per
-      // mma (4.7e-5 over K1t's 99 mma on outputs of ~5)
-      float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (P == 3) {
-        uint32_t bl0 = ld_pair(bl + bo[nn] + k, true);
-        uint32_t bl1 = ld_pair(bl + bo[nn] + k + 8, true);
-        if (!bv[nn]) bl0 = bl1 = 0;
-        mma_bf16(t, a_h, bl0, bl1);
-        mma_bf16(t, a_l, bh0, bh1);
-      }
-      mma_bf16(t, a_h, bh0, bh1);
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[nn][j] += t[j];
+        for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            rp[((wk - 1) * groups * V + (mt * NN + nn) * 4 + j) * 32] =
+                acc[mt][nn][j];
     }
   }
+  if (sync || WK > 1) __syncthreads();
+  if (!on || wk > 0) return;
+  for (int s = 1; s < WK; ++s)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[mt][nn][j] += rp[((s - 1) * groups * V + (mt * NN + nn) * 4 + j) * 32];
+  done(grp, acc);
 }
 
-// ---------------------------------------------------------------------------
-// K3t: fused round trip.  Persistent blocks walk the tiles (batch row, Tt
-// output steps); the warps share the analysis rows, then the synthesis
-// rows, of a tile.
-// ---------------------------------------------------------------------------
-template <int P, int NN>
+template <int P, int NN, int MT, int LD>
 __global__ void __launch_bounds__(kRtTcThreads, kRtTcMinBlocks)
-roundtrip_tc_kernel(const float* __restrict__ x, const float* __restrict__ wa,
-                    const float* __restrict__ ws, float* __restrict__ out,
-                    int B, int Tpad, int M, int Ka, int Ks, int T_ana,
-                    int T_out, int pad_left, int n_sub, int Tt, int WLa,
-                    int WLs) {
+roundtrip_tc_kernel(const RtTcArgs a) {
   extern __shared__ float4 rt_tc_smem[];
-  const int Qa = round16(Ka);
-  const int Qs = round16(M * Ks);
-  const int QSa = Qa + 8;
-  const int QSs = Qs + 8;
-  uint16_t* wah = reinterpret_cast<uint16_t*>(rt_tc_smem);  // [M][QSa]
-  uint16_t* wal = wah + M * QSa;
-  uint16_t* wsh = wal + M * QSa;  // [M][QSs]: B[k*M + m, c] = ws[M-1-c][m][k]
-  uint16_t* wsl = wsh + M * QSs;
-  uint16_t* xh = wsl + M * QSs;   // [WLa] = x[M*tau0 + i]
-  uint16_t* xl = xh + WLa;
-  uint16_t* sh = xl + WLa;        // [n_sub][M] sub-band tile, + 16 zeros
-  uint16_t* sl = sh + WLs;
+  const int M = a.M;
+  const int chunk_a = a.n_ka * 128 * NN;  // bank elements of one half
+  const int chunk_s = a.n_ks * 128 * NN;
+  uint16_t* bank_sm = reinterpret_cast<uint16_t*>(rt_tc_smem);
+  float* raw = reinterpret_cast<float*>(
+      bank_sm + (a.stage ? 2 * (chunk_a + chunk_s) : 0));
+  uint16_t* xh = reinterpret_cast<uint16_t*>(raw + a.WL);
+  uint16_t* xl = xh + a.WL;
+  // the split sub-band tile, in the split window's place where the
+  // analysis is one item a warp (the window is read by then)
+  uint16_t* sh = a.SL ? xl + a.WL : xh;
+  uint16_t* sl = a.SL ? sh + a.SL : xl;
+  float* red = reinterpret_cast<float*>(a.SL ? sl + a.SL : xl + a.WL);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int tiles_x = cdiv(a.T_out, a.Tt);
+  const int n_tiles = a.B * tiles_x;
+  const int r = 16 * MT;  // rows of a warp item
 
-  #pragma unroll kStageUnroll
-  for (int e = tid; e < M * Qa; e += kRtTcThreads) {
-    const int r = e / Qa;
-    const int q = e - r * Qa;
-    put_split<P>(wah, wal, r * QSa + q, q < Ka ? wa[r * Ka + q] : 0.0f);
+  // both arranged banks, both halves, as they are
+  const uint16_t* ba = a.bank_a;
+  const uint16_t* bs = a.bank_s;
+  if (a.stage) {
+    for (int h = 0; h < (P == 3 ? 2 : 1); ++h) {
+#pragma unroll 4
+      for (int i = tid; i < chunk_a / 8; i += kRtTcThreads)
+        cp_async16(bank_sm + h * chunk_a + 8 * i, a.bank_a + h * chunk_a + 8 * i,
+                   16);
+#pragma unroll 4
+      for (int i = tid; i < chunk_s / 8; i += kRtTcThreads)
+        cp_async16(bank_sm + 2 * chunk_a + h * chunk_s + 8 * i,
+                   a.bank_s + h * chunk_s + 8 * i, 16);
+    }
+    ba = bank_sm;
+    bs = bank_sm + 2 * chunk_a;
   }
-  // the synthesis bank in ws's own order (k fastest: coalesced reads),
-  // each tap to its column k*M + m; zero past M*Ks
-  #pragma unroll kStageUnroll
-  for (int e = tid; e < M * M * Ks; e += kRtTcThreads) {
-    const int r = e / (M * Ks);
-    const int f = e - r * M * Ks;  // m*Ks + k
-    const int m = f / Ks;
-    put_split<P>(wsh, wsl, r * QSs + (f - m * Ks) * M + m,
-                 ws[(M - 1 - r) * M * Ks + f]);
-  }
-  for (int e = tid; e < M * (Qs - M * Ks); e += kRtTcThreads) {
-    const int r = e / (Qs - M * Ks);
-    put_split<P>(wsh, wsl, r * QSs + M * Ks + e - r * (Qs - M * Ks), 0.0f);
-  }
-  for (int i = M * n_sub + tid; i < WLs; i += kRtTcThreads)
-    put_split<P>(sh, sl, i, 0.0f);
 
-  const int tiles_per_row = cdiv(T_out, Tt);
-  const int n_tiles = B * tiles_per_row;
-  const float gain = (float)M;
+  // the raw window of tile `tl`: the signal from M*(t0 - pad_s) - pad_a on,
+  // zeros outside it (the analysis pad, and past the end)
+  auto copy_window = [&](int tl) {
+    const int b = tl / tiles_x;
+    const int t0 = (tl - b * tiles_x) * a.Tt;
+    const long long p0 = (long long)(t0 - a.pad_s) * M - a.pad_a;
+    const float* xb = a.x + (long long)b * a.Tx;
+    if ((p0 & 3) == 0 && (a.Tx & 3) == 0 &&
+        ((unsigned long long)a.x & 15) == 0) {
+#pragma unroll 4
+      for (int i = tid; i < a.WL / 4; i += kRtTcThreads) {
+        const long long p = p0 + 4 * i;
+        const bool in = p >= 0 && p < a.Tx;
+        cp_async16(raw + 4 * i, in ? xb + p : a.x, in ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = tid; i < a.WL; i += kRtTcThreads) {
+        const long long p = p0 + i;
+        const bool in = p >= 0 && p < a.Tx;
+        cp_async4(raw + i, in ? xb + p : a.x, in ? 4 : 0);
+      }
+    }
+  };
+
+  if (blockIdx.x < n_tiles) copy_window(blockIdx.x);
+  cp_async_commit();
+
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row = tile / tiles_per_row;
-    const int t0 = (tile - row * tiles_per_row) * Tt;
-    const int tau0 = t0 - pad_left;  // sub-band time of tile row 0
-    const int n_out = min(Tt, T_out - t0);
-    __syncthreads();  // the last tile's reads (and the banks) are done
-    const long long p0 = (long long)tau0 * M;
-    const float* xb = x + (long long)row * Tpad;
-    #pragma unroll kStageUnroll
-    for (int i = tid; i < WLa; i += kRtTcThreads) {
-      const long long p = p0 + i;
-      put_split<P>(xh, xl, i, (p >= 0 && p < Tpad) ? xb[p] : 0.0f);
+    const int b = tile / tiles_x;
+    const int t0 = (tile - b * tiles_x) * a.Tt;
+    const int tau0 = t0 - a.pad_s;  // sub-band time of tile row 0
+    const int n_out = min(a.Tt, a.T_out - t0);
+    cp_async_wait_all();
+    __syncthreads();  // the raw window (and the banks) are in; the last
+                      // tile's reads of the sub-band tile are done
+    for (int i = 2 * tid; i < a.WL; i += 2 * kRtTcThreads) {
+      const float2 v = *reinterpret_cast<const float2*>(raw + i);
+      put_split2<P>(xh, xl, 8 * swizzle(i >> 3, a.swz) + (i & 7), v.x, v.y);
     }
     __syncthreads();
+    if (tile + gridDim.x < n_tiles) copy_window(tile + gridDim.x);
+    cp_async_commit();
 
-    // analysis of every sub-band row of the tile; the synthesis pad and
-    // the sub-band signal's end are zeros, as in the composition
-    for (int mt = warp; mt < n_sub / 16; mt += kRtTcWarps) {
-      float acc[NN][4];
+    // analysis: every sub-band row of the tile, split again into the
+    // sub-band tile; the synthesis pad and the sub-bands' end are zeros
+    rt_phase<P, NN, MT, LD>(
+        xh, xl, M, a.swz, ba, chunk_a, a.n_ka, a.n_sub / r, a.WKa, red,
+        a.SL == 0, [&](int grp, const float (&acc)[MT][NN][4]) {
 #pragma unroll
-      for (int nn = 0; nn < NN; ++nn)
+          for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[nn][j] = 0.0f;
-      mma_tile<P, NN, true>(acc, xh, xl, M, 0, 16 * mt, wah, wal, QSa, M,
-                            Qa / 16);
+            for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
-      for (int nn = 0; nn < NN; ++nn)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = 16 * mt + (lane >> 2) + 8 * (j >> 1);
-          const int c = nn * 8 + 2 * (lane & 3) + (j & 1);
-          if (c < M) {
-            const int tau = tau0 + s;
-            put_split<P>(sh, sl, s * M + c,
-                         (tau >= 0 && tau < T_ana) ? acc[nn][j] : 0.0f);
-          }
-        }
-    }
+              for (int h = 0; h < 2; ++h) {
+                const int s = r * grp + 16 * mt + g + 8 * h;
+                const int c = nn * 8 + 2 * tq;
+                const bool in = tau0 + s >= 0 && tau0 + s < a.T_ana;
+                if (c < M) {
+                  const int i = s * M + c;
+                  put_split2<P>(sh, sl, 8 * swizzle(i >> 3, a.swz) + (i & 7),
+                                in ? acc[mt][nn][2 * h] : 0.0f,
+                                in ? acc[mt][nn][2 * h + 1] : 0.0f);
+                }
+              }
+        });
     __syncthreads();
 
-    for (int mt = warp; 16 * mt < n_out; mt += kRtTcWarps) {
-      float acc[NN][4];
+    // synthesis: the output steps of the tile, gain M
+    const float gain = (float)M;
+    rt_phase<P, NN, MT, LD>(
+        sh, sl, M, a.swz, bs, chunk_s, a.n_ks, a.Tt / r, a.WKs, red, false,
+        [&](int grp, const float (&acc)[MT][NN][4]) {
 #pragma unroll
-      for (int nn = 0; nn < NN; ++nn)
+          for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[nn][j] = 0.0f;
-      mma_tile<P, NN, true>(acc, sh, sl, M, 0, 16 * mt, wsh, wsl, QSs, M,
-                            Qs / 16);
+            for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
-      for (int nn = 0; nn < NN; ++nn)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = 16 * mt + (lane >> 2) + 8 * (j >> 1);
-          const int c = nn * 8 + 2 * (lane & 3) + (j & 1);
-          if (t < n_out && c < M)
-            out[((long long)row * T_out + t0 + t) * M + c] =
-                gain * acc[nn][j];
-        }
-    }
+              for (int h = 0; h < 2; ++h) {
+                const int t = r * grp + 16 * mt + g + 8 * h;
+                const int c = nn * 8 + 2 * tq;
+                if (t < n_out && c < M)
+                  *reinterpret_cast<float2*>(
+                      a.out + ((long long)b * a.T_out + t0 + t) * M + c) =
+                      make_float2(gain * acc[mt][nn][2 * h],
+                                  gain * acc[mt][nn][2 * h + 1]);
+              }
+        });
   }
+  cp_async_wait_all();  // no copy outlives the block
 }
 
 template <typename Kernel>
@@ -911,12 +1044,24 @@ int tc_launch(TcArgs a, int S, int Q, int passes, void* stream) {
   return (int)cudaGetLastError();
 }
 
-#define PQMF_RT_PICK(passes, wide)                                        \
-  ((passes) == 3 ? ((wide) ? roundtrip_tc_kernel<3, 2>                    \
-                           : roundtrip_tc_kernel<3, 1>)                   \
-   : (passes) == 1 ? ((wide) ? roundtrip_tc_kernel<1, 2>                  \
-                             : roundtrip_tc_kernel<1, 1>)                 \
-                   : nullptr)
+// the instance of K3t for (passes, n8 tiles, m16 tiles an item, fragment
+// loads), or nullptr for other passes
+using RtTcKernel = void (*)(const RtTcArgs);
+
+template <int P>
+RtTcKernel rt_tc_pick_p(int NN, int MT, int LD) {
+  if (NN == 2)
+    return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0> : roundtrip_tc_kernel<P, 2, 1, 0>;
+  if (LD == 0)
+    return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 0> : roundtrip_tc_kernel<P, 1, 1, 0>;
+  return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 1> : roundtrip_tc_kernel<P, 1, 1, 1>;
+}
+
+RtTcKernel rt_tc_pick(int passes, int NN, int MT, int LD) {
+  if (passes == 3) return rt_tc_pick_p<3>(NN, MT, LD);
+  if (passes == 1) return rt_tc_pick_p<1>(NN, MT, LD);
+  return nullptr;
+}
 
 }  // namespace
 
@@ -929,7 +1074,7 @@ size_t pqmf_tc_smem_bytes(int which, int M, int Mb, int Ka, int Ks) {
   switch (which) {
     case 1: return (size_t)tc_smem_gate(tc_geom(1, M, Ka, Mb));
     case 2: return (size_t)tc_smem_gate(tc_geom(2, Mb, Mb * Ks, M));
-    case 3: return rt_tc_geom(M, Ka, Ks).smem;
+    case 3: return (size_t)rt_tc_smem_gate(rt_tc_geom(M, Ka, Ks));
     default: return 0;
   }
 }
@@ -943,7 +1088,7 @@ int pqmf_tc_launch_plan(int which, int B, int M, int Mb, int Ka, int Ks,
   switch (which) {
     case 1: p = tc_plan(tc_geom(1, M, Ka, Mb), B, T_out, n_sms); break;
     case 2: p = tc_plan(tc_geom(2, Mb, Mb * Ks, M), B, T_out, n_sms); break;
-    case 3: p = rt_tc_plan(B, M, Ka, Ks, T_out, n_sms); break;
+    case 3: p = rt_tc_plan(rt_tc_geom(M, Ka, Ks), B, T_out, n_sms); break;
     default: return -1;
   }
   const long long v[8] = {p.gx, p.gy, p.gz, p.threads, p.tile_steps, p.aux,
@@ -994,24 +1139,52 @@ int pqmf_tc_synthesis_conv(const float* x, const void* bank, float* out,
   return tc_launch<2>(a, Mb, Mb * K, passes, stream);
 }
 
-int pqmf_tc_roundtrip_conv(const float* x, const float* wa, const float* ws,
-                           float* out, int B, int Tpad, int M, int Ka, int Ks,
-                           int T_ana, int T_out, int pad_left, int passes,
-                           void* stream) {
+// x: [B, 1, Tx], zero-padded by pad_a on the left and by zeros past Tx;
+// bank_a / bank_s: arrange_tc_bank(w_ana, "analysis", tier) of w_ana
+// [M, 1, Ka] and arrange_tc_bank(w_syn, "synthesis", tier) of w_syn
+// [M, M, Ks]; the sub-bands (T_ana steps) zero-padded by pad_s on the left
+// and by zeros past T_ana.  Output [B, T_out, M].
+int pqmf_tc_roundtrip_conv(const float* x, const void* bank_a,
+                           const void* bank_s, float* out, int B, int Tx,
+                           int M, int Ka, int Ks, int T_ana, int T_out,
+                           int pad_a, int pad_s, int passes, void* stream) {
   const RtTcGeom g = rt_tc_geom(M, Ka, Ks);
-  auto kernel = PQMF_RT_PICK(passes, M > 8);
-  if (!rt_tc_templated(M) || kernel == nullptr ||
-      (long long)g.smem > kSmemLimit)
+  if (!rt_tc_templated(M) || rt_tc_smem_gate(g) > kSmemLimit)
     return (int)cudaErrorInvalidValue;
   int n_sms = 0;
   cudaError_t err = sm_count(&n_sms);
   if (err != cudaSuccess) return (int)err;
-  const Plan p = rt_tc_plan(B, M, Ka, Ks, T_out, n_sms);
+  bool persist = false;
+  const RtTcTile t = rt_tc_choice(g, B, T_out, n_sms, &persist);
+  const Plan p = rt_tc_plan(g, B, T_out, n_sms);
+  const int LD = M % 8 == 0 ? 0 : 1;
+  const RtTcKernel kernel = rt_tc_pick(passes, g.NN, t.MT, LD);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  RtTcArgs a = {};
+  a.x = x;
+  a.bank_a = static_cast<const uint16_t*>(bank_a);
+  a.bank_s = static_cast<const uint16_t*>(bank_s);
+  a.out = out;
+  a.B = B;
+  a.Tx = Tx;
+  a.M = M;
+  a.T_ana = T_ana;
+  a.T_out = T_out;
+  a.pad_a = pad_a;
+  a.pad_s = pad_s;
+  a.n_ka = g.n_ka;
+  a.n_ks = g.n_ks;
+  a.Tt = t.Tt;
+  a.n_sub = t.n_sub;
+  a.WL = t.WL;
+  a.SL = t.SL;
+  a.WKa = t.WKa;
+  a.WKs = t.WKs;
+  a.stage = p.stage ? 1 : 0;
+  a.swz = LD == 0 ? min_i(M / 8, 8) - 1 : 0;
   err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<p.gx, p.threads, p.smem, (cudaStream_t)stream>>>(
-      x, wa, ws, out, B, Tpad, M, Ka, Ks, T_ana, T_out, pad_left, g.n_sub,
-      g.Tt, g.WLa, g.WLs);
+  kernel<<<p.gx, p.threads, p.smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

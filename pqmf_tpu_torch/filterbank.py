@@ -166,7 +166,8 @@ class PQMF:
     def roundtrip(self, x):
         """``inverse(forward(x))`` ([B, C, T] -> [B, C, T]): one K6 launch
         where K3 takes the geometry (``roundtrip_supported``, M <= 16 at
-        atten 100), else K4 then K5."""
+        atten 100; K3t at a tier, reading the kept arranged banks), else K4
+        then K5."""
         x = self._to_bct(x)
         if self.n_band == 1:
             return x
@@ -177,8 +178,10 @@ class PQMF:
                 self.precision)):
             return self.inverse(self.forward(x))
         xc, B, T = self._fold(x)
+        banks = None if self.precision == "highest" else (
+            self.tc_banks["analysis"], self.tc_banks["synthesis"])
         y = pk.polyphase_roundtrip(xc, hk_poly, hk_ipoly, self._w2,
-                                   self.precision)
+                                   self.precision, banks)
         return y.reshape(B, self.n_channels, T)
 
     __call__ = forward

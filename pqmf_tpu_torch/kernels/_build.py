@@ -113,15 +113,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pqmf_synthesis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
                                         p]
     lib.pqmf_roundtrip_conv.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                        p]
-    # the tier kernels take the same arguments (K1t/K2t the arranged bank
-    # in place of w) and the passes (3 or 1)
+                                        i, p]
+    # the tier kernels take the same arguments (their arranged banks in
+    # place of the weights) and the passes (3 or 1)
     lib.pqmf_tc_analysis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                           i, p]
     lib.pqmf_tc_synthesis_conv.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                            i, i, p]
     lib.pqmf_tc_roundtrip_conv.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                           i, i, p]
+                                           i, i, i, p]
     for fn in (lib.pqmf_analysis_conv, lib.pqmf_synthesis_conv,
                lib.pqmf_roundtrip_conv, lib.pqmf_tc_analysis_conv,
                lib.pqmf_tc_synthesis_conv, lib.pqmf_tc_roundtrip_conv):

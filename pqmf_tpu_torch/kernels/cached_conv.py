@@ -14,11 +14,10 @@ built into one library and bound by ``_build``):
   ``pqmf_tpu/kernels/cached_conv.py:fused_roundtrip_conv``.
 
 All three compute VALID convolutions with f32 inputs and outputs, so
-offline (centered), causal and streaming modes share them; K3 takes an
-input the caller has already padded, K1 and K2 take their zero pad as an
-argument and apply it in-kernel. At the tiers K1t and K2t read their bank
-arranged (:func:`arrange_tc_bank`), built once where the weights are
-installed. What bounds each kernel on the H100 and what its
+offline (centered), causal and streaming modes share them; each takes its
+zero pad as an argument and applies it in-kernel. At the tiers K1t, K2t
+and K3t read their banks arranged (:func:`arrange_tc_bank`), built once
+where the weights are installed. What bounds each kernel on the H100 and what its
 design does about it is written at the top of each CUDA source: K1-K3 are
 f32 FMA on the CUDA cores, bound by arithmetic and shared-memory
 bandwidth, with several outputs per thread in registers; K1t-K3t are
@@ -71,7 +70,8 @@ def reset_launches() -> None:
 
 # ---------------------------------------------------------------------------
 # gates and launch plans, mirroring pqmf_smem_bytes and pqmf_launch_plan in
-# the CUDA source (the card check compares the two)
+# the CUDA source (the card check compares the two); pure functions of their
+# integer arguments, cached: the wrappers ask the gates on every call
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
@@ -96,7 +96,11 @@ _TC_FILL_WARPS = 8           # kTcFillWarps
 _TC_PERSIST_M16 = 16         # kTcPersistM16
 _TC_SHAPES = ((2, 1), (1, 1), (1, 2), (1, 4))  # kTcShapes: (MT, WK)
 _RT_TC_THREADS = 256         # kRtTcThreads: K3t
-_RT_TC_OUT = 224             # kRtTcOut
+_RT_TC_WARPS = _RT_TC_THREADS // 32
+_RT_TC_SUB = 256             # kRtTcSub
+_RT_TC_PERSIST_M16 = 16      # kRtTcPersistM16
+_RT_TC_FILL_DIV = 4          # kRtTcFillDiv
+_RT_TC_SMALL = (16, 32, 64)  # kRtTcSmall: output steps of small calls' tiles
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -115,13 +119,17 @@ def _round16(n: int) -> int:
     return (n + 15) & ~15
 
 
+def _round64(n: int) -> int:
+    return (n + 63) & ~63
+
+
 def _tc_win(g: dict, R: int) -> dict:
     """The window of a K1t/K2t tile of R rows (``tc_win``): nT steps of S
     elements (WL, split into halves) and its raw copy (K2t: Mb rows of XR
     steps, band-major as the input)."""
     nT = R - 1 + _cdiv(g["Qp"], g["S"])
     XR = _round8(nT) + 4 if g["kind"] == 2 else 0
-    WL = -(-g["S"] * nT // 64) * 64  # whole groups of 8 swizzled chunks
+    WL = _round64(g["S"] * nT)  # whole groups of 8 swizzled chunks
     return {"nT": nT, "WL": WL, "XR": XR,
             "raw": g["S"] * XR if g["kind"] == 2 else WL}
 
@@ -170,16 +178,70 @@ def _tc_plan(kind: int, B: int, S: int, Q: int, N: int, T_out: int,
     return (gx, g["n_cb"], 1, _TC_THREADS, R, WK, 8 * g["NN"], smem)
 
 
+def _rt_tc_wk(items: int, n_k: int) -> int:
+    """Warps a K3t phase's reduction of n_k k-steps is split over, for
+    ``items`` m16 groups (``rt_tc_wk``)."""
+    wk = 1
+    while 2 * wk * items <= _RT_TC_WARPS and 2 * wk <= n_k:
+        wk *= 2
+    return wk
+
+
+def _rt_tc_tile(g: dict, Tt: int, persist: bool) -> dict:
+    """A K3t tile of Tt output steps (``rt_tc_tile``): n_sub sub-band steps
+    (analysis rows), MT m16 tiles a warp item, each phase's reduction split
+    WKa / WKs ways, the split window (WL elements, raw f32 and bf16
+    halves), the split sub-band tile (SL elements a half; 0 where it takes
+    the window's place: the analysis is one item a warp) and the bytes of
+    all that and the slices' partial sums."""
+    MT = 2 if persist else 1
+    r = 16 * MT
+    n_sub = _cdiv(Tt - 1 + g["rows_s"], r) * r
+    WL = _round64(g["M"] * (n_sub - 1) + 16 * g["n_ka"])
+    ga, gs = n_sub // r, Tt // r
+    WKa, WKs = _rt_tc_wk(ga, g["n_ka"]), _rt_tc_wk(gs, g["n_ks"])
+    SL = 0 if ga * WKa <= _RT_TC_WARPS else _round64(g["M"] * n_sub)
+    red = max((WKa - 1) * ga, (WKs - 1) * gs) * 32 * MT * g["NN"] * 4
+    return {"Tt": Tt, "n_sub": n_sub, "MT": MT, "WKa": WKa, "WKs": WKs,
+            "WL": WL, "SL": SL, "rest": 8 * WL + 4 * SL + 4 * red}
+
+
 def _rt_tc_geom(M: int, Ka: int, Ks: int) -> dict:
-    """K3t's tile: n_sub sub-band steps (analysis rows) of which Tt are
-    output steps (synthesis rows), both multiples of 16."""
-    Qa, Qs = _round16(Ka), _round16(M * Ks)
-    n_sub = _round16(_RT_TC_OUT + Ks - 1)
-    Tt = (n_sub - Ks + 1) // 16 * 16
-    WLa = _round8(M * (n_sub - 1) + Qa)
-    WLs = _round8(M * n_sub + 16)
-    return {"n_sub": n_sub, "Tt": Tt,
-            "smem": 4 * (M * (Qa + 8) + M * (Qs + 8) + WLa + WLs)}
+    """K3t for M bands and banks of Ka / Ks taps (``rt_tc_geom``): both
+    arranged banks' k-steps and bytes (both halves), the sub-band rows one
+    output step reads, the whole-file tile's output steps
+    (``rt_tc_persist_steps``), whether a block stages both banks beside the
+    largest tile of any plan, and the shared-memory gate."""
+    n_ka, n_ks = _round16(Ka) // 16, _round16(M * Ks) // 16
+    NN = 2 if M > 8 else 1
+    g = {"M": M, "n_ka": n_ka, "n_ks": n_ks, "NN": NN,
+         "rows_s": _cdiv(16 * n_ks, M),
+         "bank": 2 * (n_ka + n_ks) * 32 * 4 * NN * 2}
+    n_sub = _cdiv(max(_RT_TC_SUB, 32 + g["rows_s"] - 1), 32) * 32
+    g["persist_Tt"] = (n_sub - g["rows_s"] + 1) // 32 * 32
+    rest = max(_rt_tc_tile(g, Tt, persist)["rest"] for Tt, persist in
+               [(g["persist_Tt"], True)] + [(t, False) for t in _RT_TC_SMALL])
+    g["stage"] = g["bank"] + rest <= SMEM_LIMIT
+    g["gate"] = (g["bank"] if g["stage"] else 0) + rest
+    return g
+
+
+def _rt_tc_plan(B: int, M: int, Ka: int, Ks: int, T_out: int,
+                n_sms: int) -> tuple:
+    g = _rt_tc_geom(M, Ka, Ks)
+    persist = B * _cdiv(T_out, 16) >= n_sms * _RT_TC_PERSIST_M16
+    Tt = g["persist_Tt"] if persist else 64
+    while (not persist and Tt > 16
+           and B * _cdiv(T_out, Tt) < n_sms // _RT_TC_FILL_DIV):
+        Tt //= 2
+    t = _rt_tc_tile(g, Tt, persist)
+    n_tiles = B * _cdiv(T_out, Tt)
+    stage = g["stage"] and (persist or n_tiles <= n_sms)
+    smem = (g["bank"] if stage else 0) + t["rest"]
+    per_sm = max(1, min(2048 // _RT_TC_THREADS,
+                        _SMEM_PER_SM // (smem + 1024)))
+    gx = min(n_tiles, n_sms * per_sm) if persist else n_tiles
+    return (gx, 1, 1, _RT_TC_THREADS, Tt, t["n_sub"], 1, smem)
 
 
 def _analysis_band_groups(M: int, Mb: int, J: int) -> int:
@@ -238,6 +300,7 @@ def _roundtrip_geom(M: int, Ka: int, Ks: int) -> dict:
             "smem": 4 * (M * J * M + M * Ks * M + M * SP + 2 * M * XR)}
 
 
+@functools.lru_cache(maxsize=256)
 def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int,
                precision: str = "highest") -> int:
     """Shared memory one block of kernel ``which`` ("analysis",
@@ -250,7 +313,7 @@ def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int,
         if which == "synthesis":
             return _tc_geom(2, Mb, Mb * Ks, M)["gate"]
         if which == "roundtrip":
-            return _rt_tc_geom(M, Ka, Ks)["smem"]
+            return _rt_tc_geom(M, Ka, Ks)["gate"]
         raise ValueError(f"unknown kernel {which!r}")
     if which == "analysis":
         J = _cdiv(Ka, M)
@@ -266,6 +329,7 @@ def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int,
     raise ValueError(f"unknown kernel {which!r}")
 
 
+@functools.lru_cache(maxsize=256)
 def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
                 T_out: int, n_sms: int = N_SMS,
                 precision: str = "highest") -> tuple:
@@ -285,8 +349,15 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     blocks as fit, each staging its arranged bank chunk once and walking
     tiles of 128 steps (4 warps x 2 m16 tiles). A small call of more
     blocks than SMs, and a bank chunk past 144 KB, read the bank from
-    global memory (L2) instead of staging it. K3t runs tiles of 224 output steps
-    (256 sub-band steps at Ks = 33) on as many blocks as fit.
+    global memory (L2) instead of staging it. K3t runs blocks of 8 warps:
+    a whole file (from 16 m16 output tiles an SM) as many persistent
+    blocks as fit (2 an SM at M = 16), each staging both arranged banks
+    once and walking tiles of 256 sub-band steps (224 output steps at
+    M = 16, Ks = 33; more sub-band steps where an output reads more); a
+    smaller call one tile a block, of 64, 32 or 16 output steps, the
+    largest that gives n_sms / 4 blocks (32 blocks of 16 steps at
+    [1,1,8704]), each phase's reduction split over the warps its tiles
+    leave idle.
 
     K2 takes thread tiles of 4 phases x NT steps. It splits the band sum
     over up to 16 threads (for banks of at most 16 bands: a longer split
@@ -305,11 +376,7 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
         if which == "synthesis":
             return _tc_plan(2, B, Mb, Mb * Ks, M, T_out, n_sms)
         if which == "roundtrip":
-            g = _rt_tc_geom(M, Ka, Ks)
-            per_sm = max(1, min(2048 // _RT_TC_THREADS,
-                                _SMEM_PER_SM // (g["smem"] + 1024)))
-            return (min(B * _cdiv(T_out, g["Tt"]), n_sms * per_sm), 1, 1,
-                    _RT_TC_THREADS, g["Tt"], g["n_sub"], 1, g["smem"])
+            return _rt_tc_plan(B, M, Ka, Ks, T_out, n_sms)
         raise ValueError(f"unknown kernel {which!r}")
     if which == "analysis":
         J = _cdiv(Ka, M)
@@ -351,6 +418,7 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     raise ValueError(f"unknown kernel {which!r}")
 
 
+@functools.lru_cache(maxsize=256)
 def supports(n_band: int, analysis_taps: int, synthesis_taps: int,
              precision: str = "highest") -> bool:
     """Whether K1 and K2 (K1t and K2t at a tier) take a full bank of this
@@ -373,6 +441,7 @@ def supports(n_band: int, analysis_taps: int, synthesis_taps: int,
         <= SMEM_LIMIT)
 
 
+@functools.lru_cache(maxsize=256)
 def fused_roundtrip_supported(M: int, analysis_taps: int,
                               synthesis_taps: int,
                               precision: str = "highest") -> bool:
@@ -421,12 +490,13 @@ def synthesis_conv_plain(x, w, fuse_mask: bool = True, x_offset: int = 0,
 
 
 def roundtrip_conv_plain(x, w_ana, w_syn, M: int, syn_pad,
-                         precision: str = "highest"):
-    """Plain K3 (K3t at a tier): plain K1, zero pad ``syn_pad``, plain K2 —
-    with both sign masks, the synthesis mask's parity taken from the
-    sub-band signal. At a tier the f32 sub-bands are split again for the
-    synthesis, as JAX's fused kernel splits its f32 ring."""
-    sub = analysis_conv_plain(x, w_ana, M, fuse_mask=True,
+                         precision: str = "highest", pad=(0, 0)):
+    """Plain K3 (K3t at a tier): plain K1 with the analysis pad ``pad``,
+    zero pad ``syn_pad``, plain K2 — with both sign masks, the synthesis
+    mask's parity taken from the sub-band signal. At a tier the f32
+    sub-bands are split again for the synthesis, as JAX's fused kernel
+    splits its f32 ring."""
+    sub = analysis_conv_plain(x, w_ana, M, fuse_mask=True, pad=pad,
                               precision=precision)
     sub = torch.nn.functional.pad(sub, tuple(syn_pad))
     return synthesis_conv_plain(sub, w_syn, fuse_mask=True,
@@ -660,22 +730,29 @@ def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
 
 
 def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
-                         precision: str = "highest"):
-    """K3 — analysis -> zero pad ``syn_pad`` -> synthesis in one kernel;
-    the sub-band intermediate stays in shared memory and the two
-    ``reverse_half`` masks cancel, so neither is applied.
+                         precision: str = "highest", pad=(0, 0),
+                         banks=None):
+    """K3 — zero pad ``pad`` -> analysis -> zero pad ``syn_pad`` ->
+    synthesis in one kernel; the sub-band intermediate stays in shared
+    memory and the two ``reverse_half`` masks cancel, so neither is
+    applied. The kernel applies both pads while it copies its windows, so
+    no padded signal is written.
 
-    x: [B, 1, Tpad] pre-padded for the analysis; w_ana: [M, 1, Ka];
-    w_syn: [M, M, Ks]; syn_pad = (left, right) >= 0. Returns
-    [B, T_out, M] with ``T_out = left + T_ana + right - Ks + 1``, equal to
+    x: [B, 1, T]; w_ana: [M, 1, Ka]; w_syn: [M, M, Ks]; pad = (left,
+    right) of the analysis input and syn_pad of the sub-bands, both >= 0.
+    Returns [B, T_out, M] with ``T_ana = (left + T + right - Ka) // M + 1``
+    and ``T_out = syn_left + T_ana + syn_right - Ks + 1``, equal to
     :func:`roundtrip_conv_plain`. ``precision`` "highest" launches K3,
-    "bf16x3" / "default" K3t."""
+    "bf16x3" / "default" K3t, which reads ``banks`` =
+    ``(arrange_tc_bank(w_ana, "analysis", tier), arrange_tc_bank(w_syn,
+    "synthesis", tier))`` where the caller keeps them (else they are
+    arranged for the call)."""
     fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w_ana", w_ana, 3, dev)
     _check("w_syn", w_syn, 3, dev)
-    B, C, Tpad = x.shape
+    B, C, T = x.shape
     Ka, Ks = w_ana.shape[-1], w_syn.shape[-1]
     if (C != 1 or tuple(w_ana.shape[:2]) != (M, 1)
             or tuple(w_syn.shape[:2]) != (M, M)):
@@ -683,26 +760,40 @@ def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
                          f"{tuple(x.shape)}, w_ana {tuple(w_ana.shape)}, "
                          f"w_syn {tuple(w_syn.shape)}, M={M}")
     pad_l, pad_r = (int(p) for p in syn_pad)
-    if pad_l < 0 or pad_r < 0:
-        raise ValueError(f"syn_pad must be non-negative, got {syn_pad}")
-    T_ana = (Tpad - Ka) // M + 1
+    pa_l, pa_r = (int(p) for p in pad)
+    if min(pad_l, pad_r, pa_l, pa_r) < 0:
+        raise ValueError(f"pads must be non-negative, got pad={pad}, "
+                         f"syn_pad={syn_pad}")
+    T_ana = (pa_l + T + pa_r - Ka) // M + 1
     T_out = pad_l + T_ana + pad_r - Ks + 1
     if B < 1 or T_ana < 1 or T_out < 1:
-        raise ValueError(f"empty round trip: B={B}, Tpad={Tpad}")
+        raise ValueError(f"empty round trip: B={B}, T={T}, pad={pad}")
+    if banks is not None:  # a kept pair is checked on every device
+        if precision == "highest":
+            raise ValueError("arranged banks are for the tiers 'bf16x3' "
+                             "and 'default'")
+        ba, bs = banks
+        banks = (_tc_bank(ba, w_ana, "analysis", precision),
+                 _tc_bank(bs, w_syn, "synthesis", precision))
     if dev.type == "cpu":
         return roundtrip_conv_plain(x, w_ana, w_syn, M, (pad_l, pad_r),
-                                    precision)
+                                    precision, (pa_l, pa_r))
     if not fused_roundtrip_supported(M, Ka, Ks, precision):
         raise ValueError(f"fused round trip of M={M}, Ka={Ka}, Ks={Ks} "
                          "exceeds the kernel's shared memory; gate with "
                          "fused_roundtrip_supported()")
+    if precision != "highest" and banks is None:
+        banks = (arrange_tc_bank(w_ana, "analysis", precision),
+                 arrange_tc_bank(w_syn, "synthesis", precision))
     out = torch.empty((B, T_out, M), dtype=torch.float32, device=dev)
-    args = (x.data_ptr(), w_ana.data_ptr(), w_syn.data_ptr(), out.data_ptr(),
-            B, Tpad, M, Ka, Ks, T_ana, T_out, pad_l)
+    args = (out.data_ptr(), B, T, M, Ka, Ks, T_ana, T_out, pa_l, pad_l)
     with torch.cuda.device(dev):
         if precision == "highest":
-            _launch("pqmf_roundtrip_conv", *args)
+            _launch("pqmf_roundtrip_conv", x.data_ptr(), w_ana.data_ptr(),
+                    w_syn.data_ptr(), *args)
         else:
-            _launch("pqmf_tc_roundtrip_conv", *args, _PASSES[precision])
+            _launch("pqmf_tc_roundtrip_conv", x.data_ptr(),
+                    banks[0].words.data_ptr(), banks[1].words.data_ptr(),
+                    *args, _PASSES[precision])
     LAUNCHES["roundtrip"] += 1
     return out

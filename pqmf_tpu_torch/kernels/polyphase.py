@@ -14,7 +14,8 @@ reference's centered pads and trims become input padding:
 - K5 :func:`polyphase_synthesis` replaces
   ``pqmf_tpu/kernels/polyphase.py:polyphase_synthesis`` and runs K2;
 - K6 :func:`polyphase_roundtrip` replaces
-  ``pqmf_tpu/kernels/polyphase.py:polyphase_roundtrip`` and runs K3.
+  ``pqmf_tpu/kernels/polyphase.py:polyphase_roundtrip`` and runs K3, whose
+  in-kernel pads stand for K4's and K5's (no copy, no slice).
 
 Each has a plain version (``*_plain``) built from the reference's formula in
 ``ops/filterbank.py`` (de-interleave, then an L-tap conv): another tap
@@ -30,7 +31,6 @@ theirs in ``cached_conv.LAUNCHES``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.ops import filterbank as fb
@@ -156,18 +156,23 @@ def synthesis_over_k2(x, hk_ipoly, precision: str = "highest",
     return out.reshape(B, 1, Tp * M)
 
 
-def roundtrip_over_k3(x, w2, hk_ipoly, M: int, precision: str = "highest"):
-    """K6's route: K3 with the synthesis pad one wider on each side than
-    K5's, which shifts every output window one step later and adds one
-    trailing step; dropping output step 0 leaves exactly K5(K4(x))'s
-    windows. x [B, 1, T]; returns [B, 1, T]."""
+def roundtrip_over_k3(x, w2, hk_ipoly, M: int, precision: str = "highest",
+                      tc_banks=None):
+    """K6's route: K3 with K4's centered pad on the signal and K5's pad
+    (L//2-1, L-L//2) on the sub-bands, both applied by K3 while it copies
+    its windows: its output is K5(K4(x))'s, step for step, and no padded
+    copy or slice is written. x [B, 1, T]; at a tier K3t reads
+    ``tc_banks`` = (``arrange_tc_bank(w2, "analysis", tier)``,
+    ``arrange_tc_bank(hk_ipoly, "synthesis", tier)``) where the caller
+    keeps them. Returns [B, 1, T]."""
     B, _, T = x.shape
     L = w2.shape[-1] // M
     Ls = hk_ipoly.shape[-1]
-    out = cc.fused_roundtrip_conv(F.pad(x, _analysis_pad(M, L)), w2,
-                                  hk_ipoly, M, (Ls // 2, Ls - Ls // 2),
-                                  precision)
-    return out[:, 1:, :].reshape(B, 1, T)
+    off = Ls // 2 - 1
+    out = cc.fused_roundtrip_conv(x.contiguous(), w2, hk_ipoly, M,
+                                  (off, Ls - 1 - off), precision,
+                                  pad=_analysis_pad(M, L), banks=tc_banks)
+    return out.reshape(B, 1, T)
 
 
 # ---------------------------------------------------------------------------
@@ -222,18 +227,20 @@ def polyphase_synthesis(x, hk_ipoly, precision: str = "highest",
 
 
 def polyphase_roundtrip(x, hk_poly, hk_ipoly, w2=None,
-                        precision: str = "highest"):
+                        precision: str = "highest", tc_banks=None):
     """K6 — analysis -> synthesis in one kernel (K3): the sub-bands stay in
     shared memory and the two masks cancel. Equal to
     ``polyphase_synthesis(polyphase_analysis(x, hk_poly), hk_ipoly)`` up to
     f32 round-off (another tap order). Full bank only (hk_poly [M, M, L]);
-    gate with :func:`roundtrip_supported`. x: [B, 1, T] -> [B, 1, T]."""
+    gate with :func:`roundtrip_supported`. ``tc_banks`` is the pair of
+    arranged banks K3t reads at a tier, when the caller keeps them
+    (``PQMF.tc_banks``). x: [B, 1, T] -> [B, 1, T]."""
     M = hk_poly.shape[1]
     _check_signal(x, M)
     if x.device.type == "cpu":
         return polyphase_roundtrip_plain(x, hk_poly, hk_ipoly, precision)
     if w2 is None:
         w2 = analysis_weights(hk_poly)
-    out = roundtrip_over_k3(x, w2, hk_ipoly, M, precision)
+    out = roundtrip_over_k3(x, w2, hk_ipoly, M, precision, tc_banks)
     LAUNCHES["roundtrip"] += 1
     return out

@@ -25,7 +25,6 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.ops import filterbank as fb
@@ -330,7 +329,8 @@ class StreamingPQMF:
     def roundtrip(self, x):
         """``inverse(forward(x))`` as one kernel, K3 ([B, C, T] ->
         [B, C, T]): the sub-bands never leave the card's shared memory and
-        the two ``reverse_half`` masks cancel (K3t at a tier). Geometries
+        the two ``reverse_half`` masks cancel (K3t at a tier, reading the
+        kept arranged banks). K3 applies the centered pad itself. Geometries
         K3 does not take (see ``fused_roundtrip_supported``) run as K1 then
         K2."""
         M = self.n_band
@@ -339,9 +339,11 @@ class StreamingPQMF:
                                                       self.precision):
             return self.inverse(self.forward(x))
         xf, B = self._fold(x)
-        xx = F.pad(xf, centered_padding(Ka))
-        out = cc.fused_roundtrip_conv(xx, self.hkf, self.hki, M,
-                                      centered_padding(Ks), self.precision)
+        banks = None if self.precision == "highest" else (
+            self.tc_banks["analysis"], self.tc_banks["synthesis"])
+        out = cc.fused_roundtrip_conv(xf.contiguous(), self.hkf, self.hki, M,
+                                      centered_padding(Ks), self.precision,
+                                      pad=centered_padding(Ka), banks=banks)
         return out.reshape(B, self.n_channels, -1)
 
     # -- streaming ----------------------------------------------------------

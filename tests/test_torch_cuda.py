@@ -513,7 +513,8 @@ def test_tier_plans_mirror_the_source(dev):
 def test_tier_tile_boundaries(dev, tier, B, edge):
     """K1t and K2t at T_out one short of, at and one past a multiple of
     their 64-step tile (odd and even K, in-kernel pads, odd negative
-    x_offset); K3t at its tile with lopsided synthesis pads."""
+    x_offset); K3t at a multiple of its tile near 1000 steps with lopsided
+    synthesis pads."""
     hkf, hki = _bank(16, dev)
     Ka, Ks = hkf.shape[-1], hki.shape[-1]
     hp = torch.tensor(fb.build_filterbank(100, 16)["hk_poly"])
@@ -537,7 +538,7 @@ def test_tier_tile_boundaries(dev, tier, B, edge):
     Tt = cc.launch_plan("roundtrip", B, 16, 16, Ka, Ks, 1000,
                         precision=tier)[4]
     for pad in [(16, 16), (3, 0), (0, 40)]:
-        T_out = Tt + edge
+        T_out = (1000 // Tt) * Tt + edge
         T_ana = T_out - pad[0] - pad[1] + Ks - 1
         x = torch.randn(B, 1, 16 * (T_ana - 1) + Ka + 5, generator=g).to(dev)
         got = cc.fused_roundtrip_conv(x, hkf, hki, 16, pad, tier)
@@ -576,6 +577,9 @@ def test_tier_kernels_write_every_output(dev, tier, M, Mb, K, Ks):
     torch.testing.assert_close(
         y, cc.synthesis_conv_plain(s, ws, True, -3, tier), **TOL)
     if Mb == M and cc.fused_roundtrip_supported(M, K, Ks, tier):
+        # a longer signal: the default tier's share of outputs that a
+        # flipped mid reaches is a statistic of many mids
+        x = torch.randn(2, 1, 1200 * M + K, generator=g).to(dev)
         for _ in range(3):
             junk = torch.full((2, 1 << 20), float("nan"), device=dev)
             del junk
@@ -793,3 +797,86 @@ def test_k2_applies_its_pad_in_kernel(dev, tier, B, T):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(
             got, cc.synthesis_conv_plain(x, hki, True, off, tier, pad), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# K3t redesigned: kept arranged banks, call-sized plans, the analysis pad of
+# K3/K3t in the kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("M", [2, 4, 8, 16])
+def test_k3t_at_its_plans_tiles(dev, tier, B, M):
+    """K3t against its plain version at T_out one short of, at and one past
+    a multiple of the tile its plan takes, for a host block (tiles of 16-64
+    steps, split reductions) and a whole file (persistent tiles), with the
+    centered analysis pad in the kernel and the kept banks; output memory
+    NaN-filled; kept and per-call banks give the same bits."""
+    hkf, hki = _bank(M, dev)
+    Ka, Ks = hkf.shape[-1], hki.shape[-1]
+    pad, spad = (Ka // 2, Ka // 2), (Ks // 2, Ks // 2)
+    kept = (cc.arrange_tc_bank(hkf, "analysis", tier),
+            cc.arrange_tc_bank(hki, "synthesis", tier))
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(M * 7 + B)
+    for t_probe in (512, -(-n_sms * 256 // B) + 64):
+        tile = cc.launch_plan("roundtrip", B, M, M, Ka, Ks, t_probe,
+                              n_sms=n_sms, precision=tier)[4]
+        for edge in (-1, 0, 1):
+            T_out = (t_probe // tile) * tile + edge
+            x = torch.randn(B, 1, M * T_out, generator=g).to(dev)
+            _nan_fill()
+            got = cc.fused_roundtrip_conv(x, hkf, hki, M, spad, tier, pad,
+                                          kept)
+            torch.cuda.synchronize()
+            assert got.shape == (B, T_out, M) and torch.isfinite(got).all()
+            assert_k3t_close(got, cc.roundtrip_conv_plain(
+                x, hkf, hki, M, spad, tier, pad),
+                cc.strided_analysis_conv(x, hkf, M, pad=pad), hki, tier)
+            _nan_fill()
+            assert torch.equal(got, cc.fused_roundtrip_conv(
+                x, hkf, hki, M, spad, tier, pad))
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("B,T", [(1, 8192), (16, 8192), (3, 16 * 777 + 5),
+                                 (1, 60 * 44100)])
+def test_roundtrip_applies_its_pad_in_kernel(dev, tier, B, T):
+    """K3 and K3t with the analysis pad in their window copy (16-byte copies
+    where the pad and the rows are multiples of 4, single floats where not)
+    give the bits of F.pad and the call."""
+    hkf, hki = _bank(16, dev)
+    g = torch.Generator().manual_seed(B + T)
+    x = torch.randn(B, 1, T, generator=g).to(dev)
+    for pad, spad in [((256, 256), (16, 16)), ((13, 0), (15, 16)),
+                      ((0, 7), (3, 0))]:
+        _nan_fill()
+        got = cc.fused_roundtrip_conv(x, hkf, hki, 16, spad, tier, pad)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, cc.fused_roundtrip_conv(
+            F.pad(x, pad), hkf, hki, 16, spad, tier))
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_entry_point_roundtrips_run_one_k3t(dev, tier):
+    """StreamingPQMF.roundtrip and PQMF.roundtrip on the card: one K3t each
+    (their kept banks and the analysis pad in the kernel), equal to the CPU
+    port (the default tier's mid may flip: its bound)."""
+    x = np.random.default_rng(12).standard_normal((2, 1, 16 * 700)).astype(
+        np.float32) * 0.3
+    for make in (lambda d: StreamingPQMF(100, 16, precision=tier, device=d),
+                 lambda d: PQMF(100, 16, precision=tier, device=d)):
+        gpu, cpu = make("cuda"), make("cpu")
+        cc.reset_launches()
+        got = gpu.roundtrip(x)
+        torch.cuda.synchronize()
+        assert cc.LAUNCHES == {"analysis": 0, "synthesis": 0, "roundtrip": 1}
+        ref = cpu.roundtrip(x)
+        sub = cpu.forward(x).reshape(2, 16, -1)
+        w_syn = getattr(cpu, "hki", None)
+        if w_syn is None:
+            w_syn = cpu.params["hk_ipoly"]
+        assert_k3t_close(got.cpu(), ref, sub, w_syn, tier)

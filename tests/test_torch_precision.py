@@ -572,7 +572,10 @@ def test_tier_kernels_take_every_geometry_highest_takes(M):
     ("analysis", 3, 2, 65, 0, 77), ("synthesis", 1, 16, 0, 33, 512),
     ("synthesis", 1, 16, 0, 32, 165375), ("synthesis", 2, 64, 0, 33, 300),
     ("synthesis", 1, 4, 0, 33, 37), ("roundtrip", 1, 16, 513, 33, 165377),
-    ("roundtrip", 215, 16, 513, 33, 256), ("roundtrip", 1, 2, 65, 33, 300)])
+    ("roundtrip", 215, 16, 513, 33, 256), ("roundtrip", 1, 2, 65, 33, 300),
+    ("roundtrip", 1, 16, 513, 33, 512), ("roundtrip", 16, 16, 513, 33, 512),
+    ("roundtrip", 1, 16, 512, 32, 165375), ("roundtrip", 2, 4, 129, 33, 777),
+    ("roundtrip", 3, 8, 257, 33, 40000)])
 def test_tier_plans_fit_and_cover(which, B, M, Ka, Ks, T_out):
     for tier in TIERS:
         gx, gy, gz, threads, tile, aux, split, smem = cc.launch_plan(
@@ -582,8 +585,13 @@ def test_tier_plans_fit_and_cover(which, B, M, Ka, Ks, T_out):
         assert tile % 16 == 0 and gz == 1
         assert 1 <= gx <= B * -(-T_out // tile)
         if which == "roundtrip":
-            assert smem == gate
+            # K3t: tiles of 16-64 output steps, one a block, for host
+            # blocks; whole files persistent tiles of whole m16 pairs
             assert threads == 256 and aux >= tile + Ks - 1 and gy == 1
+            if tile <= 64:
+                assert gx == B * -(-T_out // tile)
+            else:
+                assert tile % 32 == 0 and aux % 32 == 0
         else:
             # 4 warps: WK (aux) slices of the reduction x 4/WK row groups
             # of one m16 tile, or (whole files) 4 row groups of two

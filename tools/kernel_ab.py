@@ -15,8 +15,10 @@ then the device time of its kernels (``torch.profiler``) is taken in turns
 at K1 [1,1,8704], K1 [16,1,8704], K1 at K4's 60 s shape [1,1,2646000]
 with its in-kernel pad (256, 240), K2 [1,16,544], K2 [16,16,544], K2 at
 K5's 60 s shape [1,16,165375] with its in-kernel pad (15, 16), K3 at 60 s
-[1,1,2646512], and K1t/K2t at the same K1/K2 shapes at "bf16x3" and
-"default" (reading their arranged banks). ``--variants`` and ``--shapes``
+[1,1,2646512], K1t/K2t at the same K1/K2 shapes at "bf16x3" and
+"default" (reading their arranged banks), and K3t at [1,1,8704],
+[16,1,8704] and 60 s [1,1,2646512] at both tiers (reading both arranged
+banks). ``--variants`` and ``--shapes``
 take comma-separated prefixes to run a subset. Prints the card's name and
 power limit, then one line per variant and shape: microseconds per call,
 one per round.
@@ -86,6 +88,20 @@ VARIANTS = {
                        "while (false && 2 * wk <= g.n_k")],
     "tc_persist_m16_64": [(1, "kTcPersistM16 = 16;",
                            "kTcPersistM16 = 64;")],
+    # K3t: each design choice undone or moved
+    "rt_no_swizzle": [(1, "a.swz = LD == 0 ? min_i(M / 8, 8) - 1 : 0;",
+                       "a.swz = 0;")],
+    "rt_stage_never": [(1, "g.stage = g.bank_bytes + rt_tc_rest_max(g)",
+                        "g.stage = false && g.bank_bytes + "
+                        "rt_tc_rest_max(g)")],
+    "rt_stage_always": [(1, "p.stage = g.stage && (persist || n_tiles <= "
+                            "n_sms);", "p.stage = g.stage;")],
+    "rt_fill_div_8": [(1, "kRtTcFillDiv = 4;", "kRtTcFillDiv = 8;")],
+    "rt_fill_div_1": [(1, "kRtTcFillDiv = 4;", "kRtTcFillDiv = 1;")],
+    "rt_sub_512": [(1, "kRtTcSub = 256;", "kRtTcSub = 512;")],
+    "rt_sub_128": [(1, "kRtTcSub = 256;", "kRtTcSub = 128;")],
+    "rt_no_split_k": [(1, "while (2 * wk * items <= kRtTcWarps",
+                       "while (false && 2 * wk * items <= kRtTcWarps")],
 }
 
 
@@ -183,12 +199,19 @@ def main(argv=None) -> int:
                                              (15, 16), tier)})
         shapes["K3 [1,1,2646512]"] = ((1, 1, T60 + Ka - 1), None, None,
                                       "highest")
+        for tier in ("bf16x3", "default"):
+            for B, T in [(1, 8704), (16, 8704), (1, T60 + Ka - 1)]:
+                shapes[f"K3t [{B},1,{T}] {tier}"] = ((B, 1, T), None, None,
+                                                    tier)
         shapes = {k: shapes[k] for k in _pick(shapes, args.shapes)}
         xs = {k: torch.randn(*v[0], generator=g).to(dev)
               for k, v in shapes.items()}
         banks = {}
+        rt_banks = {t: (cc.arrange_tc_bank(wa, "analysis", t).words,
+                        cc.arrange_tc_bank(ws, "synthesis", t).words)
+                    for t in ("bf16x3", "default")}
         for k, (_, w, _, tier) in shapes.items():
-            if tier != "highest":
+            if tier != "highest" and not k.startswith("K3"):
                 kind = "analysis" if k.startswith("K1") else "synthesis"
                 banks[k] = cc.arrange_tc_bank(w, kind, tier).words
         passes = {"bf16x3": 3, "default": 1}
@@ -222,13 +245,20 @@ def main(argv=None) -> int:
                     err = lib.pqmf_tc_synthesis_conv(
                         x.data_ptr(), banks[what].data_ptr(), *tail,
                         passes[tier], stream)
-            else:
+            else:  # syn_pad (16, 16): T_out = T_ana
                 t_ana = (T - Ka) // 16 + 1
                 out = torch.empty(B, t_ana, 16, device=dev)
-                err = lib.pqmf_roundtrip_conv(
-                    x.data_ptr(), wa.data_ptr(), ws.data_ptr(),
-                    out.data_ptr(), B, T, 16, Ka, Ks, t_ana, t_ana,
-                    Ks // 2, stream)
+                tail = (out.data_ptr(), B, T, 16, Ka, Ks, t_ana, t_ana, 0,
+                        Ks // 2)
+                if tier == "highest":
+                    err = lib.pqmf_roundtrip_conv(
+                        x.data_ptr(), wa.data_ptr(), ws.data_ptr(), *tail,
+                        stream)
+                else:
+                    err = lib.pqmf_tc_roundtrip_conv(
+                        x.data_ptr(), rt_banks[tier][0].data_ptr(),
+                        rt_banks[tier][1].data_ptr(), *tail, passes[tier],
+                        stream)
             if err:
                 raise SystemExit(f"launch failed: {err}")
             return out
@@ -241,9 +271,17 @@ def main(argv=None) -> int:
             elif what.startswith("K2"):
                 ref = cc.synthesis_conv_plain(
                     x, w, True, -16 if pad == (0, 0) else 0, tier, pad)
-            else:
+            elif tier == "highest":
                 ref = cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16))
                 tol = dict(atol=1e-5, rtol=0.0)
+            else:  # K3t; at "default" within one flip of a split mid
+                ref = cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16), tier)
+                sub = cc.strided_analysis_conv(x, wa, 16)
+                flip = 2.0 ** (torch.floor(torch.log2(sub.abs().max()))
+                               .item() - 7) * ws.abs().sum(dim=(1, 2)).max() \
+                    .item() * 16
+                tol = dict(atol=2e-5 + (flip if tier == "default" else 0.0),
+                           rtol=1e-4)
             for name, lib in libs.items():
                 got = call(lib, what, x)
                 torch.testing.assert_close(got, ref, **tol,

@@ -8,14 +8,18 @@ Run from the root of a checkout on a machine with an NVIDIA card and
 OTHER_CHECKOUT, in the order other, this, this, other), the device time
 (``torch.profiler``, all kernels of a call) of K1t and K2t at the flagship's
 block shapes ([1,1,8704] / [16,1,8704] analysis, [1,16,544] / [16,16,544]
-synthesis) and of K4t / K5t (``polyphase_analysis`` / ``_synthesis``) on
-60 s, at "bf16x3" and "default", through each checkout's public wrappers on
-the same seeded inputs; and, at "highest", K2 where it takes a pad
-(``StreamingPQMF.inverse`` of one block's sub-bands, K5 on 60 s). Where a
-checkout's wrappers take a kept arranged bank (``bank=`` / ``tc_bank=``),
-it is built once beforehand, as the entry points build it when weights
-are installed. Prints the card's name and power limit, then one JSON line
-per checkout and round.
+synthesis), of K4t / K5t (``polyphase_analysis`` / ``_synthesis``) on
+60 s, and of K3t (``fused_roundtrip_conv``) at [1,1,8704] and on 60 s
+(pre-padded inputs), with K6t (``polyphase_roundtrip``) and
+``StreamingPQMF.roundtrip`` on 60 s (each checkout's own route, its pad
+and slice copies included), at "bf16x3" and "default", through each
+checkout's public wrappers on the same seeded inputs; and, at "highest",
+K2 where it takes a pad (``StreamingPQMF.inverse`` of one block's
+sub-bands, K5 on 60 s). Where a checkout's wrappers take kept arranged
+banks (``bank=`` / ``tc_bank=`` / ``banks=``), they are built once
+beforehand, as the entry points build them when weights are installed.
+Prints the card's name and power limit, then one JSON line per checkout
+and round.
 """
 
 from __future__ import annotations
@@ -50,12 +54,16 @@ def measure() -> dict:
     hp, hi = (off.params[k].to(dev) for k in ("hk_poly", "hk_ipoly"))
     w2 = pk.analysis_weights(hp)
     kept = "bank" in inspect.signature(cc.strided_analysis_conv).parameters
+    rt_kept = "banks" in inspect.signature(cc.fused_roundtrip_conv).parameters
     xs = {"K1t [1,1,8704]": torch.randn(1, 1, 8704, generator=g),
           "K1t [16,1,8704]": torch.randn(16, 1, 8704, generator=g),
           "K2t [1,16,544]": torch.randn(1, 16, 544, generator=g),
           "K2t [16,16,544]": torch.randn(16, 16, 544, generator=g),
           "K4t 60 s": torch.randn(1, 1, 60 * 44100, generator=g),
-          "K5t 60 s": torch.randn(1, 16, 60 * 44100 // 16, generator=g)}
+          "K5t 60 s": torch.randn(1, 16, 60 * 44100 // 16, generator=g),
+          "K3t [1,1,8704]": torch.randn(1, 1, 8704, generator=g),
+          "K3t 60 s": torch.randn(1, 1, 60 * 44100 + 512, generator=g),
+          "K6t 60 s": torch.randn(1, 1, 60 * 44100, generator=g)}
     xs = {k: v.to(dev) for k, v in xs.items()}
     sub = torch.randn(1, 16, 512, generator=g).to(dev)
     sp = StreamingPQMF(100, 16, device="cuda")
@@ -94,11 +102,21 @@ def measure() -> dict:
                 x, hp, w2, tier, *([kw["w2"]] if kept else [])),
             "K5t": lambda x: pk.polyphase_synthesis(
                 x, hi, tier, *([kw["hi"]] if kept else [])),
+            "K3t": lambda x: cc.fused_roundtrip_conv(
+                x, wa, ws, 16, (16, 16), tier,
+                **({"banks": (kw["wa"], kw["ws"])} if rt_kept else {})),
+            "K6t": lambda x: pk.polyphase_roundtrip(
+                x, hp, hi, w2, tier,
+                *([(kw["w2"], kw["hi"])] if rt_kept else [])),
         }
         for what, x in xs.items():
             fn = calls[what[:3]]
             out[f"{what} {tier}"] = device_us(
                 lambda: fn(x), 10 if "60 s" in what else 50)
+        # the streaming round trip as its entry point runs it
+        spt = StreamingPQMF(100, 16, precision=tier, device="cuda")
+        out[f"StreamingPQMF.roundtrip 60 s {tier}"] = device_us(
+            lambda: spt.roundtrip(xs["K6t 60 s"]), 10)
     # K2's pad at "highest": the flagship's synthesis of one block and K5
     # on 60 s (a checkout that pads before K2 launches that copy too)
     out["StreamingPQMF.inverse [1,16,512] highest"] = device_us(
