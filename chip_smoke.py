@@ -85,6 +85,18 @@ fails without them; it never falls back to the CPU and imports no JAX.
    60 s, the flagship block and 16-stream step at ``default`` and the 60 s
    round trips at ``bf16x3``.
 
+5. Fine-tuning (``parallel/training.py``) on the card: (a) one loss and
+   gradient of the fine-tune loss at the committed recipe's full width (M
+   = 16, 512 taps, [4, 1, 8192], seed 0) against the pinned CPU port at
+   ``highest`` and ``bf16x3`` (loss within 1e-4 relative, gradient within
+   1e-3 of max|g|); (b) the committed recipe itself, 8000 Adam steps (lr
+   2e-5, cosine, batch 4, length 8192, seed 0): its wall time, the ms per
+   step (``utils.profiling.chained_ms``), the first and last loss, the
+   steady-state SNR on the 60 s signal of the trained, the designed and
+   the committed bank through ``StreamingPQMF.roundtrip`` (K3, one launch
+   each; the trained bank >= 100 dB), the worst stopband (<= -55 dB);
+   (c) a remat step against a plain one.
+
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 Any failure raises and the exit code is non-zero.
 """
@@ -141,6 +153,16 @@ DEFAULT_MARGIN_DB = 25.0
 SNR_STREAM_DB = (65.1997, 0.01)   # StreamingPQMF.roundtrip, delay 16
 SNR_60S_DB = (55.2262, 0.01)      # designed M=16 bank, delay 0, whole signal
 SNR_FINETUNED_DB = (104.2123, 0.01)  # fine-tuned M=16 bank, edge_trim=1024
+# the training phase: card against the pinned CPU port (loss relative, the
+# gradient against max|g|: the loss is the MSE of a residual about 1e-3 of
+# the signal, so f32 summation orders show amplified), and the bars of the
+# trained bank (steady-state SNR on the 60 s signal, worst stopband)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+TRAINED_SNR_DB, TRAINED_STOPBAND_DB = 100.0, -55.0
+DESIGNED_STEADY_DB = (71.2761, 0.01)  # the designed bank, edge trim 512
+# the committed banks' recipe (pqmf_tpu/parallel/training.py), at M = 16
+RECIPE = dict(steps=8000, batch=4, length=8192, lr=2e-5,
+              lr_schedule="cosine", seed=0)
 TA_SHIFTS16 = [3.2, -48.5, 12.3, 0, 7, -24, 1, 2, 3, 4, 5, 6, -6, -12, 9,
                -30]                # the reference's random range
 TA_SHIFTS8 = [0, -3, 5, 12, -7, 2, 1, -1]
@@ -268,9 +290,12 @@ def _profile(step, n: int, step_ms: float, top: int = 8) -> dict:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # device-side events only: a CPU op's row repeats its kernels' time
+    # device-side events only: a CPU op's row repeats its kernels' time,
+    # and a user annotation's device row (torch.optim's
+    # "Optimizer.step#Adam.step") spans kernels counted in their own rows
     rows = sorted((e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA),
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3 / n
     return {
@@ -381,6 +406,100 @@ def _device_us(fn, n: int) -> float:
         if total > 0:
             return total / n
     raise RuntimeError("torch.profiler recorded no device time")
+
+
+def _training_phase(sixty: np.ndarray, card: str) -> dict:
+    """Phase 5: fine-tuning on the card (see the module docstring)."""
+    import torch
+
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.ops import filterbank as fb_ops
+    from pqmf_tpu_torch.parallel import training as tt
+    from pqmf_tpu_torch.utils.profiling import chained_ms
+
+    out = {"card": card}
+    hk = fb_ops.build_filterbank(100, N_BAND)["hk"]
+    x = np.random.default_rng(0).standard_normal((4, 1, 8192)).astype(
+        np.float32)
+    loss_fn = tt.make_finetune_loss(N_BAND, hk.shape[-1])
+    for tier in ("highest", "bf16x3"):
+        lc, gc = tt.loss_and_grad(loss_fn, torch.from_numpy(hk),
+                                  torch.from_numpy(x), tier)
+        lg, gg = tt.loss_and_grad(loss_fn, torch.from_numpy(hk).cuda(),
+                                  torch.from_numpy(x).cuda(), tier)
+        rel = abs(lg.item() - lc.item()) / lc.item()
+        gerr = ((gg.cpu() - gc).abs().max() / gc.abs().max()).item()
+        print(f"  fine-tune loss and gradient at {tier}, card vs CPU: loss "
+              f"{lg.item():.6e} vs {lc.item():.6e} (rel {rel:.2e}), "
+              f"max|dg| / max|g| {gerr:.2e}")
+        assert rel <= TRAIN_LOSS_RTOL and gerr <= TRAIN_GRAD_RTOL, (tier, rel,
+                                                                    gerr)
+        out[f"grad_parity_{tier}"] = {"loss_rel": rel, "grad_rel": gerr}
+
+    cc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = tt.finetune_filterbank(100, N_BAND, **RECIPE)
+    wall = time.perf_counter() - t0
+    train_launches = dict(cc.LAUNCHES)
+    assert losses.shape == (RECIPE["steps"],) and np.isfinite(losses).all()
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    init, step = tt.make_train_step(tt.adam(2e-5), loss_fn=loss_fn)
+    state = init(hk)
+    xd = torch.from_numpy(x).cuda()
+    step_ms = chained_ms(lambda v: (step(state, v), v)[1], xd, n=100)
+    profile = _profile(lambda: step(state, xd), 10, step_ms)
+    print(json.dumps({"profile": "train step", **profile}))
+    cc.reset_launches()
+    snr = {name: tt.roundtrip_snr(p, 100, N_BAND, sixty)
+           for name, p in [("designed", None),
+                           ("committed", tt.load_pretrained_bank()),
+                           ("trained", params)]}
+    readout_launches = dict(cc.LAUNCHES)
+    stopband = {"trained": tt.worst_stopband_db(params["hk"]),
+                "committed": tt.worst_stopband_db(
+                    tt.load_pretrained_bank()["hk"])}
+    print(f"  recipe {RECIPE}: {wall:.2f} s wall, {step_ms:.4f} ms a step "
+          f"(chained_ms, CUDA events), loss {losses[0]:.4e} -> "
+          f"{losses[-1]:.4e}; launches while training {train_launches}")
+    print(f"  steady-state SNR on the 60 s signal (K3, edge trim 512): "
+          f"trained {snr['trained']:.4f} dB, designed {snr['designed']:.4f} "
+          f"dB, committed {snr['committed']:.4f} dB; worst stopband trained "
+          f"{stopband['trained']:.2f} dB, committed "
+          f"{stopband['committed']:.2f} dB; readout launches "
+          f"{readout_launches}")
+    assert readout_launches == {"analysis": 0, "synthesis": 0,
+                                "roundtrip": 3}, readout_launches
+    assert all(v == 0 for v in train_launches.values()), train_launches
+    assert snr["trained"] >= TRAINED_SNR_DB, snr
+    assert stopband["trained"] <= TRAINED_STOPBAND_DB, stopband
+    assert abs(snr["designed"] - DESIGNED_STEADY_DB[0]) \
+        <= DESIGNED_STEADY_DB[1], snr
+    assert snr["committed"] >= TRAINED_SNR_DB, snr
+
+    # a step with the loss recomputed in the backward equals a plain step
+    # (the JAX package's remat test, on the card)
+    hk4 = fb_ops.build_filterbank(70, 4)["hk"]
+    x4 = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 1, 256)).astype(np.float32)).cuda()
+    res = []
+    for remat in (False, True):
+        init, step = tt.make_train_step(remat=remat)
+        res.append(step(init(hk4), x4))
+    dl = abs(res[0][1].item() - res[1][1].item())
+    dhk = (res[0][0].hk - res[1][0].hk).abs().max().item()
+    print(f"  remat step vs plain step: |dloss| {dl:.3g}, max|dhk| {dhk:.3g}")
+    assert dl < 1e-7 and dhk <= 1e-7, (dl, dhk)
+    out.update({
+        "recipe": RECIPE, "recipe_wall_s": wall, "train_step_ms": step_ms,
+        "train_step_device_busy_ms": profile["device_busy_ms"],
+        "train_step_idle_share": profile["idle_share"],
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "steady_snr_db_60s": snr, "worst_stopband_db": stopband,
+        "k3_launches_readout": readout_launches["roundtrip"],
+        "launches_training": train_launches, "remat_dloss": dl,
+        "remat_dhk": dhk})
+    return out
 
 
 def main() -> int:
@@ -1684,6 +1803,10 @@ def main() -> int:
                             ("TA block B=1", ta_step1, ta1_ms),
                             ("TA blocks B=16", ta_step16, ta16_ms)]:
         print(json.dumps({"profile": label, **_profile(step, 10, ms)}))
+
+    # -- 5. fine-tuning on the card ------------------------------------------
+    print("fine-tuning (parallel/training.py):")
+    print(json.dumps({"training": _training_phase(sixty, card)}))
 
     # (key, name, replaces, launches on its path: the flagship for K1-K3,
     # the offline path for K4-K6)

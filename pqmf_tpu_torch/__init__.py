@@ -14,8 +14,11 @@ of the port is tested against. Ported so far:
   (:func:`save_artifact`, :func:`load_artifact`);
 - the standalone shifters (``shifters.py``) and the block-streaming
   harness (:func:`stream_ola`);
+- filterbank fine-tuning (``parallel.training``: ``finetune_filterbank``,
+  ``make_train_step``, ``TrainablePQMF``, checkpoints in the JAX package's
+  layout) and ``models``, the wrappers' re-export;
 - the CLIs ``cli.export_pqmf``, ``cli.export_pvoc``, ``cli.vocoder``,
-  ``cli.ps_torchaudio`` and ``cli.blocks``.
+  ``cli.ps_torchaudio``, ``cli.blocks`` and ``cli.finetune_bank``.
 
 :func:`params_from_jax` carries a bank over from ``pqmf_tpu``. Nothing here
 imports JAX.

@@ -175,6 +175,50 @@ def reverse_half(x: torch.Tensor, offset: int = 0) -> torch.Tensor:
     return x * mask
 
 
+def _tier_sum(fn, a: torch.Tensor, b: torch.Tensor,
+              precision: str) -> torch.Tensor:
+    """A bilinear ``fn`` at a tier over the :func:`split_bf16` halves:
+    fn(ah, bh) + fn(ah, bl) + fn(al, bh) at ``"bf16x3"``, fn(ah, bh) at
+    ``"default"``."""
+    ah, al = split_bf16(a)
+    bh, bl = split_bf16(b)
+    y = fn(ah, bh)
+    if precision == "bf16x3":
+        y = y + fn(ah, bl) + fn(al, bh)
+    return y
+
+
+class _TierConv(torch.autograd.Function):
+    """The tier conv with XLA's transpose rule for its gradients: both
+    transposed convs run at the forward's tier over split operands, the
+    cotangent split like the other operand (autograd through
+    :func:`split_bf16` would round the cotangent to bf16 and drop the
+    tier's lo terms)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, precision):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.precision = stride, precision
+        with full_f32():
+            return _tier_sum(lambda a, b: F.conv1d(a, b, stride=stride), x,
+                             w, precision)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, precision = ctx.stride, ctx.precision
+        grad = torch.nn.grad
+        gx = gw = None
+        with full_f32():
+            if ctx.needs_input_grad[0]:
+                gx = _tier_sum(lambda c, k: grad.conv1d_input(
+                    x.shape, k, c, stride), g, w, precision)
+            if ctx.needs_input_grad[1]:
+                gw = _tier_sum(lambda a, c: grad.conv1d_weight(
+                    a, w.shape, c, stride), x, g, precision)
+        return gx, gw, None, None
+
+
 def _conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             padding: tuple[int, int] = (0, 0),
             precision: str = "highest") -> torch.Tensor:
@@ -184,20 +228,19 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     conv(xl, wh) over the :func:`split_bf16` halves; ``"default"``
     conv(xh, wh). The convs run in full f32: a product of bf16 values is
     exact there, so this is the TPU tier up to the order of summation
-    (TF32 would add error of its own)."""
+    (TF32 would add error of its own).
+
+    Differentiable: at ``"highest"`` autograd differentiates ``F.conv1d``
+    (its backward convs run after :func:`full_f32` has exited, so a
+    caller on the card runs ``backward()`` inside it); at the tiers
+    ``_TierConv`` computes both gradients at the tier, in full f32."""
     check_precision(precision)
     if padding != (0, 0):
         x = F.pad(x, padding)
+    if precision != "highest":
+        return _TierConv.apply(x, w, stride, precision)
     with full_f32():
-        if precision == "highest":
-            return F.conv1d(x, w, stride=stride)
-        xh, xl = split_bf16(x)
-        wh, wl = split_bf16(w)
-        y = F.conv1d(xh, wh, stride=stride)
-        if precision == "bf16x3":
-            y = (y + F.conv1d(xh, wl, stride=stride)
-                 + F.conv1d(xl, wh, stride=stride))
-        return y
+        return F.conv1d(x, w, stride=stride)
 
 
 def polyphase_forward(x: torch.Tensor, hk_poly: torch.Tensor,

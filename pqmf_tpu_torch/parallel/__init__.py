@@ -1,2 +1,2 @@
-"""Filterbank training support of the port; so far the committed
-fine-tuned banks' loader (``training``)."""
+"""Filterbank training support of the port (``training``): the
+differentiable bank, its fine-tuning and the committed fine-tuned banks."""

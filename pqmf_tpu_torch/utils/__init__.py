@@ -1,4 +1,5 @@
-"""Host-side utilities of the port (NumPy only)."""
+"""Utilities of the port: ``audio`` and ``metrics`` (host-side NumPy) and
+``profiling`` (torch timing, imported by name)."""
 
 from pqmf_tpu_torch.utils import audio, metrics
 

@@ -13,6 +13,7 @@ import torch
 from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper,
                             PQMFPitchShiftWrapperTA, PQMFWrapper,
                             StreamingPQMF, load_artifact, save_artifact)
+from pqmf_tpu_torch.parallel import training
 
 # each entry point's constructor and the arguments it is built with here
 ENTRY_POINTS = {
@@ -22,12 +23,14 @@ ENTRY_POINTS = {
     "PQMFPitchShiftWrapper": (PQMFPitchShiftWrapper, (100, 16, 2048), {}),
     "PQMFPitchShiftWrapperTA": (PQMFPitchShiftWrapperTA, (100, 8, 2048),
                                 {"shifts_in_semitones": [0] * 8}),
+    "TrainablePQMF": (training.TrainablePQMF, (70, 4), {}),
 }
 
 # each CLI's required arguments
 CLIS = {"vocoder": ["in.wav", "out.wav"], "ps_torchaudio": ["in.wav"],
         "blocks": ["in.wav"], "export_pvoc": ["--input", "in.wav"],
-        "export_pqmf": ["--input", "in.wav"]}
+        "export_pqmf": ["--input", "in.wav"],
+        "finetune_bank": ["--n_band", "16", "--out", "hk.npz"]}
 
 
 def _targets_the_card(build):
@@ -89,7 +92,29 @@ def test_cli_without_device_refuses_to_run_without_a_card(module, tmp_path):
             "export_pvoc": ["--input", wav, "--out_dir", out,
                             "--audio_dir", out],
             "export_pqmf": ["--input", wav, "--out_dir", out,
-                            "--audio_dir", out]}[module]
+                            "--audio_dir", out],
+            "finetune_bank": ["--n_band", "8", "--attenuation", "70",
+                              "--steps", "1", "--length", "1024", "--wav",
+                              wav, "--out", str(tmp_path / "hk.npz")]}[module]
     main = importlib.import_module(f"pqmf_tpu_torch.cli.{module}").main
     with pytest.raises(RuntimeError, match="CUDA"):
         main(args)
+
+
+@pytest.mark.parametrize("build", [
+    lambda **kw: training.finetune_filterbank(70, 8, steps=1, length=1024,
+                                              **kw),
+    lambda **kw: training.make_train_step(**kw)[0](np.zeros((4, 64),
+                                                            np.float32)).hk,
+], ids=["finetune_filterbank", "make_train_step"])
+def test_training_defaults_to_cuda(build):
+    """Fine-tuning runs on the card unless asked for the CPU: without a
+    card the default raises naming CUDA."""
+    for fn in (training.finetune_filterbank, training.make_train_step):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    else:
+        build()
+    build(device="cpu")
