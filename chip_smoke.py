@@ -66,6 +66,16 @@ fails without them; it never falls back to the CPU and imports no JAX.
      and the ``vocoder``, ``ps_torchaudio``, ``blocks`` (host loop and
      ``--scan``) and ``export_pvoc`` CLIs on a 10 s wav with
      ``--device cuda``.
+3b. The ahead-of-time artifact (``export.py``): the flagship at each tier,
+   ``PQMFWrapper`` and the TA wrapper (16 bands, 8192 blocks) saved with
+   their ``torch.export`` program, reloaded here and in a fresh process
+   that imports only ``load_stablehlo``, 8 blocks each (the flagship's tail
+   carried): bit-equal to the live wrapper (<= 1e-6 fails loudly), exactly
+   8 K1 + 8 K2 launches with every plain version refused, the program's
+   inputs all its arguments, buffers or constants on the card; export
+   seconds, program bytes, the AOT block beside the live block (CUDA
+   events); and the ``export_pqmf`` / ``export_pvoc`` CLIs with
+   ``--stablehlo``.
 4. Times each kernel against its plain version and, for K1/K2/K4/K5, one
    ``F.conv1d`` of the same product (``library_ms``), beside its bound
    (the larger of its FMAs at the f32 peak and its bytes at the HBM rate);
@@ -406,6 +416,247 @@ def _device_us(fn, n: int) -> float:
         if total > 0:
             return total / n
     raise RuntimeError("torch.profiler recorded no device time")
+
+
+# the child process of the AOT phase: it imports only pqmf_tpu_torch's
+# load_stablehlo (and the launch counters), no wrapper, and runs each
+# program over the blocks in inputs.npz, the flagship's tail carried
+_AOT_CHILD = r"""
+import json, os, sys
+import numpy as np, torch
+from pqmf_tpu_torch.export import load_stablehlo
+from pqmf_tpu_torch.kernels import cached_conv as cc
+td, names, dev = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+with np.load(os.path.join(td, "inputs.npz")) as z:
+    blocks = torch.from_numpy(z["blocks"]).to(dev)
+counts = {}
+for name in names:
+    program = load_stablehlo(os.path.join(td, name), device=dev)
+    cc.reset_launches()
+    outs = {}
+    if name.startswith("flagship"):
+        with open(os.path.join(td, name, "manifest.json")) as f:
+            spec = json.load(f)["state_spec"]["prev_tail"]
+        tail = torch.zeros(spec, device=dev)
+        ys = []
+        for b in blocks:
+            tail, y = program(tail, b[0])
+            ys.append(y)
+        outs = {"y": torch.stack(ys), "tail": tail}
+    elif name == "ta":
+        outs = {"y": torch.stack([program(b) for b in blocks])}
+    else:
+        pairs = [program(b) for b in blocks]
+        outs = {"rec": torch.stack([r for r, _ in pairs]),
+                "sub": torch.stack([s for _, s in pairs])}
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    counts[name] = dict(cc.LAUNCHES)
+    np.savez(os.path.join(td, name + "_child.npz"),
+             **{k: v.cpu().numpy() for k, v in outs.items()})
+print(json.dumps(counts))
+"""
+
+
+def _aot_phase(card: str, dev: str = "cuda") -> dict:
+    """Phase 3b: the ahead-of-time artifact on the card. The flagship of
+    ``__graft_entry__.py`` at each tier, ``PQMFWrapper`` and the TA wrapper
+    (16 bands, 8192 blocks) are saved with their ``torch.export`` program
+    (``save_artifact(..., with_stablehlo=True)``), reloaded in this process
+    and in a fresh one that imports only ``load_stablehlo``, and run over 8
+    blocks (the flagship's tail carried): outputs and tail bit-equal to the
+    live wrapper on the card, exactly one K1 and one K2 a block with every
+    plain version refused. Prints export seconds, the program's bytes and
+    graph, and the AOT block beside the live block by CUDA events; runs
+    the ``--stablehlo`` CLIs. ``dev="cpu"`` rehearses it on the plain
+    versions (no launches; the host clock)."""
+    import torch
+
+    from pqmf_tpu_torch import (PQMFPitchShiftWrapper,
+                                PQMFPitchShiftWrapperTA, PQMFWrapper,
+                                save_artifact)
+    from pqmf_tpu_torch.cli import export_pqmf, export_pvoc
+    from pqmf_tpu_torch.export import load_stablehlo
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.utils.audio import write_wav
+
+    print(f"AOT artifact (torch.export programs) on {card}:")
+    td = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    blocks = np.stack(np.split(_audio(8 * BLOCK, 5), 8, axis=-1))[:, None]
+    np.savez(os.path.join(td, "inputs.npz"), blocks=blocks)  # [8,1,1,T]
+    xs = torch.from_numpy(blocks).to(dev)
+    wrappers = {f"flagship {t}": PQMFPitchShiftWrapper(
+        100, N_BAND, BLOCK, SR, SHIFTS16, precision=t, device=dev)
+        for t in ("highest", *TIERS)}
+    wrappers["plain"] = PQMFWrapper(100, N_BAND, BLOCK, device=dev)
+    wrappers["ta"] = PQMFPitchShiftWrapperTA(100, N_BAND, BLOCK, SR,
+                                             TA_SHIFTS16, device=dev)
+    per_block = ({"analysis": 8, "synthesis": 8, "roundtrip": 0}
+                 if dev == "cuda" else dict.fromkeys(cc.LAUNCHES, 0))
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    names = {k: k.replace(" ", "_") for k in wrappers}
+
+    def live_run(w, name):
+        if name.startswith("flagship"):
+            state, ys = w.init_state(), []
+            for b in xs:
+                state, y = w.pitchshift_fn(state, b[0])
+                ys.append(y)
+            return {"y": torch.stack(ys), "tail": state["prev_tail"]}
+        if name == "ta":
+            return {"y": torch.stack([w.pitchshifter(b)
+                                      for b in xs])}
+        pairs = [w.process(b) for b in xs]
+        return {"rec": torch.stack([r for r, _ in pairs]),
+                "sub": torch.stack([s for _, s in pairs])}
+
+    def aot_run(program, w, name):
+        if name.startswith("flagship"):
+            tail, ys = w.init_state()["prev_tail"], []
+            for b in xs:
+                tail, y = program(tail, b[0])
+                ys.append(y)
+            return {"y": torch.stack(ys), "tail": tail}
+        if name == "ta":
+            return {"y": torch.stack([program(b) for b in xs])}
+        pairs = [program(b) for b in xs]
+        return {"rec": torch.stack([r for r, _ in pairs]),
+                "sub": torch.stack([s for _, s in pairs])}
+
+    def events_ms(fn, n=50):
+        for _ in range(5):
+            fn()
+        sync()
+        if dev != "cuda":  # the rehearsal: the host clock
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return (time.perf_counter() - t0) / n * 1e3
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    def max_err(got, want):
+        return max((got[k] - want[k]).abs().max().item() for k in want)
+
+    res, lives = {}, {}
+    for key, w in wrappers.items():
+        name, path = names[key], os.path.join(td, names[key])
+        t0 = time.perf_counter()
+        save_artifact(w, path, with_stablehlo=True)
+        export_s = time.perf_counter() - t0
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        (method, entry), = manifest["torch_export"].items()
+        assert entry == {"length": BLOCK, "device": dev}, entry
+        assert "stablehlo" not in manifest
+        pt2 = os.path.join(path, method + ".pt2")
+        ep = torch.export.load(pt2)
+        kinds = [spec.kind.name for spec in ep.graph_signature.input_specs]
+        ops = [str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"
+               and "pqmf_tpu_torch" in str(n.target)]
+        assert sorted(ops) == ["pqmf_tpu_torch.analysis_conv.default",
+                               "pqmf_tpu_torch.synthesis_conv.default"], ops
+        consts = list(ep.constants.values()) + list(ep.state_dict.values())
+        assert all(c.device.type == dev for c in consts), "a constant moved"
+        program = load_stablehlo(path, device=dev)
+        live = live_run(w, key)
+        cc.reset_launches()
+        with (_plain_versions_refused() if dev == "cuda"
+              else contextlib.nullcontext()):
+            got = aot_run(program, w, key)
+        sync()
+        launches = dict(cc.LAUNCHES)
+        assert launches == per_block, (key, launches)
+        err = max_err(got, live)
+        lives[name] = live
+        step = ((lambda: w.pitchshift_fn(w.init_state(), xs[0, 0]))
+                if key.startswith("flagship") else
+                (lambda: w.pitchshifter(xs[0])) if key == "ta" else
+                (lambda: w.process(xs[0])))
+        tail0 = w.init_state()["prev_tail"] if key.startswith(
+            "flagship") else None
+        aot_step = ((lambda: program(tail0, xs[0, 0]))
+                    if key.startswith("flagship") else
+                    (lambda: program(xs[0])))
+        t_live, t_aot = events_ms(step), events_ms(aot_step)
+        t_aot, t_live = min(t_aot, events_ms(aot_step)), min(
+            t_live, events_ms(step))
+        res[key] = {"export_s": export_s,
+                    "program_bytes": os.path.getsize(pt2),
+                    "inputs": {k: kinds.count(k) for k in set(kinds)},
+                    "graph_nodes": len(ep.graph.nodes),
+                    "launches_8_blocks": launches,
+                    "max_abs_err_vs_live": err,
+                    "bit_equal": err == 0.0,
+                    "aot_block_ms": t_aot, "live_block_ms": t_live}
+        if dev == "cuda" and key in ("flagship highest", "plain"):
+            # where the AOT block's time goes: the same kernels, or not
+            for arm, fn, ms in (("live", step, t_live),
+                                ("aot", aot_step, t_aot)):
+                prof = _profile(fn, 10, ms, top=3)
+                res[key][f"profile_{arm}"] = prof
+                print(f"  {key} {arm} block: device busy "
+                      f"{prof['device_busy_ms']:.4f} ms of {ms:.4f} (idle "
+                      f"{prof['idle_share']:.0%}), "
+                      f"{prof['kernels_per_call']:.1f} kernels")
+        print(f"  {key}: export {export_s:.2f} s, {method}.pt2 "
+              f"{os.path.getsize(pt2)} B, inputs {res[key]['inputs']}, "
+              f"launches over 8 AOT blocks {launches}, max|AOT - live| "
+              f"{err:.3g}; block by CUDA events: AOT {t_aot:.4f} ms, live "
+              f"{t_live:.4f} ms")
+        assert err <= 1e-6, (key, err)
+
+    # a fresh process: load_stablehlo alone, no wrapper, no retrace
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", _AOT_CHILD, td,
+         json.dumps(list(names.values())), dev], capture_output=True,
+        text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if child.returncode:
+        print(child.stderr[-4000:], file=sys.stderr)
+    assert child.returncode == 0, child.returncode
+    counts = json.loads(child.stdout.strip().splitlines()[-1])
+    for key, name in names.items():
+        assert counts[name] == per_block, (name, counts[name])
+        with np.load(os.path.join(td, name + "_child.npz")) as z:
+            got = {k: torch.from_numpy(z[k]).to(dev) for k in z.files}
+        err = max_err(got, lives[name])
+        res[key]["subprocess_max_abs_err"] = err
+        assert err <= 1e-6, (key, err)
+    worst = max(r["subprocess_max_abs_err"] for r in res.values())
+    print(f"  fresh process (load_stablehlo only): {len(names)} programs, "
+          f"8 blocks each, launches {counts[names['plain']]} each, max|err| "
+          f"vs live {worst:.3g} ({time.perf_counter() - t0:.1f} s)")
+
+    # the --stablehlo CLIs on a 2 s wav
+    wav_in = os.path.join(td, "in.wav")
+    write_wav(wav_in, _audio(2 * SR, 6) * 0.5, SR)
+    for cli, method, fn in [("export_pqmf", "process", export_pqmf.main),
+                            ("export_pvoc", "pitchshift", export_pvoc.main)]:
+        out = os.path.join(td, cli)
+        cc.reset_launches()
+        rc = fn(["--input", wav_in, "--out_dir", out, "--audio_dir",
+                 os.path.join(td, cli + "_audio"), "--stablehlo",
+                 "--device", dev])
+        sync()
+        assert rc == 0 and os.path.exists(os.path.join(
+            out, method + ".pt2")), (cli, rc)
+        print(f"  CLI {cli} --stablehlo: exit 0, {method}.pt2 "
+              f"{os.path.getsize(os.path.join(out, method + '.pt2'))} B, "
+              f"launches {dict(cc.LAUNCHES)}")
+    shutil.rmtree(td)
+    return res
 
 
 def _training_phase(sixty: np.ndarray, card: str) -> dict:
@@ -1427,6 +1678,9 @@ def main() -> int:
             assert np.isfinite(y).all() and np.abs(y).max() > 0.01, rel
         print(f"  CLI {name}: exit 0, launches {dict(cc.LAUNCHES)}")
     shutil.rmtree(tmp)
+
+    # -- 3b. the ahead-of-time artifact: programs reloaded == live ----------
+    print(json.dumps({"aot": _aot_phase(card)}))
 
     # -- 4. times, CUDA events after warm-up -----------------------------------
     def cuda_ms(fn, iters):

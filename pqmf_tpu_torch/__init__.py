@@ -11,7 +11,10 @@ of the port is tested against. Ported so far:
 - the plain wrapper (:class:`PQMFWrapper`), the flagship per-sub-band
   phase-vocoder pitch shifter (:class:`PQMFPitchShiftWrapper`) and the
   torchaudio variant (:class:`PQMFPitchShiftWrapperTA`), their artifacts
-  (:func:`save_artifact`, :func:`load_artifact`);
+  (:func:`save_artifact`, :func:`load_artifact`) and the ahead-of-time
+  ``torch.export`` program of each one's block method
+  (``export.export_stablehlo`` / ``load_stablehlo``), whose convs are the
+  kernels as ``torch.library`` operators (``torch.ops.pqmf_tpu_torch``);
 - the standalone shifters (``shifters.py``) and the block-streaming
   harness (:func:`stream_ola`);
 - filterbank fine-tuning (``parallel.training``: ``finetune_filterbank``,

@@ -1,12 +1,13 @@
 """Export and round-trip test of the plain PQMF wrapper
 (reference: PQMFWrapper.py:96-135).
 
-    python -m pqmf_tpu_torch.cli.export_pqmf --input in.wav
+    python -m pqmf_tpu_torch.cli.export_pqmf --input in.wav [--stablehlo]
 
 Builds PQMFWrapper(atten=100, n_band=16, buffer=8192), optionally installs
-the committed fine-tuned bank, saves the artifact, reloads it, runs
-forward/inverse/process on the wav padded to a buffer multiple, and writes
-``reconstruido.wav``.
+the committed fine-tuned bank, saves the artifact (with ``--stablehlo``
+the ``torch.export`` program of ``process`` at one buffer too), reloads
+it, runs forward/inverse/process on the wav padded to a buffer multiple,
+and writes ``reconstruido.wav``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="install the committed fine-tuned bank for this "
                         "(attenuation, n_band) before export (see "
                         "parallel.training.load_pretrained_bank)")
+    p.add_argument("--stablehlo", action="store_true",
+                   help="also save the process method's ahead-of-time "
+                        "program (a torch.export program, <method>.pt2; "
+                        "the flag keeps the JAX CLI's name)")
     p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
                    help="where to run (default: the card)")
     return p
@@ -51,7 +56,7 @@ def main(argv=None) -> int:
         wrapper.pqmf.set_weights(load_pretrained_bank(name))
         print(f"installed fine-tuned bank {name} (weights ride in the "
               f"artifact)")
-    save_artifact(wrapper, args.out_dir)
+    save_artifact(wrapper, args.out_dir, with_stablehlo=args.stablehlo)
     print(f"artifact saved to {args.out_dir}")
 
     loaded, _ = load_artifact(args.out_dir, device=args.device)

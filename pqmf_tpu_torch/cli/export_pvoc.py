@@ -3,11 +3,13 @@
 
     python -m pqmf_tpu_torch.cli.export_pvoc --input in.wav
         [--out_dir artifacts/pqmfpvoc] [--seed N] [--save_audio]
-        [--finetuned]
+        [--finetuned] [--stablehlo]
 
 Per-band shifts drawn from uniform(-24.75, 12.43), artifact save and
 reload, then a whole-file forward round trip, pitchshift and decompose of
-the wav padded to a buffer multiple; shapes printed.
+the wav padded to a buffer multiple; shapes printed. With ``--stablehlo``
+the artifact also carries the ``torch.export`` program of the pitch-shift
+step at one buffer.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--finetuned", action="store_true",
                    help="install the committed fine-tuned bank for this "
                         "(attenuation, n_band) before export")
+    p.add_argument("--stablehlo", action="store_true",
+                   help="also save the pitchshift method's ahead-of-time "
+                        "program (a torch.export program, <method>.pt2; "
+                        "the flag keeps the JAX CLI's name)")
     p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
                    help="where to run (default: the card)")
     return p
@@ -57,7 +63,7 @@ def main(argv=None) -> int:
         bank = install_finetuned_bank(wrapper, args.attenuation, args.n_band)
         print(f"installed fine-tuned bank {bank} (weights ride in the "
               f"artifact)")
-    save_artifact(wrapper, args.out_dir)
+    save_artifact(wrapper, args.out_dir, with_stablehlo=args.stablehlo)
     print(f"artifact saved to {args.out_dir}")
 
     loaded, _ = load_artifact(args.out_dir, device=args.device)

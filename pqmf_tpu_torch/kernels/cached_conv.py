@@ -25,11 +25,15 @@ bandwidth, with several outputs per thread in registers; K1t-K3t are
 are staged in shared memory. The launch plans (grid, tile, shared memory) are mirrored here by
 :func:`launch_plan`, so the CPU tests can reason about them.
 
-A wrapper takes its kernel's plain PyTorch version (``*_plain``, on
-``ops.filterbank._conv1d`` at the same tier) only for CPU tensors. On a CUDA
-tensor it launches the kernel of its tier or raises; no shape or tier falls
-back to the plain version or to another tier's kernel there. Every launch
-adds one to :data:`LAUNCHES`, whatever the tier.
+A wrapper checks its call in Python, on static shapes, and then calls its
+operator (``torch.ops.pqmf_tpu_torch.analysis_conv``, ``synthesis_conv``,
+``roundtrip_conv``), so an eager call and a ``torch.export`` program run one
+route. The operator's CPU impl is the kernel's plain PyTorch version
+(``*_plain``, on ``ops.filterbank._conv1d`` at the same tier), taken only
+for CPU tensors; its CUDA impl launches the kernel of its tier or raises;
+no shape or tier falls back to the plain version or to another tier's
+kernel there. Every launch adds one to :data:`LAUNCHES`, whatever the
+tier; its fake impl gives the output's shape to a trace.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ __all__ = [
     "arrange_tc_bank",
     "smem_bytes",
     "launch_plan",
+    "OPS",
 ]
 
 # kernel launches since the last reset_launches(), by kernel
@@ -574,6 +579,17 @@ def arrange_tc_bank(w: torch.Tensor, kind: str, precision: str) -> TcBank:
     return TcBank(words.contiguous(), kind, precision, tuple(w.shape))
 
 
+def _tc_words_shape(w_shape, kind: str, precision: str) -> tuple:
+    """The shape of ``arrange_tc_bank(w, kind, precision).words`` for a
+    bank ``w`` of ``w_shape``."""
+    K = w_shape[-1]
+    Q = K if kind == "analysis" else K * w_shape[1]
+    N = w_shape[0]
+    NN = 2 if N > 8 else 1
+    return (2 if precision == "bf16x3" else 1, _cdiv(N, 8 * NN),
+            _round16(Q) // 16, 32, 4 * NN)
+
+
 def _tc_bank(bank, w, kind: str, precision: str) -> TcBank:
     """``bank`` checked against the call, or the call's bank arranged now."""
     if bank is None:
@@ -610,6 +626,39 @@ def _check(name, t, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_operands(x, weights, banks, precision) -> None:
+    """The operands as a kernel reads them, checked by the operator itself:
+    an exported program calls it without the public function's checks, and
+    the CUDA impl takes raw pointers. ``weights`` and ``banks`` are
+    ``(name, tensor)`` and ``(name, words, w, kind)`` tuples. Every tensor
+    is contiguous on x's device, x and the weights f32 with 3 dims; at a
+    tier a bank given is the bf16 arrangement of its weights, and a launch
+    on the card needs one."""
+    if precision != "highest" and precision not in _PASSES:
+        raise ValueError(f"unknown precision {precision!r}")
+    dev = x.device
+    for name, t in (("x", x),) + tuple(weights):
+        if t.dtype != torch.float32 or t.ndim != 3:
+            raise ValueError(f"{name} must be float32 with 3 dims, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}, got "
+                             f"{'' if t.is_contiguous() else 'strided, '}"
+                             f"{t.device}")
+    for name, words, w, kind in banks:
+        if precision == "highest" or (words is None and dev.type != "cuda"):
+            continue
+        want = _tc_words_shape(tuple(w.shape), kind, precision)
+        if (words is None or words.dtype != torch.bfloat16
+                or tuple(words.shape) != want or words.device != dev
+                or not words.is_contiguous()):
+            raise ValueError(
+                f"{name} must be the contiguous bf16 {want} arrangement of "
+                f"its bank on {dev}, got " + (
+                    "none" if words is None else
+                    f"{words.dtype} {tuple(words.shape)} on {words.device}"))
+
+
 def _launch(fn, *args):
     """Call a C entry on the current stream of the inputs' card and raise
     on a non-zero cudaError_t."""
@@ -621,6 +670,178 @@ def _launch(fn, *args):
     if err:
         raise RuntimeError(
             f"{fn} failed: {lib.pqmf_error_string(err).decode()} ({err})")
+
+
+# ---------------------------------------------------------------------------
+# the kernels as operators of the ``pqmf_tpu_torch`` namespace: the CUDA
+# impl launches the kernel of the call's tier, the CPU impl runs the plain
+# version and the fake impl gives the output's shape, so ``torch.export``
+# traces the wrappers and a reloaded program launches the same kernels.
+# No autograd is registered: training differentiates the plain ops
+# (``ops.filterbank``), never these.
+# ---------------------------------------------------------------------------
+
+_LIB = torch.library.Library("pqmf_tpu_torch", "DEF")
+_LIB.define("analysis_conv(Tensor x, Tensor w, Tensor? bank, int M, "
+            "bool fuse_mask, int pad_l, int pad_r, str precision) -> Tensor")
+_LIB.define("synthesis_conv(Tensor x, Tensor w, Tensor? bank, "
+            "bool fuse_mask, int x_offset, int pad_l, int pad_r, "
+            "str precision) -> Tensor")
+_LIB.define("roundtrip_conv(Tensor x, Tensor w_ana, Tensor w_syn, "
+            "Tensor? bank_ana, Tensor? bank_syn, int M, int pad_l, "
+            "int pad_r, int syn_pad_l, int syn_pad_r, str precision) "
+            "-> Tensor")
+OPS = torch.ops.pqmf_tpu_torch
+
+
+def _analysis_shape(x, w, M, pad_l, pad_r):
+    return (x.shape[0], w.shape[0], (pad_l + x.shape[-1] + pad_r
+                                     - w.shape[-1]) // M + 1)
+
+
+def _synthesis_shape(x, w, pad_l, pad_r):
+    return (x.shape[0], pad_l + x.shape[-1] + pad_r - w.shape[-1] + 1,
+            w.shape[0])
+
+
+def _roundtrip_shape(x, w_ana, w_syn, M, pad_l, pad_r, syn_pad_l,
+                     syn_pad_r):
+    T_ana = (pad_l + x.shape[-1] + pad_r - w_ana.shape[-1]) // M + 1
+    return (x.shape[0], syn_pad_l + T_ana + syn_pad_r - w_syn.shape[-1] + 1,
+            M)
+
+
+def _analysis_operands(x, w, bank, precision):
+    _check_operands(x, (("w", w),), (("bank", bank, w, "analysis"),),
+                    precision)
+    if x.shape[1] != 1 or w.shape[1] != 1:
+        raise ValueError(f"analysis is mono: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+
+
+def _synthesis_operands(x, w, bank, precision):
+    _check_operands(x, (("w", w),), (("bank", bank, w, "synthesis"),),
+                    precision)
+    if x.shape[1] != w.shape[1]:
+        raise ValueError(f"band dims disagree: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+
+
+def _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, precision):
+    _check_operands(x, (("w_ana", w_ana), ("w_syn", w_syn)),
+                    (("bank_ana", bank_ana, w_ana, "analysis"),
+                     ("bank_syn", bank_syn, w_syn, "synthesis")), precision)
+    if (x.shape[1] != 1 or tuple(w_ana.shape[:2]) != (M, 1)
+            or tuple(w_syn.shape[:2]) != (M, M)):
+        raise ValueError("the round trip is mono and full-bank: x "
+                         f"{tuple(x.shape)}, w_ana {tuple(w_ana.shape)}, "
+                         f"w_syn {tuple(w_syn.shape)}, M={M}")
+
+
+def _analysis_cuda(x, w, bank, M, fuse_mask, pad_l, pad_r, precision):
+    _analysis_operands(x, w, bank, precision)
+    B, _, T = x.shape
+    Mb, _, K = w.shape
+    out = torch.empty(_analysis_shape(x, w, M, pad_l, pad_r),
+                      dtype=torch.float32, device=x.device)
+    args = (out.data_ptr(), B, T, M, Mb, K, out.shape[-1], pad_l,
+            int(fuse_mask))
+    with torch.cuda.device(x.device):
+        if precision == "highest":
+            _launch("pqmf_analysis_conv", x.data_ptr(), w.data_ptr(), *args)
+        else:
+            _launch("pqmf_tc_analysis_conv", x.data_ptr(), bank.data_ptr(),
+                    *args, _PASSES[precision])
+    LAUNCHES["analysis"] += 1
+    return out
+
+
+def _synthesis_cuda(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
+                    precision):
+    _synthesis_operands(x, w, bank, precision)
+    B, Mb, T = x.shape
+    M, _, K = w.shape
+    out = torch.empty(_synthesis_shape(x, w, pad_l, pad_r),
+                      dtype=torch.float32, device=x.device)
+    args = (out.data_ptr(), B, Mb, T, M, K, out.shape[1], pad_l,
+            int(fuse_mask), int(x_offset))
+    with torch.cuda.device(x.device):
+        if precision == "highest":
+            _launch("pqmf_synthesis_conv", x.data_ptr(), w.data_ptr(), *args)
+        else:
+            _launch("pqmf_tc_synthesis_conv", x.data_ptr(), bank.data_ptr(),
+                    *args, _PASSES[precision])
+    LAUNCHES["synthesis"] += 1
+    return out
+
+
+def _roundtrip_cuda(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
+                    syn_pad_l, syn_pad_r, precision):
+    _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, precision)
+    B, _, T = x.shape
+    Ka, Ks = w_ana.shape[-1], w_syn.shape[-1]
+    T_ana = (pad_l + T + pad_r - Ka) // M + 1
+    out = torch.empty(_roundtrip_shape(x, w_ana, w_syn, M, pad_l, pad_r,
+                                       syn_pad_l, syn_pad_r),
+                      dtype=torch.float32, device=x.device)
+    args = (out.data_ptr(), B, T, M, Ka, Ks, T_ana, out.shape[1], pad_l,
+            syn_pad_l)
+    with torch.cuda.device(x.device):
+        if precision == "highest":
+            _launch("pqmf_roundtrip_conv", x.data_ptr(), w_ana.data_ptr(),
+                    w_syn.data_ptr(), *args)
+        else:
+            _launch("pqmf_tc_roundtrip_conv", x.data_ptr(),
+                    bank_ana.data_ptr(), bank_syn.data_ptr(), *args,
+                    _PASSES[precision])
+    LAUNCHES["roundtrip"] += 1
+    return out
+
+
+def _analysis_cpu(x, w, bank, M, fuse_mask, pad_l, pad_r, precision):
+    _analysis_operands(x, w, bank, precision)
+    return analysis_conv_plain(x, w, M, fuse_mask, (pad_l, pad_r), precision)
+
+
+def _synthesis_cpu(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
+                   precision):
+    _synthesis_operands(x, w, bank, precision)
+    return synthesis_conv_plain(x, w, fuse_mask, x_offset, precision,
+                                (pad_l, pad_r))
+
+
+def _roundtrip_cpu(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
+                   syn_pad_l, syn_pad_r, precision):
+    _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, precision)
+    return roundtrip_conv_plain(x, w_ana, w_syn, M, (syn_pad_l, syn_pad_r),
+                                precision, (pad_l, pad_r))
+
+
+for _name, _cuda, _cpu in [("analysis_conv", _analysis_cuda, _analysis_cpu),
+                           ("synthesis_conv", _synthesis_cuda,
+                            _synthesis_cpu),
+                           ("roundtrip_conv", _roundtrip_cuda,
+                            _roundtrip_cpu)]:
+    _LIB.impl(_name, _cuda, "CUDA")
+    _LIB.impl(_name, _cpu, "CPU")
+
+
+@torch.library.register_fake("pqmf_tpu_torch::analysis_conv", lib=_LIB)
+def _analysis_fake(x, w, bank, M, fuse_mask, pad_l, pad_r, precision):
+    return x.new_empty(_analysis_shape(x, w, M, pad_l, pad_r))
+
+
+@torch.library.register_fake("pqmf_tpu_torch::synthesis_conv", lib=_LIB)
+def _synthesis_fake(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
+                    precision):
+    return x.new_empty(_synthesis_shape(x, w, pad_l, pad_r))
+
+
+@torch.library.register_fake("pqmf_tpu_torch::roundtrip_conv", lib=_LIB)
+def _roundtrip_fake(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
+                    syn_pad_l, syn_pad_r, precision):
+    return x.new_empty(_roundtrip_shape(x, w_ana, w_syn, M, pad_l, pad_r,
+                                        syn_pad_l, syn_pad_r))
 
 
 def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
@@ -635,7 +856,9 @@ def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
     ``T_out = (left + T + right - K) // M + 1``. ``precision`` "highest"
     launches K1, "bf16x3" / "default" K1t, which reads ``bank`` =
     ``arrange_tc_bank(w, "analysis", precision)`` where the caller keeps
-    one (else it is arranged for the call)."""
+    one (else it is arranged for the call). Every check runs here, on
+    static shapes; the call itself is the operator
+    ``pqmf_tpu_torch::analysis_conv``."""
     fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
@@ -654,25 +877,19 @@ def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
     if B < 1 or T_out < 1:
         raise ValueError(f"empty analysis output: B={B}, T={T}, pad={pad}, "
                          f"K={K}")
-    if dev.type == "cpu":
-        return analysis_conv_plain(x, w, M, fuse_mask, (pad_l, pad_r),
-                                   precision)
-    if (smem_bytes("analysis", M, Mb, K, 0) > SMEM_LIMIT
-            or smem_bytes("analysis", M, Mb, K, 0, precision) > SMEM_LIMIT):
-        raise ValueError(f"analysis kernel length {K} exceeds the kernel's "
-                         "shared memory; gate with supports()")
-    if precision != "highest":
-        bank = _tc_bank(bank, w, "analysis", precision)
-    out = torch.empty((B, Mb, T_out), dtype=torch.float32, device=dev)
-    args = (out.data_ptr(), B, T, M, Mb, K, T_out, pad_l, int(fuse_mask))
-    with torch.cuda.device(dev):
-        if precision == "highest":
-            _launch("pqmf_analysis_conv", x.data_ptr(), w.data_ptr(), *args)
-        else:
-            _launch("pqmf_tc_analysis_conv", x.data_ptr(),
-                    bank.words.data_ptr(), *args, _PASSES[precision])
-    LAUNCHES["analysis"] += 1
-    return out
+    if dev.type == "cuda":
+        if (smem_bytes("analysis", M, Mb, K, 0) > SMEM_LIMIT
+                or smem_bytes("analysis", M, Mb, K, 0, precision)
+                > SMEM_LIMIT):
+            raise ValueError(f"analysis kernel length {K} exceeds the "
+                             "kernel's shared memory; gate with supports()")
+        if precision != "highest":
+            bank = _tc_bank(bank, w, "analysis", precision)
+    else:  # the plain version reads no arranged bank
+        bank = None
+    return OPS.analysis_conv.default(
+        x, w, None if bank is None else bank.words, M, bool(fuse_mask),
+        pad_l, pad_r, precision)
 
 
 def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
@@ -689,7 +906,8 @@ def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
     ``T_out = left + T + right - K + 1``. ``precision`` "highest" launches
     K2, "bf16x3" / "default" K2t, which reads ``bank`` =
     ``arrange_tc_bank(w, "synthesis", precision)`` where the caller keeps
-    one (else it is arranged for the call)."""
+    one (else it is arranged for the call). Every check runs here; the
+    call itself is the operator ``pqmf_tpu_torch::synthesis_conv``."""
     fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
@@ -707,26 +925,19 @@ def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
     if B < 1 or T_out < 1:
         raise ValueError(f"empty synthesis output: B={B}, T={T}, pad={pad}, "
                          f"K={K}")
-    if dev.type == "cpu":
-        return synthesis_conv_plain(x, w, fuse_mask, x_offset, precision,
-                                    (pad_l, pad_r))
-    if (smem_bytes("synthesis", M, Mb, 0, K) > SMEM_LIMIT
-            or smem_bytes("synthesis", M, Mb, 0, K, precision) > SMEM_LIMIT):
-        raise ValueError(f"synthesis bank [{M}, {Mb}, {K}] exceeds the "
-                         "kernel's shared memory; gate with supports()")
-    if precision != "highest":
-        bank = _tc_bank(bank, w, "synthesis", precision)
-    out = torch.empty((B, T_out, M), dtype=torch.float32, device=dev)
-    args = (out.data_ptr(), B, Mb, T, M, K, T_out, pad_l, int(fuse_mask),
-            int(x_offset))
-    with torch.cuda.device(dev):
-        if precision == "highest":
-            _launch("pqmf_synthesis_conv", x.data_ptr(), w.data_ptr(), *args)
-        else:
-            _launch("pqmf_tc_synthesis_conv", x.data_ptr(),
-                    bank.words.data_ptr(), *args, _PASSES[precision])
-    LAUNCHES["synthesis"] += 1
-    return out
+    if dev.type == "cuda":
+        if (smem_bytes("synthesis", M, Mb, 0, K) > SMEM_LIMIT
+                or smem_bytes("synthesis", M, Mb, 0, K, precision)
+                > SMEM_LIMIT):
+            raise ValueError(f"synthesis bank [{M}, {Mb}, {K}] exceeds the "
+                             "kernel's shared memory; gate with supports()")
+        if precision != "highest":
+            bank = _tc_bank(bank, w, "synthesis", precision)
+    else:  # the plain version reads no arranged bank
+        bank = None
+    return OPS.synthesis_conv.default(
+        x, w, None if bank is None else bank.words, bool(fuse_mask),
+        int(x_offset), pad_l, pad_r, precision)
 
 
 def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
@@ -746,7 +957,8 @@ def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
     "bf16x3" / "default" K3t, which reads ``banks`` =
     ``(arrange_tc_bank(w_ana, "analysis", tier), arrange_tc_bank(w_syn,
     "synthesis", tier))`` where the caller keeps them (else they are
-    arranged for the call)."""
+    arranged for the call). Every check runs here; the call itself is the
+    operator ``pqmf_tpu_torch::roundtrip_conv``."""
     fb.check_precision(precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
@@ -775,25 +987,15 @@ def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
         ba, bs = banks
         banks = (_tc_bank(ba, w_ana, "analysis", precision),
                  _tc_bank(bs, w_syn, "synthesis", precision))
-    if dev.type == "cpu":
-        return roundtrip_conv_plain(x, w_ana, w_syn, M, (pad_l, pad_r),
-                                    precision, (pa_l, pa_r))
-    if not fused_roundtrip_supported(M, Ka, Ks, precision):
-        raise ValueError(f"fused round trip of M={M}, Ka={Ka}, Ks={Ks} "
-                         "exceeds the kernel's shared memory; gate with "
-                         "fused_roundtrip_supported()")
-    if precision != "highest" and banks is None:
-        banks = (arrange_tc_bank(w_ana, "analysis", precision),
-                 arrange_tc_bank(w_syn, "synthesis", precision))
-    out = torch.empty((B, T_out, M), dtype=torch.float32, device=dev)
-    args = (out.data_ptr(), B, T, M, Ka, Ks, T_ana, T_out, pa_l, pad_l)
-    with torch.cuda.device(dev):
-        if precision == "highest":
-            _launch("pqmf_roundtrip_conv", x.data_ptr(), w_ana.data_ptr(),
-                    w_syn.data_ptr(), *args)
-        else:
-            _launch("pqmf_tc_roundtrip_conv", x.data_ptr(),
-                    banks[0].words.data_ptr(), banks[1].words.data_ptr(),
-                    *args, _PASSES[precision])
-    LAUNCHES["roundtrip"] += 1
-    return out
+    if dev.type == "cuda":
+        if not fused_roundtrip_supported(M, Ka, Ks, precision):
+            raise ValueError(f"fused round trip of M={M}, Ka={Ka}, Ks={Ks} "
+                             "exceeds the kernel's shared memory; gate with "
+                             "fused_roundtrip_supported()")
+        if precision != "highest" and banks is None:
+            banks = (arrange_tc_bank(w_ana, "analysis", precision),
+                     arrange_tc_bank(w_syn, "synthesis", precision))
+    words = (None, None) if banks is None else (banks[0].words,
+                                                banks[1].words)
+    return OPS.roundtrip_conv.default(x, w_ana, w_syn, *words, M, pa_l, pa_r,
+                                      pad_l, pad_r, precision)

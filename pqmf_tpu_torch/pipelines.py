@@ -368,8 +368,10 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
 
         L = self.band_overlap
         full = S.hann_window(2 * L, self.device) if L > 0 else None
-        self._fade_out = full[:L] if L > 0 else None
-        self._fade_in = full[L:] if L > 0 else None
+        # copies, not views of the cached window: each is a tensor of its
+        # own in an exported program
+        self._fade_out = full[:L].clone() if L > 0 else None
+        self._fade_in = full[L:].clone() if L > 0 else None
         self._state = self.init_state()
 
     # -- pure functional API -------------------------------------------------

@@ -970,3 +970,165 @@ def test_train_step_leaves_tf32_flags_as_found(dev):
     finally:
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+
+
+# -- the ahead-of-time artifact on the card -----------------------------------
+
+TA_SHIFTS16 = [3.2, -48.5, 12.3, 0, 7, -24, 1, 2, 3, 4, 5, 6, -6, -12, 9,
+               -30]
+
+
+def _aot_wrapper(kind, tier):
+    if kind == "flagship":
+        return PQMFPitchShiftWrapper(100, 16, 8192, 44100, SHIFTS16,
+                                     precision=tier, device="cuda")
+    if kind == "ta":
+        return PQMFPitchShiftWrapperTA(100, 16, 8192, 44100, TA_SHIFTS16,
+                                       precision=tier, device="cuda")
+    return PQMFWrapper(100, 16, 8192, precision=tier, device="cuda")
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("kind", ["flagship", "ta", "plain"])
+def test_aot_program_bit_equal_to_live(dev, tmp_path, kind, tier):
+    """The reloaded torch.export program on the card equals the live
+    wrapper bit for bit over two blocks (the flagship's tail carried),
+    launching one K1 and one K2 a block and no plain version."""
+    from pqmf_tpu_torch.export import load_stablehlo, save_artifact
+
+    w = _aot_wrapper(kind, tier)
+    program = load_stablehlo(save_artifact(w, str(tmp_path / "a"),
+                                           with_stablehlo=True))
+    g = torch.Generator().manual_seed(3)
+    xs = [torch.randn(1, 1, 8192, generator=g).to(dev) * 0.3
+          for _ in range(2)]
+    tail_p = tail_l = w.init_state()["prev_tail"] if kind == "flagship" \
+        else None
+    got, want = [], []
+    cc.reset_launches()
+    for x in xs:
+        if kind == "flagship":
+            tail_p, y = program(tail_p, x[0])
+            got.append(y)
+        elif kind == "ta":
+            got.append(program(x))
+        else:
+            got.extend(program(x))
+    torch.cuda.synchronize()
+    assert dict(cc.LAUNCHES) == {"analysis": 2, "synthesis": 2,
+                                 "roundtrip": 0}
+    for x in xs:
+        if kind == "flagship":
+            state, y = w.pitchshift_fn({"prev_tail": tail_l}, x[0])
+            tail_l = state["prev_tail"]
+            want.append(y)
+        elif kind == "ta":
+            want.append(w.pitchshifter(x))
+        else:
+            want.extend(w.process(x))
+    if kind == "flagship":
+        got.append(tail_p)
+        want.append(tail_l)
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+def test_operators_launch_and_count(dev, tier):
+    """The kernel operators called directly on CUDA tensors launch the
+    kernel of their tier (one count each) and equal the public
+    functions."""
+    hkf, hki = _bank(16, dev)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1, 1, 8192, generator=g).to(dev)
+    sub = torch.randn(1, 16, 512, generator=g).to(dev)
+    banks = ((None, None) if tier == "highest" else
+             (cc.arrange_tc_bank(hkf, "analysis", tier).words,
+              cc.arrange_tc_bank(hki, "synthesis", tier).words))
+    cc.reset_launches()
+    a = cc.OPS.analysis_conv.default(x, hkf, banks[0], 16, True, 256, 256,
+                                     tier)
+    s = cc.OPS.synthesis_conv.default(sub, hki, banks[1], True, 0, 16, 16,
+                                      tier)
+    r = cc.OPS.roundtrip_conv.default(x, hkf, hki, *banks, 16, 256, 256, 16,
+                                      16, tier)
+    torch.cuda.synchronize()
+    assert dict(cc.LAUNCHES) == {"analysis": 1, "synthesis": 1,
+                                 "roundtrip": 1}
+    assert torch.equal(a, cc.strided_analysis_conv(
+        x, hkf, 16, pad=(256, 256), precision=tier))
+    assert torch.equal(s, cc.dense_synthesis_conv(
+        sub, hki, pad=(16, 16), precision=tier))
+    assert torch.equal(r, cc.fused_roundtrip_conv(
+        x, hkf, hki, 16, (16, 16), tier, pad=(256, 256)))
+
+
+@pytest.mark.parametrize("kind", ["flagship", "ta", "plain"])
+def test_aot_program_checks_its_arguments(dev, tmp_path, kind):
+    """On the card the reloaded program refuses a float64 block (the
+    kernels would read its bytes as f32) and copies a strided one (one
+    channel of interleaved stereo) contiguous before K1 reads it: the
+    output equals the live wrapper's bit for bit."""
+    from pqmf_tpu_torch.export import load_stablehlo, save_artifact
+
+    w = _aot_wrapper(kind, "highest")
+    program = load_stablehlo(save_artifact(w, str(tmp_path / "a"),
+                                           with_stablehlo=True))
+    g = torch.Generator().manual_seed(6)
+    stereo = (torch.randn(8192, 2, generator=g) * 0.3).to(dev)
+    x = stereo[:, 0][None]
+    assert not x.is_contiguous()
+    head = (w.init_state()["prev_tail"],) if kind == "flagship" else ()
+    as_arg = (lambda t: t) if kind == "flagship" else (lambda t: t[None])
+    cc.reset_launches()
+    with pytest.raises(ValueError, match="float64"):
+        program(*head, as_arg(x.double()))
+    assert dict(cc.LAUNCHES) == {"analysis": 0, "synthesis": 0,
+                                 "roundtrip": 0}
+    got = program(*head, as_arg(x))
+    if kind == "flagship":
+        want = w.pitchshift_fn({"prev_tail": head[0]}, x.contiguous())
+    elif kind == "ta":
+        want = w.pitchshifter(as_arg(x.contiguous()))
+    else:
+        want = w.process(as_arg(x.contiguous()))
+    for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (got, want))):
+        b = b["prev_tail"] if isinstance(b, dict) else b
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["x float64", "x strided", "w on the cpu",
+                                  "bank shape", "no bank"])
+def test_operators_refuse_bad_operands_on_the_card(dev, case):
+    """The CUDA impls check the operands they take pointers of: a float64,
+    strided or misplaced operand, or a tier bank of the wrong shape or
+    none, raises before any launch."""
+    hkf, _ = _bank(16, dev)
+    x = torch.zeros((1, 1, 8192), device=dev)
+    words = cc.arrange_tc_bank(hkf, "analysis", "bf16x3").words
+    args = {"x float64": (x.double(), hkf, words),
+            "x strided": (torch.zeros((1, 8192, 2), device=dev)[..., 0]
+                          [:, None], hkf, words),
+            "w on the cpu": (x, hkf.cpu(), words),
+            "bank shape": (x, hkf, words[:1]),
+            "no bank": (x, hkf, None)}[case]
+    cc.reset_launches()
+    with pytest.raises(ValueError):
+        cc.OPS.analysis_conv.default(*args, 16, True, 256, 256, "bf16x3")
+    assert cc.LAUNCHES["analysis"] == 0
+
+
+def test_gpu_checks_pass(dev):
+    """``tools/gpu_checks.py`` (the checks chip_smoke.py does not make)
+    ends in ALL PASS and exits 0 on the card. Its lines are printed (``-rP``
+    shows them): this test is the script's one run in a card call."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "tools/gpu_checks.py"], cwd=root,
+                         capture_output=True, text=True, timeout=900)
+    print(res.stdout)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert res.stdout.rstrip().endswith("ALL PASS")

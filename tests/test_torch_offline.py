@@ -433,8 +433,11 @@ def test_artifact_flagship_cross_load(tmp_path):
 
 def test_artifact_refusals(tmp_path):
     w = PQMFWrapper(100, 4, 512, device="cpu")
-    with pytest.raises(ValueError, match="item 11"):
-        save_artifact(w, str(tmp_path / "a"), with_stablehlo=True)
+    # an AOT export that fails (a block length the wrapper refuses) raises
+    # and writes nothing
+    with pytest.raises(RuntimeError, match="torch.export program"):
+        save_artifact(w, str(tmp_path / "a"), with_stablehlo=True,
+                      example_length=513)
     assert not (tmp_path / "a").exists()
     with pytest.raises(ValueError, match="no artifact"):
         save_artifact(PQMF(100, 4, device="cpu"), str(tmp_path / "b"))

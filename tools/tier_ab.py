@@ -20,6 +20,23 @@ banks (``bank=`` / ``tc_bank=`` / ``banks=``), they are built once
 beforehand, as the entry points build them when weights are installed.
 Prints the card's name and power limit, then one JSON line per checkout
 and round.
+
+    python3 tools/tier_ab.py OTHER_CHECKOUT --what flagship
+
+times instead the live flagship block (``PQMFPitchShiftWrapper``, atten
+100, 16 bands, 8192 samples, the smoke's shifts, state carried) at each
+tier: ms a block by CUDA events over 200 blocks (best of 3 windows) and
+the host clock's median over 200 synchronized blocks — the host-bound
+step, where a change to the Python around the kernels (the operator
+dispatch, for one) shows; and, since those move by tenths of a ms between
+processes, the host's cost of the step's two conv calls alone
+(``StreamingPQMF.forward`` of one block and ``inverse`` of its sub-bands,
+K1 + K2) in us: 2000 pairs enqueued back to back, best of 5 windows. In a
+checkout whose kernels are operators, the pair four times more in the
+same process with the dispatcher bypassed (the impls called straight from
+the wrappers) and through the operators, in turn: the dispatch's cost is
+the gap between the two routes, beside the spread of each; and the host's
+cost of the operators' operand checks alone.
 """
 
 from __future__ import annotations
@@ -126,15 +143,155 @@ def measure() -> dict:
     return out
 
 
+SHIFTS16 = [0, 4, -5, -12, 3, -7, 2, -3, 5, -9, 1, -1, -4, -6, -2, -24]
+
+
+def measure_flagship() -> dict:
+    """The live flagship block of the checkout on sys.path[0], per tier:
+    CUDA events (ms a block, best of 3 windows of 200), the host clock's
+    median (ms) and the host's cost of the block's two conv calls (us a
+    pair, best of 5 windows of 2000). Where the checkout's kernels are
+    operators (``cached_conv.OPS``), the pair is measured four times more
+    with the dispatcher bypassed (the operators' CUDA impls called
+    straight from the wrappers: the launch as it was before the
+    registration) and through the operators, in turn; where the impls
+    check their operands, the checks alone are timed too."""
+    import contextlib
+    import time
+
+    import numpy as np
+    import torch
+
+    from pqmf_tpu_torch import PQMFPitchShiftWrapper
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+
+    @contextlib.contextmanager
+    def impls_direct():
+        ops = cc.OPS
+
+        class Direct:
+            analysis_conv = type("A", (), {"default": staticmethod(
+                cc._analysis_cuda)})
+            synthesis_conv = type("S", (), {"default": staticmethod(
+                cc._synthesis_cuda)})
+
+        cc.OPS = Direct
+        try:
+            yield
+        finally:
+            cc.OPS = ops
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 8192)).astype(np.float32) * 0.3).cuda()
+    out = {}
+    for tier in ("highest", "bf16x3", "default"):
+        w = PQMFPitchShiftWrapper(100, 16, 8192, 44100, SHIFTS16,
+                                  precision=tier, device="cuda")
+        sp, xb = w.pqmf, x[None]
+        sub = sp.forward(xb)
+        state = [w.init_state()]
+        for _ in range(20):
+            state[0], _ = w.pitchshift_fn(state[0], x)
+        torch.cuda.synchronize()
+
+        def block_ms():
+            best = float("inf")
+            for _ in range(3):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(200):
+                    state[0], _ = w.pitchshift_fn(state[0], x)
+                b.record()
+                b.synchronize()
+                best = min(best, a.elapsed_time(b) / 200)
+            return best
+
+        def pair_us():
+            # the card's ~12 us of K1 + K2 a pair runs behind the enqueue
+            best = float("inf")
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    sp.forward(xb)
+                    sp.inverse(sub)
+                torch.cuda.synchronize()
+                best = min(best, (time.perf_counter() - t0) / 2000 * 1e6)
+            return best
+
+        out[f"flagship block {tier} events ms"] = block_ms()
+        host = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            state[0], _ = w.pitchshift_fn(state[0], x)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        out[f"flagship block {tier} host median ms"] = float(
+            np.median(host))
+        out[f"K1+K2 calls {tier} host us"] = pair_us()
+        if hasattr(cc, "OPS"):
+            # the two routes in turn, so that the spread of one route's
+            # passes shows beside the gap between the routes
+            op, direct = [], []
+            for _ in range(4):
+                with impls_direct():
+                    direct.append(pair_us())
+                op.append(pair_us())
+            out[f"K1+K2 calls {tier} host us, impls direct x4"] = direct
+            out[f"K1+K2 calls {tier} host us, through the op x4"] = op
+        if hasattr(cc, "_check_operands"):
+            out[f"K1+K2 operand checks {tier} host us"] = checks_us(
+                cc, sp, xb, sub)
+    return out
+
+
+def checks_us(cc, sp, xb, sub) -> float:
+    """The host's cost of the operand checks of one block's K1 + K2 calls
+    (``cached_conv._analysis_operands`` / ``_synthesis_operands`` on the
+    arguments the operators get), us a pair, best of 5 windows of 2000."""
+    import time
+
+    seen = {}
+    ops = cc.OPS
+
+    class Record:
+        def __getattr__(self, name):
+            def default(*args):
+                seen[name] = args
+                return getattr(ops, name).default(*args)
+            return type("R", (), {"default": staticmethod(default)})
+
+    cc.OPS = Record()
+    try:
+        sp.forward(xb)
+        sp.inverse(sub)
+    finally:
+        cc.OPS = ops
+    a, s = seen["analysis_conv"], seen["synthesis_conv"]
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            cc._analysis_operands(a[0], a[1], a[2], a[7])
+            cc._synthesis_operands(s[0], s[1], s[2], s[7])
+        best = min(best, (time.perf_counter() - t0) / 2000 * 1e6)
+    return best
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", help="root of the other checkout")
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--what", choices=("tiers", "flagship"), default="tiers",
+                   help="the tier kernels' device times (default) or the "
+                        "live flagship block")
     p.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.measure:  # the child: this process times the checkout it runs in
         sys.path.insert(0, os.getcwd())
-        print(json.dumps(measure()))
+        print(json.dumps(measure_flagship() if args.what == "flagship"
+                         else measure()))
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -147,14 +304,15 @@ def main(argv=None) -> int:
                            ("other", other)):
             res = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), str(root),
-                 "--measure"], cwd=root, capture_output=True, text=True,
-                timeout=900)
+                 "--what", args.what, "--measure"], cwd=root,
+                capture_output=True, text=True, timeout=900)
             if res.returncode:
                 print(res.stderr[-3000:], file=sys.stderr)
                 return res.returncode
             print(json.dumps({"checkout": name, "root": str(root),
                               "round": r,
-                              "device_us": json.loads(
+                              ("device_us" if args.what == "tiers"
+                               else "flagship_ms"): json.loads(
                                   res.stdout.strip().splitlines()[-1])}))
     return 0
 
