@@ -19,7 +19,9 @@ fails without them; it never falls back to the CPU and imports no JAX.
    the offline PQMF's polyphase adapters over them, K4/K5/K6 — against its
    plain PyTorch version on the card, at the main paths' shapes and at edge
    cases (K1 at its tile boundaries with in-kernel pads, small and large
-   calls; K4-K6 at M = 4, 16, 32, 64 and on the 60 s signal). Then the
+   calls; K3 at M = 32 and 64, ``roundtrip_chunked_kernel``, at host
+   blocks of B = 1, 3, 16 with lopsided synthesis pads and on the 60 s
+   signal; K4-K6 at M = 4, 16, 32, 64 and on the 60 s signal). Then the
    tensor-core tier kernels K1t/K2t/K3t of ``csrc/cached_conv_tc.cu`` (and
    K4-K6 over them) at ``bf16x3`` and ``default`` against the plain
    versions at the same tier: the same shapes; K1t/K2t at the tiles their
@@ -46,13 +48,19 @@ fails without them; it never falls back to the CPU and imports no JAX.
      inputs against the CPU;
    - the offline path, with every plain version made to raise: ``PQMF``
      (atten 100, 16 bands) ``forward``/``inverse``/``roundtrip`` on the 60 s
-     signal and a stereo batch, the fine-tuned bank, the M=32 round trip,
+     signal and a stereo batch, the fine-tuned bank, the M=32 round trip
+     (one K6, as at every M),
      ``PQMFWrapper.process``, its artifact saved and reloaded, and the
      ``export_pqmf`` CLI on a 10 s wav. Each call's launches are exact, its
      output matches the CPU port, and the 60 s round trips keep the banks'
      SNRs to 0.01 dB (65.1997 dB streaming at delay 16, 55.2262 dB
      designed at delay 0, 104.2123 dB fine-tuned at ``edge_trim=1024``);
-     ``PQMF`` at each tier on 60 s (55.2262 dB at ``bf16x3``);
+     ``PQMF`` at each tier on 60 s (55.2262 dB at ``bf16x3``); the
+     committed fine-tuned M = 32 and 64 banks through
+     ``StreamingPQMF.roundtrip`` and ``PQMF.roundtrip`` on 60 s at each
+     tier: one K3 (K3t) launch each and no K1/K2, equal to the CPU port at
+     ``highest``, the steady-state SNR above the JAX package's floors (99 /
+     98 dB; the ``default`` tier >= 45 dB);
    - the torchaudio variant (``PQMFPitchShiftWrapperTA``, 16 bands, 8192
      blocks, the reference's shift range) at B = 1 and B = 16, the 8-band x
      2048 edge case (Tb = 256) and a 10 s whole file, plain versions
@@ -93,7 +101,9 @@ fails without them; it never falls back to the CPU and imports no JAX.
    kernel reading its kept arranged banks, K3t's device time beside K1t +
    K2t's at [1,1,8704] and [16,1,8704] and beside K6t's and K4t + K5t's on
    60 s, the flagship block and 16-stream step at ``default`` and the 60 s
-   round trips at ``bf16x3``.
+   round trips at ``bf16x3``. K3 and K3t at M = 32 and 64 on 60 s against
+   their plain versions, bounded as above, their device time there and at
+   a host block beside the K1 + K2 (K1t + K2t) composition's.
 
 5. Fine-tuning (``parallel/training.py``) on the card: (a) one loss and
    gradient of the fine-tune loss at the committed recipe's full width (M
@@ -150,7 +160,22 @@ PASSES = {"highest": 1, "bf16x3": 3, "default": 1}
 # the lo half's rounding moves by one of its ulps (2^-17 of the mid) on
 # about 2^-6 of the mids, past K3_TOL's 1e-5 on some outputs at M=2.
 K3T_BF16X3_TOL = K12_TOL
-K3T_DEFAULT_OFF = 0.05  # most outputs a flipped mid may take past K3_TOL
+# K3t/K6 at "default": the most outputs flipped mids may take past K3_TOL,
+# by the bank's M. A flip moves Ks * M outputs, so the share is lumpy on a
+# small call and grows with M. M <= 16 keeps its earlier bar (the most an
+# NVIDIA H100 80GB HBM3 read there: 4.1%); at M = 32 and 64 each cap is
+# 1.5 times the most that card read at that M over tools/k3_bands.py's
+# seeds and shapes, tests/test_torch_cuda.py and this script (9.28% and
+# 18.58%), rounded up to a whole percent (PERF.md)
+K3T_DEFAULT_OFF = {16: 0.05, 32: 0.14, 64: 0.28}
+
+
+def k3t_default_off(M: int) -> float:
+    """The share of a ``default``-tier K3t's (K6's) outputs that may leave
+    K3_TOL at ``M`` bands (``K3T_DEFAULT_OFF``; M <= 16 take M = 16's)."""
+    return K3T_DEFAULT_OFF[max(16, M)]
+
+
 # The pitch-shift paths at "default" against the CPU port: their DFT
 # operands are rounded to bf16, and where the card's f32 value (cuBLAS, the
 # card's atan2/cos/sin) differs from the CPU's by an f32 ulp that rounding
@@ -163,6 +188,9 @@ DEFAULT_MARGIN_DB = 25.0
 SNR_STREAM_DB = (65.1997, 0.01)   # StreamingPQMF.roundtrip, delay 16
 SNR_60S_DB = (55.2262, 0.01)      # designed M=16 bank, delay 0, whole signal
 SNR_FINETUNED_DB = (104.2123, 0.01)  # fine-tuned M=16 bank, edge_trim=1024
+# the JAX package's floors for the committed M = 32 / 64 banks' steady-state
+# round trip (tools/tpu_checks.py, tools/gpu_checks.py)
+FINETUNED_FLOOR_DB = {32: 99.0, 64: 98.0}
 # the training phase: card against the pinned CPU port (loss relative, the
 # gradient against max|g|: the loss is the MSE of a residual about 1e-3 of
 # the signal, so f32 summation orders show amplified), and the bars of the
@@ -360,14 +388,14 @@ def _bound(name: str, x, hkf, hki, hp, precision: str = "highest") -> tuple:
         (bytes_ms, "bytes")
 
 
-def _k3t_default_close(got, ref, sub, w_syn, what: str) -> None:
+def _k3t_default_close(got, ref, sub, w_syn, what: str) -> float:
     """K3t/K6 at "default" against their plain versions. The mid is
     rounded to bf16 again: where the kernel's f32 sub-band differs from the
     plain version's by an f32 ulp, that rounding can flip by one bf16 ulp
     (about 2^-15 of the mids). The tolerance follows from that bound: one
     bf16 ulp of the largest sub-band times the largest column sum of
-    |w_syn| times M; and all but K3T_DEFAULT_OFF of the outputs stay
-    within K3_TOL (a flip reaches Ks*M outputs)."""
+    |w_syn| times M; and all but ``k3t_default_off(M)`` of the outputs stay
+    within K3_TOL (a flip reaches Ks*M outputs). Returns that share."""
     import torch
 
     M = w_syn.shape[0]
@@ -377,7 +405,8 @@ def _k3t_default_close(got, ref, sub, w_syn, what: str) -> None:
     err = (got - ref).abs()
     off = (err > K3_TOL["atol"]).float().mean().item()
     assert err.max().item() <= bound + K3_TOL["atol"], (what, err.max(), bound)
-    assert off <= K3T_DEFAULT_OFF, (what, off)
+    assert off <= k3t_default_off(M), (what, off, k3t_default_off(M))
+    return off
 
 
 @contextlib.contextmanager
@@ -394,28 +423,43 @@ def _tf32():
 
 
 def _device_us(fn, n: int) -> float:
-    """Device time per call of ``fn`` (us): the CUDA kernels of ``n`` calls
-    in a torch.profiler trace, after warm-up. A trace that lost its device
-    events is taken again; three lost traces fail the run."""
+    """Device time per call of ``fn`` (us): the CUDA kernels of the median
+    whole call in a torch.profiler trace of 2n calls, after warm-up. A
+    trace can lose kernel events (an NVIDIA H100 kept 6-9 of 10 launches
+    of a 0.9 ms kernel, and none of one call) and once read a 0.16 ms
+    kernel at half its time, so the calls are told apart by their kernel
+    names, which repeat with the period of one call's kernels: the trace
+    is read only where they do (a lost call keeps the period, a lost part
+    of one breaks it), where it holds no more kernels than were launched
+    and at least n whole calls survived, and the median call stands for
+    all. Otherwise the trace is taken again; five such traces fail the
+    run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(5):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(2 * n):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-                    for e in prof.key_averages()
-                    if getattr(e, "device_type", None) == DeviceType.CUDA)
-        if total > 0:
-            return total / n
-    raise RuntimeError("torch.profiler recorded no device time")
+        ev = sorted((e for e in prof.events()
+                     if getattr(e, "device_type", None) == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        names = [e.name for e in ev]
+        period = next((p for p in range(1, len(names) // n + 1)
+                       if names[p:] == names[:-p]), 0)
+        calls = len(ev) // period if period else 0
+        if n <= calls <= 2 * n:
+            per_call = sorted(
+                sum(e.time_range.end - e.time_range.start
+                    for e in ev[c * period:(c + 1) * period])
+                for c in range(calls))
+            return per_call[calls // 2]
+    raise RuntimeError(f"torch.profiler kept no {n} whole calls in 5 traces")
 
 
 # the child process of the AOT phase: it imports only pqmf_tpu_torch's
@@ -777,6 +821,7 @@ def main() -> int:
     from pqmf_tpu_torch.kernels import polyphase as pk
     from pqmf_tpu_torch.ops import filterbank as fb_ops
     from pqmf_tpu_torch.parallel.training import load_pretrained_bank
+    from pqmf_tpu_torch.streaming import centered_padding
     from pqmf_tpu_torch.utils.audio import read_wav, write_wav
     from pqmf_tpu_torch.utils.metrics import aligned_roundtrip_snr_db, snr_db
 
@@ -815,6 +860,19 @@ def main() -> int:
         c_bytes = lib.pqmf_smem_bytes(i, N_BAND, N_BAND, Ka, Ks)
         assert c_bytes == cc.smem_bytes(which, N_BAND, N_BAND, Ka, Ks), which
         print(f"smem {which}: {c_bytes} B")
+    # K3 and K3t at M = 32 and 64: their gates, at the committed banks' and
+    # the offline path's geometries
+    for M_, Ka_, Ks_ in [(32, 1025, 33), (32, 1024, 32), (64, 2049, 33),
+                         (64, 2048, 32)]:
+        c_bytes = lib.pqmf_smem_bytes(3, M_, M_, Ka_, Ks_)
+        t_bytes = lib.pqmf_tc_smem_bytes(3, M_, M_, Ka_, Ks_)
+        assert c_bytes == cc.smem_bytes("roundtrip", M_, M_, Ka_, Ks_)
+        assert t_bytes == cc.smem_bytes("roundtrip", M_, M_, Ka_, Ks_,
+                                        "bf16x3")
+        assert all(cc.fused_roundtrip_supported(M_, Ka_, Ks_, t)
+                   for t in ("highest",) + TIERS), (M_, Ka_, Ks_)
+        print(f"smem roundtrip M={M_} Ka={Ka_} Ks={Ks_}: {c_bytes} B, "
+              f"K3t {t_bytes} B")
     # the launch plans the CUDA source makes, against their Python mirror,
     # at the main paths' shapes (K4-K6 are K1-K3 at the offline geometry)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -839,7 +897,15 @@ def main() -> int:
             ("roundtrip", (1, 16, 16, Ka, Ks, BLOCK // 16)),
             ("roundtrip", (16, 16, 16, Ka, Ks, BLOCK // 16)),
             ("roundtrip", (215, 16, 16, Ka, Ks, OLA_BLOCK // 16)),
-            ("roundtrip", (1, 8, 8, 257, 33, 300))]:
+            ("roundtrip", (1, 8, 8, 257, 33, 300)),
+            ("roundtrip", (1, 32, 32, 1025, 33, 60 * SR // 32 + 1)),
+            ("roundtrip", (1, 32, 32, 1025, 33, BLOCK // 32)),
+            ("roundtrip", (16, 32, 32, 1025, 33, BLOCK // 32)),
+            ("roundtrip", (1, 32, 32, 1024, 32, 60 * SR // 32)),
+            ("roundtrip", (1, 64, 64, 2049, 33, 60 * SR // 64 + 1)),
+            ("roundtrip", (1, 64, 64, 2049, 33, BLOCK // 64)),
+            ("roundtrip", (16, 64, 64, 2049, 33, BLOCK // 64)),
+            ("roundtrip", (1, 64, 64, 2048, 32, 60 * SR // 64))]:
         code = {"analysis": 1, "synthesis": 2, "roundtrip": 3}[which]
         assert lib.pqmf_launch_plan(code, *args, n_sms, plan) == 0
         mirror = cc.launch_plan(which, *args, n_sms=n_sms)
@@ -847,22 +913,23 @@ def main() -> int:
         print(f"plan {which} {args}: grid {mirror[:3]}, {mirror[3]} "
               f"threads, {mirror[4]} steps a tile, {mirror[7]} B")
         # the tier kernels' plans (K1t/K2t/K3t, csrc/cached_conv_tc.cu)
-        if which != "roundtrip" or args[1] in (2, 4, 8, 16):
-            assert lib.pqmf_tc_launch_plan(code, *args, n_sms, plan) == 0
-            mirror = cc.launch_plan(which, *args, n_sms=n_sms,
-                                    precision="bf16x3")
-            assert tuple(plan) == mirror, (which, args, tuple(plan), mirror)
-            gate = lib.pqmf_tc_smem_bytes(code, *args[1:5])
-            assert gate == cc.smem_bytes(which, *args[1:5], "bf16x3")
-            assert mirror[7] <= gate <= cc.SMEM_LIMIT, (mirror, gate)
-            print(f"plan {which}t {args}: grid {mirror[:3]}, {mirror[3]} "
-                  f"threads, {mirror[4]} steps a tile, {mirror[7]} B")
+        assert lib.pqmf_tc_launch_plan(code, *args, n_sms, plan) == 0
+        mirror = cc.launch_plan(which, *args, n_sms=n_sms,
+                                precision="bf16x3")
+        assert tuple(plan) == mirror, (which, args, tuple(plan), mirror)
+        gate = lib.pqmf_tc_smem_bytes(code, *args[1:5])
+        assert gate == cc.smem_bytes(which, *args[1:5], "bf16x3")
+        assert mirror[7] <= gate <= cc.SMEM_LIMIT, (mirror, gate)
+        print(f"plan {which}t {args}: grid {mirror[:3]}, {mirror[3]} "
+              f"threads, {mirror[4]} steps a tile, {mirror[7]} B")
     wa, ws = hkf.to(dev), hki.to(dev)
 
     # -- 2. kernels vs plain, on the card -------------------------------------
     errs = {"analysis": 0.0, "synthesis": 0.0, "roundtrip": 0.0,
             "polyphase_analysis": 0.0, "polyphase_synthesis": 0.0,
-            "polyphase_roundtrip": 0.0}
+            "polyphase_roundtrip": 0.0, "roundtrip_m32": 0.0,
+            "roundtrip_m64": 0.0, "polyphase_roundtrip_m32": 0.0,
+            "polyphase_roundtrip_m64": 0.0}
 
     def check(name, got, ref, tol, what):
         torch.cuda.synchronize()
@@ -925,6 +992,28 @@ def main() -> int:
               cc.roundtrip_conv_plain(x, wa, ws, 16, pad), K3_TOL,
               f"K3 x{tuple(x.shape)} syn_pad={pad}")
 
+    # K3 at M = 32 and 64 (roundtrip_chunked_kernel: the banks stream in
+    # chunks): a host block at B = 1, 3, 16, lopsided synthesis pads, and
+    # the 60 s signal with the centered pads in the kernel; the sums run in
+    # one thread in K1's and K2's order, so K1/K2's bar
+    big = {}
+    for M in (32, 64):
+        sp_m = StreamingPQMF(100, M, device="cpu")
+        big[M] = (sp_m.hkf.to(dev), sp_m.hki.to(dev))
+    for M, (bw_a, bw_s) in big.items():
+        ka, ks = bw_a.shape[-1], bw_s.shape[-1]
+        for x, pad, apad in [
+                (rand(1, 1, BLOCK + ka - 1), (ks // 2, ks // 2), (0, 0)),
+                (rand(3, 1, BLOCK + ka - 1), (3, 0), (0, 0)),
+                (rand(16, 1, BLOCK + ka - 1), (0, 40), (0, 0)),
+                (torch.from_numpy(sixty).to(dev)[None, None],
+                 (ks // 2, ks // 2), (ka // 2, ka // 2))]:
+            check(f"roundtrip_m{M}",
+                  cc.fused_roundtrip_conv(x, bw_a, bw_s, M, pad, pad=apad),
+                  cc.roundtrip_conv_plain(x, bw_a, bw_s, M, pad, pad=apad),
+                  K12_TOL, f"K3 M={M} x{tuple(x.shape)} syn_pad={pad} "
+                  f"pad={apad}")
+
     # K3 with the analysis pad in its window copy: the bits of F.pad and
     # the call
     for x in (rand(1, 1, BLOCK), rand(3, 1, 16 * 301 + 5)):
@@ -957,7 +1046,7 @@ def main() -> int:
     for M, pq in offline.items():
         hp, hi, w2 = pq.params["hk_poly"], pq.params["hk_ipoly"], pq._w2
         L = hp.shape[-1]
-        fused = pk.roundtrip_supported(M, L * M, L)
+        assert pk.roundtrip_supported(M, L * M, L), M  # K6 at every M
         for B in (1, 16):
             x, sub = rand(B, 1, BLOCK), rand(B, M, BLOCK // M)
             check("polyphase_analysis", pk.polyphase_analysis(x, hp, w2),
@@ -966,15 +1055,23 @@ def main() -> int:
             check("polyphase_synthesis", pk.polyphase_synthesis(sub, hi),
                   pk.polyphase_synthesis_plain(sub, hi), K12_TOL,
                   f"K5 M={M} x{tuple(sub.shape)}")
-            if fused:
-                check("polyphase_roundtrip",
-                      pk.polyphase_roundtrip(x, hp, hi, w2),
-                      pk.polyphase_roundtrip_plain(x, hp, hi), K6_TOL,
-                      f"K6 M={M} x{tuple(x.shape)}")
-        print(f"  M={M}: K6 {'runs' if fused else 'not taken (K4 + K5)'}")
+            check("polyphase_roundtrip" if M <= 16
+                  else f"polyphase_roundtrip_m{M}",
+                  pk.polyphase_roundtrip(x, hp, hi, w2),
+                  pk.polyphase_roundtrip_plain(x, hp, hi), K6_TOL,
+                  f"K6 M={M} x{tuple(x.shape)}")
+    # K6 at M = 32 and 64 on the 60 s signal (the main path's shape)
+    raw60 = torch.from_numpy(sixty).to(dev)[None, None]
+    for M in (32, 64):
+        pq = offline[M]
+        hp, hi, w2 = pq.params["hk_poly"], pq.params["hk_ipoly"], pq._w2
+        x6 = raw60[..., : raw60.shape[-1] // M * M]
+        check(f"polyphase_roundtrip_m{M}",
+              pk.polyphase_roundtrip(x6, hp, hi, w2),
+              pk.polyphase_roundtrip_plain(x6, hp, hi), K6_TOL,
+              f"K6 M={M} 60 s x{tuple(x6.shape)}")
     pq16 = offline[16]
     hp, hi, w2 = pq16.params["hk_poly"], pq16.params["hk_ipoly"], pq16._w2
-    raw60 = torch.from_numpy(sixty).to(dev)[None, None]
     sub60 = pk.polyphase_analysis(raw60, hp, w2)
     check("polyphase_analysis", sub60, pk.polyphase_analysis_plain(raw60, hp),
           K12_TOL, f"K4 60 s x{tuple(raw60.shape)}")
@@ -1009,14 +1106,16 @@ def main() -> int:
         assert got.shape == ref.shape, (what, got.shape, ref.shape)
         assert torch.isfinite(got).all(), what
         err = (got - ref).abs().max().item()
+        off = ""
         if w_syn is not None and tier == "default":
-            _k3t_default_close(got, ref, sub, w_syn, what)
+            off = (f", {_k3t_default_close(got, ref, sub, w_syn, what):.4%}"
+                   f" past K3_TOL (M = {w_syn.shape[0]})")
         else:
             tol = K3T_BF16X3_TOL if w_syn is not None else K12_TOL
             torch.testing.assert_close(got, ref, **tol,
                                        msg=lambda m: f"{what}: {m}")
         terrs[name, tier] = max(terrs[name, tier], err)
-        print(f"  {what} [{tier}]: max|err| {err:.3g}")
+        print(f"  {what} [{tier}]: max|err| {err:.3g}{off}")
 
     def nan_junk():
         junk = torch.full((1 << 22,), float("nan"), device=dev)
@@ -1136,13 +1235,32 @@ def main() -> int:
             if cc.fused_roundtrip_supported(M, ka, ks, tier):
                 for pad in [(ks // 2, ks // 2), (3, 0), (0, 40)]:
                     nan_junk()
-                    tcheck("roundtrip", tier,
+                    tcheck("roundtrip" if M <= 16 else f"roundtrip_m{M}",
+                           tier,
                            cc.fused_roundtrip_conv(x, bw_a, bw_s, M, pad,
                                                    tier),
                            cc.roundtrip_conv_plain(x, bw_a, bw_s, M, pad,
                                                    tier),
                            f"K3t M={M} x{tuple(x.shape)} syn_pad={pad}",
                            sub, bw_s)
+            if M >= 32:
+                # the main path's shapes: a whole file past n_sms * 256
+                # steps and the 60 s signal (persistent blocks), the
+                # centered analysis pad in the kernel
+                syn = (ks // 2, ks // 2)
+                for x, apad in [
+                        (rand(1, 1, M * (n_sms * 256 + 64) + ka - 1), (0, 0)),
+                        (raw60, (ka // 2, ka // 2))]:
+                    nan_junk()
+                    tcheck(f"roundtrip_m{M}", tier,
+                           cc.fused_roundtrip_conv(x, bw_a, bw_s, M, syn,
+                                                   tier, pad=apad),
+                           cc.roundtrip_conv_plain(x, bw_a, bw_s, M, syn,
+                                                   tier, pad=apad),
+                           f"K3t M={M} x{tuple(x.shape)} syn_pad={syn} "
+                           f"pad={apad}",
+                           cc.strided_analysis_conv(x, bw_a, M, pad=apad),
+                           bw_s)
         k3t_tile = cc.launch_plan("roundtrip", 1, 16, 16, Ka, Ks, 1000,
                                   precision=tier)[4]
         # one step short of and one past a multiple of the tile, with
@@ -1202,11 +1320,20 @@ def main() -> int:
                        pk.polyphase_synthesis_plain(sub, hi_m, tier),
                        f"K5 M={M} x{tuple(sub.shape)}")
                 if pk.roundtrip_supported(M, L * M, L, tier):
-                    tcheck("polyphase_roundtrip", tier,
+                    tcheck("polyphase_roundtrip" if M <= 16
+                           else f"polyphase_roundtrip_m{M}", tier,
                            pk.polyphase_roundtrip(x, hp_m, hi_m, w2_m, tier),
                            pk.polyphase_roundtrip_plain(x, hp_m, hi_m, tier),
                            f"K6 M={M} x{tuple(x.shape)}",
                            pk.polyphase_analysis(x, hp_m, w2_m), hi_m)
+            if M >= 32:  # the main path's shape: 60 s
+                x6 = raw60[..., : raw60.shape[-1] // M * M]
+                nan_junk()
+                tcheck(f"polyphase_roundtrip_m{M}", tier,
+                       pk.polyphase_roundtrip(x6, hp_m, hi_m, w2_m, tier),
+                       pk.polyphase_roundtrip_plain(x6, hp_m, hi_m, tier),
+                       f"K6 M={M} 60 s x{tuple(x6.shape)}",
+                       pk.polyphase_analysis(x6, hp_m, w2_m), hi_m)
         sub60_t = pk.polyphase_analysis(raw60, hp, w2, tier)
         tcheck("polyphase_analysis", tier, sub60_t,
                pk.polyphase_analysis_plain(raw60, hp, tier), "K4 60 s")
@@ -1435,7 +1562,7 @@ def main() -> int:
             "stereo roundtrip": counted(rt, rt, st_gpu.roundtrip, stereo),
             "fine-tuned 60 s roundtrip": counted(rt, rt, ft_gpu.roundtrip,
                                                  raw60),
-            "M=32 roundtrip": counted(both, both, m32_gpu.roundtrip,
+            "M=32 roundtrip": counted(rt, rt, m32_gpu.roundtrip,
                                       stereo[0, :1]),
         }
         st_sub = g_off["stereo forward"]
@@ -1515,6 +1642,79 @@ def main() -> int:
               f"round trip SNR at delay 0 {t_db:.4f} dB")
         if tier == "bf16x3":
             assert abs(t_db - SNR_60S_DB[0]) <= SNR_60S_DB[1], t_db
+
+    # the committed fine-tuned banks at M = 32 and 64 through
+    # StreamingPQMF.roundtrip and PQMF.roundtrip (K6) on the 60 s signal, at
+    # each tier: one K3 (K3t) launch each and no K1/K2, every plain version
+    # refused, counts zeroed just before and read just after; at "highest"
+    # equal to the CPU port, and the steady-state SNR (the readout of
+    # parallel.training.roundtrip_snr) above the JAX package's floors at
+    # "highest" and "bf16x3", >= 45 dB at "default"
+    big_launches, big_k6_launches, big_db = {}, {}, {}
+    for M in (32, 64):
+        bank = load_pretrained_bank(f"hk{M}_atten100_finetuned")
+        x_m = sixty[: len(sixty) // M * M][None, None]
+        x_m_dev = torch.from_numpy(x_m).to(dev)
+        for tier in ("highest",) + TIERS:
+            sp_g = StreamingPQMF(100, M, precision=tier, device="cuda")
+            pq_g = PQMF(100, M, precision=tier, device="cuda")
+            sp_g.set_weights(bank)
+            pq_g.set_weights(bank)
+            cc.reset_launches()
+            pk.reset_launches()
+            with _plain_versions_refused():
+                y_sp = counted(rt, {}, sp_g.roundtrip, x_m_dev)
+                y_pq = counted(rt, rt, pq_g.roundtrip, x_m_dev)
+            big_launches[M, tier] = cc.LAUNCHES["roundtrip"]
+            big_k6_launches[M, tier] = pk.LAUNCHES["roundtrip"]
+            # these very launches against their plain versions (K3/K3t
+            # and K6 at the kernels' bars): the errors of the M = 32/64
+            # rows of the kernels line include the path's own
+            ka, ks = sp_g.hkf.shape[-1], sp_g.hki.shape[-1]
+            apad, spad = centered_padding(ka), centered_padding(ks)
+            hp_m, hi_m = pq_g.params["hk_poly"], pq_g.params["hk_ipoly"]
+            for key, y, ref, sub, w_syn in [
+                    (f"roundtrip_m{M}", y_sp,
+                     cc.roundtrip_conv_plain(x_m_dev, sp_g.hkf, sp_g.hki, M,
+                                             spad, tier, pad=apad),
+                     cc.strided_analysis_conv(x_m_dev, sp_g.hkf, M, pad=apad),
+                     sp_g.hki),
+                    (f"polyphase_roundtrip_m{M}", y_pq,
+                     pk.polyphase_roundtrip_plain(x_m_dev, hp_m, hi_m, tier),
+                     pk.polyphase_analysis(x_m_dev, hp_m, pq_g._w2), hi_m)]:
+                what = f"fine-tuned {key} 60 s"
+                ref = ref.reshape(y.shape)
+                if tier == "highest":
+                    check(key, y, ref,
+                          K12_TOL if key.startswith("r") else K6_TOL, what)
+                else:
+                    tcheck(key, tier, y, ref, what, sub, w_syn)
+            for what, y, delay in [("StreamingPQMF", y_sp,
+                                    sp_g.centered_delay),
+                                   ("PQMF", y_pq, 0)]:
+                assert y.shape == x_m.shape and torch.isfinite(y).all()
+                db = aligned_roundtrip_snr_db(
+                    x_m[0, 0], y[0, 0].cpu().numpy(), delay,
+                    edge_trim=int(bank["hk"].shape[-1]))
+                big_db[M, tier, what] = db
+                need = {"highest": FINETUNED_FLOOR_DB[M],
+                        "bf16x3": FINETUNED_FLOOR_DB[M],
+                        "default": 45.0}[tier]
+                assert db > need, (M, tier, what, db)
+            if tier == "highest":
+                sp_c = StreamingPQMF(100, M, device="cpu")
+                pq_c = PQMF(100, M, device="cpu")
+                sp_c.set_weights(bank)
+                pq_c.set_weights(bank)
+                torch.testing.assert_close(y_sp.cpu(), sp_c.roundtrip(x_m),
+                                           **OFFLINE_TOL)
+                torch.testing.assert_close(y_pq.cpu(), pq_c.roundtrip(x_m),
+                                           **OFFLINE_TOL)
+            print(f"  fine-tuned M={M} [{tier}] 60 s: StreamingPQMF and "
+                  f"PQMF round trips, {big_launches[M, tier]} K3 launches, "
+                  f"no K1/K2; steady-state SNR "
+                  f"{big_db[M, tier, 'StreamingPQMF']:.4f} / "
+                  f"{big_db[M, tier, 'PQMF']:.4f} dB")
 
     wrap_cpu = PQMFWrapper(100, 16, BLOCK, device="cpu")
     c_wrap = wrap_cpu.process(block_x)
@@ -1913,6 +2113,95 @@ def main() -> int:
               f"{d['K6t 60 s [1,1,2646000]']:.2f}, K4t + K5t "
               f"{d['K4t 60 s [1,1,2646000]'] + d['K5t 60 s [1,16,165375]']:.2f}")
 
+    # K3 and K3t at M = 32 and 64 on the 60 s signal (the main path's
+    # shape: the fine-tuned banks' round trips above) against their plain
+    # versions, CUDA events; their device time there and at a host block,
+    # each beside the K1 + K2 (K1t + K2t) composition's on the same input
+    big_rows, big_k6_rows = {}, {}
+    for M, (bw_a, bw_s) in big.items():
+        ka, ks = bw_a.shape[-1], bw_s.shape[-1]
+        x60m = F.pad(raw60, (ka // 2, ka // 2))
+        xblk = rand(1, 1, BLOCK + ka - 1)
+        for tier in ("highest",) + TIERS:
+            kb = None if tier == "highest" else (
+                cc.arrange_tc_bank(bw_a, "analysis", tier),
+                cc.arrange_tc_bank(bw_s, "synthesis", tier))
+
+            def k3(x, tier=tier, kb=kb, bw_a=bw_a, bw_s=bw_s, M=M):
+                return cc.fused_roundtrip_conv(x, bw_a, bw_s, M, (16, 16),
+                                               tier, banks=kb)
+
+            def comp(x, tier=tier, kb=kb, bw_a=bw_a, bw_s=bw_s, M=M):
+                sub = cc.strided_analysis_conv(
+                    x, bw_a, M, precision=tier,
+                    bank=None if kb is None else kb[0])
+                return cc.dense_synthesis_conv(
+                    sub, bw_s, True, 0, tier, (16, 16),
+                    None if kb is None else kb[1])
+
+            def plain(x, tier=tier, bw_a=bw_a, bw_s=bw_s, M=M):
+                return cc.roundtrip_conv_plain(x, bw_a, bw_s, M, (16, 16),
+                                               tier)
+
+            k, p, raw = pair_ms(lambda: k3(x60m), lambda: plain(x60m), 20)
+            row = {"ms": k, "plain_ms": p,
+                   "composition_ms": min(cuda_ms(lambda: comp(x60m), 20)
+                                         for _ in range(2)),
+                   "device_us": _device_us(lambda: k3(x60m), 10),
+                   "composition_device_us": _device_us(lambda: comp(x60m),
+                                                       10),
+                   "device_us_block": _device_us(lambda: k3(xblk), 50),
+                   "composition_device_us_block": _device_us(
+                       lambda: comp(xblk), 50)}
+            row["bound_ms"], row["bound_by"] = _bound("roundtrip", x60m,
+                                                      bw_a, bw_s, hp, tier)
+            big_rows[M, tier] = row
+            print(f"  K3 M={M} [{tier}] 60 s: kernel {k:.4f} plain {p:.4f} "
+                  f"(p,k,k,p {[round(v, 4) for v in raw]}), K1 + K2 "
+                  f"{row['composition_ms']:.4f} ms; device "
+                  f"{row['device_us']:.2f} us vs K1 + K2 "
+                  f"{row['composition_device_us']:.2f} us; "
+                  f"[1,1,{BLOCK + ka - 1}] {row['device_us_block']:.2f} vs "
+                  f"{row['composition_device_us_block']:.2f} us; bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}), kernel at "
+                  f"{row['bound_ms'] / k:.1%} of it")
+            # K6 (over K3) at the offline geometry, beside K4 + K5
+            pq = offline[M]
+            hp_m, hi_m, w2_m = (pq.params["hk_poly"], pq.params["hk_ipoly"],
+                                pq._w2)
+            tb = None if tier == "highest" else (
+                cc.arrange_tc_bank(w2_m, "analysis", tier),
+                cc.arrange_tc_bank(hi_m, "synthesis", tier))
+            x6 = raw60[..., : raw60.shape[-1] // M * M]
+
+            def k6(x, tier=tier, tb=tb, hp_m=hp_m, hi_m=hi_m, w2_m=w2_m):
+                return pk.polyphase_roundtrip(x, hp_m, hi_m, w2_m, tier, tb)
+
+            def k45(x, tier=tier, tb=tb, hp_m=hp_m, hi_m=hi_m, w2_m=w2_m):
+                sub = pk.polyphase_analysis(x, hp_m, w2_m, tier,
+                                            None if tb is None else tb[0])
+                return pk.polyphase_synthesis(sub, hi_m, tier,
+                                              None if tb is None else tb[1])
+
+            k, p, raw = pair_ms(
+                lambda: k6(x6),
+                lambda: pk.polyphase_roundtrip_plain(x6, hp_m, hi_m, tier),
+                20)
+            row6 = {"ms": k, "plain_ms": p,
+                    "composition_ms": min(cuda_ms(lambda: k45(x6), 20)
+                                          for _ in range(2)),
+                    "device_us": _device_us(lambda: k6(x6), 10),
+                    "composition_device_us": _device_us(lambda: k45(x6),
+                                                        10)}
+            row6["bound_ms"], row6["bound_by"] = _bound(
+                "polyphase_roundtrip", x6, w2_m, hi_m, hp_m, tier)
+            big_k6_rows[M, tier] = row6
+            print(f"  K6 M={M} [{tier}] 60 s: kernel {k:.4f} plain {p:.4f}, "
+                  f"K4 + K5 {row6['composition_ms']:.4f} ms; device "
+                  f"{row6['device_us']:.2f} us vs K4 + K5 "
+                  f"{row6['composition_device_us']:.2f} us; bound "
+                  f"{row6['bound_ms']:.5f} ms ({row6['bound_by']})")
+
     # device time of K1-K3 at the block shapes (CUDA events there include
     # the host launch), of K4 at 60 s, and of the lone cuDNN conv of K1's
     # and K2's products beside them: "slower than the library call" is read
@@ -2131,6 +2420,46 @@ def main() -> int:
                      "roundtrip": "K3t [16,1,8704]"}.get(k, "") + f" {tier}"),
                 "device_us_block": tier_dev_us.get(f"K3t [1,1,8704] {tier}")
                 if k == "roundtrip" else None})
+    # K3 and K3t at M = 32 and 64: launches from the fine-tuned banks' round
+    # trips (StreamingPQMF and K6, one each a tier), times on 60 s
+    for (M, tier), row in big_rows.items():
+        key = f"roundtrip_m{M}"
+        k3_name = "K3 fused_roundtrip_conv" if tier == "highest" else \
+            "K3t fused_roundtrip_conv"
+        kernels.append({
+            "name": f"{k3_name} M={M} [{tier}]", "route": "cuda",
+            "source": ("pqmf_tpu_torch/csrc/cached_conv.cu"
+                       if tier == "highest" else tc_source),
+            "replaces": "pqmf_tpu/kernels/cached_conv.py:794",
+            "launches": big_launches[M, tier],
+            "max_abs_err": errs[key] if tier == "highest"
+            else terrs[key, tier],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,  # no single PyTorch call is the round trip
+            "composition_ms": row["composition_ms"],
+            "device_us": row["device_us"],
+            "composition_device_us": row["composition_device_us"],
+            "device_us_block": row["device_us_block"],
+            "composition_device_us_block":
+                row["composition_device_us_block"]})
+    for (M, tier), row in big_k6_rows.items():
+        over = "K3" if tier == "highest" else "K3t"
+        kernels.append({
+            "name": f"K6 polyphase_roundtrip (over {over}) M={M} [{tier}]",
+            "route": "cuda",
+            "source": ("pqmf_tpu_torch/csrc/cached_conv.cu"
+                       if tier == "highest" else tc_source),
+            "replaces": "pqmf_tpu/kernels/polyphase.py:235",
+            "launches": big_k6_launches[M, tier],
+            "max_abs_err": errs[f"polyphase_roundtrip_m{M}"]
+            if tier == "highest" else terrs[f"polyphase_roundtrip_m{M}", tier],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+            "composition_ms": row["composition_ms"],
+            "device_us": row["device_us"],
+            "composition_device_us": row["composition_device_us"]})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -40,18 +40,31 @@
 //
 // In K3 the sub-band tile stays in
 // shared memory and feeds the synthesis, and only a Ks-1 step halo of it is
-// recomputed per tile (tiles of 512 sub-band steps at M=16: 1.07x).  Its
-// blocks are persistent, one an SM: each stages both banks once, walks time
-// tiles, and copies the next tile's window with cp.async while the current
-// one computes.  K2 chooses its tile from the call's size (launch_plan):
-// large calls run persistent blocks of big tiles, small ones split the band
-// sum across the threads of a block and reduce it in shared memory, so a
-// block of 512 steps still spreads over the whole card.  K2 copies its bank
-// and window with cp.async too: a small call is bound by that staging, and
-// the asynchronous copies skip the round trip through registers.
+// recomputed per tile (tiles of 512 sub-band steps at M=16: 1.07x).  Up to
+// M=16 its blocks are persistent, one an SM: each stages both banks once,
+// walks time tiles, and copies the next tile's window with cp.async while
+// the current one computes.  At M=32 and 64 the banks do not fit a block
+// (266 KB and 1.07 MB in f32), so roundtrip_chunked_kernel keeps only the
+// window and the whole sub-band tile [M][n_sub + halo] in shared memory and
+// streams both banks through two chunk buffers from L2 (analysis phases,
+// then synthesis input bands; the next chunk's copy in flight while one
+// computes).  Each output's sum still runs in one thread, in K1's and K2's
+// order (phase by phase, band by band), and the chunks cost one L2 read of
+// both banks a tile: 266 KB against ~16 M FMA at M=32 (tiles of 256
+// sub-band steps, 224 outputs).  Its plan follows the call, as K3t's: whole
+// files run persistent blocks over those tiles, host blocks one tile of
+// 16-64 output steps a block.  K2 chooses its tile from the call's size
+// (launch_plan): large calls run persistent blocks of big tiles, small ones
+// split the band sum across the threads of a block and reduce it in shared
+// memory, so a block of 512 steps still spreads over the whole card.  K2
+// copies its bank and window with cp.async too: a small call is bound by
+// that staging, and the asynchronous copies skip the round trip through
+// registers.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "rt_plan.h"
 
 namespace {
 
@@ -65,10 +78,20 @@ constexpr int kSynFill = 128;        // K1/K2: threads an SM should get
 constexpr int kAnaWindow = 4096;     // K1: input samples a tile's window holds
 constexpr int kAnaGroups = 2;        // K1: most band groups of 4 a block
 constexpr size_t kSmemPerSm = 233472;  // shared memory of one SM
+constexpr size_t kSmemLimit = 232448;  // shared memory one block may use
 // K1/K2 split the band (phase) sum only up to 16: a split sum of 1056+
 // terms (M=32, 64) rounds far enough from the plain conv's order to leave
 // K12_TOL
 constexpr int kSplitMaxBands = 16;
+// K3 at M >= 32 (roundtrip_chunked_kernel): most threads a block (whole
+// files' thread tiles, small calls'), the floats of one bank chunk (36 KB),
+// the sub-band steps of a whole-file tile; the call-size tile choice is
+// K3t's (rt_plan.h)
+constexpr int kRtcMinBands = 32;
+constexpr int kRtcThreads = 512;
+constexpr int kRtcSmallThreads = 1024;
+constexpr int kRtcChunk = 9216;
+constexpr int kRtcSub = 256;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -235,12 +258,110 @@ RtGeom roundtrip_geom(int M, int Ka, int Ks) {
 }
 
 bool roundtrip_templated(int M) {
-  return M == 2 || M == 4 || M == 8 || M == 16;
+  return M == 2 || M == 4 || M == 8 || M == 16 || M == 32 || M == 64;
+}
+
+inline int pow2_floor(int n) {
+  int p = 1;
+  while (2 * p <= n) p *= 2;
+  return p;
+}
+
+// A tile of roundtrip_chunked_kernel (M >= 32): thread tiles of NB bands x
+// NT steps (4 x 8 on whole files; 2 x 4 in small calls, twice the threads
+// for a call too small to fill the card), one per thread in each phase, so
+// n_sub / NT x M / NB threads (in whole warps: the bank chunks are copied
+// warp by warp); Tt output steps of n_sub sub-band
+// steps; the window [M][XR], the sub-band tile [M][SP]; R analysis phases
+// and Rm synthesis input bands a bank chunk (powers of two), two chunk
+// buffers of `chunk` floats: the analysis chunk's phases PS = J*M + 8
+// floats apart, the synthesis chunk's taps SW = M + 8 (so a warp's copies
+// land on 32 distinct banks).  Tt = 0: a whole file's tile.
+struct RtcTile {
+  int NB, NT, n_sub, Tt, threads, J, XR, SP, R, Rm, PS, SW, chunk;
+  size_t smem;
+};
+
+RtcTile rtc_tile(int M, int Ka, int Ks, int Tt) {
+  RtcTile t;
+  t.J = cdiv(Ka, M);
+  if (Tt == 0) {
+    t.NB = 4;
+    t.NT = kNT;
+    t.n_sub = kRtcSub;
+    t.Tt = max_i(0, (t.n_sub - Ks + 1) / kNT * kNT);
+  } else {
+    t.NB = 2;
+    t.NT = 4;
+    t.Tt = Tt;
+    t.n_sub = round4(Tt + Ks - 1);
+  }
+  t.threads = (M / t.NB * (t.n_sub / t.NT) + 31) & ~31;  // whole warps
+  t.XR = round4(t.n_sub + t.J + 4);
+  t.SP = t.n_sub + 8;
+  t.R = min_i(M, pow2_floor(max_i(1, kRtcChunk / (t.J * M))));
+  t.Rm = min_i(M, pow2_floor(max_i(1, kRtcChunk / (Ks * M))));
+  t.PS = t.J * M + 8;
+  t.SW = M + 8;
+  t.chunk = max_i(t.R * t.PS, t.Rm * Ks * t.SW);
+  t.smem = sizeof(float) * ((size_t)M * t.XR + (size_t)M * t.SP +
+                            2 * (size_t)t.chunk);
+  return t;
+}
+
+// the tiles a plan can take: whole files (0), small calls'
+constexpr int kRtcTiles[4] = {0, kRtSmall[0], kRtSmall[1], kRtSmall[2]};
+
+// the most shared memory any of its plans takes (the gate)
+size_t rtc_smem(int M, int Ka, int Ks) {
+  size_t m = 0;
+  for (int Tt : kRtcTiles) {
+    const size_t s = rtc_tile(M, Ka, Ks, Tt).smem;
+    m = s > m ? s : m;
+  }
+  return m;
+}
+
+// whether every tile a plan can take launches: output steps, threads,
+// shared memory
+bool rtc_fits(int M, int Ka, int Ks) {
+  if (rtc_tile(M, Ka, Ks, 0).Tt <= 0) return false;
+  for (int Tt : kRtcTiles)
+    if (rtc_tile(M, Ka, Ks, Tt).threads >
+        (Tt ? kRtcSmallThreads : kRtcThreads))
+      return false;
+  return rtc_smem(M, Ka, Ks) <= kSmemLimit;
+}
+
+// The tile of a call of B rows of T_out output steps (rt_plan.h): whole
+// files the whole-file tile in persistent blocks, smaller calls one tile
+// of 16-64 steps a block.
+RtcTile rtc_choice(int B, int M, int Ka, int Ks, int T_out, int n_sms,
+                   bool* persist) {
+  const int Tt = rt_call_tile(B, T_out, n_sms);
+  *persist = Tt == 0;
+  return rtc_tile(M, Ka, Ks, Tt);
 }
 
 Plan roundtrip_plan(int B, int M, int Ka, int Ks, int T_out, int n_sms) {
-  const RtGeom g = roundtrip_geom(M, Ka, Ks);
   Plan p;
+  if (M >= kRtcMinBands) {
+    bool persist = false;
+    const RtcTile t = rtc_choice(B, M, Ka, Ks, T_out, n_sms, &persist);
+    const int n_tiles = t.Tt > 0 ? B * cdiv(T_out, t.Tt) : 0;
+    const int per_sm = max_i(1, min_i(2048 / t.threads,
+                                      (int)(kSmemPerSm / (t.smem + 1024))));
+    p.gx = persist ? min_i(n_tiles, n_sms * per_sm) : n_tiles;
+    p.gy = 1;
+    p.gz = 1;
+    p.threads = t.threads;
+    p.tile_steps = t.Tt;
+    p.aux = t.n_sub;
+    p.split = 1;
+    p.smem = t.smem;
+    return p;
+  }
+  const RtGeom g = roundtrip_geom(M, Ka, Ks);
   const int n_tiles = g.Tt > 0 ? B * cdiv(T_out, g.Tt) : 0;
   p.gx = min_i(n_tiles, n_sms);
   p.gy = 1;
@@ -768,6 +889,203 @@ roundtrip_kernel(const float* __restrict__ x, const float* __restrict__ wa,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3 at M = 32, 64: the banks stream through two chunk buffers.  Blocks walk
+// the tiles (batch row, output time tile) with a stride of the grid.  A
+// tile's chunks are its analysis phases, R at a time (q < nca), then its
+// synthesis input bands, Rm at a time; the next chunk (the next tile's
+// first after the last) is copied while one computes, and the next tile's
+// window once the analysis has read this one.  Thread tid keeps one thread
+// tile (band group tid % BG, steps tid / BG * NT) of analysis sums across
+// the analysis chunks, writes it to the sub-band tile, then one of
+// synthesis sums (output bands, output steps) across the synthesis chunks.
+// ---------------------------------------------------------------------------
+template <int M, int NB, int NT>
+__global__ void __launch_bounds__(NB == 4 ? kRtcThreads : kRtcSmallThreads, 1)
+roundtrip_chunked_kernel(const float* __restrict__ x,
+                         const float* __restrict__ wa,
+                         const float* __restrict__ ws,
+                         float* __restrict__ out, int B, int Tx, int Ka,
+                         int Ks, int T_ana, int T_out, int pad_a,
+                         int pad_left, int n_sub, int Tt, int J, int XR,
+                         int SP, int R, int Rm, int PS, int SW, int chunk) {
+  constexpr int BG = M / NB;
+  extern __shared__ float4 rtc_shared[];
+  // the window [M][XR] = x[M*(tau0+tau) + r], the sub-band tile + halo
+  // [M][SP], two bank chunks [2][chunk]
+  float* xp_s = reinterpret_cast<float*>(rtc_shared);
+  float* sub_s = xp_s + M * XR;
+  float* w_s = sub_s + M * SP;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int tiles_per_row = cdiv(T_out, Tt);
+  const int n_tiles = B * tiles_per_row;
+  // R and Rm are powers of two dividing M
+  const int RQ = R < 4 ? R : 4;  // consecutive phases one lane group copies
+  const int lgRQ = __ffs(RQ) - 1;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = nthr >> 5;  // whole warps (rtc_tile)
+  const int nca = M / R;
+  const int nc = nca + M / Rm;
+  const int bg = tid % BG;
+  const int s0 = tid / BG * NT;
+
+  // the window of tile `tl`, zeros outside the input (the analysis pad
+  // pad_a, and past its end)
+  auto load_window = [&](int tl) {
+    const int row = tl / tiles_per_row;
+    const long long p0 =
+        (long long)((tl % tiles_per_row) * Tt - pad_left) * M - pad_a;
+    const float* xb = x + (long long)row * Tx;
+    for (int e = tid; e < M * XR; e += nthr) {
+      const long long p = p0 + e;
+      const bool in = p >= 0 && p < Tx;
+      cp_async4(xp_s + (e % M) * XR + e / M, in ? xb + p : xb, in ? 4 : 0);
+    }
+  };
+  // chunk q of a tile into buffer `buf`.  q < nca: phases r0 .. r0+R-1,
+  // w[(r-r0)*PS + j*M + m] = wa[m][j*M + r] (taps past Ka are never read
+  // and not copied); else input bands m0 .. m0+Rm-1, w[((m-m0)*Ks + k)*SW
+  // + c] = ws[M-1-c][m][k] (the gain M goes on the sums: a power of two,
+  // the same floats).  The bank is transposed on the way, so a warp copies
+  // 8 output bands x 4 consecutive floats of each one's row (8 lines of
+  // global memory), which the row strides put on 32 distinct banks.
+  auto stage = [&](int q, int buf) {
+    float* dst = w_s + buf * chunk;
+    if (q < nca) {  // lane: (rr_lo, m_lo); a warp walks (m_hi, j)
+      const int r0 = q * R;
+      const int LM = 32 >> lgRQ;
+      const int m_lo = lane >> lgRQ;
+      const int rr_lo = lane & (RQ - 1);
+      int m_hi = 0, j = warp;
+      while (j >= J) j -= J, ++m_hi;
+      while (m_hi < M / LM) {
+        const int m = LM * m_hi + m_lo;
+        const int k = j * M + r0 + rr_lo;
+        for (int rq = 0; rq < R; rq += RQ)
+          if (k + rq < Ka)
+            cp_async4(dst + (rr_lo + rq) * PS + j * M + m,
+                      wa + (long long)m * Ka + k + rq, 4);
+        j += n_warps;
+        while (j >= J) j -= J, ++m_hi;
+      }
+    } else {  // lane: (f_lo, c_lo); a warp walks (c_hi, f_hi)
+      const int m0 = (q - nca) * Rm;
+      const int RK = Rm * Ks;
+      const int FQ = cdiv(RK, 4);
+      const int c_lo = lane >> 2;
+      int c_hi = 0, fq = warp;
+      while (fq >= FQ) fq -= FQ, ++c_hi;
+      while (c_hi < M / 8) {
+        const int f = 4 * fq + (lane & 3);
+        const int c = 8 * c_hi + c_lo;
+        if (f < RK)
+          cp_async4(dst + f * SW + M - 1 - c,
+                    ws + ((long long)c * M + m0) * Ks + f, 4);
+        fq += n_warps;
+        while (fq >= FQ) fq -= FQ, ++c_hi;
+      }
+    }
+  };
+
+  for (int e = tid; e < M * (SP - n_sub); e += nthr) {
+    const int m = e / (SP - n_sub);
+    sub_s[m * SP + n_sub + e % (SP - n_sub)] = 0.0f;
+  }
+  int tile = blockIdx.x;
+  if (tile < n_tiles) {
+    load_window(tile);
+    stage(0, 0);
+  }
+  cp_async_commit();
+  int buf = 0;
+  const float gain = (float)M;
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    const int row = tile / tiles_per_row;
+    const int t0 = (tile % tiles_per_row) * Tt;
+    const int tau0 = t0 - pad_left;  // sub-band time of sub_s[.][0]
+    const int n_out = min(Tt, T_out - t0);
+    const bool ana = s0 < n_out + Ks - 1;  // rows the synthesis reads
+    const bool syn = s0 < n_out;
+    float acc[NB][NT];
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < NT; ++i) acc[c][i] = 0.0f;
+    for (int q = 0; q < nc; ++q) {
+      if (q + 1 < nc) {
+        stage(q + 1, buf ^ 1);
+      } else if (next < n_tiles) {
+        stage(0, buf ^ 1);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // chunk q (and this tile's window) are in
+      __syncthreads();
+      const float* w = w_s + buf * chunk;
+      if (q < nca) {
+        if (ana) {
+          const int r0 = q * R;
+          for (int r = r0; r < r0 + R; ++r)
+            slide_fma<NB, NT>(acc, w + (r - r0) * PS + bg * NB, M,
+                              xp_s + r * XR + s0, (Ka - r + M - 1) / M);
+        }
+        if (q == nca - 1) {
+          // the sub-band tile; the synthesis pad and the sub-band signal's
+          // end are zeros, as in the composition
+          if (ana) {
+#pragma unroll
+            for (int c = 0; c < NB; ++c) {
+              float* dst = sub_s + (bg * NB + c) * SP + s0;
+#pragma unroll
+              for (int i = 0; i < NT; i += 4) {
+                float v[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  const int tau = tau0 + s0 + i + j;
+                  v[j] = (tau >= 0 && tau < T_ana) ? acc[c][i + j] : 0.0f;
+                }
+                st_vec<4>(dst + i, v);
+              }
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+#pragma unroll
+            for (int i = 0; i < NT; ++i) acc[c][i] = 0.0f;
+        }
+      } else {
+        if (q == nca) {  // the analysis has read the window
+          if (next < n_tiles) load_window(next);
+          cp_async_commit();
+        }
+        if (syn) {
+          const int m0 = (q - nca) * Rm;
+          for (int m = m0; m < m0 + Rm; ++m)
+            slide_fma<NB, NT>(acc, w + (m - m0) * Ks * SW + bg * NB, SW,
+                              sub_s + m * SP + s0, Ks);
+        }
+      }
+      __syncthreads();  // chunk q is read before its buffer is refilled
+      buf ^= 1;
+    }
+    if (syn) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        if (s0 + i < n_out) {
+          float v[NB];
+#pragma unroll
+          for (int c = 0; c < NB; ++c) v[c] = gain * acc[c][i];
+          st_vec<NB>(out + ((long long)row * T_out + t0 + s0 + i) * M +
+                         bg * NB, v);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
 // Dynamic shared memory past 48 KB must be opted into per kernel, or the
 // launch is refused (and synchronize() would not say so).
 template <typename Kernel>
@@ -806,6 +1124,21 @@ cudaError_t launch_roundtrip(const RtGeom& g, const Plan& p, const float* x,
   return cudaGetLastError();
 }
 
+template <int M, int NB, int NT>
+cudaError_t launch_roundtrip_chunked(const RtcTile& t, const Plan& p,
+                                     const float* x, const float* wa,
+                                     const float* ws, float* out, int B,
+                                     int Tx, int Ka, int Ks, int T_ana,
+                                     int T_out, int pad_a, int pad_left,
+                                     cudaStream_t stream) {
+  cudaError_t err = allow_smem(roundtrip_chunked_kernel<M, NB, NT>, p.smem);
+  if (err != cudaSuccess) return err;
+  roundtrip_chunked_kernel<M, NB, NT><<<p.gx, p.threads, p.smem, stream>>>(
+      x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out, pad_a, pad_left, t.n_sub,
+      t.Tt, t.J, t.XR, t.SP, t.R, t.Rm, t.PS, t.SW, t.chunk);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -817,7 +1150,8 @@ size_t pqmf_smem_bytes(int which, int M, int Mb, int Ka, int Ks) {
   switch (which) {
     case 1: return analysis_smem(M, Mb, Ka);
     case 2: return synthesis_smem(M, Mb, Ks);
-    case 3: return roundtrip_geom(M, Ka, Ks).smem;
+    case 3: return M >= kRtcMinBands ? rtc_smem(M, Ka, Ks)
+                                     : roundtrip_geom(M, Ka, Ks).smem;
     default: return 0;
   }
 }
@@ -900,10 +1234,36 @@ int pqmf_roundtrip_conv(const float* x, const float* wa, const float* ws,
   int n_sms = 0;
   cudaError_t err = sm_count(&n_sms);
   if (err != cudaSuccess) return (int)err;
-  const RtGeom g = roundtrip_geom(M, Ka, Ks);
   const Plan p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms);
-  if (g.Tt <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (M >= kRtcMinBands) {
+    if (!rtc_fits(M, Ka, Ks)) return (int)cudaErrorInvalidValue;
+    bool persist = false;
+    const RtcTile t = rtc_choice(B, M, Ka, Ks, T_out, n_sms, &persist);
+    const bool big = t.NT == kNT;
+    switch (M) {
+      case 32:
+        err = big ? launch_roundtrip_chunked<32, 4, kNT>(
+                        t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out,
+                        pad_a, pad_left, s)
+                  : launch_roundtrip_chunked<32, 2, 4>(
+                        t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out,
+                        pad_a, pad_left, s);
+        break;
+      case 64:
+        err = big ? launch_roundtrip_chunked<64, 4, kNT>(
+                        t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out,
+                        pad_a, pad_left, s)
+                  : launch_roundtrip_chunked<64, 2, 4>(
+                        t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out,
+                        pad_a, pad_left, s);
+        break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)err;
+  }
+  const RtGeom g = roundtrip_geom(M, Ka, Ks);
+  if (g.Tt <= 0) return (int)cudaErrorInvalidValue;
   switch (M) {
     case 2: err = launch_roundtrip<2>(g, p, x, wa, ws, out, B, Tx, Ka, Ks,
                                       T_ana, T_out, pad_a, pad_left, s); break;
@@ -911,8 +1271,10 @@ int pqmf_roundtrip_conv(const float* x, const float* wa, const float* ws,
                                       T_ana, T_out, pad_a, pad_left, s); break;
     case 8: err = launch_roundtrip<8>(g, p, x, wa, ws, out, B, Tx, Ka, Ks,
                                       T_ana, T_out, pad_a, pad_left, s); break;
-    default: err = launch_roundtrip<16>(g, p, x, wa, ws, out, B, Tx, Ka, Ks,
+    case 16: err = launch_roundtrip<16>(g, p, x, wa, ws, out, B, Tx, Ka, Ks,
                                         T_ana, T_out, pad_a, pad_left, s);
+      break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
 }

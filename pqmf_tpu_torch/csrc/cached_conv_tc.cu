@@ -96,11 +96,20 @@
 // - What bounds it: at 60 s the work of both GEMMs (bf16x3: 3 mma a k-step)
 //   near the bf16 line, plus the halo; a host block's latency: the banks'
 //   copy, then the dependent k-steps of two phases.
+// - At M = 32 and 64 each bank has 2 or 4 channel blocks of 16 bands (268
+//   KB and 1.07 MB at bf16x3: past a block's shared memory), so a warp item
+//   is (MT m16 tiles, one channel block) and every warp reads its B
+//   fragments from L2, 16 bytes a lane a k-step; the whole split sub-band
+//   tile is written before any synthesis k-step reads it (the barrier
+//   between the phases).  The tiles are M = 16's (224 outputs of 256
+//   sub-band steps on whole files, 16-64 outputs for host blocks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "rt_plan.h"
 
 namespace {
 
@@ -112,8 +121,6 @@ constexpr int kTcPersistM16 = 16; // whole files: from n_sms * 16 m16 tiles on
 constexpr int kRtTcThreads = 256;              // K3t: threads a block
 constexpr int kRtTcWarps = kRtTcThreads / 32;
 constexpr int kRtTcSub = 256;     // K3t whole files: sub-band steps a tile
-constexpr int kRtTcPersistM16 = 16;  // K3t: from n_sms * 16 m16 output tiles on
-constexpr int kRtTcFillDiv = 4;   // K3t small calls: at least n_sms / 4 blocks
 // blocks an SM the register allocation plans for: without them ptxas kept
 // K1t at 48 registers and spilled one (4 bytes)
 constexpr int kTcMinBlocks = 4;
@@ -239,23 +246,24 @@ Plan tc_plan(const TcGeom& g, int B, int T_out, int n_sms) {
   return p;
 }
 
-// K3t: the two arranged banks (one channel block each, N = M <= 16 output
-// channels in NN n8 tiles), their k-steps, and the sub-band rows one output
-// step reads (rows_s); both banks staged where they fit beside the largest
-// tile of any plan.
+// K3t: the two arranged banks (n_cb channel blocks of NN n8 tiles each:
+// one up to M = 16, 2 and 4 at M = 32 and 64), their k-steps, and the
+// sub-band rows one output step reads (rows_s); both banks staged where
+// there is one channel block and they fit beside the largest tile of any
+// plan, else each warp reads its fragments from L2.
 struct RtTcGeom {
-  int M, Qa, n_ka, n_ks, NN, rows_s;
+  int M, Qa, n_ka, n_ks, NN, n_cb, rows_s;
   long long bank_bytes;
   bool stage;
 };
 
 // A K3t tile: Tt output steps (synthesis rows) of n_sub sub-band steps
-// (analysis rows), MT m16 tiles a warp item, each phase's reduction split
-// over WK warps (WKa analysis, WKs synthesis); the split window of WL
-// elements (raw f32 and bf16 halves), the split sub-band tile (SL elements
-// a half; 0: it takes the split window's place, which it may where the
-// analysis is one item a warp) and the partial sums of the split
-// reductions.
+// (analysis rows), MT m16 tiles x one channel block a warp item, each
+// phase's reduction split over WK warps (WKa analysis, WKs synthesis); the
+// split window of WL elements (raw f32 and bf16 halves), the split
+// sub-band tile (SL elements a half; 0: it takes the split window's place,
+// which it may where the analysis is one item a warp) and the partial sums
+// of the split reductions.
 struct RtTcTile {
   int Tt, n_sub, MT, WKa, WKs, WL, SL;
   long long rest;  // bytes besides the banks
@@ -275,7 +283,7 @@ RtTcTile rt_tc_tile(const RtTcGeom& g, int Tt, bool persist) {
   const int r = 16 * t.MT;
   t.n_sub = cdiv(Tt - 1 + g.rows_s, r) * r;
   t.WL = round64(g.M * (t.n_sub - 1) + 16 * g.n_ka);
-  const int ga = t.n_sub / r, gs = Tt / r;
+  const int ga = t.n_sub / r * g.n_cb, gs = Tt / r * g.n_cb;  // items
   t.WKa = rt_tc_wk(ga, g.n_ka);
   t.WKs = rt_tc_wk(gs, g.n_ks);
   t.SL = ga * t.WKa <= kRtTcWarps ? 0 : round64(g.M * t.n_sub);
@@ -293,11 +301,11 @@ int rt_tc_persist_steps(const RtTcGeom& g) {
 }
 
 // the shapes a plan can take: whole files, and small calls' 16-64 steps
-constexpr int kRtTcSmall[3] = {16, 32, 64};
+// (rt_plan.h)
 
 long long rt_tc_rest_max(const RtTcGeom& g) {
   long long m = rt_tc_tile(g, rt_tc_persist_steps(g), true).rest;
-  for (int Tt : kRtTcSmall) m = max_ll(m, rt_tc_tile(g, Tt, false).rest);
+  for (int Tt : kRtSmall) m = max_ll(m, rt_tc_tile(g, Tt, false).rest);
   return m;
 }
 
@@ -308,9 +316,10 @@ RtTcGeom rt_tc_geom(int M, int Ka, int Ks) {
   g.n_ka = g.Qa / 16;
   g.n_ks = round16(M * Ks) / 16;
   g.NN = M > 8 ? 2 : 1;
+  g.n_cb = cdiv(M, 8 * g.NN);
   g.rows_s = cdiv(16 * g.n_ks, M);
-  g.bank_bytes = 2LL * (g.n_ka + g.n_ks) * 32 * 4 * g.NN * 2;
-  g.stage = g.bank_bytes + rt_tc_rest_max(g) <= kSmemLimit;
+  g.bank_bytes = 2LL * (g.n_ka + g.n_ks) * g.n_cb * 32 * 4 * g.NN * 2;
+  g.stage = g.n_cb == 1 && g.bank_bytes + rt_tc_rest_max(g) <= kSmemLimit;
   return g;
 }
 
@@ -319,21 +328,17 @@ long long rt_tc_smem_gate(const RtTcGeom& g) {
 }
 
 bool rt_tc_templated(int M) {
-  return M == 2 || M == 4 || M == 8 || M == 16;
+  return M == 2 || M == 4 || M == 8 || M == 16 || M == 32 || M == 64;
 }
 
-// A call of B rows of T_out output steps: whole files (from n_sms * 16 m16
-// output tiles) run persistent blocks over rt_tc_persist_steps tiles; a
-// smaller call (host blocks) takes tiles of 64, 32 or 16 steps, the
-// largest that gives n_sms / 4 blocks, one tile a block.
+// A call of B rows of T_out output steps (rt_plan.h): whole files run
+// persistent blocks over rt_tc_persist_steps tiles; a smaller call (host
+// blocks) one tile of 16-64 steps a block.
 RtTcTile rt_tc_choice(const RtTcGeom& g, int B, int T_out, int n_sms,
                       bool* persist) {
-  *persist = (long long)B * cdiv(T_out, 16) >= (long long)n_sms * kRtTcPersistM16;
-  if (*persist) return rt_tc_tile(g, rt_tc_persist_steps(g), true);
-  int Tt = 64;
-  while (Tt > 16 && (long long)B * cdiv(T_out, Tt) < n_sms / kRtTcFillDiv)
-    Tt /= 2;
-  return rt_tc_tile(g, Tt, false);
+  const int Tt = rt_call_tile(B, T_out, n_sms);
+  *persist = Tt == 0;
+  return rt_tc_tile(g, *persist ? rt_tc_persist_steps(g) : Tt, *persist);
 }
 
 Plan rt_tc_plan(const RtTcGeom& g, int B, int T_out, int n_sms) {
@@ -764,19 +769,22 @@ struct RtTcArgs {
 };
 
 // One phase of K3t: groups of MT m16 row tiles of A[t, q] = a[S*t + q]
-// (halves ah, al) times the arranged bank over n_k k-steps, split over WK
-// warps; done(grp, acc) gets each group's full sum.  Where every item has a
-// warp of its own (groups * WK <= warps), the block meets in a barrier
+// (halves ah, al) times each of the NCB channel blocks of the arranged bank
+// (cb_stride elements apart) over n_k k-steps, split over WK warps;
+// done(grp, cb, acc) gets each item's full sum.  Where every item has a
+// warp of its own (items * WK <= warps), the block meets in a barrier
 // before the sums are done (with `sync`, or to add the slices); else each
-// warp walks its groups and finishes each at once.
-template <int P, int NN, int MT, int LD, typename Done>
+// warp walks its items and finishes each at once.
+template <int P, int NN, int MT, int LD, int NCB, typename Done>
 __device__ __forceinline__ void rt_phase(const uint16_t* ah,
                                          const uint16_t* al, int S, int swz,
                                          const uint16_t* bank, int plane,
-                                         int n_k, int groups, int WK,
-                                         float* red, bool sync, Done done) {
+                                         int cb_stride, int n_k, int groups,
+                                         int WK, float* red, bool sync,
+                                         Done done) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int items = groups * NCB;
   float acc[MT][NN][4];
   auto zero = [&]() {
 #pragma unroll
@@ -786,24 +794,29 @@ __device__ __forceinline__ void rt_phase(const uint16_t* ah,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[mt][nn][j] = 0.0f;
   };
-  if (groups * WK > kRtTcWarps) {  // WK == 1: a warp walks its groups
-    for (int grp = warp; grp < groups; grp += kRtTcWarps) {
+  if (items * WK > kRtTcWarps) {  // WK == 1: a warp walks its items
+    for (int it = warp; it < items; it += kRtTcWarps) {
+      const int cb = NCB == 1 ? 0 : it / groups;
+      const int grp = NCB == 1 ? it : it - cb * groups;
       zero();
-      tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * grp, bank, plane,
-                            0, n_k);
-      done(grp, acc);
+      tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * grp,
+                            bank + cb * cb_stride, plane, 0, n_k);
+      done(grp, cb, acc);
     }
     return;
   }
-  const int grp = warp % groups;
-  const int wk = warp / groups;
-  const bool on = warp < groups * WK;
+  const int it = warp % items;
+  const int wk = warp / items;
+  const int cb = NCB == 1 ? 0 : it / groups;
+  const int grp = NCB == 1 ? it : it - cb * groups;
+  const bool on = warp < items * WK;
   constexpr int V = MT * NN * 4;  // sums a lane holds
-  float* rp = red + grp * V * 32 + lane;
+  float* rp = red + it * V * 32 + lane;
   zero();
   if (on) {
-    tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * grp, bank, plane,
-                          n_k * wk / WK, n_k * (wk + 1) / WK);
+    tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * grp,
+                          bank + cb * cb_stride, plane, n_k * wk / WK,
+                          n_k * (wk + 1) / WK);
     if (wk > 0) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -811,7 +824,7 @@ __device__ __forceinline__ void rt_phase(const uint16_t* ah,
         for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            rp[((wk - 1) * groups * V + (mt * NN + nn) * 4 + j) * 32] =
+            rp[((wk - 1) * items * V + (mt * NN + nn) * 4 + j) * 32] =
                 acc[mt][nn][j];
     }
   }
@@ -824,16 +837,19 @@ __device__ __forceinline__ void rt_phase(const uint16_t* ah,
       for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          acc[mt][nn][j] += rp[((s - 1) * groups * V + (mt * NN + nn) * 4 + j) * 32];
-  done(grp, acc);
+          acc[mt][nn][j] += rp[((s - 1) * items * V + (mt * NN + nn) * 4 + j) * 32];
+  done(grp, cb, acc);
 }
 
-template <int P, int NN, int MT, int LD>
+template <int P, int NN, int MT, int LD, int NCB>
 __global__ void __launch_bounds__(kRtTcThreads, kRtTcMinBlocks)
 roundtrip_tc_kernel(const RtTcArgs a) {
   extern __shared__ float4 rt_tc_smem[];
   const int M = a.M;
-  const int chunk_a = a.n_ka * 128 * NN;  // bank elements of one half
+  // bank elements of one half of one channel block; a staged bank (one
+  // channel block) keeps the arranged layout, so its lo half is NCB
+  // chunks on either way
+  const int chunk_a = a.n_ka * 128 * NN;
   const int chunk_s = a.n_ks * 128 * NN;
   uint16_t* bank_sm = reinterpret_cast<uint16_t*>(rt_tc_smem);
   float* raw = reinterpret_cast<float*>(
@@ -917,9 +933,10 @@ roundtrip_tc_kernel(const RtTcArgs a) {
 
     // analysis: every sub-band row of the tile, split again into the
     // sub-band tile; the synthesis pad and the sub-bands' end are zeros
-    rt_phase<P, NN, MT, LD>(
-        xh, xl, M, a.swz, ba, chunk_a, a.n_ka, a.n_sub / r, a.WKa, red,
-        a.SL == 0, [&](int grp, const float (&acc)[MT][NN][4]) {
+    rt_phase<P, NN, MT, LD, NCB>(
+        xh, xl, M, a.swz, ba, NCB * chunk_a, chunk_a, a.n_ka, a.n_sub / r,
+        a.WKa, red, a.SL == 0,
+        [&](int grp, int cb, const float (&acc)[MT][NN][4]) {
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -927,7 +944,7 @@ roundtrip_tc_kernel(const RtTcArgs a) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int s = r * grp + 16 * mt + g + 8 * h;
-                const int c = nn * 8 + 2 * tq;
+                const int c = cb * 8 * NN + nn * 8 + 2 * tq;
                 const bool in = tau0 + s >= 0 && tau0 + s < a.T_ana;
                 if (c < M) {
                   const int i = s * M + c;
@@ -941,9 +958,10 @@ roundtrip_tc_kernel(const RtTcArgs a) {
 
     // synthesis: the output steps of the tile, gain M
     const float gain = (float)M;
-    rt_phase<P, NN, MT, LD>(
-        sh, sl, M, a.swz, bs, chunk_s, a.n_ks, a.Tt / r, a.WKs, red, false,
-        [&](int grp, const float (&acc)[MT][NN][4]) {
+    rt_phase<P, NN, MT, LD, NCB>(
+        sh, sl, M, a.swz, bs, NCB * chunk_s, chunk_s, a.n_ks, a.Tt / r,
+        a.WKs, red, false,
+        [&](int grp, int cb, const float (&acc)[MT][NN][4]) {
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -951,7 +969,7 @@ roundtrip_tc_kernel(const RtTcArgs a) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int t = r * grp + 16 * mt + g + 8 * h;
-                const int c = nn * 8 + 2 * tq;
+                const int c = cb * 8 * NN + nn * 8 + 2 * tq;
                 if (t < n_out && c < M)
                   *reinterpret_cast<float2*>(
                       a.out + ((long long)b * a.T_out + t0 + t) * M + c) =
@@ -1045,21 +1063,26 @@ int tc_launch(TcArgs a, int S, int Q, int passes, void* stream) {
 }
 
 // the instance of K3t for (passes, n8 tiles, m16 tiles an item, fragment
-// loads), or nullptr for other passes
+// loads, channel blocks), or nullptr for other passes
 using RtTcKernel = void (*)(const RtTcArgs);
 
 template <int P>
-RtTcKernel rt_tc_pick_p(int NN, int MT, int LD) {
+RtTcKernel rt_tc_pick_p(int NN, int MT, int LD, int NCB) {
+  if (NCB == 4)
+    return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0, 4> : roundtrip_tc_kernel<P, 2, 1, 0, 4>;
+  if (NCB == 2)
+    return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0, 2> : roundtrip_tc_kernel<P, 2, 1, 0, 2>;
   if (NN == 2)
-    return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0> : roundtrip_tc_kernel<P, 2, 1, 0>;
+    return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0, 1> : roundtrip_tc_kernel<P, 2, 1, 0, 1>;
   if (LD == 0)
-    return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 0> : roundtrip_tc_kernel<P, 1, 1, 0>;
-  return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 1> : roundtrip_tc_kernel<P, 1, 1, 1>;
+    return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 0, 1> : roundtrip_tc_kernel<P, 1, 1, 0, 1>;
+  return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 1, 1> : roundtrip_tc_kernel<P, 1, 1, 1, 1>;
 }
 
-RtTcKernel rt_tc_pick(int passes, int NN, int MT, int LD) {
-  if (passes == 3) return rt_tc_pick_p<3>(NN, MT, LD);
-  if (passes == 1) return rt_tc_pick_p<1>(NN, MT, LD);
+RtTcKernel rt_tc_pick(int passes, int NN, int MT, int LD, int NCB) {
+  if (NCB != 1 && NCB != 2 && NCB != 4) return nullptr;
+  if (passes == 3) return rt_tc_pick_p<3>(NN, MT, LD, NCB);
+  if (passes == 1) return rt_tc_pick_p<1>(NN, MT, LD, NCB);
   return nullptr;
 }
 
@@ -1158,7 +1181,7 @@ int pqmf_tc_roundtrip_conv(const float* x, const void* bank_a,
   const RtTcTile t = rt_tc_choice(g, B, T_out, n_sms, &persist);
   const Plan p = rt_tc_plan(g, B, T_out, n_sms);
   const int LD = M % 8 == 0 ? 0 : 1;
-  const RtTcKernel kernel = rt_tc_pick(passes, g.NN, t.MT, LD);
+  const RtTcKernel kernel = rt_tc_pick(passes, g.NN, t.MT, LD, g.n_cb);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   RtTcArgs a = {};
   a.x = x;

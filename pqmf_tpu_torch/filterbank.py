@@ -165,9 +165,9 @@ class PQMF:
 
     def roundtrip(self, x):
         """``inverse(forward(x))`` ([B, C, T] -> [B, C, T]): one K6 launch
-        where K3 takes the geometry (``roundtrip_supported``, M <= 16 at
-        atten 100; K3t at a tier, reading the kept arranged banks), else K4
-        then K5."""
+        where K3 takes the geometry (``roundtrip_supported``: every
+        committed bank, M = 2 to 64; K3t at a tier, reading the kept
+        arranged banks), else K4 then K5."""
         x = self._to_bct(x)
         if self.n_band == 1:
             return x

@@ -19,11 +19,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "nvcc_command", "link_command", "build",
-           "load"]
+__all__ = ["SOURCES", "HEADERS", "BUILD_DIR", "nvcc_command", "link_command",
+           "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "cached_conv.cu", _PKG / "csrc" / "cached_conv_tc.cu")
+# included by both sources (the fused round trip's call-size tile choice)
+HEADERS = (_PKG / "csrc" / "rt_plan.h",)
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -58,7 +60,7 @@ def link_command(nvcc: str, objects, out: Path) -> list[str]:
 
 def _library_path() -> Path:
     digest = hashlib.sha256()
-    for source in SOURCES:
+    for source in SOURCES + HEADERS:
         digest.update(source.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpqmf_cached_conv_{digest.hexdigest()[:16]}.so"

@@ -91,7 +91,13 @@ _ANA_WINDOW = 4096           # kAnaWindow
 _ANA_GROUPS = 2              # kAnaGroups
 _SMEM_PER_SM = 233472        # kSmemPerSm
 _SPLIT_MAX_BANDS = 16        # kSplitMaxBands
-_RT_BANDS = (2, 4, 8, 16)    # K3's (and K3t's) compiled band counts
+_RT_BANDS = (2, 4, 8, 16, 32, 64)  # K3's (and K3t's) compiled band counts
+# K3 from M = 32 (roundtrip_chunked_kernel): the banks stream in chunks
+_RTC_MIN_BANDS = 32          # kRtcMinBands
+_RTC_THREADS = 512           # kRtcThreads
+_RTC_SMALL_THREADS = 1024    # kRtcSmallThreads
+_RTC_CHUNK = 9216            # kRtcChunk: floats of a bank chunk
+_RTC_SUB = 256               # kRtcSub; its call-size choice is K3t's below
 # the tensor-core tier kernels (csrc/cached_conv_tc.cu)
 _PASSES = {"bf16x3": 3, "default": 1}  # mma passes a k-step
 _TC_THREADS = 128            # kTcThreads: K1t/K2t
@@ -103,9 +109,11 @@ _TC_SHAPES = ((2, 1), (1, 1), (1, 2), (1, 4))  # kTcShapes: (MT, WK)
 _RT_TC_THREADS = 256         # kRtTcThreads: K3t
 _RT_TC_WARPS = _RT_TC_THREADS // 32
 _RT_TC_SUB = 256             # kRtTcSub
-_RT_TC_PERSIST_M16 = 16      # kRtTcPersistM16
-_RT_TC_FILL_DIV = 4          # kRtTcFillDiv
-_RT_TC_SMALL = (16, 32, 64)  # kRtTcSmall: output steps of small calls' tiles
+# K3t's and K3's (from M = 32) choice of tile by the call's size
+# (csrc/rt_plan.h)
+_RT_TC_PERSIST_M16 = 16      # kRtPersistM16
+_RT_TC_FILL_DIV = 4          # kRtFillDiv
+_RT_TC_SMALL = (16, 32, 64)  # kRtSmall: small calls' tiles
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -194,16 +202,16 @@ def _rt_tc_wk(items: int, n_k: int) -> int:
 
 def _rt_tc_tile(g: dict, Tt: int, persist: bool) -> dict:
     """A K3t tile of Tt output steps (``rt_tc_tile``): n_sub sub-band steps
-    (analysis rows), MT m16 tiles a warp item, each phase's reduction split
-    WKa / WKs ways, the split window (WL elements, raw f32 and bf16
-    halves), the split sub-band tile (SL elements a half; 0 where it takes
-    the window's place: the analysis is one item a warp) and the bytes of
-    all that and the slices' partial sums."""
+    (analysis rows), MT m16 tiles x one channel block a warp item, each
+    phase's reduction split WKa / WKs ways, the split window (WL elements,
+    raw f32 and bf16 halves), the split sub-band tile (SL elements a half;
+    0 where it takes the window's place: the analysis is one item a warp)
+    and the bytes of all that and the slices' partial sums."""
     MT = 2 if persist else 1
     r = 16 * MT
     n_sub = _cdiv(Tt - 1 + g["rows_s"], r) * r
     WL = _round64(g["M"] * (n_sub - 1) + 16 * g["n_ka"])
-    ga, gs = n_sub // r, Tt // r
+    ga, gs = n_sub // r * g["n_cb"], Tt // r * g["n_cb"]  # warp items
     WKa, WKs = _rt_tc_wk(ga, g["n_ka"]), _rt_tc_wk(gs, g["n_ks"])
     SL = 0 if ga * WKa <= _RT_TC_WARPS else _round64(g["M"] * n_sub)
     red = max((WKa - 1) * ga, (WKs - 1) * gs) * 32 * MT * g["NN"] * 4
@@ -213,32 +221,47 @@ def _rt_tc_tile(g: dict, Tt: int, persist: bool) -> dict:
 
 def _rt_tc_geom(M: int, Ka: int, Ks: int) -> dict:
     """K3t for M bands and banks of Ka / Ks taps (``rt_tc_geom``): both
-    arranged banks' k-steps and bytes (both halves), the sub-band rows one
-    output step reads, the whole-file tile's output steps
-    (``rt_tc_persist_steps``), whether a block stages both banks beside the
-    largest tile of any plan, and the shared-memory gate."""
+    arranged banks' k-steps, channel blocks (2 and 4 at M = 32, 64) and
+    bytes (both halves), the sub-band rows one output step reads, the
+    whole-file tile's output steps (``rt_tc_persist_steps``), whether a
+    block stages both banks (one channel block, beside the largest tile of
+    any plan; else each warp reads its fragments from L2), and the
+    shared-memory gate."""
     n_ka, n_ks = _round16(Ka) // 16, _round16(M * Ks) // 16
     NN = 2 if M > 8 else 1
-    g = {"M": M, "n_ka": n_ka, "n_ks": n_ks, "NN": NN,
+    n_cb = _cdiv(M, 8 * NN)
+    g = {"M": M, "n_ka": n_ka, "n_ks": n_ks, "NN": NN, "n_cb": n_cb,
          "rows_s": _cdiv(16 * n_ks, M),
-         "bank": 2 * (n_ka + n_ks) * 32 * 4 * NN * 2}
+         "bank": 2 * (n_ka + n_ks) * n_cb * 32 * 4 * NN * 2}
     n_sub = _cdiv(max(_RT_TC_SUB, 32 + g["rows_s"] - 1), 32) * 32
     g["persist_Tt"] = (n_sub - g["rows_s"] + 1) // 32 * 32
     rest = max(_rt_tc_tile(g, Tt, persist)["rest"] for Tt, persist in
                [(g["persist_Tt"], True)] + [(t, False) for t in _RT_TC_SMALL])
-    g["stage"] = g["bank"] + rest <= SMEM_LIMIT
+    g["stage"] = n_cb == 1 and g["bank"] + rest <= SMEM_LIMIT
     g["gate"] = (g["bank"] if g["stage"] else 0) + rest
     return g
+
+
+def _rt_tile_choice(B: int, T_out: int, n_sms: int) -> tuple:
+    """(whole file, small call's tile) of K3t and of K3 from M = 32
+    (``rt_call_tile``, ``csrc/rt_plan.h``): a whole file from n_sms * 16 m16
+    output tiles on; a smaller call one tile a block of 64, 32 or 16 output
+    steps, the largest that gives n_sms / 4 blocks."""
+    if B * _cdiv(T_out, 16) >= n_sms * _RT_TC_PERSIST_M16:
+        return True, 0
+    Tt = _RT_TC_SMALL[-1]
+    while (Tt > _RT_TC_SMALL[0]
+           and B * _cdiv(T_out, Tt) < n_sms // _RT_TC_FILL_DIV):
+        Tt //= 2
+    return False, Tt
 
 
 def _rt_tc_plan(B: int, M: int, Ka: int, Ks: int, T_out: int,
                 n_sms: int) -> tuple:
     g = _rt_tc_geom(M, Ka, Ks)
-    persist = B * _cdiv(T_out, 16) >= n_sms * _RT_TC_PERSIST_M16
-    Tt = g["persist_Tt"] if persist else 64
-    while (not persist and Tt > 16
-           and B * _cdiv(T_out, Tt) < n_sms // _RT_TC_FILL_DIV):
-        Tt //= 2
+    persist, Tt = _rt_tile_choice(B, T_out, n_sms)
+    if persist:
+        Tt = g["persist_Tt"]
     t = _rt_tc_tile(g, Tt, persist)
     n_tiles = B * _cdiv(T_out, Tt)
     stage = g["stage"] and (persist or n_tiles <= n_sms)
@@ -291,10 +314,66 @@ def _synthesis_plan_smem(Mb: int, K: int, CG: int, Tt: int, red: int) -> int:
     return 4 * (Mb * K * CG + Mb * _round4(Tt + K + 4) + red)
 
 
+def _rtc_tile(M: int, Ka: int, Ks: int, Tt: int) -> dict:
+    """A tile of K3 at M >= 32 (``rtc_tile``; Tt = 0: a whole file's):
+    thread tiles of NB bands x NT steps (4 x 8 on whole files, 2 x 4 in
+    small calls), one per thread in each phase, in whole warps; Tt output
+    steps of n_sub sub-band
+    steps; R analysis phases and Rm synthesis input bands a bank chunk
+    (powers of two), two chunk buffers (phase rows J*M + 8 floats apart in
+    the analysis chunk, tap rows M + 8 in the synthesis chunk: a warp's
+    copies meet no bank twice); the window [M][XR] and sub-band tile
+    [M][SP] beside them."""
+    J = _cdiv(Ka, M)
+    if Tt == 0:
+        NB, NT, n_sub = 4, _NT, _RTC_SUB
+        Tt = max(0, (n_sub - Ks + 1) // _NT * _NT)
+    else:
+        NB, NT, n_sub = 2, 4, _round4(Tt + Ks - 1)
+
+    def pow2_floor(n):
+        return 1 << (n.bit_length() - 1)
+
+    R = min(M, pow2_floor(max(1, _RTC_CHUNK // (J * M))))
+    Rm = min(M, pow2_floor(max(1, _RTC_CHUNK // (Ks * M))))
+    chunk = max(R * (J * M + 8), Rm * Ks * (M + 8))
+    XR, SP = _round4(n_sub + J + 4), n_sub + 8
+    return {"NT": NT, "n_sub": n_sub, "Tt": Tt,
+            "threads": -(-(M // NB * (n_sub // NT)) // 32) * 32,  # warps
+            "R": R, "Rm": Rm,
+            "chunk": chunk, "smem": 4 * (M * XR + M * SP + 2 * chunk)}
+
+
+def _rtc_fits(M: int, Ka: int, Ks: int) -> bool:
+    """Whether every tile a plan of K3 at M >= 32 can take launches
+    (``rtc_fits``): whole-file tiles of output steps, at most 512 threads
+    (1024 for small calls' tiles), and their shared memory within a
+    block's."""
+    tiles = [_rtc_tile(M, Ka, Ks, Tt) for Tt in (0,) + _RT_TC_SMALL]
+    return (tiles[0]["Tt"] > 0
+            and tiles[0]["threads"] <= _RTC_THREADS
+            and all(t["threads"] <= _RTC_SMALL_THREADS for t in tiles)
+            and max(t["smem"] for t in tiles) <= SMEM_LIMIT)
+
+
+def _rtc_plan(B: int, M: int, Ka: int, Ks: int, T_out: int,
+              n_sms: int) -> tuple:
+    """K3's plan at M >= 32 (``rtc_choice``, ``roundtrip_plan``): whole
+    files persistent blocks over the whole-file tile, smaller calls one
+    tile a block (``_rt_tile_choice``)."""
+    persist, Tt = _rt_tile_choice(B, T_out, n_sms)
+    t = _rtc_tile(M, Ka, Ks, Tt)
+    n_tiles = B * _cdiv(T_out, t["Tt"]) if t["Tt"] > 0 else 0
+    per_sm = max(1, min(2048 // t["threads"],
+                        _SMEM_PER_SM // (t["smem"] + 1024)))
+    gx = min(n_tiles, n_sms * per_sm) if persist else n_tiles
+    return (gx, 1, 1, t["threads"], t["Tt"], t["n_sub"], 1, t["smem"])
+
+
 def _roundtrip_geom(M: int, Ka: int, Ks: int) -> dict:
-    """K3's tile: NB bands a thread tile, n_sub sub-band steps (one
-    analysis thread tile per thread) of which Tt are output steps, J taps
-    per phase of the analysis bank."""
+    """K3's tile up to M = 16: NB bands a thread tile, n_sub sub-band steps
+    (one analysis thread tile per thread) of which Tt are output steps, J
+    taps per phase of the analysis bank."""
     nb = M if M < 4 else 4
     bg = max(1, M // nb)
     n_sub = _THREADS * _NT // bg
@@ -330,6 +409,9 @@ def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int,
             Mb, Ks, 4 * _synthesis_phase_groups(M, Mb, Ks), _SYN_MAX_STEPS,
             _SYN_THREADS * _NT * 4)
     if which == "roundtrip":
+        if M >= _RTC_MIN_BANDS:
+            return max(_rtc_tile(M, Ka, Ks, Tt)["smem"]
+                       for Tt in (0,) + _RT_TC_SMALL)
         return _roundtrip_geom(M, Ka, Ks)["smem"]
     raise ValueError(f"unknown kernel {which!r}")
 
@@ -373,8 +455,14 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     many blocks as fit on the card at once, each walking its tiles. K1 is
     K2's plan with its M phases (J = ceil(K/M) taps each) for K2's input
     bands and its bands for K2's phases; its tiles hold at most 4096/M
-    steps. K3 runs one
-    persistent block an SM over tiles of n_sub sub-band steps."""
+    steps. Up to M = 16 K3 runs one persistent block an SM over tiles of
+    n_sub sub-band steps; at M = 32 and 64, where the banks stream through
+    two chunk buffers, its plan follows the call as K3t's does: whole files
+    persistent blocks of 8M threads (thread tiles of 4 bands x 8 steps) over
+    tiles of 256 sub-band steps (224 output steps at Ks = 33), smaller calls
+    one tile of 64, 32 or 16 output steps a block, in thread tiles of 2
+    bands x 4 steps. K3t at M = 32 and 64 takes M = 16's tiles with 2 or 4
+    channel blocks a phase, its banks read from L2."""
     if fb.check_precision(precision) != "highest":
         if which == "analysis":
             return _tc_plan(1, B, M, Ka, Mb, T_out, n_sms)
@@ -416,6 +504,8 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
         gx = min(tiles, n_sms * per_sm) if ms == 1 else tiles
         return (gx, _cdiv(n_pg, pg), 1, threads, nt * sg, nt, ms, smem)
     if which == "roundtrip":
+        if M >= _RTC_MIN_BANDS:
+            return _rtc_plan(B, M, Ka, Ks, T_out, n_sms)
         g = _roundtrip_geom(M, Ka, Ks)
         n_tiles = B * _cdiv(T_out, g["Tt"]) if g["Tt"] > 0 else 0
         return (min(n_tiles, n_sms), 1, 1, _THREADS, g["Tt"], g["n_sub"], 1,
@@ -451,15 +541,24 @@ def fused_roundtrip_supported(M: int, analysis_taps: int,
                               synthesis_taps: int,
                               precision: str = "highest") -> bool:
     """Whether K3 (K3t at a tier) takes this geometry: a band count it is
-    compiled for (2, 4, 8, 16) whose banks, double-buffered input window
-    and sub-band tile fit in one block's shared memory (true for the
-    atten-100 banks up to M=16; M=32 is past it and its round trip runs as
-    K1 then K2). A tier takes the same geometries, where its own tile fits,
-    so a round trip routes alike at every tier."""
-    if not (M in _RT_BANDS
-            and _roundtrip_geom(M, analysis_taps, synthesis_taps)["Tt"] > 0
-            and smem_bytes("roundtrip", M, M, analysis_taps,
-                           synthesis_taps) <= SMEM_LIMIT):
+    compiled for (2, 4, 8, 16, 32, 64) whose tile fits in one block's
+    shared memory — up to M = 16 both banks, the double-buffered input
+    window and the sub-band tile; at M = 32 and 64 the window, the
+    sub-band tile and two bank chunks. True for every committed bank,
+    designed or fine-tuned. A tier takes the same geometries, where its own
+    tile fits, so a round trip routes alike at every tier. The JAX gate
+    also refuses M = 2 and 4 at the streaming and offline synthesis pads:
+    there a 128-lane group (128 / M steps) does not divide the left pad, a
+    TPU layout constraint that K3 does not have."""
+    if M not in _RT_BANDS:
+        return False
+    if M >= _RTC_MIN_BANDS:
+        fits = _rtc_fits(M, analysis_taps, synthesis_taps)
+    else:
+        fits = (_roundtrip_geom(M, analysis_taps, synthesis_taps)["Tt"] > 0
+                and smem_bytes("roundtrip", M, M, analysis_taps,
+                               synthesis_taps) <= SMEM_LIMIT)
+    if not fits:
         return False
     return precision == "highest" or smem_bytes(
         "roundtrip", M, M, analysis_taps, synthesis_taps,

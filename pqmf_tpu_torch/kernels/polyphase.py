@@ -80,10 +80,12 @@ def supports(n_band: int, taps_per_phase: int,
 def roundtrip_supported(n_band: int, analysis_taps: int,
                         synthesis_taps: int,
                         precision: str = "highest") -> bool:
-    """Whether K6 runs (K3 takes the geometry): the port's shared-memory
-    gate ``cached_conv.fused_roundtrip_supported`` — true up to M=16 for
-    the atten-100 banks. The JAX gate (128-lane grouping) does not apply
-    here; past this gate the round trip runs K4 then K5."""
+    """Whether K6 runs (K3 takes the geometry): the port's gate
+    ``cached_conv.fused_roundtrip_supported`` — true for every committed
+    bank, M = 2 to 64, as the JAX gate is from M = 8 on (at M = 2 and 4 the
+    JAX gate's 128-lane grouping of the synthesis pad refuses, a TPU
+    layout constraint K3 does not have); past this gate the round trip
+    runs K4 then K5."""
     return cc.fused_roundtrip_supported(n_band, analysis_taps,
                                         synthesis_taps, precision)
 

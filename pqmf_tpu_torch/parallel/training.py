@@ -13,7 +13,8 @@ its lax polyphase convs, and this module differentiates the port's plain
 ops (``ops/filterbank.polyphase_forward`` / ``polyphase_inverse``), cuDNN
 on the card, forward and backward in full f32 (:func:`loss_and_grad`). The
 quality readout, :func:`streaming_roundtrip_snr`, runs
-``StreamingPQMF.roundtrip``: K3 at M <= 16, K1 then K2 past it.
+``StreamingPQMF.roundtrip``: one K3 launch at every committed band count,
+M = 2 to 64.
 
 Data-parallel training over a mesh (``mesh=``) is not ported yet (ROADMAP
 queue 1, item 9); passing one raises. Every entry point runs on the card

@@ -37,6 +37,7 @@ __all__ = [
     "kernels_from_params",
     "resolve_device",
     "as_device_tensor",
+    "scan_blocks",
     "StreamingPQMF",
 ]
 
@@ -103,11 +104,28 @@ def centered_padding(kernel: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _state_dtype(dtype) -> torch.dtype:
+    """The streaming state's dtype: float32 only, the one K1/K2 read (as
+    ``torch.float32`` or any NumPy-style spelling of it, such as the
+    reference's ``jnp.float32``); any other raises ``ValueError``."""
+    if dtype is torch.float32:
+        return dtype
+    try:
+        ok = np.dtype(dtype) == np.float32
+    except TypeError:
+        ok = False
+    if not ok:
+        raise ValueError(f"the streaming state is float32 (the kernels take "
+                         f"f32 operands only), got dtype={dtype!r}")
+    return torch.float32
+
+
 def conv_state_init(batch: int, in_ch: int, kernel: int, stride: int,
-                    device="cpu") -> torch.Tensor:
-    """Zero cache of the ``kernel - stride`` past input samples."""
-    return torch.zeros((batch, in_ch, kernel - stride), dtype=torch.float32,
-                       device=device)
+                    device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """Zero cache of the ``kernel - stride`` past input samples, float32
+    (``dtype`` as the reference takes it; anything else raises)."""
+    return torch.zeros((batch, in_ch, kernel - stride),
+                       dtype=_state_dtype(dtype), device=device)
 
 
 def streaming_conv(state, x, w, stride: int = 1,
@@ -330,9 +348,10 @@ class StreamingPQMF:
         """``inverse(forward(x))`` as one kernel, K3 ([B, C, T] ->
         [B, C, T]): the sub-bands never leave the card's shared memory and
         the two ``reverse_half`` masks cancel (K3t at a tier, reading the
-        kept arranged banks). K3 applies the centered pad itself. Geometries
-        K3 does not take (see ``fused_roundtrip_supported``) run as K1 then
-        K2."""
+        kept arranged banks). K3 applies the centered pad itself. Every
+        committed bank, M = 2 to 64, designed or fine-tuned, takes one K3
+        launch; a geometry K3 does not take (see
+        ``fused_roundtrip_supported``) runs as K1 then K2."""
         M = self.n_band
         Ka, Ks = self.hkf.shape[-1], self.hki.shape[-1]
         if M == 1 or not cc.fused_roundtrip_supported(M, Ka, Ks,
@@ -348,14 +367,16 @@ class StreamingPQMF:
 
     # -- streaming ----------------------------------------------------------
 
-    def init_state(self, batch: int = 1) -> dict:
+    def init_state(self, batch: int = 1, dtype=torch.float32) -> dict:
+        """Zero streaming state for ``batch`` signals, float32 (``dtype``
+        as the reference takes it; anything else raises ``ValueError``)."""
         M = self.n_band
         rows = batch * self.n_channels  # one cache per (batch, channel)
         return {
             "analysis": conv_state_init(rows, 1, self.hkf.shape[-1], M,
-                                        self.device),
+                                        self.device, dtype),
             "synthesis": conv_state_init(rows, M, self.hki.shape[-1], 1,
-                                         self.device),
+                                         self.device, dtype),
         }
 
     def _check_block_parity(self, sub_len: int, what: str):
@@ -414,3 +435,19 @@ class StreamingPQMF:
                                  precision=self.precision,
                                  bank=self.tc_banks["synthesis"])
         return y.reshape(B, self.n_channels, -1)
+
+
+def scan_blocks(step_fn, state, blocks):
+    """Run a streaming step over pre-framed blocks ``[n_blocks, B, C,
+    T_block]`` (an array or a tensor): ``state, y = step_fn(state,
+    blocks[i])`` in order, the state carried. Returns ``(state, ys)`` with
+    the steps' outputs (tensors) stacked on a new first axis — the contract
+    of the reference's ``scan_blocks`` (``lax.scan``), as a loop: PyTorch
+    runs each step eagerly."""
+    if len(blocks) == 0:
+        raise ValueError("scan_blocks needs at least one block")
+    ys = []
+    for block in blocks:
+        state, y = step_fn(state, block)
+        ys.append(y)
+    return state, torch.stack(ys)

@@ -18,10 +18,13 @@ tier, but for the ``default`` K3t: its f32 sub-bands are rounded to bf16
 again, and where they differ from the plain version's by an f32 ulp one
 such rounding can flip by a bf16 ulp, so its bound is one bf16 ulp of the
 largest sub-band times the largest column sum of |w_syn| times M, with
-all but 5% of the outputs inside the K3 bar (a flip reaches Ks*M outputs
-and happens on about 2^-15 of the mids: ~1.6% measured).
+all but ``chip_smoke.k3t_default_off(M)`` of the outputs inside the K3
+bar (a flip reaches Ks*M outputs and happens on about 2^-15 of the mids,
+so the share is lumpy on small calls and grows with M; each M's cap is
+the largest share measured there with a margin, chip_smoke.py says which).
 """
 
+import functools
 import os
 import sys
 
@@ -302,8 +305,8 @@ def test_polyphase_kernels_match_plain(dev, M, B, T_sub):
 
 
 @pytest.mark.parametrize("M,rt", [(16, {"roundtrip": 1}),
-                                  (32, {"analysis": 1, "synthesis": 1}),
-                                  (64, {"analysis": 1, "synthesis": 1})])
+                                  (32, {"roundtrip": 1}),
+                                  (64, {"roundtrip": 1})])
 def test_pqmf_routes_and_launch_counts(dev, M, rt):
     gpu, cpu = PQMF(100, M, device="cuda"), PQMF(100, M, device="cpu")
     x = np.random.default_rng(M).standard_normal((2, 1, M * 300)).astype(
@@ -440,6 +443,20 @@ TIERS = ("bf16x3", "default")
 K3_TOL = dict(atol=1e-5, rtol=0.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _k3t_default_off(M):
+    """chip_smoke.py's cap on the share of default-tier K3t outputs past
+    K3_TOL (one definition for the script and these tests)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.k3t_default_off(M)
+
+
 def assert_k3t_close(got, ref, sub, w_syn, tier):
     """K3t against its plain version: K1t's and K2t's bar at bf16x3 (the
     f32 mid is split again, and where it differs from the plain version's
@@ -454,7 +471,10 @@ def assert_k3t_close(got, ref, sub, w_syn, tier):
     bound = ulp * w_syn.abs().sum(dim=(1, 2)).max().item() * M
     err = (got - ref).abs()
     assert err.max().item() <= bound + K3_TOL["atol"], (err.max(), bound)
-    assert (err > K3_TOL["atol"]).float().mean().item() <= 0.05
+    # all but chip_smoke.k3t_default_off(M) of the outputs within K3_TOL
+    off = (err > K3_TOL["atol"]).float().mean().item()
+    print(f"K3T_OFF M={M} shape={tuple(got.shape)} off={off:.6f}")
+    assert off <= _k3t_default_off(M), (M, off)
 
 
 @pytest.mark.parametrize("tier", TIERS)
@@ -880,6 +900,116 @@ def test_entry_point_roundtrips_run_one_k3t(dev, tier):
         if w_syn is None:
             w_syn = cpu.params["hk_ipoly"]
         assert_k3t_close(got.cpu(), ref, sub, w_syn, tier)
+
+
+# -- K3 and K3t at M = 32 and 64 (the banks in chunks / channel blocks) ------
+
+
+def _k3_bands_close(got, ref, x, hkf, hki, M, spad, tier, pad):
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    if tier == "highest":
+        torch.testing.assert_close(got, ref, **TOL)
+    else:
+        assert_k3t_close(got, ref, cc.strided_analysis_conv(x, hkf, M,
+                                                            pad=pad),
+                         hki, tier)
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("M", [32, 64])
+def test_k3_bands_match_plain(dev, tier, B, M):
+    """K3 (``roundtrip_chunked_kernel``) and K3t (channel blocks) at M = 32
+    and 64 against their plain versions: a host block [B, 1, 8192 + Ka - 1]
+    with the syn_pads chip_smoke.py uses, the 60 s signal with the
+    centered pads in the kernel, and T_out one short of, at and one past a
+    multiple of the tile the plan takes for a host block and for a whole
+    file; output memory NaN-filled before each call. K3 within the K1/K2
+    bar (its sums run in one thread, K1's and K2's order), K3t as
+    ``assert_k3t_close``; the kept banks give the bits of banks arranged
+    for the call."""
+    hkf, hki = _bank(M, dev)
+    Ka, Ks = hkf.shape[-1], hki.shape[-1]
+    assert cc.fused_roundtrip_supported(M, Ka, Ks, tier)
+    kept = None if tier == "highest" else (
+        cc.arrange_tc_bank(hkf, "analysis", tier),
+        cc.arrange_tc_bank(hki, "synthesis", tier))
+    g = torch.Generator().manual_seed(M * 31 + B + len(tier))
+    pad = (Ka // 2, Ka // 2)
+
+    def check(x, spad, apad=(0, 0)):
+        _nan_fill()
+        got = cc.fused_roundtrip_conv(x, hkf, hki, M, spad, tier, apad, kept)
+        _k3_bands_close(got, cc.roundtrip_conv_plain(x, hkf, hki, M, spad,
+                                                     tier, apad),
+                        x, hkf, hki, M, spad, tier, apad)
+        return got
+
+    x = torch.randn(B, 1, 8192 + Ka - 1, generator=g).to(dev)
+    for spad in [(Ks // 2, Ks // 2), (3, 0), (0, 40)]:
+        check(x, spad)
+    check(torch.randn(B, 1, 60 * 44100, generator=g).to(dev),
+          (Ks // 2, Ks // 2), pad)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for t_probe in (8192 // M, -(-n_sms * 256 // B) + 64):
+        tile = cc.launch_plan("roundtrip", B, M, M, Ka, Ks, t_probe,
+                              n_sms=n_sms, precision=tier)[4]
+        for edge in (-1, 0, 1):
+            T_out = (t_probe // tile) * tile + edge
+            x = torch.randn(B, 1, M * T_out, generator=g).to(dev)
+            got = check(x, (Ks // 2, Ks // 2), pad)
+            if kept is not None:
+                _nan_fill()
+                assert torch.equal(got, cc.fused_roundtrip_conv(
+                    x, hkf, hki, M, (Ks // 2, Ks // 2), tier, pad))
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("M", [32, 64])
+def test_k3_bands_entry_points_run_one_k3(dev, monkeypatch, tier, M):
+    """``StreamingPQMF.roundtrip`` and ``PQMF.roundtrip`` with the committed
+    fine-tuned bank of M = 32 and 64 on the card: exactly one K3 (K3t)
+    launch each and no K1/K2, every plain version refused; equal to the
+    CPU port."""
+    from pqmf_tpu_torch.parallel.training import load_pretrained_bank
+
+    bank = load_pretrained_bank(f"hk{M}_atten100_finetuned")
+    x = np.random.default_rng(M).standard_normal((2, 1, M * 400)).astype(
+        np.float32) * 0.3
+    for make in (lambda d: StreamingPQMF(100, M, precision=tier, device=d),
+                 lambda d: PQMF(100, M, precision=tier, device=d)):
+        gpu, cpu = make("cuda"), make("cpu")
+        gpu.set_weights(bank)
+        cpu.set_weights(bank)
+        ref = cpu.roundtrip(x)
+        sub = cpu.forward(x).reshape(2, M, -1)
+        w_syn = getattr(cpu, "hki", None)
+        if w_syn is None:
+            w_syn = cpu.params["hk_ipoly"]
+        with monkeypatch.context() as mp:
+            def refuse(*a, **k):
+                raise AssertionError("a plain version ran on the card")
+
+            for mod, names in ((cc, ("analysis_conv_plain",
+                                     "synthesis_conv_plain",
+                                     "roundtrip_conv_plain")),
+                               (pk, ("polyphase_analysis_plain",
+                                     "polyphase_synthesis_plain",
+                                     "polyphase_roundtrip_plain")),
+                               (fb, ("polyphase_forward",
+                                     "polyphase_inverse", "_conv1d"))):
+                for name in names:
+                    mp.setattr(mod, name, refuse)
+            cc.reset_launches()
+            got = gpu.roundtrip(x)
+            torch.cuda.synchronize()
+            assert cc.LAUNCHES == {"analysis": 0, "synthesis": 0,
+                                   "roundtrip": 1}
+        if tier == "highest":
+            torch.testing.assert_close(got.cpu(), ref, **TOL)
+        else:
+            assert_k3t_close(got.cpu(), ref, sub, w_syn, tier)
 
 
 # -- fine-tuning (parallel/training.py) on the card ---------------------------

@@ -134,11 +134,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("M", [2, 4, 8, 16, 32, 64])
 def test_gates(M):
     """K1/K2 take every committed geometry (their bank is staged in
-    chunks); K3 holds both full banks in one block and stops past M=16."""
+    chunks); K3 takes every geometry the JAX gate takes (M = 8 to 64; from
+    M = 32 its banks stream through chunk buffers), and M = 2 and 4, which
+    the JAX gate refuses only for its 128-lane grouping of the synthesis
+    left pad."""
     hkf, hki = _bank(M)
     Ka, Ks = hkf.shape[-1], hki.shape[-1]
     assert cc.supports(M, Ka, Ks)
-    assert cc.fused_roundtrip_supported(M, Ka, Ks) == (M <= 16)
+    j_gate = jcc.fused_roundtrip_supported(M, centered_padding(Ks)[0])
+    lane_only = not j_gate and jcc.fused_roundtrip_supported(M, 0)
+    assert cc.fused_roundtrip_supported(M, Ka, Ks) == (j_gate or lane_only)
+    assert lane_only == (M in (2, 4))
     assert cc.smem_bytes("roundtrip", 16, 16, 513, 33) <= cc.SMEM_LIMIT
 
 
@@ -220,7 +226,20 @@ def test_plans_fit_and_cover(M, B, T_out):
         gx, gy, gz, threads, tile, aux, split, smem = cc.launch_plan(
             which, B, M, M, Ka, Ks, T_out)
         assert smem <= cc.smem_bytes(which, M, M, Ka, Ks) <= cc.SMEM_LIMIT
-        assert 1 <= threads <= 256 and gx >= 1 and gy >= 1 and gz >= 1
+        assert gx >= 1 and gy >= 1 and gz >= 1
+        if which == "roundtrip" and M >= 32:
+            # the chunked K3: whole files (from 16 m16 output tiles an SM)
+            # persistent blocks of 4x8 thread tiles, smaller calls one tile
+            # of 16-64 steps a block of 2x4 thread tiles
+            tiles = B * -(-T_out // tile)
+            assert aux >= tile + Ks - 1 and threads % 32 == 0
+            if B * -(-T_out // 16) >= cc.N_SMS * 16:
+                assert gx == min(tiles, cc.N_SMS) and threads <= 512
+            else:
+                assert tile in (16, 32, 64) and gx == tiles
+                assert threads <= 1024
+            continue
+        assert 1 <= threads <= 256
         if which in ("analysis", "synthesis"):
             # K1's band groups and K2's phase groups: 4 channels each
             tiles = B * -(-T_out // tile)

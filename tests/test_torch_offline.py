@@ -197,12 +197,17 @@ def test_polyphase_wrappers_refuse():
 
 @pytest.mark.parametrize("M", [2, 4, 8, 16, 32, 64])
 def test_gates(M):
-    """K1/K2 take every committed polyphase bank; K6 runs up to M=16 and
-    past that the round trip is K4 then K5."""
+    """K1/K2 take every committed polyphase bank; K6 runs wherever the
+    JAX gate runs its fused round trip (M = 8 to 64), and at M = 2 and 4,
+    which the JAX gate refuses only for its 128-lane grouping of the
+    synthesis left pad."""
     p = tfb.build_filterbank(100, M)
     L = p["hk_poly"].shape[-1]
     assert pk.supports(M, L)
-    assert pk.roundtrip_supported(M, L * M, L) == (M <= 16)
+    j_gate = jpk.roundtrip_supported(M, L)
+    lane_only = not j_gate and M in (2, 4)
+    assert pk.roundtrip_supported(M, L * M, L) == (j_gate or lane_only)
+    assert j_gate == (M >= 8)
 
 
 def test_cpu_paths_count_no_launches():
@@ -237,11 +242,11 @@ def test_pqmf_matches_jax(polyphase, shape):
     _close(got(x), sub.numpy())
 
 
-@pytest.mark.parametrize("M", [4, 32])
+@pytest.mark.parametrize("M", [4, 32, 64])
 def test_pqmf_roundtrip_matches_pallas(M):
     """The round trip against the JAX PQMF on its Pallas kernels
-    (interpret mode): K6 at M=4 (the JAX gate composes), K4 then K5 at
-    M=32 (the port's gate composes)."""
+    (interpret mode): K6 at every M; JAX composes at M=4 (its gate's
+    128-lane grouping) and runs its fused round trip at M=32 and 64."""
     x = _rand(M, 2, 1, M * 40)
     ref = JPQMF(100, M, use_pallas=True)
     got = PQMF(100, M, device="cpu")

@@ -196,3 +196,68 @@ def test_plain_streaming_convs_match_jax(stride, causal):
             outs.append(y)
         _close(torch.cat(outs, -1), got)
         assert st.shape == (2, C, 33 - stride)
+
+
+def test_scan_blocks_matches_jax(pair16):
+    """``scan_blocks`` over pre-framed blocks [n, B, C, T] against the
+    reference's (``lax.scan``), as tests/test_streaming.py holds it: the
+    stacked block outputs and the final state, and each block against a
+    loop of ``process_block``."""
+    from pqmf_tpu.streaming import scan_blocks as j_scan_blocks
+    from pqmf_tpu_torch.streaming import scan_blocks
+
+    jp, tp = pair16
+    n_blocks, B = 6, 2048
+    x = np.random.default_rng(5).standard_normal(
+        (n_blocks, 1, 1, B)).astype(np.float32)
+    js, jys = j_scan_blocks(lambda s, b: jp.process_block(s, b),
+                            jp.init_state(), jnp.asarray(x))
+    ts, tys = scan_blocks(tp.process_block, tp.init_state(), x)
+    assert tys.shape == (n_blocks, 1, 1, B)
+    _close(tys, jys)
+    for k in ("analysis", "synthesis"):
+        _close(ts[k], js[k], k)
+    state = tp.init_state()
+    for i in range(n_blocks):
+        state, y = tp.process_block(state, x[i])
+        np.testing.assert_array_equal(y.numpy(), tys[i].numpy())
+    _, from_tensor = scan_blocks(tp.process_block, tp.init_state(),
+                                 torch.from_numpy(x))
+    np.testing.assert_array_equal(from_tensor.numpy(), tys.numpy())
+    with pytest.raises(ValueError, match="at least one block"):
+        scan_blocks(tp.process_block, tp.init_state(), x[:0])
+
+
+@pytest.mark.parametrize("dtype", [None, torch.float32, np.float32,
+                                   jnp.float32, "float32"])
+def test_state_takes_the_reference_dtype(pair16, dtype):
+    """``init_state`` and ``conv_state_init`` take the reference's
+    ``dtype`` argument (float32 by default there) in its spellings; the
+    state is float32, as JAX's."""
+    from pqmf_tpu.streaming import conv_state_init as j_conv_state_init
+    from pqmf_tpu_torch.streaming import conv_state_init
+
+    jp, tp = pair16
+    kw = {} if dtype is None else {"dtype": dtype}
+    st, js = tp.init_state(2, **kw), jp.init_state(2)
+    for k in ("analysis", "synthesis"):
+        assert st[k].dtype == torch.float32
+        assert tuple(st[k].shape) == js[k].shape
+        assert not st[k].any()
+    s = conv_state_init(3, 16, 33, 1, **kw)
+    js = j_conv_state_init(3, 16, 33, 1)
+    assert s.dtype == torch.float32 and tuple(s.shape) == js.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16,
+                                   torch.float16, np.float64, "int32"])
+def test_state_refuses_other_dtypes(pair16, dtype):
+    """The kernels take f32 operands only, so any other state dtype is
+    refused with a ValueError (not the TypeError of an unknown argument)."""
+    from pqmf_tpu_torch.streaming import conv_state_init
+
+    _, tp = pair16
+    with pytest.raises(ValueError, match="float32"):
+        tp.init_state(1, dtype=dtype)
+    with pytest.raises(ValueError, match="float32"):
+        conv_state_init(1, 1, 513, 16, "cpu", dtype)

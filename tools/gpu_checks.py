@@ -15,7 +15,9 @@ the JAX package. The checks (``tools/tpu_checks.py`` lines in brackets):
   and within 0.5 dB of the port on the CPU [:155-160] (the banks'
   reconstruction error, -102 to -108 dB, is as small as f32 rounding over
   their 512-2048-tap sums, so another summation order moves the SNR: the
-  card read 0.005 / 0.13 / 0.14 dB from the CPU at M = 8 / 32 / 64);
+  card reads 0.005 / 0.13 / 0.14 dB from the CPU at M = 8 / 32 / 64, the
+  same through K3 as through K1 then K2, whose order K3 keeps); each
+  round trip is one K3 launch and no K1 or K2 (on the card);
 - band-shard K1 / K2 at Mb = 8 against the full bank's bands [:201-207];
 - the TA wrapper's fused pitch shift against its per-band loop (> 80 dB)
   [:218];
@@ -128,10 +130,16 @@ def main(argv=None) -> int:
     sixty = bench_signal()
     for m, need in FINETUNED_FLOORS.items():
         bank = load_pretrained_bank(f"hk{m}_atten100_finetuned")
+        cc.reset_launches()
         got = roundtrip_snr(bank, 100, m, sixty, device=dev)
         ok &= floor(f"fine-tuned M={m} bank, 60 s steady-state SNR", got,
                     need)
         if dev != "cpu":
+            launches = dict(cc.LAUNCHES)
+            ok &= check(f"fine-tuned M={m} round trip: one K3, no K1/K2 "
+                        f"({launches})",
+                        float(launches != {"analysis": 0, "synthesis": 0,
+                                           "roundtrip": 1}), 0.0)
             ref = roundtrip_snr(bank, 100, m, sixty, device="cpu")
             ok &= check(f"fine-tuned M={m} SNR, card vs CPU port (dB)",
                         abs(got - ref), FINETUNED_CPU_DB)

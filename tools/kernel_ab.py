@@ -7,9 +7,9 @@
 Run from the root of a checkout on a machine with an NVIDIA card and
 ``nvcc``. Each variant is the two sources of ``pqmf_tpu_torch/csrc``
 (``cached_conv.cu``, the f32 kernels; ``cached_conv_tc.cu``, the tiers)
-with a few text edits (``VARIANTS``: the sources as they are, and each
-design choice of K1/K2/K3 or of K1t/K2t undone); every edit must match its
-source exactly once. All variants are built at once, each into its own
+and their header ``rt_plan.h`` with a few text edits (``VARIANTS``: the
+sources as they are, and each design choice of K1/K2/K3 or of K1t/K2t
+undone); every edit must match its file exactly once. All variants are built at once, each into its own
 library loaded with ctypes; each is checked against the plain versions,
 then the device time of its kernels (``torch.profiler``) is taken in turns
 at K1 [1,1,8704], K1 [16,1,8704], K1 at K4's 60 s shape [1,1,2646000]
@@ -50,7 +50,7 @@ _K1_W8K = ("kAnaWindow = 4096;", "kAnaWindow = 8192;")
 _TC_LD = "const int LD = S % 8 == 0 ? 0 : S % 2 == 0 ? 1 : 2;"
 
 # name -> [(source index, text in that source, its replacement)]: source
-# 0 is cached_conv.cu, 1 cached_conv_tc.cu
+# 0 is cached_conv.cu, 1 cached_conv_tc.cu, 2 the header rt_plan.h
 VARIANTS = {
     "as_is": [],
     "tap_loop_unroll_4": [(0, _TAPS, _TAPS.replace("unroll 8", "unroll 4"))],
@@ -91,13 +91,12 @@ VARIANTS = {
     # K3t: each design choice undone or moved
     "rt_no_swizzle": [(1, "a.swz = LD == 0 ? min_i(M / 8, 8) - 1 : 0;",
                        "a.swz = 0;")],
-    "rt_stage_never": [(1, "g.stage = g.bank_bytes + rt_tc_rest_max(g)",
-                        "g.stage = false && g.bank_bytes + "
-                        "rt_tc_rest_max(g)")],
+    "rt_stage_never": [(1, "g.stage = g.n_cb == 1 && g.bank_bytes",
+                        "g.stage = false && g.bank_bytes")],
     "rt_stage_always": [(1, "p.stage = g.stage && (persist || n_tiles <= "
                             "n_sms);", "p.stage = g.stage;")],
-    "rt_fill_div_8": [(1, "kRtTcFillDiv = 4;", "kRtTcFillDiv = 8;")],
-    "rt_fill_div_1": [(1, "kRtTcFillDiv = 4;", "kRtTcFillDiv = 1;")],
+    "rt_fill_div_8": [(2, "kRtFillDiv = 4;", "kRtFillDiv = 8;")],
+    "rt_fill_div_1": [(2, "kRtFillDiv = 4;", "kRtFillDiv = 1;")],
     "rt_sub_512": [(1, "kRtTcSub = 256;", "kRtTcSub = 512;")],
     "rt_sub_128": [(1, "kRtTcSub = 256;", "kRtTcSub = 128;")],
     "rt_no_split_k": [(1, "while (2 * wk * items <= kRtTcWarps",
@@ -108,7 +107,8 @@ VARIANTS = {
 def _build_all(out: Path, names) -> dict:
     from pqmf_tpu_torch.kernels import _build
 
-    srcs = [src.read_text() for src in _build.SOURCES]
+    files_in = _build.SOURCES + _build.HEADERS
+    srcs = [src.read_text() for src in files_in]
     nvcc = _build._find_nvcc()
     procs = {}
     for name in names:
@@ -116,15 +116,15 @@ def _build_all(out: Path, names) -> dict:
         for which, old, new in VARIANTS[name]:
             if texts[which].count(old) != 1:
                 raise SystemExit(f"{name}: {old!r} is not once in "
-                                 f"{_build.SOURCES[which].name}")
+                                 f"{files_in[which].name}")
             texts[which] = texts[which].replace(old, new)
-        files = []
-        for src, text in zip(_build.SOURCES, texts):
-            files.append(out / f"{name}.{src.name}")
-            files[-1].write_text(text)
+        (out / name).mkdir(exist_ok=True)
+        for src, text in zip(files_in, texts):
+            (out / name / src.name).write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
-             str(out / f"{name}.so"), *(str(f) for f in files)],
+             str(out / f"{name}.so"),
+             *(str(out / name / s.name) for s in _build.SOURCES)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
