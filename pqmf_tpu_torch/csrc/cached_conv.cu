@@ -44,16 +44,15 @@
 // M=16 its blocks are persistent, one an SM: each stages both banks once,
 // walks time tiles, and copies the next tile's window with cp.async while
 // the current one computes.  At M=32 and 64 the banks do not fit a block
-// (266 KB and 1.07 MB in f32), so roundtrip_chunked_kernel keeps only the
-// window and the whole sub-band tile [M][n_sub + halo] in shared memory and
-// streams both banks through two chunk buffers from L2 (analysis phases,
-// then synthesis input bands; the next chunk's copy in flight while one
-// computes).  Each output's sum still runs in one thread, in K1's and K2's
-// order (phase by phase, band by band), and the chunks cost one L2 read of
-// both banks a tile: 266 KB against ~16 M FMA at M=32 (tiles of 256
-// sub-band steps, 224 outputs).  Its plan follows the call, as K3t's: whole
-// files run persistent blocks over those tiles, host blocks one tile of
-// 16-64 output steps a block.  K2 chooses its tile from the call's size
+// (266 KB and 1.07 MB in f32), so roundtrip_cluster_kernel runs a thread-
+// block cluster of M/8 blocks a tile (Hopper's distributed shared memory):
+// each block keeps 1/C of both banks, staged once a launch, computes 8
+// sub-bands of the tile, and reads the other blocks' sub-band rows through
+// distributed shared memory before it computes its 8 output channels (see
+// the note above the kernel).  Its plan follows the call, as K3t's: whole
+// files run persistent clusters over tiles of 256 sub-band steps, host
+// blocks one cluster a tile of 16-64 output steps.  K2 chooses its tile
+// from the call's size
 // (launch_plan): large calls run persistent blocks of big tiles, small ones
 // split the band sum across the threads of a block and reduce it in shared
 // memory, so a block of 512 steps still spreads over the whole card.  K2
@@ -83,15 +82,20 @@ constexpr size_t kSmemLimit = 232448;  // shared memory one block may use
 // terms (M=32, 64) rounds far enough from the plain conv's order to leave
 // K12_TOL
 constexpr int kSplitMaxBands = 16;
-// K3 at M >= 32 (roundtrip_chunked_kernel): most threads a block (whole
-// files' thread tiles, small calls'), the floats of one bank chunk (36 KB),
-// the sub-band steps of a whole-file tile; the call-size tile choice is
-// K3t's (rt_plan.h)
+// K3 at M >= 32 (roundtrip_cluster_kernel): a cluster of M / kRtcBlockBands
+// blocks a tile, each with kRtcBlockBands of the analysis bands and of the
+// output channels; most threads a block; the sub-band steps of a whole-file
+// tile; the thread tiles (bands x steps) of whole files and of host blocks.
+// The call-size tile choice is K3t's (rt_plan.h)
 constexpr int kRtcMinBands = 32;
-constexpr int kRtcThreads = 512;
-constexpr int kRtcSmallThreads = 1024;
-constexpr int kRtcChunk = 9216;
+constexpr int kRtcBlockBands = 8;
+constexpr int kRtcThreads = 256;
 constexpr int kRtcSub = 256;
+constexpr int kRtcNB = 2;
+constexpr int kRtcNT = 8;
+constexpr int kRtcSmallNB = 1;
+constexpr int kRtcSmallNT = 4;
+constexpr int kRtcMaxCluster = 8;  // the portable cluster size
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -261,51 +265,43 @@ bool roundtrip_templated(int M) {
   return M == 2 || M == 4 || M == 8 || M == 16 || M == 32 || M == 64;
 }
 
-inline int pow2_floor(int n) {
-  int p = 1;
-  while (2 * p <= n) p *= 2;
-  return p;
-}
-
-// A tile of roundtrip_chunked_kernel (M >= 32): thread tiles of NB bands x
-// NT steps (4 x 8 on whole files; 2 x 4 in small calls, twice the threads
-// for a call too small to fill the card), one per thread in each phase, so
-// n_sub / NT x M / NB threads (in whole warps: the bank chunks are copied
-// warp by warp); Tt output steps of n_sub sub-band
-// steps; the window [M][XR], the sub-band tile [M][SP]; R analysis phases
-// and Rm synthesis input bands a bank chunk (powers of two), two chunk
-// buffers of `chunk` floats: the analysis chunk's phases PS = J*M + 8
-// floats apart, the synthesis chunk's taps SW = M + 8 (so a warp's copies
-// land on 32 distinct banks).  Tt = 0: a whole file's tile.
+// A tile of roundtrip_cluster_kernel (M >= 32), for each of the C = M/8
+// blocks of its cluster: thread tiles of NB bands x NT steps (2 x 8 on
+// whole files; 1 x 4 on host blocks, where a block's few threads and the
+// 2112-term sums make latency, not issue, the limit), one per thread in
+// each phase, in whole warps; Tt output steps of n_sub sub-band steps; the
+// block's analysis bank [M phases][PS] (J*8 taps x bands, padded so that
+// PS = 8 mod 32: the staging copies meet no bank twice), its synthesis
+// bank [M][Ks][8], its own sub-band rows [8][SP] and the window [M][XR],
+// which the whole sub-band tile [M][SP] takes over once the analysis has
+// read it.  Tt = 0: a whole file's tile.
 struct RtcTile {
-  int NB, NT, n_sub, Tt, threads, J, XR, SP, R, Rm, PS, SW, chunk;
+  int C, NB, NT, n_sub, Tt, threads, J, XR, SP, PS;
   size_t smem;
 };
 
 RtcTile rtc_tile(int M, int Ka, int Ks, int Tt) {
+  constexpr int MB = kRtcBlockBands;
   RtcTile t;
+  t.C = M / MB;
   t.J = cdiv(Ka, M);
   if (Tt == 0) {
-    t.NB = 4;
-    t.NT = kNT;
+    t.NB = kRtcNB;
+    t.NT = kRtcNT;
     t.n_sub = kRtcSub;
-    t.Tt = max_i(0, (t.n_sub - Ks + 1) / kNT * kNT);
+    t.Tt = max_i(0, (t.n_sub - Ks + 1) / t.NT * t.NT);
   } else {
-    t.NB = 2;
-    t.NT = 4;
+    t.NB = kRtcSmallNB;
+    t.NT = kRtcSmallNT;
     t.Tt = Tt;
-    t.n_sub = round4(Tt + Ks - 1);
+    t.n_sub = cdiv(Tt + Ks - 1, t.NT) * t.NT;
   }
-  t.threads = (M / t.NB * (t.n_sub / t.NT) + 31) & ~31;  // whole warps
+  t.threads = (MB / t.NB * (t.n_sub / t.NT) + 31) & ~31;  // whole warps
   t.XR = round4(t.n_sub + t.J + 4);
   t.SP = t.n_sub + 8;
-  t.R = min_i(M, pow2_floor(max_i(1, kRtcChunk / (t.J * M))));
-  t.Rm = min_i(M, pow2_floor(max_i(1, kRtcChunk / (Ks * M))));
-  t.PS = t.J * M + 8;
-  t.SW = M + 8;
-  t.chunk = max_i(t.R * t.PS, t.Rm * Ks * t.SW);
-  t.smem = sizeof(float) * ((size_t)M * t.XR + (size_t)M * t.SP +
-                            2 * (size_t)t.chunk);
+  t.PS = t.J * MB + ((MB - t.J * MB) & 31);
+  t.smem = sizeof(float) * ((size_t)M * t.PS + (size_t)M * Ks * MB +
+                            (size_t)MB * t.SP + (size_t)M * t.XR);
   return t;
 }
 
@@ -322,42 +318,43 @@ size_t rtc_smem(int M, int Ka, int Ks) {
   return m;
 }
 
-// whether every tile a plan can take launches: output steps, threads,
-// shared memory
+// whether every tile a plan can take launches: whole clusters of at most
+// the portable size, output steps, threads, shared memory
 bool rtc_fits(int M, int Ka, int Ks) {
-  if (rtc_tile(M, Ka, Ks, 0).Tt <= 0) return false;
+  if (M % kRtcBlockBands || M / kRtcBlockBands > kRtcMaxCluster ||
+      rtc_tile(M, Ka, Ks, 0).Tt <= 0)
+    return false;
   for (int Tt : kRtcTiles)
-    if (rtc_tile(M, Ka, Ks, Tt).threads >
-        (Tt ? kRtcSmallThreads : kRtcThreads))
-      return false;
+    if (rtc_tile(M, Ka, Ks, Tt).threads > kRtcThreads) return false;
   return rtc_smem(M, Ka, Ks) <= kSmemLimit;
 }
 
-// The tile of a call of B rows of T_out output steps (rt_plan.h): whole
-// files the whole-file tile in persistent blocks, smaller calls one tile
-// of 16-64 steps a block.
+// The tile of a call of B rows of T_out output steps (rt_plan.h, counting
+// the cluster's blocks): whole files the whole-file tile in persistent
+// clusters, smaller calls one tile of 16-64 steps a cluster.
 RtcTile rtc_choice(int B, int M, int Ka, int Ks, int T_out, int n_sms,
                    bool* persist) {
-  const int Tt = rt_call_tile(B, T_out, n_sms);
+  const int Tt = rt_call_tile(B, T_out, n_sms, M / kRtcBlockBands);
   *persist = Tt == 0;
   return rtc_tile(M, Ka, Ks, Tt);
 }
 
-Plan roundtrip_plan(int B, int M, int Ka, int Ks, int T_out, int n_sms) {
+// max_clusters: the clusters of the whole-file tile the card holds at once
+// (cudaOccupancyMaxActiveClusters; a cluster lives inside one GPC)
+Plan roundtrip_plan(int B, int M, int Ka, int Ks, int T_out, int n_sms,
+                    int max_clusters) {
   Plan p;
   if (M >= kRtcMinBands) {
     bool persist = false;
     const RtcTile t = rtc_choice(B, M, Ka, Ks, T_out, n_sms, &persist);
     const int n_tiles = t.Tt > 0 ? B * cdiv(T_out, t.Tt) : 0;
-    const int per_sm = max_i(1, min_i(2048 / t.threads,
-                                      (int)(kSmemPerSm / (t.smem + 1024))));
-    p.gx = persist ? min_i(n_tiles, n_sms * per_sm) : n_tiles;
+    p.gx = (persist ? min_i(n_tiles, max_i(0, max_clusters)) : n_tiles) * t.C;
     p.gy = 1;
     p.gz = 1;
     p.threads = t.threads;
     p.tile_steps = t.Tt;
     p.aux = t.n_sub;
-    p.split = 1;
+    p.split = t.C;
     p.smem = t.smem;
     return p;
   }
@@ -391,8 +388,10 @@ __device__ __forceinline__ void ld_vec(const float* p, float (&v)[N]) {
   if constexpr (N == 4) {
     const float4 t = ld4(p);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (N == 1) {
+    v[0] = *p;
   } else {
-    static_assert(N == 2, "vectors of 2 or 4 floats");
+    static_assert(N == 2, "vectors of 1, 2 or 4 floats");
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x; v[1] = t.y;
   }
@@ -402,8 +401,10 @@ template <int N>
 __device__ __forceinline__ void st_vec(float* p, const float (&v)[N]) {
   if constexpr (N == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (N == 1) {
+    *p = v[0];
   } else {
-    static_assert(N == 2, "vectors of 2 or 4 floats");
+    static_assert(N == 2, "vectors of 1, 2 or 4 floats");
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   }
 }
@@ -480,6 +481,25 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The cluster barrier in two halves: every thread of every block of the
+// cluster arrives (release: its shared-memory writes become visible to the
+// cluster), and waits (acquire) until all have; a thread's arrivals and
+// waits alternate.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// p (this block's shared memory) at the same offset in the shared memory of
+// the cluster's block `rank` (distributed shared memory, a generic address)
+__device__ __forceinline__ const float* cluster_ptr(const float* p,
+                                                    int rank) {
+  unsigned long long r;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(p), "r"(rank));
+  return reinterpret_cast<const float*>(r);
 }
 
 // q = e / M and r = e % M, by a shift and a mask where M = 2^lg (lg >= 0):
@@ -890,47 +910,82 @@ roundtrip_kernel(const float* __restrict__ x, const float* __restrict__ wa,
 }
 
 // ---------------------------------------------------------------------------
-// K3 at M = 32, 64: the banks stream through two chunk buffers.  Blocks walk
-// the tiles (batch row, output time tile) with a stride of the grid.  A
-// tile's chunks are its analysis phases, R at a time (q < nca), then its
-// synthesis input bands, Rm at a time; the next chunk (the next tile's
-// first after the last) is copied while one computes, and the next tile's
-// window once the analysis has read this one.  Thread tid keeps one thread
-// tile (band group tid % BG, steps tid / BG * NT) of analysis sums across
-// the analysis chunks, writes it to the sub-band tile, then one of
-// synthesis sums (output bands, output steps) across the synthesis chunks.
+// K3 at M = 32, 64: roundtrip_cluster_kernel replaces pqmf_tpu/kernels/
+// cached_conv.py:fused_roundtrip_conv (:794; _fused_roundtrip_single :715,
+// its pallas_call :751) at these band counts.  It is bound by f32 FMAs on
+// the CUDA cores (~2.1 kFMA a sub-band step and ~2.1 a sample out at M = 64:
+// 11 GFMA on 60 s against 21 MB of device memory), so its design keeps every
+// FMA's operands in shared memory and registers: one thread-block cluster of
+// C = M/8 blocks a tile, block rank rho owning analysis bands and output
+// channels [8 rho, 8 rho + 8).  Each block
+// - stages its slice of both f32 banks once a launch, transposed by 4-byte
+//   cp.async (135 KB at M = 64: a whole bank never fits a block); the
+//   clusters are persistent on whole files, so the slices stay resident
+//   across the tiles and no bank is read twice;
+// - copies the tile's window (all M phases) itself and computes its 8
+//   sub-bands of every step of the tile into its own rows;
+// - meets the cluster in a barrier, reads every block's rows through
+//   distributed shared memory into one local sub-band tile (over the window,
+//   which the analysis has read), and arrives at a second barrier, whose
+//   wait comes before it writes its own rows again or exits: a peer may
+//   still be reading them;
+// - computes its 8 output channels of the tile's output steps.
+// Each output's sum runs in one thread, in K1's and K2's order (phase by
+// phase, band by band): the split is over bands, never over taps.
 // ---------------------------------------------------------------------------
 template <int M, int NB, int NT>
-__global__ void __launch_bounds__(NB == 4 ? kRtcThreads : kRtcSmallThreads, 1)
-roundtrip_chunked_kernel(const float* __restrict__ x,
+__global__ void __launch_bounds__(kRtcThreads, 1)
+roundtrip_cluster_kernel(const float* __restrict__ x,
                          const float* __restrict__ wa,
                          const float* __restrict__ ws,
                          float* __restrict__ out, int B, int Tx, int Ka,
                          int Ks, int T_ana, int T_out, int pad_a,
                          int pad_left, int n_sub, int Tt, int J, int XR,
-                         int SP, int R, int Rm, int PS, int SW, int chunk) {
-  constexpr int BG = M / NB;
+                         int SP, int PS) {
+  constexpr int MB = kRtcBlockBands;  // bands and channels a block
+  constexpr int C = M / MB;           // blocks a cluster
+  constexpr int BG = MB / NB;         // band groups of a block
+  constexpr int lgM = M == 32 ? 5 : 6;
+  static_assert(M == 32 || M == 64, "M = 32 or 64");
   extern __shared__ float4 rtc_shared[];
-  // the window [M][XR] = x[M*(tau0+tau) + r], the sub-band tile + halo
-  // [M][SP], two bank chunks [2][chunk]
-  float* xp_s = reinterpret_cast<float*>(rtc_shared);
-  float* sub_s = xp_s + M * XR;
-  float* w_s = sub_s + M * SP;
+  // the analysis bank [M][PS], wa_s[r*PS + j*MB + c] = wa[c0+c][j*M + r];
+  // the synthesis bank [M][Ks][MB] = ws[M-1-(c0+c)][m][k] (the gain M goes
+  // on the sums: a power of two, the same floats); this block's sub-band
+  // rows [MB][SP]; the window [M][XR] = x[M*(tau0+tau) + r], then the
+  // whole sub-band tile [M][SP]
+  float* wa_s = reinterpret_cast<float*>(rtc_shared);
+  float* ws_s = wa_s + M * PS;
+  float* own_s = ws_s + M * Ks * MB;
+  float* xp_s = own_s + MB * SP;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
+  const int rank = blockIdx.x % C;
+  const int c0 = rank * MB;
+  const int n_clusters = gridDim.x / C;
   const int tiles_per_row = cdiv(T_out, Tt);
   const int n_tiles = B * tiles_per_row;
-  // R and Rm are powers of two dividing M
-  const int RQ = R < 4 ? R : 4;  // consecutive phases one lane group copies
-  const int lgRQ = __ffs(RQ) - 1;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = nthr >> 5;  // whole warps (rtc_tile)
-  const int nca = M / R;
-  const int nc = nca + M / Rm;
   const int bg = tid % BG;
   const int s0 = tid / BG * NT;
 
+  // the bank slices: lanes take 8 bands x 4 consecutive taps, which the row
+  // strides (PS = 8 mod 32 phases; 8 floats a tap) put on 32 distinct banks
+  for (int e = tid; e < MB * Ka; e += nthr) {
+    const int c = e & (MB - 1);
+    const int k = e >> 3;  // taps past Ka are never read and not copied
+    cp_async4(wa_s + (k & (M - 1)) * PS + (k >> lgM) * MB + c,
+              wa + (long long)(c0 + c) * Ka + k, 4);
+  }
+  const int MK = M * Ks;
+  for (int e = tid; e < MB * MK; e += nthr) {
+    const int c = e & (MB - 1);
+    const int f = e >> 3;
+    cp_async4(ws_s + f * MB + c, ws + (long long)(M - 1 - c0 - c) * MK + f,
+              4);
+  }
+  for (int e = tid; e < MB * (SP - n_sub); e += nthr) {
+    const int m = e / (SP - n_sub);
+    own_s[m * SP + n_sub + e % (SP - n_sub)] = 0.0f;
+  }
   // the window of tile `tl`, zeros outside the input (the analysis pad
   // pad_a, and past its end)
   auto load_window = [&](int tl) {
@@ -941,149 +996,96 @@ roundtrip_chunked_kernel(const float* __restrict__ x,
     for (int e = tid; e < M * XR; e += nthr) {
       const long long p = p0 + e;
       const bool in = p >= 0 && p < Tx;
-      cp_async4(xp_s + (e % M) * XR + e / M, in ? xb + p : xb, in ? 4 : 0);
-    }
-  };
-  // chunk q of a tile into buffer `buf`.  q < nca: phases r0 .. r0+R-1,
-  // w[(r-r0)*PS + j*M + m] = wa[m][j*M + r] (taps past Ka are never read
-  // and not copied); else input bands m0 .. m0+Rm-1, w[((m-m0)*Ks + k)*SW
-  // + c] = ws[M-1-c][m][k] (the gain M goes on the sums: a power of two,
-  // the same floats).  The bank is transposed on the way, so a warp copies
-  // 8 output bands x 4 consecutive floats of each one's row (8 lines of
-  // global memory), which the row strides put on 32 distinct banks.
-  auto stage = [&](int q, int buf) {
-    float* dst = w_s + buf * chunk;
-    if (q < nca) {  // lane: (rr_lo, m_lo); a warp walks (m_hi, j)
-      const int r0 = q * R;
-      const int LM = 32 >> lgRQ;
-      const int m_lo = lane >> lgRQ;
-      const int rr_lo = lane & (RQ - 1);
-      int m_hi = 0, j = warp;
-      while (j >= J) j -= J, ++m_hi;
-      while (m_hi < M / LM) {
-        const int m = LM * m_hi + m_lo;
-        const int k = j * M + r0 + rr_lo;
-        for (int rq = 0; rq < R; rq += RQ)
-          if (k + rq < Ka)
-            cp_async4(dst + (rr_lo + rq) * PS + j * M + m,
-                      wa + (long long)m * Ka + k + rq, 4);
-        j += n_warps;
-        while (j >= J) j -= J, ++m_hi;
-      }
-    } else {  // lane: (f_lo, c_lo); a warp walks (c_hi, f_hi)
-      const int m0 = (q - nca) * Rm;
-      const int RK = Rm * Ks;
-      const int FQ = cdiv(RK, 4);
-      const int c_lo = lane >> 2;
-      int c_hi = 0, fq = warp;
-      while (fq >= FQ) fq -= FQ, ++c_hi;
-      while (c_hi < M / 8) {
-        const int f = 4 * fq + (lane & 3);
-        const int c = 8 * c_hi + c_lo;
-        if (f < RK)
-          cp_async4(dst + f * SW + M - 1 - c,
-                    ws + ((long long)c * M + m0) * Ks + f, 4);
-        fq += n_warps;
-        while (fq >= FQ) fq -= FQ, ++c_hi;
-      }
+      cp_async4(xp_s + (e & (M - 1)) * XR + (e >> lgM), in ? xb + p : xb,
+                in ? 4 : 0);
     }
   };
 
-  for (int e = tid; e < M * (SP - n_sub); e += nthr) {
-    const int m = e / (SP - n_sub);
-    sub_s[m * SP + n_sub + e % (SP - n_sub)] = 0.0f;
-  }
-  int tile = blockIdx.x;
-  if (tile < n_tiles) {
-    load_window(tile);
-    stage(0, 0);
-  }
+  int tile = blockIdx.x / C;  // the cluster's tiles, all its blocks alike
+  if (tile < n_tiles) load_window(tile);
   cp_async_commit();
-  int buf = 0;
   const float gain = (float)M;
-  for (; tile < n_tiles; tile += gridDim.x) {
-    const int next = tile + gridDim.x;
+  const int SP4 = SP >> 2;
+  bool first = true;
+  for (; tile < n_tiles; tile += n_clusters) {
     const int row = tile / tiles_per_row;
     const int t0 = (tile % tiles_per_row) * Tt;
-    const int tau0 = t0 - pad_left;  // sub-band time of sub_s[.][0]
+    const int tau0 = t0 - pad_left;  // sub-band time of row step 0
     const int n_out = min(Tt, T_out - t0);
-    const bool ana = s0 < n_out + Ks - 1;  // rows the synthesis reads
-    const bool syn = s0 < n_out;
+    cp_async_wait<0>();
+    __syncthreads();  // the window (and the bank slices) are in
+
+    // analysis of this block's bands over the tile and its halo (the rows
+    // the synthesis reads)
+    const bool ana = tid < BG * (n_sub / NT) && s0 < n_out + Ks - 1;
     float acc[NB][NT];
 #pragma unroll
     for (int c = 0; c < NB; ++c)
 #pragma unroll
       for (int i = 0; i < NT; ++i) acc[c][i] = 0.0f;
-    for (int q = 0; q < nc; ++q) {
-      if (q + 1 < nc) {
-        stage(q + 1, buf ^ 1);
-      } else if (next < n_tiles) {
-        stage(0, buf ^ 1);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();  // chunk q (and this tile's window) are in
-      __syncthreads();
-      const float* w = w_s + buf * chunk;
-      if (q < nca) {
-        if (ana) {
-          const int r0 = q * R;
-          for (int r = r0; r < r0 + R; ++r)
-            slide_fma<NB, NT>(acc, w + (r - r0) * PS + bg * NB, M,
-                              xp_s + r * XR + s0, (Ka - r + M - 1) / M);
-        }
-        if (q == nca - 1) {
-          // the sub-band tile; the synthesis pad and the sub-band signal's
-          // end are zeros, as in the composition
-          if (ana) {
+    if (ana)
+      for (int r = 0; r < M; ++r)
+        slide_fma<NB, NT>(acc, wa_s + r * PS + bg * NB, MB,
+                          xp_s + r * XR + s0, (Ka - r + M - 1) / M);
+    if (!first) cluster_wait();  // the peers have read the last tile's rows
+    first = false;
+    if (ana) {
+      // the synthesis pad and the sub-band signal's end are zeros, as in
+      // the composition
 #pragma unroll
-            for (int c = 0; c < NB; ++c) {
-              float* dst = sub_s + (bg * NB + c) * SP + s0;
+      for (int c = 0; c < NB; ++c) {
+        float* dst = own_s + (bg * NB + c) * SP + s0;
 #pragma unroll
-              for (int i = 0; i < NT; i += 4) {
-                float v[4];
+        for (int i = 0; i < NT; i += 4) {
+          float v[4];
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                  const int tau = tau0 + s0 + i + j;
-                  v[j] = (tau >= 0 && tau < T_ana) ? acc[c][i + j] : 0.0f;
-                }
-                st_vec<4>(dst + i, v);
-              }
-            }
+          for (int j = 0; j < 4; ++j) {
+            const int tau = tau0 + s0 + i + j;
+            v[j] = (tau >= 0 && tau < T_ana) ? acc[c][i + j] : 0.0f;
           }
-#pragma unroll
-          for (int c = 0; c < NB; ++c)
-#pragma unroll
-            for (int i = 0; i < NT; ++i) acc[c][i] = 0.0f;
-        }
-      } else {
-        if (q == nca) {  // the analysis has read the window
-          if (next < n_tiles) load_window(next);
-          cp_async_commit();
-        }
-        if (syn) {
-          const int m0 = (q - nca) * Rm;
-          for (int m = m0; m < m0 + Rm; ++m)
-            slide_fma<NB, NT>(acc, w + (m - m0) * Ks * SW + bg * NB, SW,
-                              sub_s + m * SP + s0, Ks);
+          st_vec<4>(dst + i, v);
         }
       }
-      __syncthreads();  // chunk q is read before its buffer is refilled
-      buf ^= 1;
     }
-    if (syn) {
+    cluster_arrive();
+    cluster_wait();  // every block's rows are written
+    // the whole sub-band tile, row m from block m / MB, over the window
+    for (int e = tid; e < M * SP4; e += nthr) {
+      const int m = e / SP4;
+      const int i = 4 * (e - m * SP4);
+      const float* src = cluster_ptr(own_s, m / MB) + (m % MB) * SP + i;
+      *reinterpret_cast<float4*>(xp_s + m * SP + i) = ld4(src);
+    }
+    cluster_arrive();  // done reading the peers' rows
+    __syncthreads();   // the tile is whole
+
+    // synthesis: this block's output channels, thread tile (band group bg,
+    // steps s0)
+    if (tid < BG * (Tt / NT) && s0 < n_out) {
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int i = 0; i < NT; ++i) acc[c][i] = 0.0f;
+      for (int m = 0; m < M; ++m)
+        slide_fma<NB, NT>(acc, ws_s + m * Ks * MB + bg * NB, MB,
+                          xp_s + m * SP + s0, Ks);
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
         if (s0 + i < n_out) {
           float v[NB];
 #pragma unroll
           for (int c = 0; c < NB; ++c) v[c] = gain * acc[c][i];
-          st_vec<NB>(out + ((long long)row * T_out + t0 + s0 + i) * M +
+          st_vec<NB>(out + ((long long)row * T_out + t0 + s0 + i) * M + c0 +
                          bg * NB, v);
         }
       }
     }
+    __syncthreads();  // the tile is read: the next window may land
+    if (tile + n_clusters < n_tiles) load_window(tile + n_clusters);
+    cp_async_commit();
   }
-  cp_async_wait<0>();  // no copy outlives the block
+  if (!first) cluster_wait();  // no block exits while a peer reads its rows
+  cp_async_wait<0>();           // no copy outlives the block
 }
 
 // Dynamic shared memory past 48 KB must be opted into per kernel, or the
@@ -1124,18 +1126,64 @@ cudaError_t launch_roundtrip(const RtGeom& g, const Plan& p, const float* x,
   return cudaGetLastError();
 }
 
+// a launch of K3 at M >= 32 with C = t.C blocks a cluster
+cudaLaunchConfig_t rtc_config(const RtcTile& t, int blocks, size_t smem,
+                              cudaStream_t stream,
+                              cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(t.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = t.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters of tile t (C blocks of t.smem each) the card holds at once
 template <int M, int NB, int NT>
-cudaError_t launch_roundtrip_chunked(const RtcTile& t, const Plan& p,
+cudaError_t rtc_occupancy(const RtcTile& t, int* clusters) {
+  auto kernel = roundtrip_cluster_kernel<M, NB, NT>;
+  cudaError_t err = allow_smem(kernel, t.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      rtc_config(t, t.C, t.smem, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// the clusters of K3's whole-file tile at M = 32 / 64 the card holds at once
+cudaError_t rtc_max_clusters(int M, int Ka, int Ks, int* clusters) {
+  const RtcTile t = rtc_tile(M, Ka, Ks, 0);
+  *clusters = 0;
+  switch (M) {
+    case 32: return rtc_occupancy<32, kRtcNB, kRtcNT>(t, clusters);
+    case 64: return rtc_occupancy<64, kRtcNB, kRtcNT>(t, clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int M, int NB, int NT>
+cudaError_t launch_roundtrip_cluster(const RtcTile& t, const Plan& p,
                                      const float* x, const float* wa,
                                      const float* ws, float* out, int B,
                                      int Tx, int Ka, int Ks, int T_ana,
                                      int T_out, int pad_a, int pad_left,
                                      cudaStream_t stream) {
-  cudaError_t err = allow_smem(roundtrip_chunked_kernel<M, NB, NT>, p.smem);
+  auto kernel = roundtrip_cluster_kernel<M, NB, NT>;
+  cudaError_t err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return err;
-  roundtrip_chunked_kernel<M, NB, NT><<<p.gx, p.threads, p.smem, stream>>>(
-      x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out, pad_a, pad_left, t.n_sub,
-      t.Tt, t.J, t.XR, t.SP, t.R, t.Rm, t.PS, t.SW, t.chunk);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      rtc_config(t, p.gx, p.smem, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, wa, ws, out, B, Tx, Ka, Ks,
+                           T_ana, T_out, pad_a, pad_left, t.n_sub, t.Tt, t.J,
+                           t.XR, t.SP, t.PS);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1157,16 +1205,21 @@ size_t pqmf_smem_bytes(int which, int M, int Mb, int Ka, int Ks) {
 }
 
 // The launch plan of kernel `which` for a call with T_out output steps on a
-// card of n_sms SMs: plan[0..7] = grid x, y, z, threads, output steps a
-// tile, K1/K2's NT / K3's sub-band steps a tile, K1's phase split / K2's
-// band split, dynamic shared memory.  Returns 0, or -1 for an unknown kernel.
+// card of n_sms SMs that holds max_clusters of K3's whole-file clusters at
+// once (pqmf_rt_max_clusters; read at M >= 32 only): plan[0..7] = grid x,
+// y, z, threads, output steps a tile, K1/K2's NT / K3's sub-band steps a
+// tile, K1's phase split / K2's band split / K3's blocks a cluster (1: no
+// cluster), dynamic shared memory.  Returns 0, or -1 for an unknown kernel.
 int pqmf_launch_plan(int which, int B, int M, int Mb, int Ka, int Ks,
-                     int T_out, int n_sms, long long* plan) {
+                     int T_out, int n_sms, int max_clusters,
+                     long long* plan) {
   Plan p;
   switch (which) {
     case 1: p = analysis_plan(B, M, Mb, Ka, T_out, n_sms); break;
     case 2: p = synthesis_plan(B, M, Mb, Ks, T_out, n_sms); break;
-    case 3: p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms); break;
+    case 3:
+      p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms, max_clusters);
+      break;
     default: return -1;
   }
   const long long v[8] = {p.gx, p.gy, p.gz, p.threads, p.tile_steps, p.aux,
@@ -1177,6 +1230,15 @@ int pqmf_launch_plan(int which, int B, int M, int Mb, int Ka, int Ks,
 
 const char* pqmf_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+// The clusters of K3's (M = 32, 64) whole-file tile the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *clusters; returns a cudaError_t.
+int pqmf_rt_max_clusters(int M, int Ka, int Ks, int* clusters) {
+  *clusters = 0;
+  if (M < kRtcMinBands || !rtc_fits(M, Ka, Ks))
+    return (int)cudaErrorInvalidValue;
+  return (int)rtc_max_clusters(M, Ka, Ks, clusters);
 }
 
 // x: [B, 1, Tx], zero-padded by pad_left on the left and by zeros past Tx
@@ -1234,34 +1296,42 @@ int pqmf_roundtrip_conv(const float* x, const float* wa, const float* ws,
   int n_sms = 0;
   cudaError_t err = sm_count(&n_sms);
   if (err != cudaSuccess) return (int)err;
-  const Plan p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms);
   cudaStream_t s = (cudaStream_t)stream;
   if (M >= kRtcMinBands) {
     if (!rtc_fits(M, Ka, Ks)) return (int)cudaErrorInvalidValue;
     bool persist = false;
     const RtcTile t = rtc_choice(B, M, Ka, Ks, T_out, n_sms, &persist);
-    const bool big = t.NT == kNT;
+    int clusters = 0;
+    if (persist) {  // as many clusters as the card holds at once, or none
+      err = rtc_max_clusters(M, Ka, Ks, &clusters);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    }
+    const Plan p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms, clusters);
     switch (M) {
       case 32:
-        err = big ? launch_roundtrip_chunked<32, 4, kNT>(
-                        t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out,
-                        pad_a, pad_left, s)
-                  : launch_roundtrip_chunked<32, 2, 4>(
-                        t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out,
-                        pad_a, pad_left, s);
+        err = persist ? launch_roundtrip_cluster<32, kRtcNB, kRtcNT>(
+                            t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana,
+                            T_out, pad_a, pad_left, s)
+                      : launch_roundtrip_cluster<32, kRtcSmallNB,
+                                                 kRtcSmallNT>(
+                            t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana,
+                            T_out, pad_a, pad_left, s);
         break;
       case 64:
-        err = big ? launch_roundtrip_chunked<64, 4, kNT>(
-                        t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out,
-                        pad_a, pad_left, s)
-                  : launch_roundtrip_chunked<64, 2, 4>(
-                        t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana, T_out,
-                        pad_a, pad_left, s);
+        err = persist ? launch_roundtrip_cluster<64, kRtcNB, kRtcNT>(
+                            t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana,
+                            T_out, pad_a, pad_left, s)
+                      : launch_roundtrip_cluster<64, kRtcSmallNB,
+                                                 kRtcSmallNT>(
+                            t, p, x, wa, ws, out, B, Tx, Ka, Ks, T_ana,
+                            T_out, pad_a, pad_left, s);
         break;
       default: return (int)cudaErrorInvalidValue;
     }
     return (int)err;
   }
+  const Plan p = roundtrip_plan(B, M, Ka, Ks, T_out, n_sms, 0);
   const RtGeom g = roundtrip_geom(M, Ka, Ks);
   if (g.Tt <= 0) return (int)cudaErrorInvalidValue;
   switch (M) {

@@ -97,12 +97,30 @@
 //   near the bf16 line, plus the halo; a host block's latency: the banks'
 //   copy, then the dependent k-steps of two phases.
 // - At M = 32 and 64 each bank has 2 or 4 channel blocks of 16 bands (268
-//   KB and 1.07 MB at bf16x3: past a block's shared memory), so a warp item
-//   is (MT m16 tiles, one channel block) and every warp reads its B
-//   fragments from L2, 16 bytes a lane a k-step; the whole split sub-band
-//   tile is written before any synthesis k-step reads it (the barrier
-//   between the phases).  The tiles are M = 16's (224 outputs of 256
-//   sub-band steps on whole files, 16-64 outputs for host blocks).
+//   KB and 1.07 MB at bf16x3: past a block's shared memory), so K3t
+//   replaces fused_roundtrip_conv there (pqmf_tpu/kernels/cached_conv.py
+//   :794; _fused_roundtrip_single :715, its pallas_call :751) with a
+//   thread-block cluster a tile (the same kernel, C a template argument;
+//   C = 1 up to M = 16).  It is bound by the bytes of its operands: at
+//   default, and at bf16x3 past the bank, the tensor cores wait on the
+//   shared-memory reads of the A fragments and the copies of a bank none
+//   of whose blocks holds more than a slice; the cluster split keeps each
+//   block's slice of both banks resident and reads every A fragment once
+//   for all its channels.  Block rank rho computes output channels
+//   [8 NN rho, 8 NN (rho + 1)): a whole channel block (NN = 2, C = M/16)
+//   where that slice of both banks fits beside a 96-step whole-file tile,
+//   else one n8 tile (NN = 1, C = M/8: M = 64 at bf16x3); it stages its
+//   slice once a launch (16- or 8-byte cp.async of the arranged words; at
+//   "default" the hi half only).  Every block splits the whole window and
+//   computes its channels of every row into the split sub-band tile;
+//   after a cluster barrier each block copies the other blocks' 16-byte
+//   chunks of that tile through distributed shared memory into its own
+//   (the same swizzled places), and arrives at a second barrier, whose
+//   wait comes before it overwrites its chunks or exits (a peer may still
+//   read them); then it computes its output channels.  Its sums run in
+//   the slice order of M <= 16.  Whole files take the largest tile of up
+//   to 256 sub-band steps that fits beside the bank slices (at M = 64:
+//   128 steps), host blocks 16-64 output steps a cluster.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,6 +139,9 @@ constexpr int kTcPersistM16 = 16; // whole files: from n_sms * 16 m16 tiles on
 constexpr int kRtTcThreads = 256;              // K3t: threads a block
 constexpr int kRtTcWarps = kRtTcThreads / 32;
 constexpr int kRtTcSub = 256;     // K3t whole files: sub-band steps a tile
+constexpr int kRtTcClusterBands = 32;  // K3t: from M = 32 a cluster a tile
+constexpr int kRtTcBlockNN = 2;   // n8 tiles a cluster's block, where it fits
+constexpr int kRtTcMinPersist = 96;  // ... beside a whole-file tile this long
 // blocks an SM the register allocation plans for: without them ptxas kept
 // K1t at 48 registers and spilled one (4 bytes)
 constexpr int kTcMinBlocks = 4;
@@ -248,17 +269,21 @@ Plan tc_plan(const TcGeom& g, int B, int T_out, int n_sms) {
 
 // K3t: the two arranged banks (n_cb channel blocks of NN n8 tiles each:
 // one up to M = 16, 2 and 4 at M = 32 and 64), their k-steps, and the
-// sub-band rows one output step reads (rows_s); both banks staged where
-// there is one channel block and they fit beside the largest tile of any
-// plan, else each warp reads its fragments from L2.
+// sub-band rows one output step reads (rows_s).  Up to M = 16 one block a
+// tile (C = 1) stages both banks where there is one channel block and they
+// fit beside the largest tile of any plan, else each warp reads its
+// fragments from L2.  At M = 32 and 64 a cluster of C = M / (8 bNN) blocks
+// a tile, each with bNN n8 tiles (a channel block, bNN = 2, where it fits;
+// else half of one) of both banks, staged: halves 2 at bf16x3, 1 at
+// default (up to M = 16 the bytes of both are budgeted).
 struct RtTcGeom {
-  int M, Qa, n_ka, n_ks, NN, n_cb, rows_s;
-  long long bank_bytes;
+  int M, Qa, n_ka, n_ks, NN, n_cb, rows_s, C, bNN, halves;
+  long long bank_bytes;  // of one block
   bool stage;
 };
 
 // A K3t tile: Tt output steps (synthesis rows) of n_sub sub-band steps
-// (analysis rows), MT m16 tiles x one channel block a warp item, each
+// (analysis rows), MT m16 tiles x the block's channels a warp item, each
 // phase's reduction split over WK warps (WKa analysis, WKs synthesis); the
 // split window of WL elements (raw f32 and bf16 halves), the split
 // sub-band tile (SL elements a half; 0: it takes the split window's place,
@@ -283,21 +308,27 @@ RtTcTile rt_tc_tile(const RtTcGeom& g, int Tt, bool persist) {
   const int r = 16 * t.MT;
   t.n_sub = cdiv(Tt - 1 + g.rows_s, r) * r;
   t.WL = round64(g.M * (t.n_sub - 1) + 16 * g.n_ka);
-  const int ga = t.n_sub / r * g.n_cb, gs = Tt / r * g.n_cb;  // items
+  const int ga = t.n_sub / r, gs = Tt / r;  // items: one channel block a block
   t.WKa = rt_tc_wk(ga, g.n_ka);
   t.WKs = rt_tc_wk(gs, g.n_ks);
   t.SL = ga * t.WKa <= kRtTcWarps ? 0 : round64(g.M * t.n_sub);
   const long long red = (long long)max_i((t.WKa - 1) * ga, (t.WKs - 1) * gs) *
-                        32 * t.MT * g.NN * 4;
+                        32 * t.MT * g.bNN * 4;
   t.rest = 4LL * t.WL + 4LL * t.WL + 4LL * t.SL + 4 * red;
   return t;
 }
 
 // whole files: tiles of kRtTcSub sub-band steps (more where one output step
-// reads more), as many output steps of them as are whole m16 pairs
+// reads more), as many output steps of them as are whole m16 pairs; a
+// cluster's block takes the largest such tile that fits beside its banks
 int rt_tc_persist_steps(const RtTcGeom& g) {
   const int n_sub = cdiv(max_i(kRtTcSub, 32 + g.rows_s - 1), 32) * 32;
-  return (n_sub - g.rows_s + 1) / 32 * 32;
+  int Tt = (n_sub - g.rows_s + 1) / 32 * 32;
+  if (g.C > 1)
+    while (Tt > 32 &&
+           g.bank_bytes + rt_tc_tile(g, Tt, true).rest > kSmemLimit)
+      Tt -= 32;
+  return Tt;
 }
 
 // the shapes a plan can take: whole files, and small calls' 16-64 steps
@@ -309,7 +340,11 @@ long long rt_tc_rest_max(const RtTcGeom& g) {
   return m;
 }
 
-RtTcGeom rt_tc_geom(int M, int Ka, int Ks) {
+long long rt_tc_smem_gate(const RtTcGeom& g) {
+  return (g.stage ? g.bank_bytes : 0) + rt_tc_rest_max(g);
+}
+
+RtTcGeom rt_tc_geom(int M, int Ka, int Ks, int passes) {
   RtTcGeom g;
   g.M = M;
   g.Qa = round16(Ka);
@@ -318,46 +353,68 @@ RtTcGeom rt_tc_geom(int M, int Ka, int Ks) {
   g.NN = M > 8 ? 2 : 1;
   g.n_cb = cdiv(M, 8 * g.NN);
   g.rows_s = cdiv(16 * g.n_ks, M);
-  g.bank_bytes = 2LL * (g.n_ka + g.n_ks) * g.n_cb * 32 * 4 * g.NN * 2;
-  g.stage = g.n_cb == 1 && g.bank_bytes + rt_tc_rest_max(g) <= kSmemLimit;
+  g.halves = M >= kRtTcClusterBands && passes == 1 ? 1 : 2;
+  if (M < kRtTcClusterBands) {
+    g.C = 1;
+    g.bNN = g.NN;
+    g.bank_bytes = 2LL * (g.n_ka + g.n_ks) * g.n_cb * 32 * 4 * g.NN * 2;
+    g.stage = g.n_cb == 1 && g.bank_bytes + rt_tc_rest_max(g) <= kSmemLimit;
+    return g;
+  }
+  // a cluster: blocks of kRtTcBlockNN n8 tiles where that slice of the
+  // banks fits beside a whole-file tile of kRtTcMinPersist steps and every
+  // host-block tile, else of one
+  for (int bNN = kRtTcBlockNN; bNN >= 1; bNN /= 2) {
+    g.bNN = bNN;
+    g.C = M / (8 * bNN);
+    g.bank_bytes = 2LL * g.halves * (g.n_ka + g.n_ks) * 32 * 4 * bNN;
+    g.stage = true;
+    if (bNN == 1 || (rt_tc_persist_steps(g) >= kRtTcMinPersist &&
+                     rt_tc_smem_gate(g) <= kSmemLimit))
+      break;
+  }
   return g;
-}
-
-long long rt_tc_smem_gate(const RtTcGeom& g) {
-  return (g.stage ? g.bank_bytes : 0) + rt_tc_rest_max(g);
 }
 
 bool rt_tc_templated(int M) {
   return M == 2 || M == 4 || M == 8 || M == 16 || M == 32 || M == 64;
 }
 
-// A call of B rows of T_out output steps (rt_plan.h): whole files run
-// persistent blocks over rt_tc_persist_steps tiles; a smaller call (host
-// blocks) one tile of 16-64 steps a block.
+// A call of B rows of T_out output steps (rt_plan.h, counting a cluster's
+// blocks): whole files run persistent blocks (clusters) over
+// rt_tc_persist_steps tiles; a smaller call (host blocks) one tile of
+// 16-64 steps a block (a cluster).
 RtTcTile rt_tc_choice(const RtTcGeom& g, int B, int T_out, int n_sms,
                       bool* persist) {
-  const int Tt = rt_call_tile(B, T_out, n_sms);
+  const int Tt = rt_call_tile(B, T_out, n_sms, g.C);
   *persist = Tt == 0;
   return rt_tc_tile(g, *persist ? rt_tc_persist_steps(g) : Tt, *persist);
 }
 
-Plan rt_tc_plan(const RtTcGeom& g, int B, int T_out, int n_sms) {
+// max_clusters: at M >= 32, the clusters of the whole-file tile the card
+// holds at once (cudaOccupancyMaxActiveClusters)
+Plan rt_tc_plan(const RtTcGeom& g, int B, int T_out, int n_sms,
+                int max_clusters) {
   bool persist = false;
   const RtTcTile t = rt_tc_choice(g, B, T_out, n_sms, &persist);
   const int n_tiles = B * cdiv(T_out, t.Tt);
   Plan p;
   // staged where a block walks many tiles or the card holds every block
-  p.stage = g.stage && (persist || n_tiles <= n_sms);
+  p.stage = g.stage && (persist || n_tiles <= n_sms || g.C > 1);
   p.smem = (size_t)((p.stage ? g.bank_bytes : 0) + t.rest);
-  const int per_sm = max_i(1, min_i(2048 / kRtTcThreads,
-                                    (int)(kSmemPerSm / (p.smem + 1024))));
-  p.gx = persist ? min_i(n_tiles, n_sms * per_sm) : n_tiles;
+  if (g.C > 1) {
+    p.gx = (persist ? min_i(n_tiles, max_i(0, max_clusters)) : n_tiles) * g.C;
+  } else {
+    const int per_sm = max_i(1, min_i(2048 / kRtTcThreads,
+                                      (int)(kSmemPerSm / (p.smem + 1024))));
+    p.gx = persist ? min_i(n_tiles, n_sms * per_sm) : n_tiles;
+  }
   p.gy = 1;
   p.gz = 1;
   p.threads = kRtTcThreads;
   p.tile_steps = t.Tt;
   p.aux = t.n_sub;
-  p.split = 1;
+  p.split = g.C;
   return p;
 }
 
@@ -425,11 +482,34 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(bytes));
 }
+// 8 bytes
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// The cluster barrier in two halves (as in cached_conv.cu): every thread of
+// the cluster arrives (release), then waits (acquire) for all; a thread's
+// arrivals and waits alternate.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// p (this block's shared memory) at the same offset in the shared memory of
+// the cluster's block `rank` (distributed shared memory, a generic address)
+__device__ __forceinline__ const void* cluster_ptr(const void* p, int rank) {
+  unsigned long long r;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(p), "r"(rank));
+  return reinterpret_cast<const void*>(r);
 }
 
 // q = e / n and r = e % n, by a shift and a mask where n = 2^lg (lg >= 0)
@@ -769,22 +849,21 @@ struct RtTcArgs {
 };
 
 // One phase of K3t: groups of MT m16 row tiles of A[t, q] = a[S*t + q]
-// (halves ah, al) times each of the NCB channel blocks of the arranged bank
-// (cb_stride elements apart) over n_k k-steps, split over WK warps;
-// done(grp, cb, acc) gets each item's full sum.  Where every item has a
-// warp of its own (items * WK <= warps), the block meets in a barrier
-// before the sums are done (with `sync`, or to add the slices); else each
-// warp walks its items and finishes each at once.
-template <int P, int NN, int MT, int LD, int NCB, typename Done>
+// (halves ah, al) times the block's channel block of the arranged bank
+// over n_k k-steps, split over WK warps; done(grp, acc) gets each item's
+// full sum.  Where every item has a warp of its own (items * WK <= warps),
+// the block meets in a barrier before the sums are done (with `sync`, or
+// to add the slices); else each warp walks its items and finishes each at
+// once.
+template <int P, int NN, int MT, int LD, typename Done>
 __device__ __forceinline__ void rt_phase(const uint16_t* ah,
                                          const uint16_t* al, int S, int swz,
                                          const uint16_t* bank, int plane,
-                                         int cb_stride, int n_k, int groups,
-                                         int WK, float* red, bool sync,
-                                         Done done) {
+                                         int n_k, int groups, int WK,
+                                         float* red, bool sync, Done done) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int items = groups * NCB;
+  const int items = groups;
   float acc[MT][NN][4];
   auto zero = [&]() {
 #pragma unroll
@@ -796,27 +875,22 @@ __device__ __forceinline__ void rt_phase(const uint16_t* ah,
   };
   if (items * WK > kRtTcWarps) {  // WK == 1: a warp walks its items
     for (int it = warp; it < items; it += kRtTcWarps) {
-      const int cb = NCB == 1 ? 0 : it / groups;
-      const int grp = NCB == 1 ? it : it - cb * groups;
       zero();
-      tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * grp,
-                            bank + cb * cb_stride, plane, 0, n_k);
-      done(grp, cb, acc);
+      tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * it, bank, plane,
+                            0, n_k);
+      done(it, acc);
     }
     return;
   }
   const int it = warp % items;
   const int wk = warp / items;
-  const int cb = NCB == 1 ? 0 : it / groups;
-  const int grp = NCB == 1 ? it : it - cb * groups;
   const bool on = warp < items * WK;
   constexpr int V = MT * NN * 4;  // sums a lane holds
   float* rp = red + it * V * 32 + lane;
   zero();
   if (on) {
-    tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * grp,
-                          bank + cb * cb_stride, plane, n_k * wk / WK,
-                          n_k * (wk + 1) / WK);
+    tc_mma<P, NN, MT, LD>(acc, ah, al, S, swz, 16 * MT * it, bank, plane,
+                          n_k * wk / WK, n_k * (wk + 1) / WK);
     if (wk > 0) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -838,22 +912,29 @@ __device__ __forceinline__ void rt_phase(const uint16_t* ah,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           acc[mt][nn][j] += rp[((s - 1) * items * V + (mt * NN + nn) * 4 + j) * 32];
-  done(grp, cb, acc);
+  done(it, acc);
 }
 
-template <int P, int NN, int MT, int LD, int NCB>
+// C blocks a cluster (1: none).  At C > 1 (M = 32, 64) it replaces
+// pqmf_tpu/kernels/cached_conv.py:fused_roundtrip_conv (:794;
+// _fused_roundtrip_single :715, pallas_call :751) there; bound by bytes
+// (the shared-memory reads of A fragments, the bank), it splits the banks
+// over the cluster so each block's slice stays resident (top of file).
+// Block rank rho computes output channels c0 = 8 NN rho .. c0 + 8 NN - 1
+// of the cluster's tiles.
+template <int P, int NN, int MT, int LD, int C>
 __global__ void __launch_bounds__(kRtTcThreads, kRtTcMinBlocks)
 roundtrip_tc_kernel(const RtTcArgs a) {
   extern __shared__ float4 rt_tc_smem[];
   const int M = a.M;
-  // bank elements of one half of one channel block; a staged bank (one
-  // channel block) keeps the arranged layout, so its lo half is NCB
-  // chunks on either way
+  // bank elements of one half (of the block's channels); a staged bank
+  // keeps the arranged layout, so its lo half is one chunk on either way
   const int chunk_a = a.n_ka * 128 * NN;
   const int chunk_s = a.n_ks * 128 * NN;
+  constexpr int H = C > 1 && P == 1 ? 1 : 2;  // halves a staged bank takes
   uint16_t* bank_sm = reinterpret_cast<uint16_t*>(rt_tc_smem);
   float* raw = reinterpret_cast<float*>(
-      bank_sm + (a.stage ? 2 * (chunk_a + chunk_s) : 0));
+      bank_sm + (a.stage ? H * (chunk_a + chunk_s) : 0));
   uint16_t* xh = reinterpret_cast<uint16_t*>(raw + a.WL);
   uint16_t* xl = xh + a.WL;
   // the split sub-band tile, in the split window's place where the
@@ -868,11 +949,46 @@ roundtrip_tc_kernel(const RtTcArgs a) {
   const int tiles_x = cdiv(a.T_out, a.Tt);
   const int n_tiles = a.B * tiles_x;
   const int r = 16 * MT;  // rows of a warp item
+  const int rank = C > 1 ? blockIdx.x % C : 0;
+  const int c0 = 8 * NN * rank;  // the block's first output channel
+  const int tile0 = C > 1 ? blockIdx.x / C : blockIdx.x;
+  const int tile_step = C > 1 ? gridDim.x / C : gridDim.x;
 
-  // both arranged banks, both halves, as they are
+  // both arranged banks, both halves, as they are; in a cluster this
+  // block's channels of them: NN = 2 its channel block rho (16 bytes a
+  // lane a k-step), NN = 1 its n8 tile (channel block rho / 2, words
+  // 4 (rho % 2) .. +3 of a lane's 8: 8 bytes)
   const uint16_t* ba = a.bank_a;
   const uint16_t* bs = a.bank_s;
-  if (a.stage) {
+  if (C > 1) {
+    const int n_cb = cdiv(M, 16);
+    const int cb = NN == 2 ? rank : rank >> 1;
+    const int w0 = NN == 2 ? 0 : 4 * (rank & 1);
+    for (int h = 0; h < H; ++h) {
+      const long long src_a = ((long long)(h * n_cb + cb) * a.n_ka) * 256;
+      const long long src_s = ((long long)(h * n_cb + cb) * a.n_ks) * 256;
+#pragma unroll 4
+      for (int i = tid; i < a.n_ka * 32; i += kRtTcThreads) {
+        if (NN == 2)
+          cp_async16(bank_sm + h * chunk_a + 8 * i, a.bank_a + src_a + 8 * i,
+                     16);
+        else
+          cp_async8(bank_sm + h * chunk_a + 4 * i,
+                    a.bank_a + src_a + 8 * i + w0);
+      }
+#pragma unroll 4
+      for (int i = tid; i < a.n_ks * 32; i += kRtTcThreads) {
+        if (NN == 2)
+          cp_async16(bank_sm + H * chunk_a + h * chunk_s + 8 * i,
+                     a.bank_s + src_s + 8 * i, 16);
+        else
+          cp_async8(bank_sm + H * chunk_a + h * chunk_s + 4 * i,
+                    a.bank_s + src_s + 8 * i + w0);
+      }
+    }
+    ba = bank_sm;
+    bs = bank_sm + H * chunk_a;
+  } else if (a.stage) {
     for (int h = 0; h < (P == 3 ? 2 : 1); ++h) {
 #pragma unroll 4
       for (int i = tid; i < chunk_a / 8; i += kRtTcThreads)
@@ -912,10 +1028,11 @@ roundtrip_tc_kernel(const RtTcArgs a) {
     }
   };
 
-  if (blockIdx.x < n_tiles) copy_window(blockIdx.x);
+  if (tile0 < n_tiles) copy_window(tile0);
   cp_async_commit();
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  bool first = true;
+  for (int tile = tile0; tile < n_tiles; tile += tile_step) {
     const int b = tile / tiles_x;
     const int t0 = (tile - b * tiles_x) * a.Tt;
     const int tau0 = t0 - a.pad_s;  // sub-band time of tile row 0
@@ -923,20 +1040,21 @@ roundtrip_tc_kernel(const RtTcArgs a) {
     cp_async_wait_all();
     __syncthreads();  // the raw window (and the banks) are in; the last
                       // tile's reads of the sub-band tile are done
+    if (C > 1 && !first) cluster_wait();  // the peers have read our chunks
+    first = false;
     for (int i = 2 * tid; i < a.WL; i += 2 * kRtTcThreads) {
       const float2 v = *reinterpret_cast<const float2*>(raw + i);
       put_split2<P>(xh, xl, 8 * swizzle(i >> 3, a.swz) + (i & 7), v.x, v.y);
     }
     __syncthreads();
-    if (tile + gridDim.x < n_tiles) copy_window(tile + gridDim.x);
+    if (tile + tile_step < n_tiles) copy_window(tile + tile_step);
     cp_async_commit();
 
     // analysis: every sub-band row of the tile, split again into the
     // sub-band tile; the synthesis pad and the sub-bands' end are zeros
-    rt_phase<P, NN, MT, LD, NCB>(
-        xh, xl, M, a.swz, ba, NCB * chunk_a, chunk_a, a.n_ka, a.n_sub / r,
-        a.WKa, red, a.SL == 0,
-        [&](int grp, int cb, const float (&acc)[MT][NN][4]) {
+    rt_phase<P, NN, MT, LD>(
+        xh, xl, M, a.swz, ba, chunk_a, a.n_ka, a.n_sub / r, a.WKa, red,
+        a.SL == 0, [&](int grp, const float (&acc)[MT][NN][4]) {
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -944,7 +1062,7 @@ roundtrip_tc_kernel(const RtTcArgs a) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int s = r * grp + 16 * mt + g + 8 * h;
-                const int c = cb * 8 * NN + nn * 8 + 2 * tq;
+                const int c = c0 + nn * 8 + 2 * tq;
                 const bool in = tau0 + s >= 0 && tau0 + s < a.T_ana;
                 if (c < M) {
                   const int i = s * M + c;
@@ -954,14 +1072,30 @@ roundtrip_tc_kernel(const RtTcArgs a) {
                 }
               }
         });
+    if (C > 1) {
+      cluster_arrive();
+      cluster_wait();  // every block's chunks are in its tile
+      // the other blocks' 16-byte chunks (row s, channels 8k .. 8k+7 come
+      // from block k / NN), each at its swizzled place in both tiles
+      for (int u = tid; u < a.n_sub * C * NN; u += kRtTcThreads) {
+        const int owner = (u & (C * NN - 1)) / NN;
+        if (owner == rank) continue;
+        const int o = 8 * swizzle(u, a.swz);
+        *reinterpret_cast<uint4*>(sh + o) =
+            *reinterpret_cast<const uint4*>(cluster_ptr(sh + o, owner));
+        if (P == 3)
+          *reinterpret_cast<uint4*>(sl + o) =
+              *reinterpret_cast<const uint4*>(cluster_ptr(sl + o, owner));
+      }
+      cluster_arrive();  // done reading the peers' chunks
+    }
     __syncthreads();
 
     // synthesis: the output steps of the tile, gain M
     const float gain = (float)M;
-    rt_phase<P, NN, MT, LD, NCB>(
-        sh, sl, M, a.swz, bs, NCB * chunk_s, chunk_s, a.n_ks, a.Tt / r,
-        a.WKs, red, false,
-        [&](int grp, int cb, const float (&acc)[MT][NN][4]) {
+    rt_phase<P, NN, MT, LD>(
+        sh, sl, M, a.swz, bs, chunk_s, a.n_ks, a.Tt / r, a.WKs, red, false,
+        [&](int grp, const float (&acc)[MT][NN][4]) {
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -969,7 +1103,7 @@ roundtrip_tc_kernel(const RtTcArgs a) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int t = r * grp + 16 * mt + g + 8 * h;
-                const int c = cb * 8 * NN + nn * 8 + 2 * tq;
+                const int c = c0 + nn * 8 + 2 * tq;
                 if (t < n_out && c < M)
                   *reinterpret_cast<float2*>(
                       a.out + ((long long)b * a.T_out + t0 + t) * M + c) =
@@ -978,7 +1112,8 @@ roundtrip_tc_kernel(const RtTcArgs a) {
               }
         });
   }
-  cp_async_wait_all();  // no copy outlives the block
+  if (C > 1 && !first) cluster_wait();  // no block exits while a peer reads
+  cp_async_wait_all();                   // no copy outlives the block
 }
 
 template <typename Kernel>
@@ -1063,15 +1198,21 @@ int tc_launch(TcArgs a, int S, int Q, int passes, void* stream) {
 }
 
 // the instance of K3t for (passes, n8 tiles, m16 tiles an item, fragment
-// loads, channel blocks), or nullptr for other passes
+// loads, blocks a cluster), or nullptr for other passes
 using RtTcKernel = void (*)(const RtTcArgs);
 
 template <int P>
-RtTcKernel rt_tc_pick_p(int NN, int MT, int LD, int NCB) {
-  if (NCB == 4)
-    return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0, 4> : roundtrip_tc_kernel<P, 2, 1, 0, 4>;
-  if (NCB == 2)
+RtTcKernel rt_tc_pick_p(int NN, int MT, int LD, int C) {
+  if (C > 1 && NN == 1) {
+    if (C == 8)
+      return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 0, 8> : roundtrip_tc_kernel<P, 1, 1, 0, 8>;
+    return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 0, 4> : roundtrip_tc_kernel<P, 1, 1, 0, 4>;
+  }
+  if (C > 1) {
+    if (C == 4)
+      return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0, 4> : roundtrip_tc_kernel<P, 2, 1, 0, 4>;
     return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0, 2> : roundtrip_tc_kernel<P, 2, 1, 0, 2>;
+  }
   if (NN == 2)
     return MT == 2 ? roundtrip_tc_kernel<P, 2, 2, 0, 1> : roundtrip_tc_kernel<P, 2, 1, 0, 1>;
   if (LD == 0)
@@ -1079,11 +1220,49 @@ RtTcKernel rt_tc_pick_p(int NN, int MT, int LD, int NCB) {
   return MT == 2 ? roundtrip_tc_kernel<P, 1, 2, 1, 1> : roundtrip_tc_kernel<P, 1, 1, 1, 1>;
 }
 
-RtTcKernel rt_tc_pick(int passes, int NN, int MT, int LD, int NCB) {
-  if (NCB != 1 && NCB != 2 && NCB != 4) return nullptr;
-  if (passes == 3) return rt_tc_pick_p<3>(NN, MT, LD, NCB);
-  if (passes == 1) return rt_tc_pick_p<1>(NN, MT, LD, NCB);
+RtTcKernel rt_tc_pick(int passes, int NN, int MT, int LD, int C) {
+  if (C != 1 && !(NN == 1 && (C == 4 || C == 8)) &&
+      !(NN == 2 && (C == 2 || C == 4)))
+    return nullptr;
+  if (passes == 3) return rt_tc_pick_p<3>(NN, MT, LD, C);
+  if (passes == 1) return rt_tc_pick_p<1>(NN, MT, LD, C);
   return nullptr;
+}
+
+// a launch of K3t in clusters of C blocks
+cudaLaunchConfig_t rt_tc_config(const Plan& p, int C, int blocks,
+                                cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters of K3t's whole-file tile (M >= 32) the card holds at once
+cudaError_t rt_tc_max_clusters(const RtTcGeom& g, int passes,
+                               int* clusters) {
+  *clusters = 0;
+  const int Tt = rt_tc_persist_steps(g);
+  const RtTcTile t = rt_tc_tile(g, Tt, true);
+  const RtTcKernel kernel = rt_tc_pick(passes, g.bNN, t.MT, 0, g.C);
+  if (kernel == nullptr || g.C < 2) return cudaErrorInvalidValue;
+  Plan p = {};
+  p.threads = kRtTcThreads;
+  p.smem = (size_t)(g.bank_bytes + t.rest);
+  cudaError_t err = allow_smem(kernel, p.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = rt_tc_config(p, g.C, g.C, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 }  // namespace
@@ -1091,33 +1270,53 @@ RtTcKernel rt_tc_pick(int passes, int NN, int MT, int LD, int NCB) {
 extern "C" {
 
 // Shared memory one block of tier kernel `which` (1 K1t, 2 K2t, 3 K3t)
-// may use (K1t/K2t: the most of any of their plans); the Python gates
-// mirror this and check against it.
-size_t pqmf_tc_smem_bytes(int which, int M, int Mb, int Ka, int Ks) {
+// may use at `passes` (K1t/K2t: the most of any of their plans; K3t from
+// M = 32 stages one half at passes 1); the Python gates mirror this and
+// check against it.
+size_t pqmf_tc_smem_bytes(int which, int M, int Mb, int Ka, int Ks,
+                          int passes) {
   switch (which) {
     case 1: return (size_t)tc_smem_gate(tc_geom(1, M, Ka, Mb));
     case 2: return (size_t)tc_smem_gate(tc_geom(2, Mb, Mb * Ks, M));
-    case 3: return (size_t)rt_tc_smem_gate(rt_tc_geom(M, Ka, Ks));
+    case 3: return (size_t)rt_tc_smem_gate(rt_tc_geom(M, Ka, Ks, passes));
     default: return 0;
   }
 }
 
-// The launch plan of tier kernel `which`, in pqmf_launch_plan's layout:
-// plan[5] is K1t/K2t's reduction split WK (K3t's sub-band steps a tile),
-// plan[6] their output channels a block (K3t: 1).
+// The launch plan of tier kernel `which` at `passes`, in pqmf_launch_plan's
+// layout: plan[5] is K1t/K2t's reduction split WK (K3t's sub-band steps a
+// tile), plan[6] their output channels a block (K3t: its blocks a cluster,
+// 1 up to M = 16); max_clusters as pqmf_launch_plan's (K3t from M = 32:
+// pqmf_tc_rt_max_clusters).
 int pqmf_tc_launch_plan(int which, int B, int M, int Mb, int Ka, int Ks,
-                        int T_out, int n_sms, long long* plan) {
+                        int T_out, int n_sms, int passes, int max_clusters,
+                        long long* plan) {
   Plan p;
   switch (which) {
     case 1: p = tc_plan(tc_geom(1, M, Ka, Mb), B, T_out, n_sms); break;
     case 2: p = tc_plan(tc_geom(2, Mb, Mb * Ks, M), B, T_out, n_sms); break;
-    case 3: p = rt_tc_plan(rt_tc_geom(M, Ka, Ks), B, T_out, n_sms); break;
+    case 3:
+      p = rt_tc_plan(rt_tc_geom(M, Ka, Ks, passes), B, T_out, n_sms,
+                     max_clusters);
+      break;
     default: return -1;
   }
   const long long v[8] = {p.gx, p.gy, p.gz, p.threads, p.tile_steps, p.aux,
                           p.split, (long long)p.smem};
   for (int i = 0; i < 8; ++i) plan[i] = v[i];
   return 0;
+}
+
+// The clusters of K3t's (M = 32, 64) whole-file tile at `passes` the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *clusters; returns
+// a cudaError_t.
+int pqmf_tc_rt_max_clusters(int M, int Ka, int Ks, int passes,
+                            int* clusters) {
+  const RtTcGeom g = rt_tc_geom(M, Ka, Ks, passes);
+  *clusters = 0;
+  if (!rt_tc_templated(M) || g.C < 2 || rt_tc_smem_gate(g) > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  return (int)rt_tc_max_clusters(g, passes, clusters);
 }
 
 // x: [B, 1, Tx], zero-padded by pad_left on the left and by zeros past Tx;
@@ -1171,7 +1370,7 @@ int pqmf_tc_roundtrip_conv(const float* x, const void* bank_a,
                            const void* bank_s, float* out, int B, int Tx,
                            int M, int Ka, int Ks, int T_ana, int T_out,
                            int pad_a, int pad_s, int passes, void* stream) {
-  const RtTcGeom g = rt_tc_geom(M, Ka, Ks);
+  const RtTcGeom g = rt_tc_geom(M, Ka, Ks, passes);
   if (!rt_tc_templated(M) || rt_tc_smem_gate(g) > kSmemLimit)
     return (int)cudaErrorInvalidValue;
   int n_sms = 0;
@@ -1179,9 +1378,15 @@ int pqmf_tc_roundtrip_conv(const float* x, const void* bank_a,
   if (err != cudaSuccess) return (int)err;
   bool persist = false;
   const RtTcTile t = rt_tc_choice(g, B, T_out, n_sms, &persist);
-  const Plan p = rt_tc_plan(g, B, T_out, n_sms);
+  int clusters = 0;
+  if (persist && g.C > 1) {  // as many clusters as the card holds, or none
+    err = rt_tc_max_clusters(g, passes, &clusters);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const Plan p = rt_tc_plan(g, B, T_out, n_sms, clusters);
   const int LD = M % 8 == 0 ? 0 : 1;
-  const RtTcKernel kernel = rt_tc_pick(passes, g.NN, t.MT, LD, g.n_cb);
+  const RtTcKernel kernel = rt_tc_pick(passes, g.bNN, t.MT, LD, g.C);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   RtTcArgs a = {};
   a.x = x;
@@ -1207,7 +1412,15 @@ int pqmf_tc_roundtrip_conv(const float* x, const void* bank_a,
   a.swz = LD == 0 ? min_i(M / 8, 8) - 1 : 0;
   err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<p.gx, p.threads, p.smem, (cudaStream_t)stream>>>(a);
+  if (g.C > 1) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        rt_tc_config(p, g.C, p.gx, (cudaStream_t)stream, attr);
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<p.gx, p.threads, p.smem, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@
 // m16 output tiles on: it runs persistent blocks over the kernel's
 // whole-file tile (rt_call_tile returns 0).  A smaller call (host blocks)
 // takes tiles of 64, 32 or 16 output steps, the largest that gives at
-// least n_sms / 4 blocks, one tile a block.
+// least n_sms / 4 blocks, one tile a cluster of `cluster` blocks (1 where
+// the kernel runs no clusters): it is blocks, not tiles, that fill the
+// card.
 
 #pragma once
 
@@ -14,12 +16,13 @@ constexpr int kRtPersistM16 = 16;
 constexpr int kRtSmall[3] = {16, 32, 64};
 constexpr int kRtFillDiv = 4;
 
-inline int rt_call_tile(int B, int T_out, int n_sms) {
+inline int rt_call_tile(int B, int T_out, int n_sms, int cluster) {
   if ((long long)B * ((T_out + 15) / 16) >= (long long)n_sms * kRtPersistM16)
     return 0;
   int Tt = kRtSmall[2];
   while (Tt > kRtSmall[0] &&
-         (long long)B * ((T_out + Tt - 1) / Tt) < n_sms / kRtFillDiv)
+         (long long)B * ((T_out + Tt - 1) / Tt) * cluster <
+             n_sms / kRtFillDiv)
     Tt /= 2;
   return Tt;
 }

@@ -128,12 +128,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.pqmf_roundtrip_conv, lib.pqmf_tc_analysis_conv,
                lib.pqmf_tc_synthesis_conv, lib.pqmf_tc_roundtrip_conv):
         fn.restype = ctypes.c_int
+    # the plans: (which, B, M, Mb, Ka, Ks, T_out, n_sms[, passes],
+    # max_clusters, plan); the gates: (which, M, Mb, Ka, Ks[, passes])
+    lib.pqmf_launch_plan.argtypes = [i] * 9 + [p]
+    lib.pqmf_tc_launch_plan.argtypes = [i] * 10 + [p]
+    lib.pqmf_smem_bytes.argtypes = [i] * 5
+    lib.pqmf_tc_smem_bytes.argtypes = [i] * 6
     for fn in (lib.pqmf_launch_plan, lib.pqmf_tc_launch_plan):
-        fn.argtypes = [i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     for fn in (lib.pqmf_smem_bytes, lib.pqmf_tc_smem_bytes):
-        fn.argtypes = [i, i, i, i, i]
         fn.restype = ctypes.c_size_t
+    # the whole-file clusters of K3 (M, Ka, Ks) and K3t (.., passes) the
+    # card holds at once, into the int the last argument points to
+    lib.pqmf_rt_max_clusters.argtypes = [i, i, i, p]
+    lib.pqmf_tc_rt_max_clusters.argtypes = [i, i, i, i, p]
+    for fn in (lib.pqmf_rt_max_clusters, lib.pqmf_tc_rt_max_clusters):
+        fn.restype = ctypes.c_int
     lib.pqmf_error_string.argtypes = [i]
     lib.pqmf_error_string.restype = ctypes.c_char_p
     return lib

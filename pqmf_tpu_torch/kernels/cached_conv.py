@@ -61,6 +61,7 @@ __all__ = [
     "arrange_tc_bank",
     "smem_bytes",
     "launch_plan",
+    "max_clusters",
     "OPS",
 ]
 
@@ -92,12 +93,15 @@ _ANA_GROUPS = 2              # kAnaGroups
 _SMEM_PER_SM = 233472        # kSmemPerSm
 _SPLIT_MAX_BANDS = 16        # kSplitMaxBands
 _RT_BANDS = (2, 4, 8, 16, 32, 64)  # K3's (and K3t's) compiled band counts
-# K3 from M = 32 (roundtrip_chunked_kernel): the banks stream in chunks
+# K3 from M = 32 (roundtrip_cluster_kernel): a thread-block cluster of M/8
+# blocks a tile, each with 8 bands of both banks
 _RTC_MIN_BANDS = 32          # kRtcMinBands
-_RTC_THREADS = 512           # kRtcThreads
-_RTC_SMALL_THREADS = 1024    # kRtcSmallThreads
-_RTC_CHUNK = 9216            # kRtcChunk: floats of a bank chunk
+_RTC_BLOCK_BANDS = 8         # kRtcBlockBands
+_RTC_THREADS = 256           # kRtcThreads
 _RTC_SUB = 256               # kRtcSub; its call-size choice is K3t's below
+_RTC_NB, _RTC_NT = 2, 8      # kRtcNB, kRtcNT: whole files' thread tiles
+_RTC_SMALL_NB, _RTC_SMALL_NT = 1, 4  # kRtcSmallNB, kRtcSmallNT: host blocks
+_RTC_MAX_CLUSTER = 8         # kRtcMaxCluster: the portable cluster size
 # the tensor-core tier kernels (csrc/cached_conv_tc.cu)
 _PASSES = {"bf16x3": 3, "default": 1}  # mma passes a k-step
 _TC_THREADS = 128            # kTcThreads: K1t/K2t
@@ -109,6 +113,9 @@ _TC_SHAPES = ((2, 1), (1, 1), (1, 2), (1, 4))  # kTcShapes: (MT, WK)
 _RT_TC_THREADS = 256         # kRtTcThreads: K3t
 _RT_TC_WARPS = _RT_TC_THREADS // 32
 _RT_TC_SUB = 256             # kRtTcSub
+_RT_TC_CLUSTER_BANDS = 32    # kRtTcClusterBands: from M = 32 a cluster a tile
+_RT_TC_BLOCK_NN = 2          # kRtTcBlockNN: n8 tiles a cluster's block ...
+_RT_TC_MIN_PERSIST = 96      # kRtTcMinPersist: ... beside this whole-file tile
 # K3t's and K3's (from M = 32) choice of tile by the call's size
 # (csrc/rt_plan.h)
 _RT_TC_PERSIST_M16 = 16      # kRtPersistM16
@@ -202,7 +209,7 @@ def _rt_tc_wk(items: int, n_k: int) -> int:
 
 def _rt_tc_tile(g: dict, Tt: int, persist: bool) -> dict:
     """A K3t tile of Tt output steps (``rt_tc_tile``): n_sub sub-band steps
-    (analysis rows), MT m16 tiles x one channel block a warp item, each
+    (analysis rows), MT m16 tiles x the block's channels a warp item, each
     phase's reduction split WKa / WKs ways, the split window (WL elements,
     raw f32 and bf16 halves), the split sub-band tile (SL elements a half;
     0 where it takes the window's place: the analysis is one item a warp)
@@ -211,65 +218,114 @@ def _rt_tc_tile(g: dict, Tt: int, persist: bool) -> dict:
     r = 16 * MT
     n_sub = _cdiv(Tt - 1 + g["rows_s"], r) * r
     WL = _round64(g["M"] * (n_sub - 1) + 16 * g["n_ka"])
-    ga, gs = n_sub // r * g["n_cb"], Tt // r * g["n_cb"]  # warp items
+    ga, gs = n_sub // r, Tt // r  # warp items: one channel block a block
     WKa, WKs = _rt_tc_wk(ga, g["n_ka"]), _rt_tc_wk(gs, g["n_ks"])
     SL = 0 if ga * WKa <= _RT_TC_WARPS else _round64(g["M"] * n_sub)
-    red = max((WKa - 1) * ga, (WKs - 1) * gs) * 32 * MT * g["NN"] * 4
+    red = max((WKa - 1) * ga, (WKs - 1) * gs) * 32 * MT * g["bNN"] * 4
     return {"Tt": Tt, "n_sub": n_sub, "MT": MT, "WKa": WKa, "WKs": WKs,
             "WL": WL, "SL": SL, "rest": 8 * WL + 4 * SL + 4 * red}
 
 
-def _rt_tc_geom(M: int, Ka: int, Ks: int) -> dict:
-    """K3t for M bands and banks of Ka / Ks taps (``rt_tc_geom``): both
-    arranged banks' k-steps, channel blocks (2 and 4 at M = 32, 64) and
-    bytes (both halves), the sub-band rows one output step reads, the
-    whole-file tile's output steps (``rt_tc_persist_steps``), whether a
-    block stages both banks (one channel block, beside the largest tile of
-    any plan; else each warp reads its fragments from L2), and the
-    shared-memory gate."""
+def _rt_tc_persist_Tt(g: dict) -> int:
+    """The whole-file tile's output steps (``rt_tc_persist_steps``): 256
+    sub-band steps (more where an output reads more), as many output steps
+    of them as are whole m16 pairs; in a cluster the largest such tile that
+    fits beside the block's bank slice."""
+    n_sub = _cdiv(max(_RT_TC_SUB, 32 + g["rows_s"] - 1), 32) * 32
+    Tt = (n_sub - g["rows_s"] + 1) // 32 * 32
+    while (g["C"] > 1 and Tt > 32
+           and g["bank"] + _rt_tc_tile(g, Tt, True)["rest"] > SMEM_LIMIT):
+        Tt -= 32
+    return Tt
+
+
+def _rt_tc_gate(g: dict) -> int:
+    rest = max(_rt_tc_tile(g, Tt, persist)["rest"] for Tt, persist in
+               [(_rt_tc_persist_Tt(g), True)]
+               + [(t, False) for t in _RT_TC_SMALL])
+    return (g["bank"] if g["stage"] else 0) + rest
+
+
+@functools.lru_cache(maxsize=64)
+def _rt_tc_geom(M: int, Ka: int, Ks: int, precision: str = "bf16x3") -> dict:
+    """K3t for M bands and banks of Ka / Ks taps at ``precision``
+    (``rt_tc_geom``): both arranged banks' k-steps, channel blocks (2 and 4
+    at M = 32, 64), the sub-band rows one output step reads, the blocks a
+    cluster (C = 1 up to M = 16; from M = 32, M / (8 bNN) blocks of bNN n8
+    tiles: a whole channel block where its slice of both banks fits beside
+    a whole-file tile of 96 steps and every host-block tile, else half of
+    one), the bytes of the banks one block stages (up to M = 16 both banks,
+    both halves, where one channel block fits beside the largest tile of
+    any plan, else each warp reads its fragments from L2; from M = 32 its
+    channels of both, the hi half only at "default"), the whole-file
+    tile's output steps (in a cluster the largest that fits beside the
+    bank) and the shared-memory gate."""
     n_ka, n_ks = _round16(Ka) // 16, _round16(M * Ks) // 16
     NN = 2 if M > 8 else 1
     n_cb = _cdiv(M, 8 * NN)
+    halves = 1 if M >= _RT_TC_CLUSTER_BANDS and precision == "default" \
+        else 2
     g = {"M": M, "n_ka": n_ka, "n_ks": n_ks, "NN": NN, "n_cb": n_cb,
-         "rows_s": _cdiv(16 * n_ks, M),
-         "bank": 2 * (n_ka + n_ks) * n_cb * 32 * 4 * NN * 2}
-    n_sub = _cdiv(max(_RT_TC_SUB, 32 + g["rows_s"] - 1), 32) * 32
-    g["persist_Tt"] = (n_sub - g["rows_s"] + 1) // 32 * 32
-    rest = max(_rt_tc_tile(g, Tt, persist)["rest"] for Tt, persist in
-               [(g["persist_Tt"], True)] + [(t, False) for t in _RT_TC_SMALL])
-    g["stage"] = n_cb == 1 and g["bank"] + rest <= SMEM_LIMIT
-    g["gate"] = (g["bank"] if g["stage"] else 0) + rest
+         "rows_s": _cdiv(16 * n_ks, M)}
+    if M < _RT_TC_CLUSTER_BANDS:
+        # staged where the banks fit beside the largest tile (the gate of
+        # an unstaged bank is the tiles' bytes alone)
+        g.update(C=1, bNN=NN,
+                 bank=2 * (n_ka + n_ks) * n_cb * 32 * 4 * NN * 2,
+                 stage=False)
+        g["stage"] = n_cb == 1 and g["bank"] + _rt_tc_gate(g) <= SMEM_LIMIT
+    else:
+        bNN = _RT_TC_BLOCK_NN
+        while True:
+            g.update(C=M // (8 * bNN), bNN=bNN,
+                     bank=2 * halves * (n_ka + n_ks) * 32 * 4 * bNN,
+                     stage=True)
+            if bNN == 1 or (_rt_tc_persist_Tt(g) >= _RT_TC_MIN_PERSIST
+                            and _rt_tc_gate(g) <= SMEM_LIMIT):
+                break
+            bNN //= 2
+    g["persist_Tt"] = _rt_tc_persist_Tt(g)
+    g["gate"] = _rt_tc_gate(g)
     return g
 
 
-def _rt_tile_choice(B: int, T_out: int, n_sms: int) -> tuple:
+def _rt_tile_choice(B: int, T_out: int, n_sms: int,
+                    cluster: int = 1) -> tuple:
     """(whole file, small call's tile) of K3t and of K3 from M = 32
     (``rt_call_tile``, ``csrc/rt_plan.h``): a whole file from n_sms * 16 m16
-    output tiles on; a smaller call one tile a block of 64, 32 or 16 output
-    steps, the largest that gives n_sms / 4 blocks."""
+    output tiles on; a smaller call one tile a cluster of ``cluster``
+    blocks, of 64, 32 or 16 output steps, the largest that gives n_sms / 4
+    blocks."""
     if B * _cdiv(T_out, 16) >= n_sms * _RT_TC_PERSIST_M16:
         return True, 0
     Tt = _RT_TC_SMALL[-1]
     while (Tt > _RT_TC_SMALL[0]
-           and B * _cdiv(T_out, Tt) < n_sms // _RT_TC_FILL_DIV):
+           and B * _cdiv(T_out, Tt) * cluster < n_sms // _RT_TC_FILL_DIV):
         Tt //= 2
     return False, Tt
 
 
-def _rt_tc_plan(B: int, M: int, Ka: int, Ks: int, T_out: int,
-                n_sms: int) -> tuple:
-    g = _rt_tc_geom(M, Ka, Ks)
-    persist, Tt = _rt_tile_choice(B, T_out, n_sms)
+def _rt_tc_plan(B: int, M: int, Ka: int, Ks: int, T_out: int, n_sms: int,
+                precision: str = "bf16x3",
+                max_clusters: int | None = None) -> tuple:
+    g = _rt_tc_geom(M, Ka, Ks, precision)
+    C = g["C"]
+    persist, Tt = _rt_tile_choice(B, T_out, n_sms, C)
     if persist:
         Tt = g["persist_Tt"]
     t = _rt_tc_tile(g, Tt, persist)
     n_tiles = B * _cdiv(T_out, Tt)
-    stage = g["stage"] and (persist or n_tiles <= n_sms)
+    stage = g["stage"] and (persist or n_tiles <= n_sms or C > 1)
     smem = (g["bank"] if stage else 0) + t["rest"]
-    per_sm = max(1, min(2048 // _RT_TC_THREADS,
-                        _SMEM_PER_SM // (smem + 1024)))
-    gx = min(n_tiles, n_sms * per_sm) if persist else n_tiles
-    return (gx, 1, 1, _RT_TC_THREADS, Tt, t["n_sub"], 1, smem)
+    if C > 1:
+        if max_clusters is None:
+            max_clusters = n_sms // C
+        gx = (min(n_tiles, max(0, max_clusters)) if persist else n_tiles) * C
+    else:
+        per_sm = max(1, min(2048 // _RT_TC_THREADS,
+                            _SMEM_PER_SM // (smem + 1024)))
+        gx = min(n_tiles, n_sms * per_sm) if persist else n_tiles
+    return (gx, 1, 1, _RT_TC_THREADS, Tt, t["n_sub"], C, smem)
 
 
 def _analysis_band_groups(M: int, Mb: int, J: int) -> int:
@@ -315,59 +371,57 @@ def _synthesis_plan_smem(Mb: int, K: int, CG: int, Tt: int, red: int) -> int:
 
 
 def _rtc_tile(M: int, Ka: int, Ks: int, Tt: int) -> dict:
-    """A tile of K3 at M >= 32 (``rtc_tile``; Tt = 0: a whole file's):
-    thread tiles of NB bands x NT steps (4 x 8 on whole files, 2 x 4 in
-    small calls), one per thread in each phase, in whole warps; Tt output
-    steps of n_sub sub-band
-    steps; R analysis phases and Rm synthesis input bands a bank chunk
-    (powers of two), two chunk buffers (phase rows J*M + 8 floats apart in
-    the analysis chunk, tap rows M + 8 in the synthesis chunk: a warp's
-    copies meet no bank twice); the window [M][XR] and sub-band tile
-    [M][SP] beside them."""
+    """A tile of K3 at M >= 32 (``rtc_tile``; Tt = 0: a whole file's) for
+    each of the C = M/8 blocks of its cluster: thread tiles of NB bands x NT
+    steps (2 x 8 on whole files, 1 x 4 on host blocks), one per thread in
+    each phase, in whole warps; Tt output steps of n_sub sub-band steps;
+    the block's analysis bank [M][PS] (PS = 8 mod 32), its synthesis bank
+    [M][Ks][8], its own sub-band rows [8][SP] and the window [M][XR], which
+    the whole sub-band tile [M][SP] takes over after the analysis."""
+    MB = _RTC_BLOCK_BANDS
     J = _cdiv(Ka, M)
     if Tt == 0:
-        NB, NT, n_sub = 4, _NT, _RTC_SUB
-        Tt = max(0, (n_sub - Ks + 1) // _NT * _NT)
+        NB, NT, n_sub = _RTC_NB, _RTC_NT, _RTC_SUB
+        Tt = max(0, (n_sub - Ks + 1) // NT * NT)
     else:
-        NB, NT, n_sub = 2, 4, _round4(Tt + Ks - 1)
-
-    def pow2_floor(n):
-        return 1 << (n.bit_length() - 1)
-
-    R = min(M, pow2_floor(max(1, _RTC_CHUNK // (J * M))))
-    Rm = min(M, pow2_floor(max(1, _RTC_CHUNK // (Ks * M))))
-    chunk = max(R * (J * M + 8), Rm * Ks * (M + 8))
+        NB, NT = _RTC_SMALL_NB, _RTC_SMALL_NT
+        n_sub = _cdiv(Tt + Ks - 1, NT) * NT
     XR, SP = _round4(n_sub + J + 4), n_sub + 8
-    return {"NT": NT, "n_sub": n_sub, "Tt": Tt,
-            "threads": -(-(M // NB * (n_sub // NT)) // 32) * 32,  # warps
-            "R": R, "Rm": Rm,
-            "chunk": chunk, "smem": 4 * (M * XR + M * SP + 2 * chunk)}
+    PS = J * MB + ((MB - J * MB) & 31)
+    return {"C": M // MB, "NB": NB, "NT": NT, "n_sub": n_sub, "Tt": Tt,
+            "threads": -(-(MB // NB * (n_sub // NT)) // 32) * 32,  # warps
+            "XR": XR, "SP": SP, "PS": PS,
+            "smem": 4 * (M * PS + M * Ks * MB + MB * SP + M * XR)}
 
 
 def _rtc_fits(M: int, Ka: int, Ks: int) -> bool:
     """Whether every tile a plan of K3 at M >= 32 can take launches
-    (``rtc_fits``): whole-file tiles of output steps, at most 512 threads
-    (1024 for small calls' tiles), and their shared memory within a
-    block's."""
+    (``rtc_fits``): whole clusters of at most 8 blocks (the portable size),
+    whole-file tiles of output steps, at most 256 threads, and their shared
+    memory within a block's."""
+    if M % _RTC_BLOCK_BANDS or M // _RTC_BLOCK_BANDS > _RTC_MAX_CLUSTER:
+        return False
     tiles = [_rtc_tile(M, Ka, Ks, Tt) for Tt in (0,) + _RT_TC_SMALL]
     return (tiles[0]["Tt"] > 0
-            and tiles[0]["threads"] <= _RTC_THREADS
-            and all(t["threads"] <= _RTC_SMALL_THREADS for t in tiles)
+            and all(t["threads"] <= _RTC_THREADS for t in tiles)
             and max(t["smem"] for t in tiles) <= SMEM_LIMIT)
 
 
-def _rtc_plan(B: int, M: int, Ka: int, Ks: int, T_out: int,
-              n_sms: int) -> tuple:
+def _rtc_plan(B: int, M: int, Ka: int, Ks: int, T_out: int, n_sms: int,
+              max_clusters: int | None) -> tuple:
     """K3's plan at M >= 32 (``rtc_choice``, ``roundtrip_plan``): whole
-    files persistent blocks over the whole-file tile, smaller calls one
-    tile a block (``_rt_tile_choice``)."""
-    persist, Tt = _rt_tile_choice(B, T_out, n_sms)
+    files as many persistent clusters as the card holds at once
+    (``max_clusters``), smaller calls one tile a cluster
+    (``_rt_tile_choice``, counting blocks); the cluster size in the
+    seventh entry."""
+    C = M // _RTC_BLOCK_BANDS
+    persist, Tt = _rt_tile_choice(B, T_out, n_sms, C)
     t = _rtc_tile(M, Ka, Ks, Tt)
     n_tiles = B * _cdiv(T_out, t["Tt"]) if t["Tt"] > 0 else 0
-    per_sm = max(1, min(2048 // t["threads"],
-                        _SMEM_PER_SM // (t["smem"] + 1024)))
-    gx = min(n_tiles, n_sms * per_sm) if persist else n_tiles
-    return (gx, 1, 1, t["threads"], t["Tt"], t["n_sub"], 1, t["smem"])
+    if max_clusters is None:
+        max_clusters = n_sms // C
+    gx = (min(n_tiles, max(0, max_clusters)) if persist else n_tiles) * C
+    return (gx, 1, 1, t["threads"], t["Tt"], t["n_sub"], C, t["smem"])
 
 
 def _roundtrip_geom(M: int, Ka: int, Ks: int) -> dict:
@@ -397,7 +451,7 @@ def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int,
         if which == "synthesis":
             return _tc_geom(2, Mb, Mb * Ks, M)["gate"]
         if which == "roundtrip":
-            return _rt_tc_geom(M, Ka, Ks)["gate"]
+            return _rt_tc_geom(M, Ka, Ks, precision)["gate"]
         raise ValueError(f"unknown kernel {which!r}")
     if which == "analysis":
         J = _cdiv(Ka, M)
@@ -419,14 +473,18 @@ def smem_bytes(which: str, M: int, Mb: int, Ka: int, Ks: int,
 @functools.lru_cache(maxsize=256)
 def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
                 T_out: int, n_sms: int = N_SMS,
-                precision: str = "highest") -> tuple:
+                precision: str = "highest",
+                max_clusters: int | None = None) -> tuple:
     """The launch of kernel ``which`` at ``precision`` for a call of
     ``T_out`` output steps on a card of ``n_sms`` SMs, as the CUDA source
     plans it: (grid x, y, z, threads, output steps a tile, K1/K2's steps a
     thread tile / K3's sub-band steps a tile, K1's phase split / K2's band
-    split, shared memory bytes). At the tiers the sixth entry is K1t/K2t's
-    reduction split WK (K3t's sub-band steps a tile), the seventh their
-    output channels a block (K3t: 1).
+    split / K3's blocks a cluster (1: no cluster), shared memory bytes). At
+    the tiers the sixth entry is K1t/K2t's reduction split WK (K3t's
+    sub-band steps a tile), the seventh their output channels a block
+    (K3t: its blocks a cluster). ``max_clusters``: the whole-file clusters
+    of K3/K3t at M >= 32 the card holds at once, as the card answers
+    (:func:`max_clusters`); where none is given, n_sms // C.
 
     The tier kernels K1t/K2t run blocks of 4 warps over a channel block of
     16 (or 8) output channels. A call of fewer than 16 m16 tiles an SM
@@ -456,20 +514,25 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
     K2's plan with its M phases (J = ceil(K/M) taps each) for K2's input
     bands and its bands for K2's phases; its tiles hold at most 4096/M
     steps. Up to M = 16 K3 runs one persistent block an SM over tiles of
-    n_sub sub-band steps; at M = 32 and 64, where the banks stream through
-    two chunk buffers, its plan follows the call as K3t's does: whole files
-    persistent blocks of 8M threads (thread tiles of 4 bands x 8 steps) over
-    tiles of 256 sub-band steps (224 output steps at Ks = 33), smaller calls
-    one tile of 64, 32 or 16 output steps a block, in thread tiles of 2
-    bands x 4 steps. K3t at M = 32 and 64 takes M = 16's tiles with 2 or 4
-    channel blocks a phase, its banks read from L2."""
+    n_sub sub-band steps. At M = 32 and 64 K3 and K3t run one thread-block
+    cluster of C = M/8 blocks a tile, each block with 8 bands (channels)
+    of both banks staged once a launch: K3 whole files as many persistent
+    clusters as the card holds, tiles of 256 sub-band steps in thread
+    tiles of 2 bands x 8 steps, host blocks one cluster a tile of 16-64
+    output steps in thread tiles of 1 x 4 (the tile choice counts the
+    cluster's blocks); K3t the same split over blocks of a whole channel
+    block (16 channels, C = M/16) where that slice of both banks fits (all
+    but M = 64 at bf16x3, which takes blocks of 8), 8 warps a block, the
+    largest whole-file tile that fits beside the bank slices of the
+    tier."""
     if fb.check_precision(precision) != "highest":
         if which == "analysis":
             return _tc_plan(1, B, M, Ka, Mb, T_out, n_sms)
         if which == "synthesis":
             return _tc_plan(2, B, Mb, Mb * Ks, M, T_out, n_sms)
         if which == "roundtrip":
-            return _rt_tc_plan(B, M, Ka, Ks, T_out, n_sms)
+            return _rt_tc_plan(B, M, Ka, Ks, T_out, n_sms, precision,
+                               max_clusters)
         raise ValueError(f"unknown kernel {which!r}")
     if which == "analysis":
         J = _cdiv(Ka, M)
@@ -505,12 +568,38 @@ def launch_plan(which: str, B: int, M: int, Mb: int, Ka: int, Ks: int,
         return (gx, _cdiv(n_pg, pg), 1, threads, nt * sg, nt, ms, smem)
     if which == "roundtrip":
         if M >= _RTC_MIN_BANDS:
-            return _rtc_plan(B, M, Ka, Ks, T_out, n_sms)
+            return _rtc_plan(B, M, Ka, Ks, T_out, n_sms, max_clusters)
         g = _roundtrip_geom(M, Ka, Ks)
         n_tiles = B * _cdiv(T_out, g["Tt"]) if g["Tt"] > 0 else 0
         return (min(n_tiles, n_sms), 1, 1, _THREADS, g["Tt"], g["n_sub"], 1,
                 g["smem"])
     raise ValueError(f"unknown kernel {which!r}")
+
+
+def max_clusters(M: int, Ka: int, Ks: int,
+                 precision: str = "highest") -> int:
+    """The thread-block clusters of K3's (K3t's at a tier) whole-file tile
+    at M = 32 or 64 that the current card holds at once, as the card
+    answers (``cudaOccupancyMaxActiveClusters``: a cluster lives inside
+    one GPC, so this is not n_sms / C); what a whole-file launch takes and
+    what :func:`launch_plan` needs to mirror it. Raises where the card
+    refuses the question."""
+    import ctypes
+
+    from pqmf_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    n = ctypes.c_int(0)
+    if fb.check_precision(precision) == "highest":
+        err = lib.pqmf_rt_max_clusters(M, Ka, Ks, ctypes.byref(n))
+    else:
+        err = lib.pqmf_tc_rt_max_clusters(M, Ka, Ks, _PASSES[precision],
+                                          ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cluster occupancy of M={M}, Ka={Ka}, Ks={Ks} "
+                           f"[{precision}]: "
+                           f"{lib.pqmf_error_string(err).decode()} ({err})")
+    return n.value
 
 
 @functools.lru_cache(maxsize=256)
@@ -543,8 +632,9 @@ def fused_roundtrip_supported(M: int, analysis_taps: int,
     """Whether K3 (K3t at a tier) takes this geometry: a band count it is
     compiled for (2, 4, 8, 16, 32, 64) whose tile fits in one block's
     shared memory — up to M = 16 both banks, the double-buffered input
-    window and the sub-band tile; at M = 32 and 64 the window, the
-    sub-band tile and two bank chunks. True for every committed bank,
+    window and the sub-band tile; at M = 32 and 64, in a cluster of M/8
+    blocks, one block's 8 bands of both banks, the window and the
+    sub-band tile. True for every committed bank,
     designed or fine-tuned. A tier takes the same geometries, where its own
     tile fits, so a round trip routes alike at every tier. The JAX gate
     also refuses M = 2 and 4 at the streaming and offline synthesis pads:

@@ -110,20 +110,21 @@ def test_smem_gate_mirrors_the_source(dev):
         for i, which in enumerate(("analysis", "synthesis", "roundtrip"), 1):
             assert lib.pqmf_smem_bytes(i, M, M, Ka, Ks) == \
                 cc.smem_bytes(which, M, M, Ka, Ks), (which, M)
+            mc = cc.max_clusters(M, Ka, Ks) if i == 3 and M >= 32 else 0
             for B, T_out in [(1, 37), (1, 512), (16, 512), (215, 256),
                              (3, 479), (1, 165376)]:
                 assert lib.pqmf_launch_plan(i, B, M, M, Ka, Ks, T_out,
-                                            n_sms, plan) == 0
+                                            n_sms, mc, plan) == 0
                 assert tuple(plan) == cc.launch_plan(
-                    which, B, M, M, Ka, Ks, T_out, n_sms=n_sms), \
-                    (which, M, B, T_out)
+                    which, B, M, M, Ka, Ks, T_out, n_sms=n_sms,
+                    max_clusters=mc if mc else None), (which, M, B, T_out)
         # K1 over even band shards
         for Mb in {max(2, M // 2), min(6, M)}:
             assert lib.pqmf_smem_bytes(1, M, Mb, Ka, Ks) == \
                 cc.smem_bytes("analysis", M, Mb, Ka, Ks), (M, Mb)
             for B, T_out in [(1, 512), (16, 512), (1, 165376)]:
                 assert lib.pqmf_launch_plan(1, B, M, Mb, Ka, Ks, T_out,
-                                            n_sms, plan) == 0
+                                            n_sms, 0, plan) == 0
                 assert tuple(plan) == cc.launch_plan(
                     "analysis", B, M, Mb, Ka, Ks, T_out, n_sms=n_sms), \
                     (M, Mb, B, T_out)
@@ -515,16 +516,23 @@ def test_tier_plans_mirror_the_source(dev):
                       (64, 2049, 33), (2, 65, 33), (16, 512, 32),
                       (16, 9001, 600)]:
         for i, which in enumerate(("analysis", "synthesis", "roundtrip"), 1):
-            for Mb in {M, max(2, M // 2)} if i == 1 else {M}:
-                assert lib.pqmf_tc_smem_bytes(i, M, Mb, Ka, Ks) == \
-                    cc.smem_bytes(which, M, Mb, Ka, Ks, "bf16x3"), (which, M)
+            for Mb, tier in [(Mb, tier) for Mb in (
+                    {M, max(2, M // 2)} if i == 1 else {M})
+                    for tier in ("bf16x3", "default")]:
+                passes = {"bf16x3": 3, "default": 1}[tier]
+                assert lib.pqmf_tc_smem_bytes(i, M, Mb, Ka, Ks, passes) == \
+                    cc.smem_bytes(which, M, Mb, Ka, Ks, tier), (which, M)
+                mc = cc.max_clusters(M, Ka, Ks, tier) \
+                    if i == 3 and M >= 32 else 0
                 for B, T_out in [(1, 37), (1, 512), (16, 512), (215, 256),
                                  (1, 165376)]:
                     assert lib.pqmf_tc_launch_plan(i, B, M, Mb, Ka, Ks,
-                                                   T_out, n_sms, plan) == 0
+                                                   T_out, n_sms, passes, mc,
+                                                   plan) == 0
                     assert tuple(plan) == cc.launch_plan(
                         which, B, M, Mb, Ka, Ks, T_out, n_sms=n_sms,
-                        precision="default"), (which, M, Mb, B, T_out)
+                        precision=tier, max_clusters=mc if mc else None), \
+                        (which, M, Mb, B, T_out, tier)
 
 
 @pytest.mark.parametrize("tier", TIERS)
@@ -902,7 +910,7 @@ def test_entry_point_roundtrips_run_one_k3t(dev, tier):
         assert_k3t_close(got.cpu(), ref, sub, w_syn, tier)
 
 
-# -- K3 and K3t at M = 32 and 64 (the banks in chunks / channel blocks) ------
+# -- K3 and K3t at M = 32 and 64 (a thread-block cluster a tile) -----------
 
 
 def _k3_bands_close(got, ref, x, hkf, hki, M, spad, tier, pad):
@@ -917,15 +925,16 @@ def _k3_bands_close(got, ref, x, hkf, hki, M, spad, tier, pad):
 
 
 @pytest.mark.parametrize("tier", ["highest", *TIERS])
-@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("B", [1, 2, 3, 16])
 @pytest.mark.parametrize("M", [32, 64])
 def test_k3_bands_match_plain(dev, tier, B, M):
-    """K3 (``roundtrip_chunked_kernel``) and K3t (channel blocks) at M = 32
-    and 64 against their plain versions: a host block [B, 1, 8192 + Ka - 1]
+    """K3 and K3t at M = 32 and 64 (a thread-block cluster of M/8 blocks a
+    tile) against their plain versions: a host block [B, 1, 8192 + Ka - 1]
     with the syn_pads chip_smoke.py uses, the 60 s signal with the
     centered pads in the kernel, and T_out one short of, at and one past a
     multiple of the tile the plan takes for a host block and for a whole
-    file; output memory NaN-filled before each call. K3 within the K1/K2
+    file (B = 1, 2, 3, 16 take the cluster plans' 16-, 32- and 64-step
+    tiles); output memory NaN-filled before each call. K3 within the K1/K2
     bar (its sums run in one thread, K1's and K2's order), K3t as
     ``assert_k3t_close``; the kept banks give the bits of banks arranged
     for the call."""

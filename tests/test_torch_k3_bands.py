@@ -1,6 +1,7 @@
-"""The fused round trip at M = 32 and 64 — K3 (``roundtrip_chunked_kernel``,
-``csrc/cached_conv.cu``) and K3t (its channel blocks,
-``csrc/cached_conv_tc.cu``) — against pqmf_tpu's fused Pallas round trip
+"""The fused round trip at M = 32 and 64 — K3 (``roundtrip_cluster_kernel``,
+``csrc/cached_conv.cu``) and K3t (``roundtrip_tc_kernel`` in clusters,
+``csrc/cached_conv_tc.cu``), a thread-block cluster of M/8 blocks a tile
+— against pqmf_tpu's fused Pallas round trip
 (``fused_roundtrip_conv`` -> ``_fused_roundtrip_single``), which the JAX
 package runs at these band counts and which runs here in interpret mode,
 as its own tests run it.
@@ -17,7 +18,9 @@ as its own tests run it.
 - The gates (``fused_roundtrip_supported``, ``roundtrip_supported``)
   against the JAX gates, and the launch plans of K3/K3t at M = 32 and 64.
 - K3's CUDA source itself, built with g++ against an emulated CUDA
-  runtime and run on the CPU, against K3's plain version.
+  runtime (thread-block clusters, their barrier, distributed shared
+  memory) and run on the CPU, against K3's plain version; what the card
+  refuses raises.
 
 Tolerance: the JAX package's kernel-vs-lax bar, atol=2e-5 / rtol=1e-4
 (sums of up to 2112 f32 products taken in another order). On the CPU the
@@ -254,28 +257,36 @@ def test_gates_match_jax(M):
 @pytest.mark.parametrize("M", [32, 64])
 def test_plans_fit(M, B, samples, tier):
     """K3's and K3t's plans at M = 32 and 64, for a host block (one stream
-    and 16) and for 60 s: within a block's shared memory and its gate,
-    tiles that cover every output step, one a block for a host block and
-    persistent blocks on a whole file."""
+    and 16) and for 60 s: one thread-block cluster of M/8 blocks a tile,
+    within a block's shared memory and its gate, tiles that cover every
+    output step, one a cluster for a host block and as many persistent
+    clusters as the card holds (here the nominal n_sms // C) on a whole
+    file."""
     Ka, Ks = 32 * M + 1, 33
     T_out = samples // M
-    gx, gy, gz, threads, tile, n_sub, split, smem = cc.launch_plan(
+    gx, gy, gz, threads, tile, n_sub, C, smem = cc.launch_plan(
         "roundtrip", B, M, M, Ka, Ks, T_out, precision=tier)
     gate = cc.smem_bytes("roundtrip", M, M, Ka, Ks, tier)
     assert smem <= gate <= cc.SMEM_LIMIT
-    assert (gy, gz, split) == (1, 1, 1) and n_sub >= tile + Ks - 1
+    # K3: blocks of 8 bands; K3t: blocks of a channel block (16 channels)
+    # where its slice of both banks fits, else of 8 (M = 64, bf16x3)
+    wide = tier != "highest" and (M, tier) != (64, "bf16x3")
+    assert (gy, gz, C) == (1, 1, M // 16 if wide else M // 8)
+    assert gx % C == 0 and n_sub >= tile + Ks - 1
     tiles = B * -(-T_out // tile)
     if samples == 8192:
-        assert tile in (16, 32, 64) and gx == tiles
+        assert tile in (16, 32, 64) and gx == tiles * C
     else:
-        assert tile == 224 and n_sub == 256 and gx <= 2 * cc.N_SMS
-        assert gx < tiles
-    # highest: one thread a thread tile of 4 bands x 8 steps (whole files,
-    # at most 512 threads) or 2 x 4 (host blocks, at most 1024) in each
-    # phase; the tiers: 8 warps
-    want = M // 4 * n_sub // 8 if tile == 224 else M // 2 * n_sub // 4
-    assert threads == (want if tier == "highest" else 256)
-    assert threads <= (512 if tile == 224 else 1024)
+        assert gx == cc.N_SMS // C * C and gx // C < tiles
+        # K3t at M = 64: its bank slices (134 KB) leave room for 128
+        # sub-band steps; the others keep 256
+        assert (tile, n_sub) == ((96, 128) if M == 64 and tier != "highest"
+                                 else (224, 256))
+    # highest: one thread a thread tile of 2 bands x 8 steps (whole files)
+    # or 1 x 4 (host blocks) of the block's 8 bands; the tiers: 8 warps
+    want = 8 // 2 * n_sub // 8 if samples > 8192 else 8 * n_sub // 4
+    assert threads == (-(-want // 32) * 32 if tier == "highest" else 256)
+    assert threads <= 256
 
 
 def test_composition_never_runs_past_m16_on_cpu_routes(monkeypatch):
@@ -304,12 +315,21 @@ def test_composition_never_runs_past_m16_on_cpu_routes(monkeypatch):
 
 # The CUDA runtime as csrc/cached_conv.cu uses it, emulated for g++: one OS
 # thread per CUDA thread, a real barrier for __syncthreads, blocks one after
-# another, shared memory NaN-filled per block (a read of anything the
-# kernel did not write shows in the output), and each cp.async copy held
-# back until its thread's cp.async.wait_group lets its group land.
+# another except the blocks of one thread-block cluster, which run together
+# with a cluster barrier over all their threads (barrier.cluster.arrive /
+# .wait, which must alternate in every thread and end in a wait), shared
+# memory NaN-filled per block (a read of anything the kernel did not write
+# shows in the output) and NaN-filled again when the block's last thread
+# exits (a peer reading it later shows too), mapa into a peer block's shared
+# memory, and each cp.async copy held back until its thread's
+# cp.async.wait_group lets its group land.  cudaLaunchKernelEx refuses what
+# a card refuses (clusters past 8 blocks, a grid not of whole clusters,
+# more than 227 KB of shared memory, 1024 threads);
+# cudaOccupancyMaxActiveClusters answers EMU_CLUSTERS, else EMU_SMS / C.
 _EMU_RUNTIME = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <chrono>
 #include <condition_variable>
 #include <cmath>
@@ -329,34 +349,85 @@ _EMU_RUNTIME = r"""
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
-       cudaDevAttrMultiProcessorCount = 16 };
+       cudaDevAttrMultiProcessorCount = 16,
+       cudaLaunchAttributeClusterDimension = 4 };
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3 { unsigned x, y, z; };
+struct cudaLaunchAttribute { int id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val; };
+struct cudaLaunchConfig_t { dim3 gridDim, blockDim; size_t dynamicSmemBytes;
+  cudaStream_t stream; cudaLaunchAttribute* attrs; unsigned numAttrs; };
 inline thread_local uint3 threadIdx;
-inline uint3 blockIdx;
+inline thread_local uint3 blockIdx;
 inline dim3 blockDim, gridDim;
-inline char* emu_smem = nullptr;
+inline thread_local char* emu_smem = nullptr;
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct EmuBarrier {  // a barrier some thread never reaches aborts in 60 s
   std::mutex m; std::condition_variable cv; int n = 0, count = 0; long gen = 0;
-  void wait() {
-    std::unique_lock<std::mutex> l(m);
+  long arrive() {
+    std::lock_guard<std::mutex> l(m);
     const long g = gen;
-    if (++count == n) { count = 0; ++gen; cv.notify_all(); return; }
+    if (++count == n) { count = 0; ++gen; cv.notify_all(); }
+    return g;
+  }
+  void wait_past(long g, const char* what) {
+    std::unique_lock<std::mutex> l(m);
     if (!cv.wait_for(l, std::chrono::seconds(60), [&] { return g != gen; })) {
-      std::fprintf(stderr, "__syncthreads: a thread never arrived\n");
+      std::fprintf(stderr, "%s: a thread never arrived\n", what);
       std::abort();
     }
   }
+  void wait() { wait_past(arrive(), "__syncthreads"); }
 };
-inline EmuBarrier* emu_bar = nullptr;
+struct EmuCluster {
+  std::vector<std::vector<char>> smem;
+  std::vector<EmuBarrier> block_bar;
+  std::vector<std::atomic<int>> live;
+  EmuBarrier bar;
+  EmuCluster(int C, size_t bytes, int threads)
+      : smem(C, std::vector<char>(bytes + 16, (char)0xFF)), block_bar(C),
+        live(C) {
+    for (auto& b : block_bar) b.n = threads;
+    for (auto& l : live) l = threads;
+    bar.n = C * threads;
+  }
+};
+inline thread_local EmuBarrier* emu_bar = nullptr;
+inline thread_local EmuCluster* emu_cl = nullptr;
+inline thread_local int emu_rank = 0;
+inline thread_local long emu_cl_gen = -1;
 inline void __syncthreads() { emu_bar->wait(); }
+inline void emu_cluster_arrive() {
+  if (emu_cl_gen >= 0) {
+    std::fprintf(stderr, "barrier.cluster.arrive twice\n");
+    std::abort();
+  }
+  emu_cl_gen = emu_cl->bar.arrive();
+}
+inline void emu_cluster_wait() {
+  if (emu_cl_gen < 0) {
+    std::fprintf(stderr, "barrier.cluster.wait without an arrive\n");
+    std::abort();
+  }
+  emu_cl->bar.wait_past(emu_cl_gen, "barrier.cluster");
+  emu_cl_gen = -1;
+}
+inline const void* emu_mapa(const void* p, int rank) {
+  const long off = (const char*)p - emu_smem;
+  if (off < 0 || off >= (long)emu_cl->smem[0].size() || rank < 0 ||
+      rank >= (int)emu_cl->smem.size()) {
+    std::fprintf(stderr, "mapa outside the cluster's shared memory\n");
+    std::abort();
+  }
+  return emu_cl->smem[rank].data() + off;
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 using std::fmaf; using std::max; using std::min;
@@ -377,31 +448,61 @@ inline void emu_wait(int n) {
   }
 }
 template <typename F>
-void emu_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F f) {
-  std::vector<char> buf(smem + 16);
-  emu_smem = buf.data();
+void emu_run(dim3 grid, int threads, size_t smem, int C, F f) {
   gridDim = grid;
   blockDim = dim3(threads);
-  EmuBarrier bar;
-  bar.n = threads;
-  emu_bar = &bar;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        std::fill(buf.begin(), buf.end(), (char)0xFF);  // NaN
-        blockIdx = {x, y, z};
+      for (unsigned x0 = 0; x0 < grid.x; x0 += C) {
+        EmuCluster cl(C, smem, threads);
         std::vector<std::thread> ts;
-        for (int t = 0; t < threads; ++t)
-          ts.emplace_back([&, t] {
-            threadIdx = {(unsigned)t, 0, 0};
-            f();
-            if (!emu_pending.empty() || !emu_groups.empty()) {
-              std::fprintf(stderr, "a copy outlived its block\n");
-              std::abort();
-            }
-          });
+        for (int r = 0; r < C; ++r)
+          for (int t = 0; t < threads; ++t)
+            ts.emplace_back([&, r, t] {
+              threadIdx = {(unsigned)t, 0, 0};
+              blockIdx = {x0 + r, y, z};
+              emu_smem = cl.smem[r].data();
+              emu_bar = &cl.block_bar[r];
+              emu_cl = &cl;
+              emu_rank = r;
+              f();
+              if (!emu_pending.empty() || !emu_groups.empty()) {
+                std::fprintf(stderr, "a copy outlived its block\n");
+                std::abort();
+              }
+              if (emu_cl_gen >= 0) {
+                std::fprintf(stderr, "a block exited between a cluster "
+                             "arrive and its wait\n");
+                std::abort();
+              }
+              if (--cl.live[r] == 0)  // the block is gone: its memory too
+                std::fill(cl.smem[r].begin(), cl.smem[r].end(), (char)0xFF);
+            });
         for (std::thread& th : ts) th.join();
       }
+}
+template <typename F>
+void emu_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F f) {
+  emu_run(grid, threads, smem, 1, f);
+}
+inline int emu_cluster_of(const cudaLaunchConfig_t* cfg) {
+  int C = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      C = (int)(cfg->attrs[i].val.clusterDim.x * cfg->attrs[i].val.clusterDim.y
+                * cfg->attrs[i].val.clusterDim.z);
+  return C;
+}
+template <typename... P, typename... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...),
+                               A&&... args) {
+  const int C = emu_cluster_of(cfg);
+  if (C < 1 || C > 8 || cfg->gridDim.x % C || cfg->gridDim.x == 0 ||
+      cfg->dynamicSmemBytes > 232448 || cfg->blockDim.x > 1024)
+    return cudaErrorInvalidConfiguration;
+  emu_run(cfg->gridDim, (int)cfg->blockDim.x, cfg->dynamicSmemBytes, C,
+          [&] { k(args...); });
+  return 0;
 }
 template <typename K> cudaError_t cudaFuncSetAttribute(K, int, int) {
   return 0; }
@@ -412,13 +513,23 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
   *v = e ? std::atoi(e) : 132;
   return 0;
 }
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, K,
+                                           const cudaLaunchConfig_t* cfg) {
+  const char* e = std::getenv("EMU_CLUSTERS");
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, 0, 0);
+  *n = e ? std::atoi(e) : sms / emu_cluster_of(cfg);
+  return 0;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 """
 
 
 def _emulated_source(src: str) -> str:
     """The CUDA source for the emulated runtime: each ``asm volatile``
-    (cp.async and its groups) becomes an emulation call, each ``k<<<cfg>>>
+    (cp.async and its groups, the cluster barrier, mapa) becomes an
+    emulation call, each ``k<<<cfg>>>
     (args)`` an ``emu_launch(cfg, [&] { k(args); })``, each dynamic shared
     array a view of the block's emulated shared memory."""
     def closing(s, k):  # the index past the ')' matching the '(' before k
@@ -431,7 +542,10 @@ def _emulated_source(src: str) -> str:
     calls = [("cp.async.ca.shared.global", "emu_cp(dst, src, 4, bytes);"),
              ("cp.async.cg.shared.global", "emu_cp(dst, src, 16, bytes);"),
              ("cp.async.commit_group", "emu_commit();"),
-             ("cp.async.wait_group %0", "emu_wait(N);")]
+             ("cp.async.wait_group %0", "emu_wait(N);"),
+             ("barrier.cluster.arrive", "emu_cluster_arrive();"),
+             ("barrier.cluster.wait", "emu_cluster_wait();"),
+             ("mapa.u64", "r = (unsigned long long)emu_mapa(p, rank);")]
     out, i = [], 0
     while (j := src.find("asm volatile(", i)) >= 0:
         k = closing(src, j + len("asm volatile("))
@@ -470,24 +584,36 @@ def emulated(tmp_path_factory):
     lib = ctypes.CDLL(str(d / "k.so"))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pqmf_roundtrip_conv.argtypes = [p, p, p, p] + [i] * 9 + [p]
+    lib.pqmf_launch_plan.argtypes = [i] * 9 + [p]
+    lib.pqmf_rt_max_clusters.argtypes = [i, i, i, p]
     return lib
 
 
-@pytest.mark.parametrize("M,B,steps,n_sms,syn_pad", [
-    (16, 2, 300, 132, (16, 16)),   # the M <= 16 kernel: the emulation's check
-    (32, 2, 300, 132, (16, 16)),   # one tile of 16 steps a block
-    (32, 4, 256, 132, (0, 40)),    # tiles of 64 steps
-    (32, 3, 470, 2, (3, 0)),       # persistent blocks over 224-step tiles
-    (64, 3, 90, 132, (16, 17)),
-    (64, 1, 700, 2, (16, 16))])
+@pytest.mark.parametrize("M,B,steps,n_sms,clusters,syn_pad", [
+    (16, 2, 300, 132, None, (16, 16)),   # M <= 16: the emulation's check
+    (32, 2, 300, 132, None, (16, 16)),   # one cluster a tile of 16 steps
+    (32, 4, 256, 132, None, (0, 40)),    # tiles of 64 steps
+    (32, 3, 470, 2, 1, (3, 0)),          # one persistent cluster, 224-step tiles
+    (64, 3, 90, 132, None, (16, 17)),
+    (64, 1, 700, 2, 2, (16, 16)),        # two persistent clusters
+    # the cluster plans at host blocks of B = 1, 3, 16 and a whole file
+    (32, 1, 256, 132, None, (16, 16)),
+    (64, 3, 128, 132, None, (16, 16)),
+    (64, 16, 128, 132, None, (16, 16)),
+    (32, 1, 1200, 4, 2, (16, 16)),
+    (64, 2, 600, 4, 3, (16, 16))])
 def test_k3_source_emulated_matches_plain(emulated, monkeypatch, M, B, steps,
-                                          n_sms, syn_pad):
-    """The CUDA source of K3 (at M = 32 and 64 ``roundtrip_chunked_kernel``:
-    the bank chunks, their transposed copies, the cp.async pipeline, the
-    sub-band tile, both plans) executed on the CPU, on a card of ``n_sms``
-    SMs, against K3's plain version within the K1/K2 bar; every output
-    written and finite (shared memory starts as NaN)."""
+                                          n_sms, clusters, syn_pad):
+    """The CUDA source of K3 (at M = 32 and 64 ``roundtrip_cluster_kernel``:
+    the bank slices and their transposed copies, the cp.async window, the
+    cluster barriers, the sub-band tile read from every block of the
+    cluster, both plans) executed on the CPU, on a card of ``n_sms`` SMs
+    holding ``clusters`` whole-file clusters, against K3's plain version
+    within the K1/K2 bar; every output written and finite (shared memory
+    starts as NaN, and a block's is NaN again once it exits)."""
     monkeypatch.setenv("EMU_SMS", str(n_sms))
+    if clusters is not None:
+        monkeypatch.setenv("EMU_CLUSTERS", str(clusters))
     sp = StreamingPQMF(100, M, device="cpu")
     wa, ws = sp.hkf.contiguous(), sp.hki.contiguous()
     Ka, Ks = wa.shape[-1], ws.shape[-1]
@@ -500,10 +626,74 @@ def test_k3_source_emulated_matches_plain(emulated, monkeypatch, M, B, steps,
         x.data_ptr(), wa.data_ptr(), ws.data_ptr(), out.data_ptr(), B,
         x.shape[-1], M, Ka, Ks, T_ana, T_out, pad[0], syn_pad[0], None) == 0
     assert torch.isfinite(out).all()
-    tile = cc.launch_plan("roundtrip", B, M, M, Ka, Ks, T_out,
-                          n_sms=n_sms)[4]
-    assert (tile > 64) == (n_sms == 2 or M == 16)
+    plan = cc.launch_plan("roundtrip", B, M, M, Ka, Ks, T_out, n_sms=n_sms,
+                          max_clusters=clusters)
+    assert (plan[4] > 64) == (clusters is not None or M == 16)
+    assert plan[6] == (1 if M == 16 else M // 8)
     _close(out, cc.roundtrip_conv_plain(x, wa, ws, M, syn_pad, pad=pad))
+
+
+@pytest.mark.parametrize("case", ["no_cluster_fits", "smem", "bands"])
+def test_k3_source_refuses_what_the_card_cannot_take(emulated, monkeypatch,
+                                                    case):
+    """A launch the card cannot take returns its error from the C entry,
+    which the wrapper raises (``_launch``), and writes nothing: no cluster
+    of the whole-file tile fits (cudaOccupancyMaxActiveClusters answers 0),
+    an analysis bank whose slice leaves a block's shared memory, a band
+    count with no cluster kernel. Nothing falls back to another kernel."""
+    M = 32
+    monkeypatch.setenv("EMU_SMS", "132")
+    monkeypatch.setenv("EMU_CLUSTERS", "0")
+    Ka, Ks = {"no_cluster_fits": (1025, 33), "smem": (32 * 300 + 1, 33),
+              "bands": (1025, 33)}[case]
+    Mk = 48 if case == "bands" else M
+    T_ana = 132 * 16 * 16 + 1  # a whole file: the persistent plan
+    x = torch.zeros(1, 1, Mk * (T_ana - 1) + Ka)
+    wa = torch.zeros(Mk, 1, Ka)
+    ws = torch.zeros(Mk, Mk, Ks)
+    T_out = 32 + T_ana - Ks + 1
+    out = torch.full((1, T_out, Mk), float("nan"))
+    err = emulated.pqmf_roundtrip_conv(
+        x.data_ptr(), wa.data_ptr(), ws.data_ptr(), out.data_ptr(), 1,
+        x.shape[-1], Mk, Ka, Ks, T_ana, T_out, 0, 16, None)
+    assert err != 0
+    assert torch.isnan(out).all()
+    assert not cc.fused_roundtrip_supported(Mk, Ka, Ks) or \
+        case == "no_cluster_fits"
+
+
+def test_wrapper_raises_what_the_card_refuses(monkeypatch):
+    """The wrappers raise on every launch the card refuses: the C entry's
+    cudaError_t (a refused cluster launch, none of the whole-file clusters
+    fitting) comes back through ``_launch`` as a RuntimeError that names
+    it, and a geometry whose cluster tile leaves a block's shared memory is
+    refused by the gate the wrapper asks before any launch, at every tier.
+    No route falls back to K1 + K2 or to a plain version."""
+    import types
+
+    from pqmf_tpu_torch.kernels import _build
+
+    class Lib:
+        def pqmf_roundtrip_conv(self, *args):
+            return 9  # cudaErrorInvalidConfiguration
+
+        def pqmf_error_string(self, err):
+            return b"invalid configuration argument"
+
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    with pytest.raises(RuntimeError, match="pqmf_roundtrip_conv failed: "
+                       "invalid configuration argument \\(9\\)"):
+        cc._launch("pqmf_roundtrip_conv", 0, 0, 0, 0)
+    for M in (32, 64):
+        for tier in TIERS:
+            assert cc.fused_roundtrip_supported(M, 32 * M + 1, 33, tier)
+            # a bank whose slice, window and tile leave 227 KB
+            assert not cc.fused_roundtrip_supported(M, 200 * M + 1, 33, tier)
+        assert not cc._rtc_fits(M, 200 * M + 1, 33)
+    # a cluster past the portable 8 blocks is never planned
+    assert not cc._rtc_fits(128, 32 * 128 + 1, 33)
 
 
 def test_rt_plan_header_matches_its_mirror(tmp_path):
@@ -517,20 +707,28 @@ def test_rt_plan_header_matches_its_mirror(tmp_path):
     csrc = Path(cc.__file__).parent.parent / "csrc"
     (tmp_path / "t.cpp").write_text(
         '#include "rt_plan.h"\n'
-        'extern "C" int tile(int B, int T, int n) '
-        '{ return rt_call_tile(B, T, n); }\n')
+        'extern "C" int tile(int B, int T, int n, int c) '
+        '{ return rt_call_tile(B, T, n, c); }\n')
     subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared",
                     f"-I{csrc}", "-o", str(tmp_path / "t.so"),
                     str(tmp_path / "t.cpp")], check=True, capture_output=True)
     tile = ctypes.CDLL(str(tmp_path / "t.so")).tile
-    tile.argtypes = [ctypes.c_int] * 3
+    tile.argtypes = [ctypes.c_int] * 4
     for n_sms in (2, 66, 114, 132, 144):
         for B in (1, 2, 3, 16, 215):
             for T_out in (1, 15, 16, 17, 128, 256, 257, 512, 2048, 8192,
                           82704, 165375):
-                persist, Tt = cc._rt_tile_choice(B, T_out, n_sms)
-                assert tile(B, T_out, n_sms) == (0 if persist else Tt), \
-                    (B, T_out, n_sms)
+                for cluster in (1, 4, 8):
+                    persist, Tt = cc._rt_tile_choice(B, T_out, n_sms,
+                                                     cluster)
+                    assert tile(B, T_out, n_sms, cluster) == (
+                        0 if persist else Tt), (B, T_out, n_sms, cluster)
+    # the tile choice counts a cluster's blocks: 16 streams at M = 32
+    # take 64-step tiles either way, 3 streams at M = 64 (128 steps) take
+    # 64 steps in clusters of 8 where one block a tile would take 16
+    assert cc._rt_tile_choice(16, 256, 132, 4) == (False, 64)
+    assert cc._rt_tile_choice(3, 128, 132, 1) == (False, 16)
+    assert cc._rt_tile_choice(3, 128, 132, 8) == (False, 64)
 
 
 def _kernel_ab():

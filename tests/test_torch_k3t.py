@@ -17,6 +17,13 @@ on the CPU.
   them, without bank conflicts at M >= 8.
 - K3t's plans fit the card, cover every output step once, and spread a host
   block over 32 blocks.
+- At M = 32 and 64, the cluster split: each block of the cluster stages
+  its channels of both arranged banks (a channel block by 16-byte copies,
+  or half of one by 8-byte copies, decoded here against the bank's B
+  matrix), computes those sub-bands into its own swizzled sub-band tile,
+  gathers the other blocks' 16-byte chunks from where they stored them,
+  and computes its output channels; the model of that against the plain
+  version as above.
 - ``pad=`` is ``F.pad`` then the call, bit for bit, at every tier; a wrong
   ``banks=`` raises; ``StreamingPQMF.roundtrip`` and ``PQMF.roundtrip``
   hand K3 the unpadded signal and their kept banks; K6's route without its
@@ -401,3 +408,166 @@ def test_default_roundtrip_on_the_bench_signal_keeps_jax_bar(bench_x):
     db = snr_db(np.asarray(jp.roundtrip(bench_x)),
                 tp.roundtrip(bench_x).numpy())
     assert 45 <= db < 80, db
+
+
+# ---------------------------------------------------------------------------
+# M = 32 and 64: a thread-block cluster of M/8 blocks a tile
+# ---------------------------------------------------------------------------
+
+
+def _decode_block(words, rank, nn):
+    """The B columns block ``rank`` of a K3t cluster stages, [H, Qp, 8 nn]
+    (float64): from the arranged bank [H, n_cb, n_k, 32, 8] (NN = 2) the
+    kernel copies, for blocks of nn = 2 n8 tiles, channel block ``rank``
+    whole (16 bytes a lane a k-step); for nn = 1 channel block rank // 2,
+    words 4 (rank % 2) .. +3 of each lane (8 bytes), into the layout of one
+    n8 tile. Lane 4g + tq holds, for n8 tile t, rows 2tq, 2tq+1 (b0) and
+    2tq+8, 2tq+9 (b1) of column 8t + g."""
+    w = words.float().numpy()
+    H, n_cb, n_k, _, W = w.shape
+    assert W == 8
+    staged = (w[:, rank] if nn == 2 else
+              w[:, rank // 2, :, :, 4 * (rank % 2):4 * (rank % 2) + 4])
+    out = np.full((H, 16 * n_k, 8 * nn), np.nan)
+    for lane in range(32):
+        g, tq = divmod(lane, 4)
+        for t in range(nn):
+            for j in range(2):
+                for e in range(2):
+                    q = 16 * np.arange(n_k) + 2 * tq + 8 * j + e
+                    out[:, q, 8 * t + g] = staged[:, :, lane,
+                                                  4 * t + 2 * j + e]
+    return out
+
+
+def _gather_tile(own, M, n_sub, C, swz):
+    """The split sub-band tile of every block after the gather: block k's
+    array holds its own chunks (row s, channels 8 nn k .. 8 nn (k+1) - 1,
+    nn = M / (8 C)) where its analysis stored them; it copies chunk u of
+    every other owner (u % (M/8)) // nn from the owner's array at the
+    swizzled place. Returns the arrays."""
+    got = []
+    nn = M // (8 * C)
+    for rank in range(C):
+        mine = own[rank].copy()
+        for u in range(n_sub * M // 8):
+            owner = (u % (M // 8)) // nn
+            if owner != rank:
+                o = 8 * _swizzle(u, swz)
+                mine[o:o + 8] = own[owner][o:o + 8]
+        got.append(mine)
+    return got
+
+
+def model_k3t_cluster(x, w_ana, w_syn, M, syn_pad, pad, tier, plan,
+                      mid=None):
+    """K3t at M = 32 / 64 as ``plan`` runs it: per tile and block of the
+    cluster, the analysis over the block's bank slice into its swizzled
+    sub-band tile (one half's values; the model keeps them in float64 and
+    splits at the synthesis), the gather, then the synthesis over the
+    block's synthesis slice into its 8 output channels. ``mid`` as in
+    :func:`model_k3t`."""
+    B, _, T = x.shape
+    Ka, Ks = w_ana.shape[-1], w_syn.shape[-1]
+    T_ana = (pad[0] + T + pad[1] - Ka) // M + 1
+    T_out = syn_pad[0] + T_ana + syn_pad[1] - Ks + 1
+    Tt, n_sub, C = plan[4], plan[5], plan[6]
+    nn = M // (8 * C)  # n8 tiles a block
+    assert nn in (1, 2)
+    swz = min(M // 8, 8) - 1
+    banks = [(_decode_block(cc.arrange_tc_bank(_t(w_ana), "analysis",
+                                               tier).words, k, nn),
+              _decode_block(cc.arrange_tc_bank(_t(w_syn), "synthesis",
+                                               tier).words, k, nn))
+             for k in range(C)]
+    Qa = banks[0][0].shape[1]
+    out = np.full((B, T_out, M), np.nan, np.float32)
+    WL = M * (n_sub - 1) + Qa
+    for b in range(B):
+        for t0 in range(0, T_out, Tt):
+            p = M * (t0 - syn_pad[0]) - pad[0] + np.arange(WL)
+            win = np.where((p >= 0) & (p < T), x[b, 0, np.clip(p, 0, T - 1)],
+                           0.0).astype(np.float32)
+            tau = t0 - syn_pad[0] + np.arange(n_sub)
+            inside = (tau >= 0) & (tau < T_ana)
+            own = []
+            for k in range(C):
+                sub = _gemm(win, M, n_sub, banks[k][0], tier).astype(
+                    np.float32)
+                sub[~inside] = 0.0
+                arr = np.full(M * n_sub, np.nan, np.float32)
+                i = (np.arange(n_sub)[:, None] * M + 8 * nn * k
+                     + np.arange(8 * nn)[None]).ravel()
+                arr[8 * _swizzle(i >> 3, swz) + (i & 7)] = sub.ravel()
+                own.append(arr)
+            tiles = _gather_tile(own, M, n_sub, C, swz)
+            i = np.arange(M * n_sub)
+            for k in range(C):
+                full = tiles[k][8 * _swizzle(i >> 3, swz) + (i & 7)]
+                assert np.isfinite(full).all()  # every chunk gathered
+                full = full.reshape(n_sub, M)
+                if mid is not None:
+                    j = t0 + np.arange(n_sub)
+                    ok = j < mid.shape[-1]
+                    full[ok] = mid[b][:, j[ok]].T
+                y = _gemm(full.reshape(-1), M, Tt, banks[k][1], tier) * M
+                n_out = min(Tt, T_out - t0)
+                out[b, t0:t0 + n_out, 8 * nn * k:8 * nn * (k + 1)] = \
+                    y[:n_out]
+    return out
+
+
+@pytest.mark.parametrize("nn", [1, 2])
+@pytest.mark.parametrize("M", [32, 64])
+@pytest.mark.parametrize("tier", TIERS)
+def test_cluster_blocks_stage_their_bank_slices(M, tier, nn):
+    """Each block's staged slice of both arranged banks (a channel block,
+    nn = 2, or half of one) is its 8 nn columns of the banks' B matrices
+    (``_tc_b_matrix``), split into the tier's halves, zero past the
+    reduction; and the plan gives a block a whole channel block exactly
+    where that slice fits (M = 32 at both tiers, M = 64 at default)."""
+    hkf, hki = _banks(M)
+    for w, kind in ((hkf, "analysis"), (hki, "synthesis")):
+        Bm = cc._tc_b_matrix(_t(w), kind).double().numpy()
+        halves = _split(Bm.astype(np.float32))[:2 if tier == "bf16x3" else 1]
+        words = cc.arrange_tc_bank(_t(w), kind, tier).words
+        for k in range(M // (8 * nn)):
+            got = _decode_block(words, k, nn)
+            Q = Bm.shape[0]
+            for h, want in enumerate(halves):
+                np.testing.assert_array_equal(
+                    got[h, :Q], want[:, 8 * nn * k:8 * nn * (k + 1)])
+                assert (got[h, Q:] == 0).all()
+    g = cc._rt_tc_geom(M, hkf.shape[-1], hki.shape[-1], tier)
+    assert g["bNN"] == (1 if (M, tier) == (64, "bf16x3") else 2)
+    assert g["C"] == M // (8 * g["bNN"])
+
+
+CLUSTER_SHAPES = [  # (B, T_sub, n_sms): host blocks, a persistent plan
+    (1, 96, 132), (3, 41, 132), (1, 1100, 4)]
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("M", [32, 64])
+@pytest.mark.parametrize("B,T_sub,n_sms", CLUSTER_SHAPES)
+def test_cluster_model_over_arranged_banks_is_plain_k3t(M, tier, B, T_sub,
+                                                        n_sms):
+    hkf, hki = _banks(M)
+    Ka, Ks = hkf.shape[-1], hki.shape[-1]
+    pad, syn_pad = (Ka // 2, Ka // 2 - 3), (Ks // 2, Ks // 2 + 1)
+    x = _rand(M * T_sub + B, B, 1, M * T_sub + 5)
+    want = cc.roundtrip_conv_plain(_t(x), _t(hkf), _t(hki), M, syn_pad,
+                                   tier, pad).numpy()
+    plan = cc.launch_plan("roundtrip", B, M, M, Ka, Ks, want.shape[1],
+                          n_sms=n_sms, precision=tier)
+    assert plan[6] in (M // 8, M // 16) and plan[0] % plan[6] == 0
+    assert (plan[4] > 64) == (n_sms == 4)  # the persistent plan there
+    mid = cc.analysis_conv_plain(_t(x), _t(hkf), M, True, pad,
+                                 tier).numpy()
+    mid[:, 1::2, ::2] *= -1  # undo reverse_half: the kernel's masks cancel
+    mid_p = np.pad(mid, ((0, 0), (0, 0), syn_pad))
+    got = model_k3t_cluster(x, hkf, hki, M, syn_pad, pad, tier, plan, mid_p)
+    np.testing.assert_allclose(got, want, **TOL)
+    if tier == "bf16x3":  # the model's own sub-bands, split again
+        got = model_k3t_cluster(x, hkf, hki, M, syn_pad, pad, tier, plan)
+        np.testing.assert_allclose(got, want, **TOL)

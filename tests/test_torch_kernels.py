@@ -228,16 +228,18 @@ def test_plans_fit_and_cover(M, B, T_out):
         assert smem <= cc.smem_bytes(which, M, M, Ka, Ks) <= cc.SMEM_LIMIT
         assert gx >= 1 and gy >= 1 and gz >= 1
         if which == "roundtrip" and M >= 32:
-            # the chunked K3: whole files (from 16 m16 output tiles an SM)
-            # persistent blocks of 4x8 thread tiles, smaller calls one tile
-            # of 16-64 steps a block of 2x4 thread tiles
+            # the cluster K3: M/8 blocks a tile; whole files (from 16 m16
+            # output tiles an SM) persistent clusters of 2x8 thread tiles,
+            # smaller calls one tile of 16-64 steps a cluster of 1x4
+            # thread tiles
             tiles = B * -(-T_out // tile)
+            C = M // 8
             assert aux >= tile + Ks - 1 and threads % 32 == 0
+            assert split == C and gx % C == 0 and threads <= 256
             if B * -(-T_out // 16) >= cc.N_SMS * 16:
-                assert gx == min(tiles, cc.N_SMS) and threads <= 512
+                assert gx == min(tiles, cc.N_SMS // C) * C
             else:
-                assert tile in (16, 32, 64) and gx == tiles
-                assert threads <= 1024
+                assert tile in (16, 32, 64) and gx == tiles * C
             continue
         assert 1 <= threads <= 256
         if which in ("analysis", "synthesis"):

@@ -18,7 +18,8 @@ K5's 60 s shape [1,16,165375] with its in-kernel pad (15, 16), K3 at 60 s
 [1,1,2646512], K1t/K2t at the same K1/K2 shapes at "bf16x3" and
 "default" (reading their arranged banks), and K3t at [1,1,8704],
 [16,1,8704] and 60 s [1,1,2646512] at both tiers (reading both arranged
-banks). ``--variants`` and ``--shapes``
+banks), and K3/K3t at M = 32 and 64 (the designed banks) at host blocks of
+B = 1 and 16 and on 60 s at each tier. ``--variants`` and ``--shapes``
 take comma-separated prefixes to run a subset. Prints the card's name and
 power limit, then one line per variant and shape: microseconds per call,
 one per round.
@@ -94,13 +95,23 @@ VARIANTS = {
     "rt_stage_never": [(1, "g.stage = g.n_cb == 1 && g.bank_bytes",
                         "g.stage = false && g.bank_bytes")],
     "rt_stage_always": [(1, "p.stage = g.stage && (persist || n_tiles <= "
-                            "n_sms);", "p.stage = g.stage;")],
+                            "n_sms || g.C > 1);", "p.stage = g.stage;")],
     "rt_fill_div_8": [(2, "kRtFillDiv = 4;", "kRtFillDiv = 8;")],
     "rt_fill_div_1": [(2, "kRtFillDiv = 4;", "kRtFillDiv = 1;")],
     "rt_sub_512": [(1, "kRtTcSub = 256;", "kRtTcSub = 512;")],
     "rt_sub_128": [(1, "kRtTcSub = 256;", "kRtTcSub = 128;")],
     "rt_no_split_k": [(1, "while (2 * wk * items <= kRtTcWarps",
                        "while (false && 2 * wk * items <= kRtTcWarps")],
+    # K3 at M = 32/64 (the cluster kernel): its thread tiles moved
+    "rtc_whole_4x8": [(0, "constexpr int kRtcNB = 2;",
+                       "constexpr int kRtcNB = 4;")],
+    "rtc_whole_2x4": [(0, "constexpr int kRtcNT = 8;",
+                       "constexpr int kRtcNT = 4;")],
+    "rtc_small_2x4": [(0, "constexpr int kRtcSmallNB = 1;",
+                       "constexpr int kRtcSmallNB = 2;")],
+    # K3t at M = 32/64: every block of the cluster one n8 tile
+    "rt_block_nn_1": [(1, "constexpr int kRtTcBlockNN = 2;",
+                       "constexpr int kRtTcBlockNN = 1;")],
 }
 
 
@@ -183,8 +194,13 @@ def main(argv=None) -> int:
         g = torch.Generator().manual_seed(0)
         hi = torch.tensor(fb.build_filterbank(100, 16)["hk_ipoly"]).to(dev)
         T60 = 60 * 44100
-        # shape -> (input shape, bank, pad, tier)
-        shapes = {}
+        # the round trip's banks by M (the designed ones)
+        rt = {16: (wa, ws)}
+        for M in (32, 64):
+            sp = StreamingPQMF(100, M, device="cpu")
+            rt[M] = (sp.hkf.to(dev), sp.hki.to(dev))
+        # shape -> (input shape, bank, pad, tier); the round trip's M
+        shapes, rt_m = {}, {}
         for tier in ("highest", "bf16x3", "default"):
             k1, k2 = ("K1", "K2") if tier == "highest" else ("K1t", "K2t")
             sfx = "" if tier == "highest" else f" {tier}"
@@ -203,13 +219,26 @@ def main(argv=None) -> int:
             for B, T in [(1, 8704), (16, 8704), (1, T60 + Ka - 1)]:
                 shapes[f"K3t [{B},1,{T}] {tier}"] = ((B, 1, T), None, None,
                                                     tier)
+        # K3/K3t at M = 32 and 64: host blocks of B = 1 and 16, 60 s
+        for M in (32, 64):
+            ka = rt[M][0].shape[-1]
+            for tier in ("highest", "bf16x3", "default"):
+                k3 = "K3" if tier == "highest" else "K3t"
+                sfx = "" if tier == "highest" else f" {tier}"
+                for B, T in [(1, 8192 + ka - 1), (16, 8192 + ka - 1),
+                             (1, T60 + ka - 1)]:
+                    key = f"{k3} M={M} [{B},1,{T}]{sfx}"
+                    shapes[key] = ((B, 1, T), None, None, tier)
+                    rt_m[key] = M
         shapes = {k: shapes[k] for k in _pick(shapes, args.shapes)}
         xs = {k: torch.randn(*v[0], generator=g).to(dev)
               for k, v in shapes.items()}
         banks = {}
-        rt_banks = {t: (cc.arrange_tc_bank(wa, "analysis", t).words,
-                        cc.arrange_tc_bank(ws, "synthesis", t).words)
-                    for t in ("bf16x3", "default")}
+        rt_banks = {(M, t): (cc.arrange_tc_bank(rt[M][0], "analysis",
+                                                t).words,
+                             cc.arrange_tc_bank(rt[M][1], "synthesis",
+                                                t).words)
+                    for M in rt for t in ("bf16x3", "default")}
         for k, (_, w, _, tier) in shapes.items():
             if tier != "highest" and not k.startswith("K3"):
                 kind = "analysis" if k.startswith("K1") else "synthesis"
@@ -246,18 +275,21 @@ def main(argv=None) -> int:
                         x.data_ptr(), banks[what].data_ptr(), *tail,
                         passes[tier], stream)
             else:  # syn_pad (16, 16): T_out = T_ana
-                t_ana = (T - Ka) // 16 + 1
-                out = torch.empty(B, t_ana, 16, device=dev)
-                tail = (out.data_ptr(), B, T, 16, Ka, Ks, t_ana, t_ana, 0,
-                        Ks // 2)
+                M = rt_m.get(what, 16)
+                r_a, r_s = rt[M]
+                ka, ks = r_a.shape[-1], r_s.shape[-1]
+                t_ana = (T - ka) // M + 1
+                out = torch.empty(B, t_ana, M, device=dev)
+                tail = (out.data_ptr(), B, T, M, ka, ks, t_ana, t_ana, 0,
+                        ks // 2)
                 if tier == "highest":
                     err = lib.pqmf_roundtrip_conv(
-                        x.data_ptr(), wa.data_ptr(), ws.data_ptr(), *tail,
+                        x.data_ptr(), r_a.data_ptr(), r_s.data_ptr(), *tail,
                         stream)
                 else:
                     err = lib.pqmf_tc_roundtrip_conv(
-                        x.data_ptr(), rt_banks[tier][0].data_ptr(),
-                        rt_banks[tier][1].data_ptr(), *tail, passes[tier],
+                        x.data_ptr(), rt_banks[M, tier][0].data_ptr(),
+                        rt_banks[M, tier][1].data_ptr(), *tail, passes[tier],
                         stream)
             if err:
                 raise SystemExit(f"launch failed: {err}")
@@ -272,14 +304,18 @@ def main(argv=None) -> int:
                 ref = cc.synthesis_conv_plain(
                     x, w, True, -16 if pad == (0, 0) else 0, tier, pad)
             elif tier == "highest":
-                ref = cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16))
-                tol = dict(atol=1e-5, rtol=0.0)
+                M = rt_m.get(what, 16)
+                ref = cc.roundtrip_conv_plain(x, *rt[M], M, (16, 16))
+                if M == 16:  # M >= 32: K1's and K2's order, their bar
+                    tol = dict(atol=1e-5, rtol=0.0)
             else:  # K3t; at "default" within one flip of a split mid
-                ref = cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16), tier)
-                sub = cc.strided_analysis_conv(x, wa, 16)
+                M = rt_m.get(what, 16)
+                r_a, r_s = rt[M]
+                ref = cc.roundtrip_conv_plain(x, r_a, r_s, M, (16, 16), tier)
+                sub = cc.strided_analysis_conv(x, r_a, M)
                 flip = 2.0 ** (torch.floor(torch.log2(sub.abs().max()))
-                               .item() - 7) * ws.abs().sum(dim=(1, 2)).max() \
-                    .item() * 16
+                               .item() - 7) * r_s.abs().sum(dim=(1, 2)) \
+                    .max().item() * M
                 tol = dict(atol=2e-5 + (flip if tier == "default" else 0.0),
                            rtol=1e-4)
             for name, lib in libs.items():

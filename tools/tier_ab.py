@@ -37,6 +37,16 @@ same process with the dispatcher bypassed (the impls called straight from
 the wrappers) and through the operators, in turn: the dispatch's cost is
 the gap between the two routes, beside the spread of each; and the host's
 cost of the operators' operand checks alone.
+
+    python3 tools/tier_ab.py OTHER_CHECKOUT --what bands
+
+times the fused round trip at M = 32 and 64 (the designed banks, syn_pad
+(16, 16)) at each tier, ``fused_roundtrip_conv`` with the kept arranged
+banks at the tiers: device time (each checkout's ``chip_smoke._device_us``:
+the median whole call of a profiler trace) at host blocks [1,1,8192+Ka-1]
+and [16,1,8192+Ka-1] and on 60 s (the centered analysis pad in the
+kernel), and CUDA events a call on 60 s; beside them the two halves
+(``strided_analysis_conv`` + ``dense_synthesis_conv``) on the same input.
 """
 
 from __future__ import annotations
@@ -140,6 +150,75 @@ def measure() -> dict:
         lambda: sp.inverse(sub), 50)
     out["K5 60 s highest"] = device_us(
         lambda: pk.polyphase_synthesis(xs["K5t 60 s"], hi), 10)
+    return out
+
+
+def measure_bands() -> dict:
+    """K3/K3t at M = 32 and 64 and their halves, of the checkout on
+    sys.path[0]: device us at host blocks and on 60 s, events ms on 60 s."""
+    import torch
+
+    import chip_smoke
+    from pqmf_tpu_torch import StreamingPQMF
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    x60 = torch.randn(1, 1, 60 * 44100, generator=g).to(dev)
+
+    def events_ms(fn, n=20):
+        best = float("inf")
+        for _ in range(3):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n):
+                fn()
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b) / n)
+        return best
+
+    out = {}
+    for M in (32, 64):
+        sp = StreamingPQMF(100, M, device="cpu")
+        wa, ws = sp.hkf.to(dev), sp.hki.to(dev)
+        ka = wa.shape[-1]
+        xs = {"[1,1,block]": (torch.randn(1, 1, 8192 + ka - 1,
+                                          generator=g).to(dev), (0, 0)),
+              "[16,1,block]": (torch.randn(16, 1, 8192 + ka - 1,
+                                           generator=g).to(dev), (0, 0)),
+              "60 s": (x60, (ka // 2, ka // 2))}
+        for tier in ("highest", "bf16x3", "default"):
+            kb = None if tier == "highest" else (
+                cc.arrange_tc_bank(wa, "analysis", tier),
+                cc.arrange_tc_bank(ws, "synthesis", tier))
+
+            def k3(x, pad, tier=tier, kb=kb):
+                return cc.fused_roundtrip_conv(x, wa, ws, M, (16, 16), tier,
+                                               pad, kb)
+
+            def halves(x, pad, tier=tier, kb=kb):
+                sub = cc.strided_analysis_conv(
+                    x, wa, M, pad=pad, precision=tier,
+                    bank=None if kb is None else kb[0])
+                return cc.dense_synthesis_conv(
+                    sub, ws, True, 0, tier, (16, 16),
+                    None if kb is None else kb[1])
+
+            for shape, (x, pad) in xs.items():
+                n = 10 if shape == "60 s" else 50
+                for name, fn in (("K3", k3), ("halves", halves)):
+                    key = f"{name} M={M} {shape} {tier}"
+                    out[key + " device_us"] = chip_smoke._device_us(
+                        lambda: fn(x, pad), n)
+                    if shape == "60 s":
+                        out[key + " events_ms"] = events_ms(
+                            lambda: fn(x, pad))
     return out
 
 
@@ -283,15 +362,17 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", help="root of the other checkout")
     p.add_argument("--rounds", type=int, default=2)
-    p.add_argument("--what", choices=("tiers", "flagship"), default="tiers",
-                   help="the tier kernels' device times (default) or the "
-                        "live flagship block")
+    p.add_argument("--what", choices=("tiers", "flagship", "bands"),
+                   default="tiers",
+                   help="the tier kernels' device times (default), the "
+                        "live flagship block, or K3/K3t at M = 32 and 64")
     p.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.measure:  # the child: this process times the checkout it runs in
         sys.path.insert(0, os.getcwd())
-        print(json.dumps(measure_flagship() if args.what == "flagship"
-                         else measure()))
+        print(json.dumps({"flagship": measure_flagship,
+                          "bands": measure_bands,
+                          "tiers": measure}[args.what]()))
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -311,8 +392,8 @@ def main(argv=None) -> int:
                 return res.returncode
             print(json.dumps({"checkout": name, "root": str(root),
                               "round": r,
-                              ("device_us" if args.what == "tiers"
-                               else "flagship_ms"): json.loads(
+                              ("flagship_ms" if args.what == "flagship"
+                               else "device_us"): json.loads(
                                   res.stdout.strip().splitlines()[-1])}))
     return 0
 
