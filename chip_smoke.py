@@ -654,21 +654,25 @@ def _aot_phase(card: str, dev: str = "cuda") -> dict:
                     "max_abs_err_vs_live": err,
                     "bit_equal": err == 0.0,
                     "aot_block_ms": t_aot, "live_block_ms": t_live}
+        # the live flagship and TA blocks replay CUDA graphs on the card;
+        # PQMFWrapper.process (two launches) stays eager
+        live = "live (eager)" if key == "plain" else "live (graph)"
         if dev == "cuda" and key in ("flagship highest", "plain"):
             # where the AOT block's time goes: the same kernels, or not
             for arm, fn, ms in (("live", step, t_live),
                                 ("aot", aot_step, t_aot)):
                 prof = _profile(fn, 10, ms, top=3)
                 res[key][f"profile_{arm}"] = prof
-                print(f"  {key} {arm} block: device busy "
+                print(f"  {key} {live if arm == 'live' else arm} "
+                      f"block: device busy "
                       f"{prof['device_busy_ms']:.4f} ms of {ms:.4f} (idle "
                       f"{prof['idle_share']:.0%}), "
                       f"{prof['kernels_per_call']:.1f} kernels")
         print(f"  {key}: export {export_s:.2f} s, {method}.pt2 "
               f"{os.path.getsize(pt2)} B, inputs {res[key]['inputs']}, "
               f"launches over 8 AOT blocks {launches}, max|AOT - live| "
-              f"{err:.3g}; block by CUDA events: AOT {t_aot:.4f} ms, live "
-              f"{t_live:.4f} ms")
+              f"{err:.3g}; block by CUDA events: AOT {t_aot:.4f} ms, "
+              f"{live} {t_live:.4f} ms")
         assert err <= 1e-6, (key, err)
 
     # a fresh process: load_stablehlo alone, no wrapper, no retrace
@@ -711,6 +715,223 @@ def _aot_phase(card: str, dev: str = "cuda") -> dict:
               f"{os.path.getsize(os.path.join(out, method + '.pt2'))} B, "
               f"launches {dict(cc.LAUNCHES)}")
     shutil.rmtree(td)
+    return res
+
+
+def _events_ms(fn, iters: int) -> float:
+    """ms per call of ``fn`` by CUDA events over ``iters`` calls, after
+    three calls of warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def _host_ms(step, n: int) -> tuple:
+    """Host clock per call, each ending in a synchronize: the block latency
+    a real-time host sees (median, p90, n)."""
+    import torch
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(n):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    return (float(np.median(lat)), float(np.percentile(lat, 90)), n)
+
+
+def _graphs_phase(card: str) -> dict:
+    """Phase 3c: the CUDA graphs (``pqmf_tpu_torch/graphs.py``) against the
+    eager bodies they capture, at each tier, on fresh wrappers (16 bands,
+    8192 blocks): ``pitchshift_fn`` over 8 carried blocks at B = 1 and 3
+    calls at B = 16, ``pitchshift_streams`` over 4 carried 16-stream steps,
+    the TA ``pitchshifter`` at B = 1 and 16 (3 calls each) and
+    ``stream_ola`` (4096 / 2048) on 10 s mono and stereo. Every output (the
+    carried state too) is bit-equal to the eager body's, none changes
+    after a later call, and the launches are exact (one K1 + one K2 a step;
+    a ``stream_ola`` replay 215 + 215 + one K3). Prints each key's capture
+    and instantiate ms and pool bytes, and at ``highest`` the eager body
+    beside the graph: CUDA events and the host's median/p90 of the block,
+    the 16-stream step, the TA block at B = 1 and 16 and ``stream_ola``,
+    and the card's idle share of the flagship and 16-stream steps."""
+    import gc
+
+    import torch
+
+    from pqmf_tpu_torch import (PQMFPitchShiftWrapper,
+                                PQMFPitchShiftWrapperTA, stream_ola)
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+
+    print(f"CUDA graphs against their eager bodies on {card}:")
+    dev = torch.device("cuda")
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+
+    blocks = [on(b) for b in np.split(_audio(8 * BLOCK, 2), 8, axis=-1)]
+    x16 = on(_audio(BLOCK, 3, batch=16))  # [16, T]
+    ten = {1: on(_audio(10 * SR, 11)), 2: on(_audio(10 * SR, 12, batch=2))}
+    n_ola = -(-(10 * SR - OLA_BLOCK) // (OLA_BLOCK - OLA_OVERLAP)) + 1
+
+    def counted(fn, want):
+        cc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(cc.LAUNCHES)
+        assert got == {"analysis": 0, "synthesis": 0, "roundtrip": 0,
+                       **want}, (want, got)
+        return out
+
+    def same(what, got, want):
+        for g, e in zip(got, want):
+            diff = (g - e).abs().max().item()
+            assert torch.equal(g, e), f"{what}: graph - eager = {diff}"
+        print(f"  {what}: graph == eager body, bit for bit")
+
+    res = {"captures": {}, "timing": {}}
+    for tier in ("highest", *TIERS):
+        w = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR, SHIFTS16,
+                                  precision=tier, device="cuda")
+        ta = PQMFPitchShiftWrapperTA(100, N_BAND, BLOCK, SR, TA_SHIFTS16,
+                                     precision=tier, device="cuda")
+        steps = 8
+        se, eager = w.init_state(), []
+        for b in blocks:
+            se, y = w._pitchshift_fn_eager(se, b)
+            eager.append(y)
+
+        def chain(step, state, xs):
+            ys = []
+            for x in xs:
+                state, y = step(state, x)
+                ys.append(y)
+            return state, ys
+
+        sg, graph = counted(lambda: chain(w.pitchshift_fn, w.init_state(),
+                                          blocks),
+                            {"analysis": steps, "synthesis": steps})
+        kept = [y.clone() for y in graph]
+        same(f"pitchshift_fn B=1 x {steps} carried [{tier}]",
+             graph + [sg["prev_tail"]], eager + [se["prev_tail"]])
+        b16 = x16[:, None, :]
+        _, e16 = w._pitchshift_fn_eager(w.init_state(), b16)
+        g16 = counted(lambda: [w.pitchshift_fn(w.init_state(), b16)[1]
+                               for _ in range(3)],
+                      {"analysis": 3, "synthesis": 3})
+        same(f"pitchshift_fn B=16 x 3 [{tier}]", g16, [e16] * 3)
+        se, es = chain(w._pitchshift_streams_eager, w.init_streams(16),
+                       [x16] * 4)
+        sg, gs = counted(lambda: chain(w.pitchshift_streams,
+                                       w.init_streams(16), [x16] * 4),
+                         {"analysis": 4, "synthesis": 4})
+        same(f"pitchshift_streams(16) x 4 carried [{tier}]",
+             gs + [sg["prev_tail"]], es + [se["prev_tail"]])
+        for B, x in ((1, blocks[0][None]), (16, b16)):
+            want = ta._pitchshifter_eager(x)
+            got = counted(lambda: [ta.pitchshifter(x) for _ in range(3)],
+                          {"analysis": 3, "synthesis": 3})
+            same(f"TA pitchshifter B={B} x 3 [{tier}]", got, [want] * 3)
+        for C, x in ten.items():
+            first = stream_ola(w, x, OLA_BLOCK, OLA_OVERLAP)
+            (run,) = [r for k, r in w._stream_ola_fns.items() if k[3] == C]
+            replay = counted(lambda: stream_ola(w, x, OLA_BLOCK, OLA_OVERLAP),
+                             {"analysis": n_ola, "synthesis": n_ola,
+                              "roundtrip": 1})
+            same(f"stream_ola C={C} 10 s [{tier}]", list(replay),
+                 list(run.fn(x)))
+            same(f"stream_ola C={C} first call (eager) [{tier}]",
+                 list(first), list(replay))
+        same(f"outputs kept from the first calls [{tier}]", graph, kept)
+        caps = {f"{k[0]} B={k[1]} T={k[2]}": p.stats
+                for k, p in (*w._graphs.items(), *ta._graphs.items())}
+        caps.update({f"stream_ola C={k[3]} T={k[2]}": p.stats
+                     for k, p in w._stream_ola_fns.items()})
+        res["captures"][tier] = caps
+        for what, st in caps.items():
+            print(f"  capture {what} [{tier}]: {st['capture_ms']:.1f} ms, "
+                  f"instantiate {st['instantiate_ms']:.1f} ms, pool "
+                  f"{st['pool_bytes']} B, outputs {st['output_bytes']} B")
+
+        # the eager body beside the graph: CUDA events (ms a call) and the
+        # host clock (median, p90, n), state carried
+        st = {"e": w.init_state(), "g": w.init_state(),
+              "es": w.init_streams(16), "gs": w.init_streams(16)}
+
+        def block_e():
+            st["e"], _ = w._pitchshift_fn_eager(st["e"], blocks[1])
+
+        def block_g():
+            st["g"], _ = w.pitchshift_fn(st["g"], blocks[1])
+
+        def streams_e():
+            st["es"], _ = w._pitchshift_streams_eager(st["es"], x16)
+
+        def streams_g():
+            st["gs"], _ = w.pitchshift_streams(st["gs"], x16)
+
+        arms = {"flagship block": (block_e, block_g, 50, 100),
+                "16-stream step": (streams_e, streams_g, 30, 100)}
+        if tier == "highest":
+            arms.update({
+                "TA block B=1": (lambda: ta._pitchshifter_eager(blocks[0][None]),
+                                 lambda: ta.pitchshifter(blocks[0][None]),
+                                 50, 100),
+                "TA blocks B=16": (lambda: ta._pitchshifter_eager(b16),
+                                   lambda: ta.pitchshifter(b16), 30, 50)})
+            for C, x in ten.items():
+                (run,) = [r for k, r in w._stream_ola_fns.items()
+                          if k[3] == C]
+                arms[f"stream_ola C={C} 10 s"] = (
+                    lambda run=run, x=x: run.fn(x),
+                    lambda x=x: stream_ola(w, x, OLA_BLOCK, OLA_OVERLAP),
+                    None, 5 if C == 1 else 3)
+        timing = {}
+        for what, (eager_fn, graph_fn, iters, n) in arms.items():
+            row = {}
+            for arm, fn in (("eager", eager_fn), ("graph", graph_fn),
+                            ("eager", eager_fn), ("graph", graph_fn)):
+                ms = _events_ms(fn, iters) if iters else None
+                row.setdefault(f"{arm}_events_ms", []).append(ms)
+            for arm, fn in (("eager", eager_fn), ("graph", graph_fn)):
+                row[f"{arm}_host_ms_median_p90_n"] = _host_ms(fn, n)
+            if tier == "highest" and what in ("flagship block",
+                                              "16-stream step"):
+                for arm, fn in (("eager", eager_fn), ("graph", graph_fn)):
+                    ms = min(row[f"{arm}_events_ms"])
+                    prof = _profile(fn, 10, ms, top=3)
+                    row[f"{arm}_profile"] = prof
+            timing[what] = row
+            ev = row["eager_events_ms"]
+            txt = ("" if ev[0] is None else
+                   f"events eager {min(ev):.4f} ms, graph "
+                   f"{min(row['graph_events_ms']):.4f} ms; ")
+            he, hg = (row[f"{a}_host_ms_median_p90_n"]
+                      for a in ("eager", "graph"))
+            txt += (f"host median/p90 eager {he[0]:.4f}/{he[1]:.4f} ms, "
+                    f"graph {hg[0]:.4f}/{hg[1]:.4f} ms")
+            for arm in ("eager", "graph"):
+                prof = row.get(f"{arm}_profile")
+                if prof:
+                    txt += (f"; {arm} busy {prof['device_busy_ms']:.4f} ms, "
+                            f"idle {prof['idle_share']:.1%}, "
+                            f"{prof['kernels_per_call']:.1f} kernels")
+            print(f"  {what} [{tier}]: {txt}")
+        res["timing"][tier] = timing
+        del w, ta, run
+        gc.collect()
     return res
 
 
@@ -1504,7 +1725,8 @@ def main() -> int:
     # phase reads the flagship against the CPU, the share of K2t's inputs
     # whose bf16 rounding differs between the devices, and K2t on the card
     # against the CPU's plain version on the CPU's own inputs (the conv
-    # alone: >= BAR_DB).
+    # alone: >= BAR_DB). It records K2t's inputs from Python, so it drives
+    # the eager bodies: a graph replay runs no Python.
     from pqmf_tpu_torch.ops import stft as S_ops
 
     dft_real, syn_real = S_ops.dft_matmul, cc.dense_synthesis_conv
@@ -1524,13 +1746,15 @@ def main() -> int:
                   for d in ("cuda", "cpu"))
         gs_d, cs_d, dbs = tg.init_state(), tc.init_state(), []
         for blk in blocks:
-            gs_d, gy = tg.pitchshift_fn(gs_d, blk)
-            cs_d, cy = tc.pitchshift_fn(cs_d, blk)
+            gs_d, gy = tg._pitchshift_fn_eager(gs_d, blk)
+            cs_d, cy = tc._pitchshift_fn_eager(cs_d, blk)
             dbs.append(snr_db(cy.numpy(), gy.cpu().numpy()))
         dbs.append(snr_db(cs_d["prev_tail"].numpy(),
                           gs_d["prev_tail"].cpu().numpy()))
-        _, gy = tg.pitchshift_streams(tg.init_streams(16), streams)
-        _, cy = tc.pitchshift_streams(tc.init_streams(16), streams)
+        _, gy = tg._pitchshift_streams_eager(tg.init_streams(16),
+                                             tg.pqmf.as_tensor(streams))
+        _, cy = tc._pitchshift_streams_eager(tc.init_streams(16),
+                                             tc.pqmf.as_tensor(streams))
         dbs.append(snr_db(cy.numpy(), gy.cpu().numpy()))
     finally:
         S_ops.dft_matmul = dft_real
@@ -1919,19 +2143,11 @@ def main() -> int:
     # -- 3b. the ahead-of-time artifact: programs reloaded == live ----------
     print(json.dumps({"aot": _aot_phase(card)}))
 
+    # -- 3c. the CUDA graphs against their eager bodies ----------------------
+    print(json.dumps({"graphs": _graphs_phase(card)}))
+
     # -- 4. times, CUDA events after warm-up -----------------------------------
-    def cuda_ms(fn, iters):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / iters
+    cuda_ms, latency_ms = _events_ms, _host_ms
 
     def pair_ms(kern, plain, iters):
         """plain, kernel, kernel, plain; the better of each pair."""
@@ -1945,7 +2161,9 @@ def main() -> int:
         "synthesis": [("B=1 [1,16,544]", rand(1, 16, 544), 200),
                       ("B=16 [16,16,544]", rand(16, 16, 544), 100)],
         "roundtrip": [("60 s [1,1,2646512]", x60, 20),
-                      ("block [1,1,8704]", rand(1, 1, BLOCK + pad_a), 200)],
+                      ("block [1,1,8704]", rand(1, 1, BLOCK + pad_a), 200),
+                      ("stream_ola [215,1,4608]",
+                       rand(215, 1, OLA_BLOCK + pad_a), 50)],
     }
     calls = {
         "analysis": (lambda x: cc.strided_analysis_conv(x, wa, 16),
@@ -1989,7 +2207,7 @@ def main() -> int:
         "polyphase_analysis": lambda x: F.pad(x, (256, 240)),
         "polyphase_synthesis": lambda x: F.pad(x, (15, 16)),
     }
-    times, library_ms, bounds = {}, {}, {}
+    times, library_ms, bounds, row_ms = {}, {}, {}, {}
     print(f"times on {card} (CUDA events, ms per call):")
     for name, rows in cases.items():
         kern, plain = calls[name]
@@ -2000,6 +2218,8 @@ def main() -> int:
                 xl = library_in.get(name, lambda v: v)(x)
                 lib_ms = min(cuda_ms(lambda: library[name](xl), iters)
                              for _ in range(2))
+            row_ms[name, label.split(" [")[0]] = (
+                k, p, *_bound(name, x, hkf, hki, hp))
             if name not in times:  # the first row is the headline
                 times[name] = (k, p)
                 library_ms[name] = lib_ms
@@ -2289,6 +2509,8 @@ def main() -> int:
             ("K2 [16,16,544]", calls["synthesis"][0], rand(16, 16, 544)),
             ("K3 [1,1,8704]", calls["roundtrip"][0],
              rand(1, 1, BLOCK + pad_a)),
+            ("K3 [215,1,4608]", calls["roundtrip"][0],
+             rand(215, 1, OLA_BLOCK + pad_a)),
             ("K4 60 s [1,1,2646000]", calls["polyphase_analysis"][0],
              raw60)]:
         dev_us[what] = _device_us(lambda: fn(x), 10 if "60 s" in what else 50)
@@ -2303,20 +2525,6 @@ def main() -> int:
 
     def flagship_step():
         state["s"], _ = gpu.pitchshift_fn(state["s"], blocks[1])
-
-    def latency_ms(step, n):
-        """Host clock per call, each ending in a synchronize: the block
-        latency a real-time host sees (median, p90, n)."""
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        lat = []
-        for _ in range(n):
-            t = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t) * 1e3)
-        return (float(np.median(lat)), float(np.percentile(lat, 90)), n)
 
     block_ms = cuda_ms(flagship_step, 50)
     block_lat = latency_ms(flagship_step, 100)
@@ -2373,12 +2581,12 @@ def main() -> int:
         "card": card,
         "kernel_device_us": dev_us,
         "library_device_us_block_shapes": lib_dev_us,
-        "flagship_block_ms": block_ms,
-        "flagship_block_rtf": (BLOCK / SR) / (block_ms / 1e3),
-        "flagship_block_latency_ms_median_p90_n": block_lat,
-        "streams16_step_ms": streams_ms,
-        "streams16_rtf": 16 * (BLOCK / SR) / (streams_ms / 1e3),
-        "streams16_latency_ms_median_p90_n": streams_lat,
+        "flagship_block_graph_ms": block_ms,
+        "flagship_block_graph_rtf": (BLOCK / SR) / (block_ms / 1e3),
+        "flagship_block_graph_latency_ms_median_p90_n": block_lat,
+        "streams16_step_graph_ms": streams_ms,
+        "streams16_graph_rtf": 16 * (BLOCK / SR) / (streams_ms / 1e3),
+        "streams16_graph_latency_ms_median_p90_n": streams_lat,
         "roundtrip_60s_ms": rt_ms,
         "roundtrip_60s_rtf": 60.0 / (rt_ms / 1e3),
         "roundtrip_60s_snr_db": rt_db,
@@ -2388,19 +2596,20 @@ def main() -> int:
         "finetuned_roundtrip_60s_snr_db_trim1024": ft_db,
         "pqmfwrapper_process_8192_ms": wrap_ms,
         "pqmfwrapper_process_8192_latency_ms_median_p90_n": wrap_lat,
-        "ta_block_b1_ms": ta1_ms,
-        "ta_block_b1_latency_ms_median_p90_n": ta1_lat,
-        "ta_block_b16_ms": ta16_ms,
-        "ta_block_b16_rtf": 16 * (BLOCK / SR) / (ta16_ms / 1e3),
-        "ta_block_b16_latency_ms_median_p90_n": ta16_lat,
-        "stream_ola_mono_10s_ms_median_p90_n": ola_lat,
-        "stream_ola_mono_10s_rtf": 10.0 / (ola_lat[0] / 1e3),
-        "stream_ola_stereo_10s_ms_median_p90_n": ola2_lat,
-        "stream_ola_stereo_10s_rtf": 10.0 / (ola2_lat[0] / 1e3),
+        "ta_block_b1_graph_ms": ta1_ms,
+        "ta_block_b1_graph_latency_ms_median_p90_n": ta1_lat,
+        "ta_block_b16_graph_ms": ta16_ms,
+        "ta_block_b16_graph_rtf": 16 * (BLOCK / SR) / (ta16_ms / 1e3),
+        "ta_block_b16_graph_latency_ms_median_p90_n": ta16_lat,
+        "stream_ola_mono_10s_graph_ms_median_p90_n": ola_lat,
+        "stream_ola_mono_10s_graph_rtf": 10.0 / (ola_lat[0] / 1e3),
+        "stream_ola_stereo_10s_graph_ms_median_p90_n": ola2_lat,
+        "stream_ola_stereo_10s_graph_rtf": 10.0 / (ola2_lat[0] / 1e3),
         "shifters_10s": shifter_times,
         "tier_kernel_device_us": tier_dev_us,
-        "flagship_block_default_ms": default_block_ms,
-        "streams16_step_default_ms": cuda_ms(default_streams_step, 30),
+        "flagship_block_default_graph_ms": default_block_ms,
+        "streams16_step_default_graph_ms": cuda_ms(default_streams_step,
+                                                   30),
         "roundtrip_60s_bf16x3_ms": cuda_ms(
             lambda: tier_gpu["bf16x3"].pqmf.roundtrip(raw60), 20),
         "roundtrip_60s_bf16x3_snr_db": rt_db_t,
@@ -2413,12 +2622,16 @@ def main() -> int:
 
     # where a step's time goes: kernels by device time, and the share of
     # the step's wall time the card is busy at all
-    for label, step, ms in [("flagship block", flagship_step, block_ms),
-                            ("flagship block default", default_step,
+    # (the public entries, which replay CUDA graphs; phase 3c profiles the
+    # eager bodies beside them)
+    for label, step, ms in [("flagship block (graph)", flagship_step,
+                             block_ms),
+                            ("flagship block default (graph)", default_step,
                              default_block_ms),
-                            ("16-stream step", streams_step, streams_ms),
-                            ("TA block B=1", ta_step1, ta1_ms),
-                            ("TA blocks B=16", ta_step16, ta16_ms)]:
+                            ("16-stream step (graph)", streams_step,
+                             streams_ms),
+                            ("TA block B=1 (graph)", ta_step1, ta1_ms),
+                            ("TA blocks B=16 (graph)", ta_step16, ta16_ms)]:
         print(json.dumps({"profile": label, **_profile(step, 10, ms)}))
 
     # -- 5. fine-tuning on the card ------------------------------------------
@@ -2453,6 +2666,19 @@ def main() -> int:
                 "device_us": dev_us.get(headline_dev.get(k)),
                 "library_device_us": lib_dev_us.get(headline_dev.get(k))}
                for k, name, where, n in rows]
+    # K3 at M = 16 at the shapes the serving paths give it: forward_fn's
+    # block and stream_ola's batch of 215 blocks, one launch a call each
+    k3 = kernels[2]
+    for tag, label, n in (("block", "block", launches["roundtrip"]),
+                          ("ola", "stream_ola", ola_launches["roundtrip"])):
+        ms, plain, bound, by = row_ms["roundtrip", label]
+        dk = "K3 [1,1,8704]" if tag == "block" else "K3 [215,1,4608]"
+        k3.update({f"ms_{tag}": ms, f"plain_ms_{tag}": plain,
+                   f"bound_ms_{tag}": bound, f"bound_by_{tag}": by,
+                   f"device_us_{tag}": dev_us[dk], f"launches_{tag}": n})
+        print(f"  {dk}: kernel {ms:.4f} ms (device {dev_us[dk]:.2f} us), "
+              f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
+              f"{n} launch a call")
     # the tier kernels: K1t-K3t with their launches on the flagship at the
     # tier, K4-K6 over them with theirs on the offline path at the tier
     tc_source = "pqmf_tpu_torch/csrc/cached_conv_tc.cu"

@@ -225,7 +225,7 @@ def _flagship_step(wrapper):
     x [1, T]) -> (prev_tail', y [1, T])``."""
 
     def step(prev_tail, x):
-        state, y = wrapper.pitchshift_fn({"prev_tail": prev_tail}, x)
+        state, y = wrapper._pitchshift_fn_eager({"prev_tail": prev_tail}, x)
         return state["prev_tail"], y
 
     return step
@@ -243,7 +243,11 @@ def _step_of(wrapper, length: int):
             torch.zeros((wrapper.n_band, wrapper.band_overlap),
                         dtype=torch.float32, device=dev),
             torch.zeros((1, length), dtype=torch.float32, device=dev))
-    return _Step(getattr(wrapper, _AOT_METHOD[kind])), (
+    # the TA block's eager body: its public method replays a CUDA graph
+    method = (wrapper._pitchshifter_eager
+              if isinstance(wrapper, PQMFPitchShiftWrapperTA)
+              else getattr(wrapper, _AOT_METHOD[kind]))
+    return _Step(method), (
         torch.zeros((1, 1, length), dtype=torch.float32, device=dev),)
 
 

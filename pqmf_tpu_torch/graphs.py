@@ -1,0 +1,204 @@
+"""CUDA graphs: the port's counterpart of ``jax.jit``.
+
+The JAX package runs each serving step as one XLA program, compiled once
+per static geometry: the flagship step (``pqmf_tpu/pipelines.py:182``),
+the torchaudio variant's block (``_pitchshifter_jit``, ``:1007``) and the
+whole block-streaming harness (``_stream_ola_program``, ``:741-850``).
+Here an eager step body is captured once per static key as a
+``torch.cuda.CUDAGraph`` and replayed from then on, so a step costs one
+graph launch on the host instead of one Python dispatch per op. The graph
+replays exactly the launches the eager body made: the hand-written
+kernels and the plain ops, bit for bit (``torch.compile`` would generate
+the body anew and is not used).
+
+- The first call of a key runs the body eagerly and returns its result.
+  That run is the warm-up: it fills the wrappers' plan caches, the cached
+  windows and DFT bases, builds the kernel library and sets the kernels'
+  shared-memory attributes. Then the body is captured over static copies
+  of the arguments, in a private memory pool.
+- A later call copies its arguments into the static buffers, replays, and
+  returns clones of the static outputs: a replay never changes a tensor
+  that an earlier call returned, and no static buffer is handed out.
+- The kernels' launch counters (``cached_conv.LAUNCHES``,
+  ``polyphase.LAUNCHES``) count device launches: the capture adds nothing,
+  and each replay adds the counts the capture recorded.
+- On the CPU nothing is captured: the body runs. On CUDA there is no
+  fallback: a capture or replay that fails raises with its error.
+
+The graphs live where the caller keeps them, on the wrapper instance
+(``wrapper._graphs``, ``wrapper._stream_ola_fns``), keyed by everything
+the JAX package makes static and by the PQMF's ``weights_version``: a
+graph holds the addresses of the banks it read, and ``set_weights``
+installs new ones, so an entry of an older version is evicted (as
+``pqmf_tpu/pipelines.py:838-845`` evicts its programs) and its pool
+freed. A dropped wrapper frees its graphs with it.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+
+import torch
+from torch.utils import _pytree as pytree
+
+from pqmf_tpu_torch.kernels import cached_conv as cc
+from pqmf_tpu_torch.kernels import polyphase as pk
+
+__all__ = ["Program", "call"]
+
+_COUNTERS = (cc.LAUNCHES, pk.LAUNCHES)
+
+
+def _counts() -> list:
+    return [dict(c) for c in _COUNTERS]
+
+
+def _graphed(device: torch.device) -> bool:
+    """Whether a body on ``device`` is captured (CUDA) or run (CPU)."""
+    return device.type == "cuda"
+
+
+_STREAMS: dict = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream a card for every capture on it. cuBLAS allocates a
+    workspace (32 MiB on an H100) at the first matmul on a stream; one
+    matmul on the new stream, outside any capture, keeps that workspace
+    out of the first graph's private pool, which it would otherwise hold
+    after the graph is freed."""
+    s = _STREAMS.get(device.index)
+    if s is None:
+        s = torch.cuda.Stream(device=device)
+        s.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(s):
+            a = torch.ones((8, 8), device=device)
+            a @ a
+        torch.cuda.current_stream(device).wait_stream(s)
+        _STREAMS[device.index] = s
+    return s
+
+
+def _capture(fn, args, device: torch.device):
+    """Capture ``fn(*args)`` as a CUDA graph on ``device``. Returns
+    (replay, static outputs, stats): capture and instantiate ms, the bytes
+    of the segments the graph's private pool took and of the tensors still
+    alive in it (the static outputs).
+
+    Python's garbage collector is held off during the capture: a dropped
+    wrapper is a reference cycle, and collecting it there would destroy
+    its graphs and free their pools inside another graph's capture."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.device(device):
+            t0 = time.perf_counter()
+            with torch.cuda.graph(g, stream=_capture_stream(device)):
+                reserved = torch.cuda.memory_reserved(device)
+                allocated = torch.cuda.memory_allocated(device)
+                out = fn(*args)
+            t1 = time.perf_counter()
+    finally:
+        if collecting:
+            gc.enable()
+    with torch.cuda.device(device):
+        g.instantiate()
+        t2 = time.perf_counter()
+        stats = {"capture_ms": (t1 - t0) * 1e3,
+                 "instantiate_ms": (t2 - t1) * 1e3,
+                 "pool_bytes": torch.cuda.memory_reserved(device) - reserved,
+                 "output_bytes":
+                     torch.cuda.memory_allocated(device) - allocated}
+
+    def replay():
+        with torch.cuda.device(device):
+            g.replay()
+
+    return replay, out, stats
+
+
+class Program:
+    """One step body over one static geometry: eager on the first call
+    (then captured), replayed after; eager on the CPU."""
+
+    def __init__(self, fn, device: torch.device):
+        self.fn = fn
+        self.device = device
+        self.stats = None        # capture ms, instantiate ms, pool bytes
+        self.launches = None     # the kernel launches one replay makes
+        self._replay = None
+        self._static_in = None
+        self._static_out = None
+
+    def __call__(self, *args):
+        if not _graphed(self.device):
+            return self.fn(*args)
+        if self._replay is None:
+            out = self.fn(*args)
+            self._record(args)
+            return out
+        return self._run(args)
+
+    def _record(self, args):
+        leaves, spec = pytree.tree_flatten(args)
+        static = [a.clone() if isinstance(a, torch.Tensor) else a
+                  for a in leaves]
+        before = _counts()
+        try:
+            replay, out, stats = _capture(
+                self.fn, pytree.tree_unflatten(static, spec), self.device)
+        finally:
+            after = _counts()
+            for c, b in zip(_COUNTERS, before):
+                c.update(b)
+        self.launches = [{k: a[k] - b[k] for k in a}
+                         for a, b in zip(after, before)]
+        self._replay, self.stats = replay, stats
+        self._static_in = (static, spec)
+        self._static_out = out
+
+    def _run(self, args):
+        static, spec = self._static_in
+        leaves, given = pytree.tree_flatten(args)
+        if given != spec:
+            raise ValueError(f"arguments {given} differ from the captured "
+                             f"step's {spec}")
+        for s, a in zip(static, leaves):
+            if not isinstance(s, torch.Tensor):
+                if a != s:
+                    raise ValueError(f"argument {a!r} differs from the "
+                                     f"captured step's {s!r}")
+                continue
+            if (not isinstance(a, torch.Tensor) or a.shape != s.shape
+                    or a.dtype != s.dtype or a.device != s.device):
+                raise ValueError(
+                    "an argument differs from the captured step's "
+                    f"{s.dtype} {tuple(s.shape)} on {s.device}: " + (
+                        f"{a.dtype} {tuple(a.shape)} on {a.device}"
+                        if isinstance(a, torch.Tensor) else repr(a)))
+            s.copy_(a)
+        self._replay()
+        for c, n in zip(_COUNTERS, self.launches):
+            for k, v in n.items():
+                c[k] += v
+        return pytree.tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+            self._static_out)
+
+
+def call(cache: dict, key: tuple, fn, *args):
+    """``fn(*args)`` through the program of ``key`` in ``cache`` (a dict on
+    the wrapper; ``key[-1]`` is the PQMF's ``weights_version``). Entries
+    of another version are evicted when a key is first seen. On the CPU
+    ``fn`` runs and nothing is cached."""
+    device = key[-2]
+    if not _graphed(device):
+        return fn(*args)
+    prog = cache.get(key)
+    if prog is None:
+        for stale in [k for k in cache if k[-1] != key[-1]]:
+            del cache[stale]
+        prog = cache[key] = Program(fn, device)
+    return prog(*args)

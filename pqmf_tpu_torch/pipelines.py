@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pqmf_tpu_torch import graphs
 from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.ops import phase_vocoder as pv
 from pqmf_tpu_torch.ops import resample as rs
@@ -312,6 +313,11 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
     (state', y)``; ``init_streams(S)`` then ``pitchshift_streams(states,
     x)`` for S independent streams. Stateful facade: ``pitchshift(x)``
     carries state internally like the reference module.
+
+    On a CUDA device both steps are CUDA graphs (``graphs.py``), one per
+    (step, B, T, precision, device, ``pqmf.weights_version``), kept on the
+    wrapper: the first call of a shape runs the eager body and captures
+    it, later calls replay it; ``pqmf.set_weights`` drops them.
     """
 
     def __init__(self, attenuation: int = 100, n_band: int = 16,
@@ -373,6 +379,8 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         self._fade_out = full[:L].clone() if L > 0 else None
         self._fade_in = full[L:].clone() if L > 0 else None
         self._state = self.init_state()
+        self._graphs = {}          # the steps' CUDA graphs (graphs.call)
+        self._stream_ola_fns = {}  # stream_ola's programs
 
     # -- pure functional API -------------------------------------------------
 
@@ -431,10 +439,22 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
             crossfade=crossfade, phase_rule=self.phase_rule,
             precision=self.precision)
 
+    def _key(self, entry: str, B: int, T: int) -> tuple:
+        """A step's graph key: what the JAX package makes static."""
+        return (entry, B, T, self.precision, self.device,
+                self.pqmf.weights_version)
+
     def pitchshift_fn(self, state, x):
         """(state, x [1,T] | [B,1,T]) -> (state', y [B, T]). With B > 1
         there is no crossfade and the tail passes through untouched (the
-        reference's batch==1 guard)."""
+        reference's batch==1 guard). A CUDA graph per (B, T) on the card."""
+        x = self._block(x)
+        return graphs.call(self._graphs,
+                           self._key("pitchshift_fn", x.shape[0],
+                                     x.shape[-1]),
+                           self._pitchshift_fn_eager, state, x)
+
+    def _pitchshift_fn_eager(self, state, x):
         sub = self.decompose(x)  # [B, M, Tb]
         shifted, new_tail = self._shift(sub, state["prev_tail"],
                                         crossfade=(sub.shape[0] == 1))
@@ -457,8 +477,15 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
     def pitchshift_streams(self, states, x):
         """Stateful step over S independent streams at once, each with its
         own crossfade tail; the streams ride the batch axis of the same
-        kernels. x: [n_streams, T] -> (states', y [n_streams, T])."""
+        kernels. x: [n_streams, T] -> (states', y [n_streams, T]). A CUDA
+        graph per (S, T) on the card."""
         x = self.pqmf.as_tensor(x)
+        return graphs.call(self._graphs,
+                           self._key("pitchshift_streams", x.shape[0],
+                                     x.shape[-1]),
+                           self._pitchshift_streams_eager, states, x)
+
+    def _pitchshift_streams_eager(self, states, x):
         sub = self.decompose(x[:, None, :])  # [S, M, Tb]
         tails = states["prev_tail"].transpose(0, 1)  # [M, S, L]
         shifted, new_tails = self._shift(sub, tails, crossfade="batched")
@@ -488,6 +515,44 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
 # ---------------------------------------------------------------------------
 
 
+def _stream_ola_program(wrapper, block: int, hop: int, n_frames: int,
+                        C: int, T: int) -> graphs.Program:
+    """The whole harness for one static geometry (the JAX package's
+    ``_stream_ola_program``): right-pad to the frame grid -> frame -> Hann
+    window -> the stateful pitch step over every block, the crossfade state
+    carried -> all blocks' round trips as one batch (one K3 on the card) ->
+    windowed overlap-add / sum of window^2 -> trim back to T. On a CUDA
+    device the whole ``run`` is one CUDA graph (``graphs.Program``): one
+    launch a call once captured. On the CPU it runs eagerly."""
+    if C == 1:
+        step = wrapper._pitchshift_fn_eager
+    else:
+        step = wrapper._pitchshift_streams_eager
+    total = (n_frames - 1) * hop + block
+
+    def run(x):
+        window = S.hann_window(block, x.device)
+        framed = S._frame_signal(F.pad(x, (0, total - T)), block, hop,
+                                 n_frames)
+        blocks = (framed * window).transpose(0, 1)  # [N, C, block]
+        state = wrapper.init_state() if C == 1 else wrapper.init_streams(C)
+        outs = []
+        for blk in blocks:  # [C, block] -> [C, block]
+            state, out = step(state, blk)
+            outs.append(out)
+        outs = torch.stack(outs, dim=1)  # [C, N, block]
+        recs = wrapper.forward_fn(blocks.reshape(n_frames * C, 1, block))
+        recs = recs.reshape(n_frames, C, block).transpose(0, 1)
+
+        wsq = (window * window).expand(n_frames, block)
+        norm = S._ola(wsq, block, hop) + 1e-8  # the harness's epsilon
+        pitch = S._ola(outs * window, block, hop) / norm
+        recon = S._ola(recs * window, block, hop) / norm
+        return pitch[:, :T], recon[:, :T]
+
+    return graphs.Program(run, wrapper.device)
+
+
 def stream_ola(wrapper, x, block: int, overlap: int | None = None):
     """The block-streaming harness (reference 2-TestBlocks.py:86-126) over
     a flagship wrapper: Hann-windowed overlapping blocks -> the stateful
@@ -496,13 +561,21 @@ def stream_ola(wrapper, x, block: int, overlap: int | None = None):
     beside it the plain round trip of the same blocks.
 
     x: [C, T] (or [T]) array or tensor on the wrapper's device. C == 1
-    runs ``pitchshift_fn`` from ``init_state()``; C > 1 runs one serving
-    stream per channel (``pitchshift_streams`` from ``init_streams(C)``),
-    each with its own crossfade state. The round trip carries no state, so
-    all blocks go through ``forward_fn`` as one batch (one K3 on a CUDA
-    device; one K1 and one K2 per block for the pitch stream). Eager: no
-    per-length program cache. Returns (pitch_stream [C, T], recon_stream
-    [C, T]) on the wrapper's device.
+    runs the flagship step from ``init_state()``; C > 1 runs one serving
+    stream per channel (the ``pitchshift_streams`` step from
+    ``init_streams(C)``), each with its own crossfade state. The round trip
+    carries no state, so all blocks go through ``forward_fn`` as one batch
+    (one K3 on a CUDA device; one K1 and one K2 per block for the pitch
+    stream).
+
+    The whole harness is one program per (block, hop, T, C,
+    ``pqmf.weights_version``), cached on the wrapper
+    (``wrapper._stream_ola_fns``) as the JAX package caches its XLA
+    programs: on a CUDA device one CUDA graph, whose first call runs the
+    harness eagerly and captures it, and every later call of the same
+    geometry one replay; ``pqmf.set_weights`` evicts the programs of the
+    old bank. Returns (pitch_stream [C, T], recon_stream [C, T]) on the
+    wrapper's device.
     """
     x = wrapper.pqmf.as_tensor(x)
     if x.ndim == 1:
@@ -512,28 +585,19 @@ def stream_ola(wrapper, x, block: int, overlap: int | None = None):
     if hop <= 0 or hop > block:
         raise ValueError("overlap must be in [0, block-1]")
     n_frames = 1 if T <= block else -(-(T - block) // hop) + 1
-    total = (n_frames - 1) * hop + block
 
-    window = S.hann_window(block, x.device)
-    framed = S._frame_signal(F.pad(x, (0, total - T)), block, hop, n_frames)
-    blocks = (framed * window).transpose(0, 1)  # [N, C, block]
-    if C == 1:
-        state, step = wrapper.init_state(), wrapper.pitchshift_fn
-    else:
-        state, step = wrapper.init_streams(C), wrapper.pitchshift_streams
-    outs = []
-    for blk in blocks:  # [C, block] -> [C, block]
-        state, out = step(state, blk)
-        outs.append(out)
-    outs = torch.stack(outs, dim=1)  # [C, N, block]
-    recs = wrapper.forward_fn(blocks.reshape(n_frames * C, 1, block))
-    recs = recs.reshape(n_frames, C, block).transpose(0, 1)
-
-    wsq = (window * window).expand(n_frames, block)
-    norm = S._ola(wsq, block, hop) + 1e-8  # the harness's epsilon
-    pitch = S._ola(outs * window, block, hop) / norm
-    recon = S._ola(recs * window, block, hop) / norm
-    return pitch[:, :T], recon[:, :T]
+    fns = wrapper._stream_ola_fns
+    ver = wrapper.pqmf.weights_version
+    key = (block, hop, T, C, ver)
+    run = fns.get(key)
+    if run is None:
+        # weights_version only advances: programs of an older bank can
+        # never be hit again, and a graph of one reads freed banks
+        for stale in [k for k in fns if k[4] != ver]:
+            del fns[stale]
+        run = fns[key] = _stream_ola_program(wrapper, block, hop, n_frames,
+                                             C, T)
+    return run(x)
 
 
 # ---------------------------------------------------------------------------
@@ -600,8 +664,9 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
 
     ``pitchshifter`` runs analysis (K1), every band's shift at once (the
     per-band resample ratios batch through the banded sinc plan) and
-    synthesis (K2); ``pitchshifter_loop`` keeps the reference's per-band
-    structure as its parity oracle.
+    synthesis (K2), on a CUDA device as a CUDA graph per (B, T) (the JAX
+    package's ``_pitchshifter_jit``); ``pitchshifter_loop`` keeps the
+    reference's per-band structure as its parity oracle.
     """
 
     def __init__(self, attenuation: int = 100, n_band: int = 16,
@@ -653,6 +718,7 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
         self._n_fft, self._win, self._hop = (sh0.n_fft, sh0.win_length,
                                              sh0.hop_length)
         self._ta_plans = {}
+        self._graphs = {}  # the block's CUDA graphs (graphs.call)
 
     def _block(self, x):
         """x [1, T] / [B, 1, T] (array or tensor) -> [B, 1, T] on device."""
@@ -739,8 +805,14 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
         [1, T] / [B, 1, T] -> [B, 1, T]. ``pqmf.forward`` / ``inverse`` are
         the offline ``_cached_analysis`` / ``_cached_synthesis`` (a
         passthrough at n_band == 1, reference pqmf.py:250-251) on the bank
-        installed at the time of the call."""
+        installed at the time of the call. A CUDA graph per (B, T) on the
+        card."""
         x = self._block(x)
+        key = ("pitchshifter", x.shape[0], x.shape[-1], self.precision,
+               self.device, self.pqmf.weights_version)
+        return graphs.call(self._graphs, key, self._pitchshifter_eager, x)
+
+    def _pitchshifter_eager(self, x):
         plan = self._ta_plan(x.shape[-1] // self.n_band)
         shifted = _fused_ta_pitchshift(self.pqmf.forward(x), plan,
                                        self._n_fft, self._hop, self._win,

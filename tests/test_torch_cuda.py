@@ -1271,3 +1271,177 @@ def test_gpu_checks_pass(dev):
     print(res.stdout)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert res.stdout.rstrip().endswith("ALL PASS")
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (pqmf_tpu_torch/graphs.py): every graphed entry against the
+# eager body it captures. The graph replays the same launches on the same
+# inputs, so the bar is bit equality; a difference fails with its size.
+# ---------------------------------------------------------------------------
+
+
+def _bit_equal(got, want, what):
+    for g, e in zip(got, want):
+        assert torch.equal(g, e), \
+            f"{what}: graph - eager = {(g - e).abs().max().item()}"
+
+
+def _flagship16(tier, dev):
+    return PQMFPitchShiftWrapper(100, 16, 8192, 44100, SHIFTS16,
+                                 precision=tier, device="cuda")
+
+
+def _blocks(dev, n, seed, B=None):
+    shape = (n, 1, 8192) if B is None else (n, B, 1, 8192)
+    x = np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32) * 0.3
+    return list(torch.from_numpy(x).to(dev))
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("B", [1, 16])
+def test_graph_pitchshift_fn_equals_eager(dev, tier, B):
+    """8 blocks, the tail carried: the graphs' outputs and tails equal the
+    eager body's bit for bit, none changes after a later call, and each
+    step launches one K1 + one K2 (the capture none)."""
+    w = _flagship16(tier, dev)
+    xs = _blocks(dev, 8, B, B=B if B > 1 else None)  # [1, T] / [B, 1, T]
+    se, eager = w.init_state(), []
+    for x in xs:
+        se, y = w._pitchshift_fn_eager(se, x)
+        eager.append(y)
+    cc.reset_launches()
+    sg, graph = w.init_state(), []
+    for x in xs:
+        sg, y = w.pitchshift_fn(sg, x)
+        graph.append(y)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"analysis": 8, "synthesis": 8, "roundtrip": 0}
+    kept = [y.clone() for y in graph]
+    _bit_equal(graph + [sg["prev_tail"]], eager + [se["prev_tail"]],
+               f"pitchshift_fn B={B} [{tier}]")
+    w.pitchshift_fn(sg, xs[0])
+    _bit_equal(graph, kept, "outputs after a later call")
+    (prog,) = w._graphs.values()
+    assert prog.launches[0] == {"analysis": 1, "synthesis": 1,
+                                "roundtrip": 0}
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+def test_graph_pitchshift_streams_equals_eager(dev, tier):
+    w = _flagship16(tier, dev)
+    xs = [x[:, 0] for x in _blocks(dev, 8, 20, B=16)]  # [16, T] each
+    se, eager = w.init_streams(16), []
+    for x in xs:
+        se, y = w._pitchshift_streams_eager(se, x)
+        eager.append(y)
+    cc.reset_launches()
+    sg, graph = w.init_streams(16), []
+    for x in xs:
+        sg, y = w.pitchshift_streams(sg, x)
+        graph.append(y)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"analysis": 8, "synthesis": 8, "roundtrip": 0}
+    _bit_equal(graph + [sg["prev_tail"]], eager + [se["prev_tail"]],
+               f"pitchshift_streams(16) [{tier}]")
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("B", [1, 16])
+def test_graph_ta_pitchshifter_equals_eager(dev, tier, B):
+    ta = PQMFPitchShiftWrapperTA(100, 16, 8192, precision=tier,
+                                 device="cuda")
+    xs = _blocks(dev, 8, 30 + B, B=B)  # [B, 1, T] each
+    eager = [ta._pitchshifter_eager(x) for x in xs]
+    cc.reset_launches()
+    graph = [ta.pitchshifter(x) for x in xs]
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"analysis": 8, "synthesis": 8, "roundtrip": 0}
+    _bit_equal(graph, eager, f"TA pitchshifter B={B} [{tier}]")
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("C", [1, 2])
+def test_graph_stream_ola_equals_eager(dev, tier, C):
+    """8 blocks of 4096, overlap 2048: the one graph of the whole harness
+    equals its eager run bit for bit, and a replay launches 8 K1 + 8 K2 +
+    one K3."""
+    w = _flagship16(tier, dev)
+    T = 4096 + 7 * 2048
+    x = torch.from_numpy(np.random.default_rng(40 + C).standard_normal(
+        (C, T)).astype(np.float32) * 0.3).to(dev)
+    first = stream_ola(w, x, 4096, 2048)
+    (run,) = w._stream_ola_fns.values()
+    cc.reset_launches()
+    replay = stream_ola(w, x, 4096, 2048)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"analysis": 8, "synthesis": 8, "roundtrip": 1}
+    eager = run.fn(x)
+    _bit_equal(list(replay) + list(first), list(eager) * 2,
+               f"stream_ola C={C} [{tier}]")
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+def test_graphs_follow_set_weights(dev, tier):
+    """After set_weights to the committed fine-tuned M = 16 bank the old
+    graphs are evicted, and the new ones equal the eager body on the new
+    bank (and differ from the old bank's output)."""
+    from pqmf_tpu_torch.parallel.training import load_pretrained_bank
+
+    w = _flagship16(tier, dev)
+    xs = _blocks(dev, 3, 50)  # [1, T] each
+    s = w.init_state()
+    old = [w.pitchshift_fn(s, x)[1] for x in xs]
+    old_ola = [stream_ola(w, xs[0], 4096) for _ in range(2)]
+    w.pqmf.set_weights(load_pretrained_bank("hk16_atten100_finetuned"))
+    new = [w.pitchshift_fn(s, x)[1] for x in xs]
+    assert [k[-1] for k in w._graphs] == [1]
+    _bit_equal(new, [w._pitchshift_fn_eager(s, x)[1] for x in xs],
+               f"pitchshift_fn after set_weights [{tier}]")
+    assert (new[2] - old[2]).abs().max().item() > 1e-4
+    new_ola = [stream_ola(w, xs[0], 4096) for _ in range(2)]
+    assert [k[4] for k in w._stream_ola_fns] == [1]
+    (run,) = w._stream_ola_fns.values()
+    _bit_equal(list(new_ola[1]), list(run.fn(xs[0])),
+               f"stream_ola after set_weights [{tier}]")
+    assert (new_ola[1][0] - old_ola[1][0]).abs().max().item() > 1e-4
+
+
+def test_dropped_wrapper_returns_its_graph_pools(dev):
+    """The graphs and their pools live on the wrapper: once it is dropped,
+    the card's allocated memory is back within 1 MB of where it was, and
+    so is its reserved memory once the cache is emptied (the cached
+    windows and bases of the geometry filled beforehand)."""
+    import gc
+
+    from pqmf_tpu_torch import graphs
+
+    def drive(w):
+        x = _blocks(dev, 1, 60)[0]
+        for _ in range(2):
+            w.pitchshift_fn(w.init_state(), x)
+            w.pitchshift_streams(w.init_streams(4), x.expand(4, -1))
+            stream_ola(w, x, 4096)
+        torch.cuda.synchronize()
+
+    def memory():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return (torch.cuda.memory_allocated(dev),
+                torch.cuda.memory_reserved(dev))
+
+    graphs._capture_stream(torch.device(dev))
+    drive(_flagship16("highest", dev))
+    base = memory()
+    w = _flagship16("highest", dev)
+    drive(w)
+    assert len(w._graphs) == 2 and len(w._stream_ola_fns) == 1
+    pools = sum(p.stats["pool_bytes"] for p in (*w._graphs.values(),
+                                                *w._stream_ola_fns.values()))
+    alive = memory()
+    assert alive[1] - base[1] >= pools > 1 << 20, (alive, base, pools)
+    del w
+    now = memory()
+    assert now[0] - base[0] < 1 << 20 and now[1] - base[1] < 1 << 20, \
+        (now, base)

@@ -1,0 +1,326 @@
+"""The graph runner (``pqmf_tpu_torch/graphs.py``) on the CPU, through a
+stand-in capture.
+
+On the card every graphed entry (``pitchshift_fn``, ``pitchshift_streams``,
+the TA ``pitchshifter``, ``stream_ola``) captures its eager body once per
+key and replays it; ``tests/test_torch_cuda.py`` holds the graphs bit for
+bit against the eager bodies there. Here the tests patch in a stand-in for
+the capture, whose "graph" runs the body again over the static buffers and
+writes the static outputs in place, as a replay does, and hold the runner's
+contract with it: the key fields, the eager first call, no output aliased
+by a later call, the launch counts of captures and replays, eviction on
+``weights_version``, a failed capture raising, and a dropped wrapper
+collected. Through the stand-in every entry equals its eager body exactly.
+"""
+
+import gc
+import weakref
+
+import numpy as np
+import pytest
+import torch
+
+from pqmf_tpu_torch import (PQMFPitchShiftWrapper, PQMFPitchShiftWrapperTA,
+                            graphs, stream_ola)
+from pqmf_tpu_torch.kernels import cached_conv as cc
+from pqmf_tpu_torch.kernels import polyphase as pk
+from pqmf_tpu_torch.ops import filterbank as fb
+from pqmf_tpu_torch.streaming import kernels_from_params
+
+CPU = torch.device("cpu")
+SHIFTS4 = [1, -1, 3, -3]
+TA_SHIFTS8 = [12, -12, 0, 24, -24, 12, -12, 7]  # small resample ratios
+
+
+def _audio(shape, seed):
+    return (np.random.default_rng(seed).standard_normal(shape) * 0.1).astype(
+        np.float32)
+
+
+def _counts():
+    return dict(cc.LAUNCHES), dict(pk.LAUNCHES)
+
+
+def _restore(counts):
+    cc.LAUNCHES.update(counts[0])
+    pk.LAUNCHES.update(counts[1])
+
+
+class StandIn:
+    """A capture for the CPU: records the body, and its replay runs the body
+    again over the static arguments and copies the result into the static
+    outputs. A real replay touches no Python counter, so neither does this
+    one's body. ``fail`` makes the capture raise."""
+
+    def __init__(self):
+        self.events = []
+        self.fail = False
+
+    def __call__(self, fn, args, device):
+        self.events.append("capture")
+        if self.fail:
+            raise RuntimeError("capture refused")
+        out = fn(*args)
+
+        def replay():
+            self.events.append("replay")
+            counts = _counts()
+            new = fn(*args)
+            _restore(counts)
+            for o, n in zip(torch.utils._pytree.tree_leaves(out),
+                            torch.utils._pytree.tree_leaves(new)):
+                o.copy_(n)
+
+        return replay, out, {"capture_ms": 0.0, "instantiate_ms": 0.0,
+                             "pool_bytes": 0, "output_bytes": 0}
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    cap = StandIn()
+    monkeypatch.setattr(graphs, "_graphed", lambda device: True)
+    monkeypatch.setattr(graphs, "_capture", cap)
+    return cap
+
+
+@pytest.fixture
+def flagship():
+    return PQMFPitchShiftWrapper(70, 4, 512, shifts_in_semitones=SHIFTS4,
+                                 device="cpu")
+
+
+def _scaled_bank(pqmf):
+    """The installed bank with hk halved, as set_weights takes it."""
+    hk = np.asarray(pqmf.params["hk"]) * 0.5
+    params = fb.params_from_hk(hk, h=np.asarray(pqmf.params["h"]))
+    return (params, *kernels_from_params(params))
+
+
+# ---------------------------------------------------------------------------
+# the runner, on a body that counts launches of its own
+# ---------------------------------------------------------------------------
+
+
+def _body(log):
+    def body(state, x):
+        log.append("body")
+        cc.LAUNCHES["analysis"] += 1
+        pk.LAUNCHES["roundtrip"] += 2
+        return {"s": state["s"] + x}, x * 2.0
+    return body
+
+
+def test_first_call_runs_eagerly_then_captures(stand_in):
+    log, cache = [], {}
+    key = ("body", 1, 4, "highest", CPU, 0)
+    x = torch.arange(4.0)
+    s1, y1 = graphs.call(cache, key, _body(log), {"s": torch.zeros(4)}, x)
+    # the eager run, then the capture (the stand-in runs the body in it)
+    assert log == ["body", "body"] and stand_in.events == ["capture"]
+    prog = cache[key]
+    assert y1 is not prog._static_out[1] and s1 is not prog._static_out[0]
+    torch.testing.assert_close(y1, x * 2.0, rtol=0, atol=0)
+    s2, y2 = graphs.call(cache, key, _body(log), s1, x)
+    assert stand_in.events == ["capture", "replay"]
+    torch.testing.assert_close(s2["s"], 2 * x, rtol=0, atol=0)
+
+
+def test_replays_add_the_captured_launches(stand_in):
+    cc.reset_launches()
+    pk.reset_launches()
+    cache, key, log = {}, ("body", 1, 4, "highest", CPU, 0), []
+    state, x = {"s": torch.zeros(4)}, torch.ones(4)
+    state, _ = graphs.call(cache, key, _body(log), state, x)
+    # the eager run counts; the capture adds nothing
+    assert (cc.LAUNCHES["analysis"], pk.LAUNCHES["roundtrip"]) == (1, 2)
+    assert cache[key].launches == [
+        {"analysis": 1, "synthesis": 0, "roundtrip": 0},
+        {"analysis": 0, "synthesis": 0, "roundtrip": 2}]
+    for n in range(2, 5):
+        state, _ = graphs.call(cache, key, _body(log), state, x)
+        assert (cc.LAUNCHES["analysis"], pk.LAUNCHES["roundtrip"]) == (n,
+                                                                      2 * n)
+    torch.testing.assert_close(state["s"], 4 * x, rtol=0, atol=0)
+
+
+def test_a_failed_capture_raises(stand_in):
+    """On the card a capture that fails raises: the eager result of the
+    same call is not returned in its place, and the launch counters keep
+    only the eager run's launches."""
+    stand_in.fail = True
+    cc.reset_launches()
+    pk.reset_launches()
+    cache, key = {}, ("body", 1, 4, "highest", CPU, 0)
+    for n in (1, 2):
+        with pytest.raises(RuntimeError, match="capture refused"):
+            graphs.call(cache, key, _body([]), {"s": torch.zeros(4)},
+                        torch.ones(4))
+        assert cc.LAUNCHES["analysis"] == n
+    assert cache[key]._replay is None
+
+
+def test_a_failed_capture_raises_from_the_wrapper(stand_in, flagship):
+    stand_in.fail = True
+    x = _audio((1, 512), 1)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        flagship.pitchshift_fn(flagship.init_state(), x)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        stream_ola(flagship, x, 256)
+
+
+def test_a_replay_refuses_other_arguments(stand_in):
+    cache, key = {}, ("body", 1, 4, "highest", CPU, 0)
+    state, x = {"s": torch.zeros(4)}, torch.ones(4)
+    for _ in range(2):
+        graphs.call(cache, key, _body([]), state, x)
+    for bad_state, bad_x in [({"s": torch.zeros(4, dtype=torch.float64)}, x),
+                             ({"s": torch.zeros(5)}, x),
+                             ({"t": torch.zeros(4)}, x),
+                             (state, np.ones(4, np.float32))]:
+        with pytest.raises(ValueError, match="differ"):
+            graphs.call(cache, key, _body([]), bad_state, bad_x)
+
+
+def test_cpu_runs_the_body_and_caches_nothing(flagship):
+    x = _audio((1, 512), 2)
+    flagship.pitchshift_fn(flagship.init_state(), x)
+    flagship.pitchshift_streams(flagship.init_streams(2), _audio((2, 512), 3))
+    assert flagship._graphs == {}
+    stream_ola(flagship, x, 256)
+    (run,) = flagship._stream_ola_fns.values()
+    assert isinstance(run, graphs.Program) and run._replay is None
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' entries
+# ---------------------------------------------------------------------------
+
+
+def test_entry_keys(stand_in, flagship):
+    """(entry, B, T, precision, device, weights_version): what the JAX
+    package makes static, and the bank's version."""
+    s = flagship.init_state()
+    flagship.pitchshift_fn(s, _audio((1, 512), 4))
+    flagship.pitchshift_fn(s, _audio((3, 1, 512), 5))
+    flagship.pitchshift_fn(s, _audio((1, 1024), 6))
+    flagship.pitchshift_streams(flagship.init_streams(2), _audio((2, 512), 7))
+    assert set(flagship._graphs) == {
+        ("pitchshift_fn", 1, 512, "highest", CPU, 0),
+        ("pitchshift_fn", 3, 512, "highest", CPU, 0),
+        ("pitchshift_fn", 1, 1024, "highest", CPU, 0),
+        ("pitchshift_streams", 2, 512, "highest", CPU, 0)}
+    assert stand_in.events == ["capture"] * 4
+    ta = PQMFPitchShiftWrapperTA(100, 8, 2048, precision="bf16x3",
+                                 shifts_in_semitones=TA_SHIFTS8, device="cpu")
+    ta.pitchshifter(_audio((2, 1, 2048), 8))
+    assert set(ta._graphs) == {("pitchshifter", 2, 2048, "bf16x3", CPU, 0)}
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_pitchshift_fn_replays_equal_the_eager_body(stand_in, flagship, B):
+    """Four carried blocks: the replays equal the eager body bit for bit,
+    and no later call changes a tensor an earlier one returned (the
+    caller's old states included)."""
+    blocks = [_audio((B, 1, 512) if B > 1 else (1, 512), 10 + i)
+              for i in range(4)]
+    se = sg = flagship.init_state()
+    kept = []
+    for blk in blocks:
+        se, ye = flagship._pitchshift_fn_eager(se, torch.from_numpy(blk))
+        sg, yg = flagship.pitchshift_fn(sg, blk)
+        torch.testing.assert_close(yg, ye, rtol=0, atol=0)
+        torch.testing.assert_close(sg["prev_tail"], se["prev_tail"], rtol=0,
+                                   atol=0)
+        kept.append((sg, yg, sg["prev_tail"].clone(), yg.clone()))
+    assert stand_in.events == ["capture"] + ["replay"] * 3
+    for state, y, tail, y_copy in kept:
+        torch.testing.assert_close(state["prev_tail"], tail, rtol=0, atol=0)
+        torch.testing.assert_close(y, y_copy, rtol=0, atol=0)
+
+
+def test_pitchshift_facade_carries_state_through_replays(stand_in, flagship):
+    eager = PQMFPitchShiftWrapper(70, 4, 512, shifts_in_semitones=SHIFTS4,
+                                  device="cpu")
+    state = eager.init_state()
+    for i in range(3):
+        blk = _audio((1, 512), 20 + i)
+        state, want = eager._pitchshift_fn_eager(state, torch.from_numpy(blk))
+        torch.testing.assert_close(flagship.pitchshift(blk), want, rtol=0,
+                                   atol=0)
+
+
+def test_pitchshift_streams_replays_equal_the_eager_body(stand_in, flagship):
+    se = sg = flagship.init_streams(3)
+    for i in range(3):
+        x = torch.from_numpy(_audio((3, 512), 30 + i))
+        se, ye = flagship._pitchshift_streams_eager(se, x)
+        sg, yg = flagship.pitchshift_streams(sg, x)
+        torch.testing.assert_close(yg, ye, rtol=0, atol=0)
+        torch.testing.assert_close(sg["prev_tail"], se["prev_tail"], rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_ta_pitchshifter_replays_equal_the_eager_body(stand_in, B):
+    ta = PQMFPitchShiftWrapperTA(100, 8, 2048, shifts_in_semitones=TA_SHIFTS8,
+                                 device="cpu")
+    outs = []
+    for i in range(3):
+        x = torch.from_numpy(_audio((B, 1, 2048), 40 + i))
+        y = ta.pitchshifter(x)
+        torch.testing.assert_close(y, ta._pitchshifter_eager(x), rtol=0,
+                                   atol=0)
+        outs.append((y, y.clone()))
+    assert all(torch.equal(a, b) for a, b in outs)
+
+
+def test_set_weights_evicts_the_old_graphs(stand_in, flagship):
+    x = _audio((1, 512), 50)
+    s = flagship.init_state()
+    flagship.pitchshift_fn(s, x)
+    flagship.pitchshift_streams(flagship.init_streams(2), _audio((2, 512), 51))
+    old = flagship.pitchshift_fn(s, x)[1]
+    assert len(flagship._graphs) == 2
+    bank = _scaled_bank(flagship.pqmf)
+    flagship.pqmf.set_weights(*bank)
+    new = flagship.pitchshift_fn(s, x)[1]
+    assert list(flagship._graphs) == [
+        ("pitchshift_fn", 1, 512, "highest", CPU, 1)]
+    fresh = PQMFPitchShiftWrapper(70, 4, 512, shifts_in_semitones=SHIFTS4,
+                                  device="cpu")
+    fresh.pqmf.set_weights(*bank)
+    torch.testing.assert_close(new, fresh.pitchshift_fn(s, x)[1], rtol=0,
+                               atol=0)
+    assert not torch.allclose(new, old)
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_stream_ola_replays_equal_the_eager_harness(stand_in, flagship, C):
+    x = _audio((C, 1500), 60 + C)
+    first = stream_ola(flagship, x, 256)
+    (run,) = flagship._stream_ola_fns.values()
+    second = stream_ola(flagship, x, 256)
+    third = stream_ola(flagship, _audio((C, 1500), 70), 256)
+    assert stand_in.events == ["capture", "replay", "replay"]
+    eager = run.fn(torch.from_numpy(x))
+    for a, b in zip(first + second, eager + eager):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(third[0], second[0])
+    # the one graph carries every block's launches: none on the CPU
+    assert all(v == 0 for c in run.launches for v in c.values())
+
+
+def test_dropped_wrapper_is_collected(stand_in):
+    """Programs and their graphs live on the wrapper; the wrapper -> cache
+    -> program -> body -> wrapper cycle is ordinary garbage."""
+    w = PQMFPitchShiftWrapper(70, 4, 256, shifts_in_semitones=[1, -1, 2, -2],
+                              device="cpu")
+    x = _audio((1, 1000), 80)
+    stream_ola(w, x, 256)
+    stream_ola(w, x, 256)
+    w.pitchshift_fn(w.init_state(), x[:, :256])
+    assert len(w._stream_ola_fns) == 1
+    ref = weakref.ref(w)
+    del w
+    gc.collect()
+    assert ref() is None

@@ -23,7 +23,9 @@ from pqmf_tpu.pipelines import stream_ola as j_stream_ola
 from pqmf_tpu_torch import (PQMFPitchShiftWrapper, PQMFPitchShiftWrapperTA,
                             load_artifact, save_artifact, stream_ola)
 from pqmf_tpu_torch.kernels import cached_conv as cc
+from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.ops import stft as tS
+from pqmf_tpu_torch.streaming import kernels_from_params
 from pqmf_tpu_torch.utils.audio import read_wav, write_wav
 from pqmf_tpu_torch.utils.metrics import snr_db
 
@@ -112,6 +114,84 @@ def test_stream_ola_shapes_and_guards(pair):
     cc.reset_launches()
     stream_ola(tw, x, 512, 256)
     assert sum(cc.LAUNCHES.values()) == 0  # plain versions on the CPU
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_stream_ola_program_matches_jax(pair, C):
+    """The one-geometry programs themselves: the port's
+    ``_stream_ola_program(...)(x)`` against the JAX package's, same
+    geometry and seeded input, under test_stream_ola_matches_jax's bars."""
+    from pqmf_tpu.pipelines import _stream_ola_program as j_program
+    from pqmf_tpu_torch.pipelines import _stream_ola_program
+
+    jw, tw = pair
+    T, hop = 7000, 1024
+    x = _audio(T, 12, channels=C)
+    n_frames = -(-(T - BUF) // hop) + 1
+    jp, jr = j_program(jw, BUF, hop, n_frames, C, T)(x)
+    tp, tr = _stream_ola_program(tw, BUF, hop, n_frames, C, T)(
+        torch.from_numpy(x))
+    assert tp.shape == tr.shape == (C, T)
+    assert snr_db(np.asarray(jp), tp.numpy()) >= BAR_DB
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=2e-5,
+                               rtol=0)
+
+
+def _small_flagship(buf=512, shifts=(1, -1, 3, -3)):
+    return PQMFPitchShiftWrapper(70, 4, buf, shifts_in_semitones=list(shifts),
+                                 device="cpu")
+
+
+def test_stream_ola_program_is_cached():
+    """The JAX package's cache contract (tests/test_pipelines.py:471-516):
+    one program per geometry, reused by a repeat call with equal arrays;
+    another overlap adds a program; set_weights evicts the old version's
+    programs and the audio follows the new bank."""
+    w = _small_flagship()
+    x = (np.random.default_rng(5).standard_normal((1, 2000)) * 0.1).astype(
+        np.float32)
+    p1, r1 = stream_ola(w, x, 512)
+    fns = w._stream_ola_fns
+    assert list(fns) == [(512, 256, 2000, 1, 0)]
+    (run,) = fns.values()
+    p2, r2 = stream_ola(w, x, 512)
+    assert len(fns) == 1 and fns[(512, 256, 2000, 1, 0)] is run
+    torch.testing.assert_close(p2, p1, rtol=0, atol=0)
+    torch.testing.assert_close(r2, r1, rtol=0, atol=0)
+
+    stream_ola(w, x, 512, overlap=128)
+    assert len(fns) == 2 and fns[(512, 256, 2000, 1, 0)] is run
+
+    pq = w.pqmf
+    params = fb.params_from_hk(np.asarray(pq.params["hk"]) * 0.5,
+                               h=np.asarray(pq.params["h"]))
+    bank = (params, *kernels_from_params(params))
+    pq.set_weights(*bank)
+    p3, r3 = stream_ola(w, x, 512)
+    assert list(fns) == [(512, 256, 2000, 1, 1)]
+    assert not np.allclose(p3.numpy(), p1.numpy())
+    fresh = _small_flagship()
+    fresh.pqmf.set_weights(*bank)
+    p4, r4 = stream_ola(fresh, x, 512)
+    torch.testing.assert_close(p3, p4, rtol=0, atol=0)
+    torch.testing.assert_close(r3, r4, rtol=0, atol=0)
+
+
+def test_stream_ola_cache_does_not_pin_the_wrapper():
+    """tests/test_pipelines.py:545-565: the programs live on the wrapper,
+    so a dropped wrapper is collectable garbage."""
+    import gc
+    import weakref
+
+    w = _small_flagship(256, (1, -1, 2, -2))
+    x = (np.random.default_rng(6).standard_normal((1, 1000)) * 0.1).astype(
+        np.float32)
+    stream_ola(w, x, 256)
+    assert len(w._stream_ola_fns) == 1
+    ref = weakref.ref(w)
+    del w
+    gc.collect()
+    assert ref() is None
 
 
 # ---------------------------------------------------------------------------
