@@ -11,7 +11,8 @@ fails without them; it never falls back to the CPU and imports no JAX.
    prints ATen's capability.
 1. Prints the card (``nvidia-smi`` name and power limit), turns TF32 off
    for cuDNN and cuBLAS, and builds the CUDA kernels from
-   ``pqmf_tpu_torch/csrc`` (timed; ptxas must report no spills). Holds the
+   ``pqmf_tpu_torch/csrc`` (timed; ptxas must report no spills) and the
+   native C data layer from ``pqmf_tpu_torch/native`` (timed). Holds the
    source's shared-memory gates and launch plans (``pqmf_launch_plan``)
    against their Python mirror in ``kernels/cached_conv.py``, the tier
    kernels' (``pqmf_tc_launch_plan``) too.
@@ -84,7 +85,20 @@ fails without them; it never falls back to the CPU and imports no JAX.
    inputs all its arguments, buffers or constants on the card; export
    seconds, program bytes, the AOT block beside the live block (CUDA
    events); and the ``export_pqmf`` / ``export_pvoc`` CLIs with
-   ``--stablehlo``.
+   ``--stablehlo``. On the card the reloaded program is a CUDA graph: each
+   program's 8 blocks also run through ``program.eager`` (the module
+   without its graph), bit-equal to the graph and the live wrapper with the
+   same launches, and the three blocks (live, AOT graph, AOT eager) are
+   timed by CUDA events, the host clock and ``torch.profiler`` (idle
+   share).
+3c. The CUDA graphs (``graphs.py``) against the eager bodies they capture,
+   at each tier: the serving steps, ``stream_ola``, and ``scan_blocks``
+   over 16 blocks of 8192 through a ``StreamingPQMF``'s ``process_block``
+   and the flagship's graphed ``pitchshift_fn`` (bit-equal to the loop,
+   16 K1 + 16 K2 a replay); capture ms and pool bytes; eager beside graph.
+3d. The native C data layer (``pqmf_tpu_torch/native``, built and timed
+   in phase 1): the ``blocks`` CLI's host loop runs through it and writes
+   what its NumPy path writes, bit for bit.
 4. Times each kernel against its plain version and, for K1/K2/K4/K5, one
    ``F.conv1d`` of the same product (``library_ms``), beside its bound
    (the larger of its FMAs at the f32 peak and its bytes at the HBM rate);
@@ -112,9 +126,14 @@ fails without them; it never falls back to the CPU and imports no JAX.
    gradient of the fine-tune loss at the committed recipe's full width (M
    = 16, 512 taps, [4, 1, 8192], seed 0) against the pinned CPU port at
    ``highest`` and ``bf16x3`` (loss within 1e-4 relative, gradient within
-   1e-3 of max|g|); (b) the committed recipe itself, 8000 Adam steps (lr
-   2e-5, cosine, batch 4, length 8192, seed 0): its wall time, the ms per
-   step (``utils.profiling.chained_ms``), the first and last loss, the
+   1e-3 of max|g|); the graphed step (one CUDA graph, one replay a step)
+   bit-equal to the eager capturable step over 50 steps at both tiers,
+   the forward kept and recomputed; the step's ms and idle share, graphed
+   and eager; the gap after 100 recipe steps between the card (capturable
+   and plain Adam) and the CPU port; (b) the committed recipe itself, 8000
+   graphed Adam steps (lr 2e-5, cosine, batch 4, length 8192, seed 0): its
+   wall time, the ms per step (``utils.profiling.chained_ms``), the first
+   and last loss, the
    steady-state SNR on the 60 s signal of the trained, the designed and
    the committed bank through ``StreamingPQMF.roundtrip`` (K3, one launch
    each; the trained bank >= 100 dB), the worst stopband (<= -55 dB);
@@ -632,7 +651,18 @@ def _aot_phase(card: str, dev: str = "cuda") -> dict:
         sync()
         launches = dict(cc.LAUNCHES)
         assert launches == per_block, (key, launches)
-        err = max_err(got, live)
+        # the same 8 blocks through the program without its graph
+        cc.reset_launches()
+        with (_plain_versions_refused() if dev == "cuda"
+              else contextlib.nullcontext()):
+            got_eager = aot_run(program.eager, w, key)
+        sync()
+        eager_launches = dict(cc.LAUNCHES)
+        assert eager_launches == per_block, (key, eager_launches)
+        graph_vs_eager = max_err(got, got_eager)
+        assert graph_vs_eager == 0.0, (key, "AOT graph vs eager",
+                                       graph_vs_eager)
+        err = max(max_err(got, live), max_err(got_eager, live))
         lives[name] = live
         step = ((lambda: w.pitchshift_fn(w.init_state(), xs[0, 0]))
                 if key.startswith("flagship") else
@@ -643,36 +673,51 @@ def _aot_phase(card: str, dev: str = "cuda") -> dict:
         aot_step = ((lambda: program(tail0, xs[0, 0]))
                     if key.startswith("flagship") else
                     (lambda: program(xs[0])))
-        t_live, t_aot = events_ms(step), events_ms(aot_step)
-        t_aot, t_live = min(t_aot, events_ms(aot_step)), min(
-            t_live, events_ms(step))
+        eager_fn = program.eager
+        aot_eager_step = ((lambda: eager_fn(tail0, xs[0, 0]))
+                          if key.startswith("flagship") else
+                          (lambda: eager_fn(xs[0])))
+        arms = {"live": step, "aot": aot_step, "aot_eager": aot_eager_step}
+        t = {arm: [] for arm in arms}
+        for arm in (*arms, *reversed(arms)):
+            t[arm].append(events_ms(arms[arm]))
+        t = {arm: min(v) for arm, v in t.items()}
         res[key] = {"export_s": export_s,
                     "program_bytes": os.path.getsize(pt2),
                     "inputs": {k: kinds.count(k) for k in set(kinds)},
                     "graph_nodes": len(ep.graph.nodes),
                     "launches_8_blocks": launches,
+                    "launches_8_blocks_eager": eager_launches,
                     "max_abs_err_vs_live": err,
+                    "graph_vs_eager_max_abs_err": graph_vs_eager,
                     "bit_equal": err == 0.0,
-                    "aot_block_ms": t_aot, "live_block_ms": t_live}
+                    "aot_block_ms": t["aot"],
+                    "aot_eager_block_ms": t["aot_eager"],
+                    "live_block_ms": t["live"]}
         # the live flagship and TA blocks replay CUDA graphs on the card;
         # PQMFWrapper.process (two launches) stays eager
         live = "live (eager)" if key == "plain" else "live (graph)"
-        if dev == "cuda" and key in ("flagship highest", "plain"):
-            # where the AOT block's time goes: the same kernels, or not
-            for arm, fn, ms in (("live", step, t_live),
-                                ("aot", aot_step, t_aot)):
-                prof = _profile(fn, 10, ms, top=3)
+        label = {"live": live, "aot": "AOT (graph)",
+                 "aot_eager": "AOT (eager)"}
+        if dev == "cuda":
+            # where each block's time goes: the same kernels, the idle card
+            for arm, fn in arms.items():
+                prof = _profile(fn, 10, t[arm], top=3)
                 res[key][f"profile_{arm}"] = prof
-                print(f"  {key} {live if arm == 'live' else arm} "
-                      f"block: device busy "
-                      f"{prof['device_busy_ms']:.4f} ms of {ms:.4f} (idle "
-                      f"{prof['idle_share']:.0%}), "
-                      f"{prof['kernels_per_call']:.1f} kernels")
+                res[key][f"{arm}_host_ms_median_p90_n"] = _host_ms(fn, 50)
+                print(f"  {key} {label[arm]} block: device busy "
+                      f"{prof['device_busy_ms']:.4f} ms of {t[arm]:.4f} "
+                      f"(idle {prof['idle_share']:.1%}), "
+                      f"{prof['kernels_per_call']:.1f} kernels; host "
+                      "median/p90 {:.4f}/{:.4f} ms".format(
+                          *res[key][f"{arm}_host_ms_median_p90_n"][:2]))
         print(f"  {key}: export {export_s:.2f} s, {method}.pt2 "
               f"{os.path.getsize(pt2)} B, inputs {res[key]['inputs']}, "
-              f"launches over 8 AOT blocks {launches}, max|AOT - live| "
-              f"{err:.3g}; block by CUDA events: AOT {t_aot:.4f} ms, "
-              f"{live} {t_live:.4f} ms")
+              f"launches over 8 AOT blocks {launches} (graph) and "
+              f"{eager_launches} (eager), max|AOT - live| {err:.3g}, graph "
+              f"== eager bit for bit; block by CUDA events: AOT graph "
+              f"{t['aot']:.4f} ms, AOT eager {t['aot_eager']:.4f} ms, "
+              f"{live} {t['live']:.4f} ms")
         assert err <= 1e-6, (key, err)
 
     # a fresh process: load_stablehlo alone, no wrapper, no retrace
@@ -771,9 +816,13 @@ def _graphs_phase(card: str) -> dict:
 
     import torch
 
+    from torch.utils._pytree import tree_leaves
+
     from pqmf_tpu_torch import (PQMFPitchShiftWrapper,
-                                PQMFPitchShiftWrapperTA, stream_ola)
+                                PQMFPitchShiftWrapperTA, StreamingPQMF,
+                                stream_ola)
     from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.streaming import scan_blocks
 
     print(f"CUDA graphs against their eager bodies on {card}:")
     dev = torch.device("cuda")
@@ -854,9 +903,33 @@ def _graphs_phase(card: str) -> dict:
                  list(run.fn(x)))
             same(f"stream_ola C={C} first call (eager) [{tier}]",
                  list(first), list(replay))
-        same(f"outputs kept from the first calls [{tier}]", graph, kept)
+        # scan_blocks: one graph a pre-framed stream of 16 blocks of 8192,
+        # over a StreamingPQMF's process_block and over the flagship's
+        # graphed pitchshift_fn (its eager body runs inside the capture)
+        sp = StreamingPQMF(100, N_BAND, precision=tier, device="cuda")
+        x_scan = on(_audio(16 * BLOCK, 15)).reshape(16, 1, 1, BLOCK)
+        for what, step_fn, body, s0, xs_ in (
+                ("StreamingPQMF.process_block", sp.process_block,
+                 sp.process_block, sp.init_state(), x_scan),
+                ("flagship pitchshift_fn", w.pitchshift_fn,
+                 w._pitchshift_fn_eager, w.init_state(), x_scan[:, 0])):
+            state, loop = s0, []
+            for b in xs_:
+                state, y = body(state, b)
+                loop.append(y)
+            first = scan_blocks(step_fn, s0, xs_)
+            ts, ys = counted(lambda: scan_blocks(step_fn, s0, xs_),
+                             {"analysis": 16, "synthesis": 16})
+            same(f"scan_blocks over {what} 16 x 8192 [{tier}]",
+                 [ys, first[1], *tree_leaves(ts), *tree_leaves(first[0])],
+                 [torch.stack(loop)] * 2 + tree_leaves(state) * 2)
         caps = {f"{k[0]} B={k[1]} T={k[2]}": p.stats
-                for k, p in (*w._graphs.items(), *ta._graphs.items())}
+                for k, p in (*w._graphs.items(), *ta._graphs.items())
+                if k[0] != "scan_blocks"}
+        caps.update({f"scan_blocks over {k[1]} n={k[2]} block {k[3]}":
+                     p.stats for k, p in (*w._graphs.items(),
+                                          *sp._graphs.items())
+                     if k[0] == "scan_blocks"})
         caps.update({f"stream_ola C={k[3]} T={k[2]}": p.stats
                      for k, p in w._stream_ola_fns.items()})
         res["captures"][tier] = caps
@@ -898,6 +971,17 @@ def _graphs_phase(card: str) -> dict:
                     lambda run=run, x=x: run.fn(x),
                     lambda x=x: stream_ola(w, x, OLA_BLOCK, OLA_OVERLAP),
                     None, 5 if C == 1 else 3)
+            s16 = w.init_state()
+
+            def scan_eager():
+                state = s16
+                for b in x_scan[:, 0]:
+                    state, _ = w._pitchshift_fn_eager(state, b)
+
+            arms["scan_blocks 16 x 8192 (flagship)"] = (
+                scan_eager,
+                lambda: scan_blocks(w.pitchshift_fn, s16, x_scan[:, 0]),
+                5, 10)
         timing = {}
         for what, (eager_fn, graph_fn, iters, n) in arms.items():
             row = {}
@@ -930,7 +1014,7 @@ def _graphs_phase(card: str) -> dict:
                             f"{prof['kernels_per_call']:.1f} kernels")
             print(f"  {what} [{tier}]: {txt}")
         res["timing"][tier] = timing
-        del w, ta, run
+        del w, ta, run, sp
         gc.collect()
     return res
 
@@ -963,6 +1047,49 @@ def _training_phase(sixty: np.ndarray, card: str) -> dict:
                                                                     gerr)
         out[f"grad_parity_{tier}"] = {"loss_rel": rel, "grad_rel": gerr}
 
+    # the graphed step (one CUDA graph a step) against the eager step it
+    # captures, the same capturable Adam: 50 steps of the recipe's loss and
+    # shapes, cosine lr, at each tier, the forward kept or recomputed
+    xs50 = [torch.from_numpy(a).cuda() for a in np.random.default_rng(
+        1).standard_normal((50, 4, 1, 8192)).astype(np.float32)]
+    for tier in ("highest", "bf16x3"):
+        for remat in (False, True):
+            init, step = tt.make_train_step(
+                tt.adam(tt.cosine_decay_schedule(2e-5, 50)), precision=tier,
+                remat=remat, loss_fn=loss_fn)
+            sg, se = init(hk), init(hk)
+            lg, le, replays = [], [], [0]
+            for i, xb in enumerate(xs50):
+                lg.append(step(sg, xb)[1])
+                le.append(step.eager(se, xb)[1])
+                if i == 0:  # count the replays from here on
+                    (prog,) = sg._graphs.values()
+                    replay = prog._replay
+
+                    def counted_replay(replay=replay):
+                        replays[0] += 1
+                        replay()
+                    prog._replay = counted_replay
+            torch.cuda.synchronize()
+            ma, mb = sg.optimizer.state[sg.hk], se.optimizer.state[se.hk]
+            pairs = [(torch.stack(lg), torch.stack(le)), (sg.hk, se.hk),
+                     *((ma[k], mb[k]) for k in ("exp_avg", "exp_avg_sq",
+                                                "step"))]
+            diff = max((a - b).abs().max().item() for a, b in pairs)
+            print(f"  train step [{tier}, remat={remat}]: 50 graphed steps "
+                  f"(one capture, {replays[0]} replays) vs 50 eager "
+                  f"capturable steps: max|diff| {diff:.3g} (losses, hk, "
+                  f"Adam's moments and count); capture "
+                  f"{prog.stats['capture_ms']:.1f} ms, instantiate "
+                  f"{prog.stats['instantiate_ms']:.1f} ms, pool "
+                  f"{prog.stats['pool_bytes']} B")
+            assert replays[0] == 49, replays
+            assert all(torch.equal(a, b) for a, b in pairs), (tier, remat,
+                                                              diff)
+            out[f"graph_vs_eager_{tier}_remat_{remat}"] = {
+                "max_abs_diff": diff, "replays": replays[0],
+                "capture": prog.stats}
+
     cc.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -972,11 +1099,63 @@ def _training_phase(sixty: np.ndarray, card: str) -> dict:
     assert losses.shape == (RECIPE["steps"],) and np.isfinite(losses).all()
     assert losses[-1] < losses[0], (losses[0], losses[-1])
     init, step = tt.make_train_step(tt.adam(2e-5), loss_fn=loss_fn)
-    state = init(hk)
     xd = torch.from_numpy(x).cuda()
-    step_ms = chained_ms(lambda v: (step(state, v), v)[1], xd, n=100)
-    profile = _profile(lambda: step(state, xd), 10, step_ms)
-    print(json.dumps({"profile": "train step", **profile}))
+    arms = {}
+    for arm, fn in (("graph", step), ("eager", step.eager)):
+        state = init(hk)
+        ms = chained_ms(lambda v, fn=fn, state=state: (fn(state, v), v)[1],
+                        xd, n=100)
+        prof = _profile(lambda fn=fn, state=state: fn(state, xd), 10, ms)
+        arms[arm] = {"events_ms": ms, "profile": prof,
+                     "host_ms_median_p90_n": _host_ms(
+                         lambda fn=fn, state=state: fn(state, xd), 50)}
+        print(json.dumps({"profile": f"train step ({arm})", **prof}))
+    step_ms, profile = arms["graph"]["events_ms"], arms["graph"]["profile"]
+    for arm, r in arms.items():
+        print(f"  train step ({arm}): {r['events_ms']:.4f} ms (chained_ms, "
+              f"CUDA events), host median/p90 "
+              f"{r['host_ms_median_p90_n'][0]:.4f}/"
+              f"{r['host_ms_median_p90_n'][1]:.4f} ms, device busy "
+              f"{r['profile']['device_busy_ms']:.4f} ms (idle "
+              f"{r['profile']['idle_share']:.1%}), "
+              f"{r['profile']['kernels_per_call']:.1f} kernels")
+
+    # capturable Adam on the card against the CPU port's plain Adam after
+    # 100 recipe steps, beside the card's plain (non-capturable) Adam run
+    # eagerly: the gap is measured here, not assumed
+    short = dict(RECIPE, steps=100)
+    p_card, l_card = tt.finetune_filterbank(100, N_BAND, **short)
+    p_cpu, l_cpu = tt.finetune_filterbank(100, N_BAND, device="cpu", **short)
+    sched = tt.cosine_decay_schedule(short["lr"], short["steps"])
+
+    def plain_adam(t):
+        return torch.optim.Adam([t], lr=sched(0), betas=(0.9, 0.999),
+                                eps=1e-8)
+    plain_adam.schedule = sched
+    init, step = tt.make_train_step(plain_adam, loss_fn=loss_fn)
+    state = init(hk)
+    l_plain = torch.stack([step.eager(state, xb)[1] for xb in
+                           tt.noise_batches(0, 100, 4, 8192, "cuda")])
+    hk_plain = state.hk.detach().cpu().numpy()
+    scale = np.abs(p_cpu["hk"]).max()
+    gap = {
+        "capturable_vs_cpu_hk": float(np.abs(p_card["hk"] - p_cpu["hk"])
+                                      .max() / scale),
+        "plain_vs_cpu_hk": float(np.abs(hk_plain - p_cpu["hk"]).max()
+                                 / scale),
+        "capturable_vs_plain_hk": float(np.abs(p_card["hk"] - hk_plain)
+                                        .max() / scale),
+        "capturable_vs_cpu_loss": float(np.max(np.abs(l_card - l_cpu)
+                                               / l_cpu)),
+        "plain_vs_cpu_loss": float(np.max(np.abs(
+            l_plain.cpu().numpy() - l_cpu) / l_cpu))}
+    print(f"  100 recipe steps, card vs the CPU port: max|dhk|/max|hk| "
+          f"capturable {gap['capturable_vs_cpu_hk']:.3g}, plain Adam "
+          f"{gap['plain_vs_cpu_hk']:.3g} (capturable vs plain "
+          f"{gap['capturable_vs_plain_hk']:.3g}); worst loss rel "
+          f"capturable {gap['capturable_vs_cpu_loss']:.3g}, plain "
+          f"{gap['plain_vs_cpu_loss']:.3g}")
+    out["adam_gap_100_steps"] = gap
     cc.reset_launches()
     snr = {name: tt.roundtrip_snr(p, 100, N_BAND, sixty)
            for name, p in [("designed", None),
@@ -986,8 +1165,8 @@ def _training_phase(sixty: np.ndarray, card: str) -> dict:
     stopband = {"trained": tt.worst_stopband_db(params["hk"]),
                 "committed": tt.worst_stopband_db(
                     tt.load_pretrained_bank()["hk"])}
-    print(f"  recipe {RECIPE}: {wall:.2f} s wall, {step_ms:.4f} ms a step "
-          f"(chained_ms, CUDA events), loss {losses[0]:.4e} -> "
+    print(f"  recipe {RECIPE} (graphed): {wall:.2f} s wall, {step_ms:.4f} "
+          f"ms a step (chained_ms, CUDA events), loss {losses[0]:.4e} -> "
           f"{losses[-1]:.4e}; launches while training {train_launches}")
     print(f"  steady-state SNR on the 60 s signal (K3, edge trim 512): "
           f"trained {snr['trained']:.4f} dB, designed {snr['designed']:.4f} "
@@ -1021,12 +1200,102 @@ def _training_phase(sixty: np.ndarray, card: str) -> dict:
         "recipe": RECIPE, "recipe_wall_s": wall, "train_step_ms": step_ms,
         "train_step_device_busy_ms": profile["device_busy_ms"],
         "train_step_idle_share": profile["idle_share"],
+        "train_step_arms": arms,
         "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
         "steady_snr_db_60s": snr, "worst_stopband_db": stopband,
         "k3_launches_readout": readout_launches["roundtrip"],
         "launches_training": train_launches, "remat_dloss": dl,
         "remat_dhk": dhk})
     return out
+
+
+def _native_phase(card: str, dev: str = "cuda") -> dict:
+    """Phase 3d: the native C data layer (``pqmf_tpu_torch/native``) on the
+    card's machine, built from the checkout's source into
+    ``pqmf_tpu_torch/_build/`` (phase 1): the ``blocks`` CLI's host loop
+    (10 s, 4096 / 2048, the flagship on the card) reads its wav,
+    overlap-adds every block and writes its three wavs through it
+    (``native.CALLS``); the same run with the library withheld (the NumPy
+    path) writes the same arrays and files bit for bit (its samples lie in
+    [-1, 1]); and the library's encoder, decoders and OLA equal the NumPy
+    forms on in-range samples.
+    ``dev="cpu"`` rehearses it with the CLI on the CPU."""
+    import torch
+
+    from pqmf_tpu_torch import native
+    from pqmf_tpu_torch.cli import blocks as blocks_cli
+    from pqmf_tpu_torch.utils import audio
+
+    print(f"native data layer on the machine of {card}:")
+    path, lib = native.build(), native.get()  # built in phase 1
+    assert path is not None and lib is not None, "the C library did not build"
+    print(f"  library: {path.relative_to(path.parents[2])}")
+    td = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    wav = os.path.join(td, "in.wav")
+    audio.write_wav(wav, _audio(10 * SR, 14) * 0.5, SR)
+    n_frames = -(-(10 * SR - OLA_BLOCK) // (OLA_BLOCK - OLA_OVERLAP)) + 1
+    written, calls, arm = {}, {}, [None]
+    real_write, real_get, real_native = (audio.write_wav, native.get,
+                                         audio._native)
+
+    def capture(p, x, sr, subtype="PCM_16"):
+        written.setdefault(arm[0], {})[os.path.basename(p)] = np.array(x)
+        real_write(p, x, sr, subtype)
+
+    audio.write_wav = capture
+    try:
+        for arm[0] in ("C", "NumPy"):
+            if arm[0] == "NumPy":
+                native.get = audio._native = lambda: None
+            native.CALLS.clear()
+            rc = blocks_cli.main([
+                wav, "--out_dir", os.path.join(td, arm[0]), "--block",
+                str(OLA_BLOCK), "--overlap", str(OLA_OVERLAP), "--shifts",
+                ",".join(str(v) for v in SHIFTS16), "--device", dev])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            assert rc == 0, (arm[0], rc)
+            calls[arm[0]] = dict(native.CALLS)
+    finally:
+        audio.write_wav, native.get, audio._native = (real_write, real_get,
+                                                      real_native)
+    want = {"pcm16_to_f32": 1, "ola_accumulate": 2 * n_frames,
+            "f32_to_pcm16": 3}
+    assert calls == {"C": want, "NumPy": {}}, calls
+    peak = 0.0
+    for name, a in written["C"].items():
+        b = written["NumPy"][name]
+        assert a.shape == b.shape == (1, 10 * SR) and np.array_equal(a, b), \
+            name
+        peak = max(peak, float(np.abs(a).max()))
+        with open(os.path.join(td, "C", name), "rb") as f, \
+                open(os.path.join(td, "NumPy", name), "rb") as g:
+            assert f.read() == g.read(), name
+    print(f"  blocks CLI host loop ({n_frames} blocks): library calls "
+          f"{calls['C']}; the NumPy run (library withheld) wrote the same "
+          f"{len(written['C'])} arrays and files bit for bit (peak "
+          f"{peak:.3f})")
+    # the library against the NumPy forms on in-range samples
+    rng = np.random.default_rng(16)
+    x = rng.uniform(-1.0, 1.0, 1 << 20).astype(np.float32)
+    pcm = lib.f32_to_pcm16(x)
+    assert np.array_equal(
+        pcm, (np.clip(x, -1.0, 1.0) * 32767.0).round().astype("<i2"))
+    assert np.array_equal(lib.pcm16_to_f32(pcm.tobytes()),
+                          pcm.astype(np.float32) / 32768.0)
+    acc, nrm = np.zeros(1 << 16, np.float32), np.zeros(1 << 16, np.float32)
+    acc_np, nrm_np = acc.copy(), nrm.copy()
+    win = x[:OLA_BLOCK] ** 2
+    for i in range(0, acc.size - OLA_BLOCK + 1, OLA_BLOCK - OLA_OVERLAP):
+        blk = x[i:i + OLA_BLOCK]
+        lib.ola_accumulate(acc, nrm, blk, win, i)
+        acc_np[i:i + OLA_BLOCK] += blk * win
+        nrm_np[i:i + OLA_BLOCK] += win * win
+    assert np.array_equal(acc, acc_np) and np.array_equal(nrm, nrm_np)
+    print("  encoder, decoder and OLA == NumPy on 2^20 in-range samples")
+    shutil.rmtree(td)
+    return {"library": path.name, "calls": calls["C"],
+            "cli_bit_equal": True, "peak": peak}
 
 
 def main() -> int:
@@ -1045,6 +1314,7 @@ def main() -> int:
                                 ResamplePitchShift, StreamingPQMF,
                                 TorchaudioPitchShift, load_artifact,
                                 save_artifact, stream_ola)
+    from pqmf_tpu_torch import native
     from pqmf_tpu_torch.cli import blocks as blocks_cli
     from pqmf_tpu_torch.cli import (export_pqmf, export_pvoc, ps_torchaudio,
                                     vocoder)
@@ -1080,6 +1350,13 @@ def main() -> int:
     path = _build.build()
     lib = _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}")
+    # the native C data layer, before any wav is read or written
+    t0 = time.perf_counter()
+    wavio = native.build()
+    native_build_s = time.perf_counter() - t0
+    assert wavio is not None and native.get() is not None, \
+        "the native C library did not build"
+    print(f"native build: {native_build_s:.2f} s -> {wavio.name}")
     for line in path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
@@ -2145,6 +2422,10 @@ def main() -> int:
 
     # -- 3c. the CUDA graphs against their eager bodies ----------------------
     print(json.dumps({"graphs": _graphs_phase(card)}))
+
+    # -- 3d. the native C data layer ----------------------------------------
+    print(json.dumps({"native": {"build_s": native_build_s,
+                                 **_native_phase(card)}}))
 
     # -- 4. times, CUDA events after warm-up -----------------------------------
     cuda_ms, latency_ms = _events_ms, _host_ms

@@ -13,10 +13,12 @@ method that exists (the reference's calls a missing one, SURVEY.md
         [--buffer 8192] [--shifts s0,s1,...] [--seed N] [--artifact DIR]
         [--scan] [--stereo] [--finetuned] [--device cpu]
 
-The host loop overlap-adds in NumPy; ``--scan`` runs the whole stream
-through :func:`~pqmf_tpu_torch.pipelines.stream_ola` on the device
-instead. ``--stereo`` keeps all channels, one serving stream per channel
-with its own crossfade state (the reference mixes down).
+The host loop overlap-adds in the port's native C library
+(``pqmf_tpu_torch.native``, NumPy when no C compiler is available: the
+same bits); ``--scan`` runs the whole stream through
+:func:`~pqmf_tpu_torch.pipelines.stream_ola` on the device instead.
+``--stereo`` keeps all channels, one serving stream per channel with its
+own crossfade state (the reference mixes down).
 """
 
 from __future__ import annotations
@@ -126,12 +128,25 @@ def main(argv=None) -> int:
         recon_stream = recon.cpu().numpy()[:, : total_len - pad]
         print(f"stream_ola: {time.perf_counter() - t0:.2f} s")
     else:
+        from pqmf_tpu_torch import native
+
         n = np.arange(args.block)
         window = (0.5 - 0.5 * np.cos(2 * np.pi * n / args.block)).astype(
             np.float32)[None, :]
         out_accum = np.zeros((n_ch, total_len), np.float32)
-        recon_accum = np.zeros_like(out_accum)
         norm_accum = np.zeros_like(out_accum)
+        recon_accum = np.zeros_like(out_accum)
+        recon_norm = np.zeros_like(out_accum)
+        nat = native.get()  # the C accumulator; None -> NumPy
+
+        def ola(acc, nrm, blk, i):
+            if nat is not None:
+                for c in range(acc.shape[0]):
+                    nat.ola_accumulate(acc[c], nrm[c], blk[c], window[0], i)
+            else:
+                acc[:, i:i + args.block] += blk * window
+                nrm[:, i:i + args.block] += window * window
+
         # mono: the reference's single-stream stateful step; --stereo: one
         # serving stream per channel, each with its own crossfade state
         if n_ch == 1:
@@ -143,13 +158,12 @@ def main(argv=None) -> int:
             i = frame_idx * hop
             blk = wav[:, i:i + args.block] * window
             state, out = step(state, blk)
+            ola(out_accum, norm_accum, out.cpu().numpy(), i)
             rec = wrapper.forward_fn(blk[:, None, :])
-            out_accum[:, i:i + args.block] += out.cpu().numpy() * window
-            recon_accum[:, i:i + args.block] += rec.cpu().numpy() * window
-            norm_accum[:, i:i + args.block] += window * window
+            ola(recon_accum, recon_norm, rec.cpu().numpy(), i)
         eps = 1e-8
         pitch_stream = (out_accum / (norm_accum + eps))[:, : total_len - pad]
-        recon_stream = (recon_accum / (norm_accum + eps))[:, : total_len - pad]
+        recon_stream = (recon_accum / (recon_norm + eps))[:, : total_len - pad]
 
     # whole-file pass with the real-time buffer limit lifted; several
     # channels ride the batch axis, where (as in the reference, batch==1

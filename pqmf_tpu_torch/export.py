@@ -37,6 +37,7 @@ import warnings
 import numpy as np
 import torch
 
+from pqmf_tpu_torch import graphs
 from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.pipelines import (PQMFPitchShiftWrapper,
                                       PQMFPitchShiftWrapperTA, PQMFWrapper)
@@ -312,7 +313,15 @@ def load_stablehlo(path: str, method: str | None = None, device="cuda"):
     copied contiguous, as the wrapper's checks do; the kernel operators
     check their operands again before they launch. The program runs inside
     ``ops.filterbank.full_f32()``, so it sees the TF32 and matmul settings
-    of the live step."""
+    of the live step.
+
+    On the card the program is a CUDA graph a geometry of its arguments
+    (shapes and dtypes; ``graphs.Program``, kept in the callable), the
+    port of the JAX executable's ``exp.call``: the first call runs the
+    module eagerly and captures it, later calls replay it. The checks stay
+    in Python, before the program runs. The program's constants are its
+    own, so no ``weights_version`` is kept. ``program.eager`` runs the
+    module without the graph, after the same checks."""
     dev = resolve_device(device)
     mpath = os.path.join(path, "manifest.json")
     if not os.path.exists(mpath):
@@ -342,11 +351,17 @@ def load_stablehlo(path: str, method: str | None = None, device="cuda"):
             f"{sorted(map(str, held))}; it cannot run on {dev}")
     module = ep.module()
 
-    def program(*args):
+    def run(*args):
+        with torch.no_grad(), fb.full_f32():
+            return module(*args)
+
+    programs = {}  # the graphs, a geometry of the arguments each
+
+    def checked(args) -> list:
         if len(args) != len(specs):
             raise TypeError(f"the {method!r} program takes {len(specs)} "
                             f"arguments, got {len(args)}")
-        checked = []
+        out = []
         for i, (a, spec) in enumerate(zip(args, specs)):
             if not isinstance(a, torch.Tensor):
                 raise TypeError(f"argument {i} must be a torch.Tensor, got "
@@ -355,8 +370,16 @@ def load_stablehlo(path: str, method: str | None = None, device="cuda"):
                 raise ValueError(
                     f"argument {i} is {a.dtype} on {a.device}; the program "
                     f"takes {spec.dtype} on {dev}")
-            checked.append(a.contiguous())
-        with torch.no_grad(), fb.full_f32():
-            return module(*checked)
+            out.append(a.contiguous())
+        return out
 
+    def program(*args):
+        args = checked(args)
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        prog = programs.get(key)
+        if prog is None:
+            prog = programs[key] = graphs.Program(run, dev)
+        return prog(*args)
+
+    program.eager = lambda *args: run(*checked(args))
     return program

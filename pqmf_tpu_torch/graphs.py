@@ -2,8 +2,11 @@
 
 The JAX package runs each serving step as one XLA program, compiled once
 per static geometry: the flagship step (``pqmf_tpu/pipelines.py:182``),
-the torchaudio variant's block (``_pitchshifter_jit``, ``:1007``) and the
-whole block-streaming harness (``_stream_ola_program``, ``:741-850``).
+the torchaudio variant's block (``_pitchshifter_jit``, ``:1007``), the
+whole block-streaming harness (``_stream_ola_program``, ``:741-850``),
+``scan_blocks`` (``lax.scan``, ``pqmf_tpu/streaming.py:543``), the train
+step (``pqmf_tpu/parallel/training.py:193``) and the reloaded artifact
+program (``pqmf_tpu/export.py:299-325``).
 Here an eager step body is captured once per static key as a
 ``torch.cuda.CUDAGraph`` and replayed from then on, so a step costs one
 graph launch on the host instead of one Python dispatch per op. The graph
@@ -24,14 +27,20 @@ the body anew and is not used).
   and each replay adds the counts the capture recorded.
 - On the CPU nothing is captured: the body runs. On CUDA there is no
   fallback: a capture or replay that fails raises with its error.
+- Programs nest: one called while another capture runs on the current
+  stream (``scan_blocks`` over the graphed ``pitchshift_fn``) runs its
+  eager body and records nothing, and the outer capture records its
+  launches.
 
-The graphs live where the caller keeps them, on the wrapper instance
-(``wrapper._graphs``, ``wrapper._stream_ola_fns``), keyed by everything
-the JAX package makes static and by the PQMF's ``weights_version``: a
-graph holds the addresses of the banks it read, and ``set_weights``
-installs new ones, so an entry of an older version is evicted (as
-``pqmf_tpu/pipelines.py:838-845`` evicts its programs) and its pool
-freed. A dropped wrapper frees its graphs with it.
+The graphs live where the caller keeps them: on the wrapper instance
+(``wrapper._graphs``, ``wrapper._stream_ola_fns``), on the
+``StreamingPQMF`` (``scan_blocks``), on the ``TrainState`` (the train
+step) and in the loaded program's closure, keyed by everything the JAX
+package makes static and, where a PQMF's banks are read, by its
+``weights_version``: a graph holds the addresses of the banks it read, and
+``set_weights`` installs new ones, so an entry of an older version is
+evicted (as ``pqmf_tpu/pipelines.py:838-845`` evicts its programs) and its
+pool freed. A dropped owner frees its graphs with it.
 """
 
 from __future__ import annotations
@@ -57,6 +66,13 @@ def _counts() -> list:
 def _graphed(device: torch.device) -> bool:
     """Whether a body on ``device`` is captured (CUDA) or run (CPU)."""
     return device.type == "cuda"
+
+
+def _capturing() -> bool:
+    """Whether a capture is running on the current stream: a program
+    called inside it runs its body into the outer graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
 
 
 _STREAMS: dict = {}
@@ -121,7 +137,8 @@ def _capture(fn, args, device: torch.device):
 
 class Program:
     """One step body over one static geometry: eager on the first call
-    (then captured), replayed after; eager on the CPU."""
+    (then captured), replayed after; eager on the CPU and inside another
+    program's capture."""
 
     def __init__(self, fn, device: torch.device):
         self.fn = fn
@@ -133,7 +150,7 @@ class Program:
         self._static_out = None
 
     def __call__(self, *args):
-        if not _graphed(self.device):
+        if not _graphed(self.device) or _capturing():
             return self.fn(*args)
         if self._replay is None:
             out = self.fn(*args)
@@ -191,10 +208,11 @@ class Program:
 def call(cache: dict, key: tuple, fn, *args):
     """``fn(*args)`` through the program of ``key`` in ``cache`` (a dict on
     the wrapper; ``key[-1]`` is the PQMF's ``weights_version``). Entries
-    of another version are evicted when a key is first seen. On the CPU
-    ``fn`` runs and nothing is cached."""
+    of another version are evicted when a key is first seen. On the CPU,
+    and inside another program's capture, ``fn`` runs and nothing is
+    cached."""
     device = key[-2]
-    if not _graphed(device):
+    if not _graphed(device) or _capturing():
         return fn(*args)
     prog = cache.get(key)
     if prog is None:

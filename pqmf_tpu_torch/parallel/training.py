@@ -16,6 +16,11 @@ quality readout, :func:`streaming_roundtrip_snr`, runs
 ``StreamingPQMF.roundtrip``: one K3 launch at every committed band count,
 M = 2 to 64.
 
+On the card the train step is one CUDA graph (``graphs.py``), the port
+of ``jax.jit(step)``: forward, backward and a capturable Adam, captured
+once per batch geometry on the :class:`TrainState` and replayed every
+step after (:func:`make_train_step`).
+
 Data-parallel training over a mesh (``mesh=``) is not ported yet (ROADMAP
 queue 1, item 9); passing one raises. Every entry point runs on the card
 unless the caller asks for ``device="cpu"``.
@@ -23,12 +28,14 @@ unless the caller asks for ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from pqmf_tpu_torch import graphs
 from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.streaming import StreamingPQMF, resolve_device
 from pqmf_tpu_torch.utils.audio import read_wav
@@ -124,15 +131,32 @@ def make_finetune_loss(n_band: int, n_taps: int, trim: int | None = None,
     return loss_fn
 
 
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms only, restored after. With cuDNN's
+    default choice at ``highest`` two runs of one step differ in the last
+    bits (two eager steps by 1e-11 in the loss on an NVIDIA H100 80GB HBM3,
+    700.00 W: ``tools/train_determinism.py``), and so would the eager step
+    and its graph."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 def loss_and_grad(loss_fn, hk: torch.Tensor, x: torch.Tensor,
                   precision: str = "highest") -> tuple:
     """``(loss, d loss / d hk)`` of ``loss_fn(hk, x, precision)``, both
     detached (``jax.value_and_grad``). The forward AND the backward run
     inside ``full_f32()``: autograd's backward convs run after the forward
     returns, and on the card cuDNN would run them in TF32 (about three
-    decimal digits), against a residual about 1e-3 of the signal."""
+    decimal digits), against a residual about 1e-3 of the signal. They also
+    run on cuDNN's deterministic algorithms, so a step gives the same bits
+    each time it runs, eagerly or replayed."""
     hk = hk.detach().requires_grad_(True)
-    with fb.full_f32():
+    with fb.full_f32(), _cudnn_deterministic():
         loss = loss_fn(hk, x, precision)
         grad, = torch.autograd.grad(loss, hk)
     return loss.detach(), grad
@@ -167,22 +191,51 @@ def adam(learning_rate):
     factory mapping ``hk`` to ``torch.optim.Adam`` (betas 0.9 / 0.999, eps
     1e-8) at a constant ``learning_rate`` or, for a callable, the schedule
     ``count -> lr`` (read at the count before each step; the factory's
-    ``schedule`` attribute)."""
+    ``schedule`` attribute).
+
+    On the card the Adam is ``capturable``, so one CUDA graph serves every
+    step: its count and its lr live on the card (a float lr would be baked
+    into the graph; :func:`make_train_step` writes each step's value into
+    the lr tensor), and its moments and count are made here, in ``hk``'s
+    dtype, before any step (Adam's own count would be float32, and a
+    float64 run's bias corrections with it). On the CPU it is the plain
+    Adam with a float lr."""
     schedule = learning_rate if callable(learning_rate) else None
 
     def factory(hk: torch.Tensor) -> torch.optim.Optimizer:
-        lr = schedule(0) if schedule is not None else learning_rate
-        return torch.optim.Adam([hk], lr=float(lr), betas=(0.9, 0.999),
-                                eps=1e-8)
+        lr = float(schedule(0) if schedule is not None else learning_rate)
+        betas, eps = (0.9, 0.999), 1e-8
+        if hk.device.type != "cuda":
+            return torch.optim.Adam([hk], lr=lr, betas=betas, eps=eps)
+        opt = torch.optim.Adam(
+            [hk], lr=torch.tensor(lr, dtype=hk.dtype, device=hk.device),
+            betas=betas, eps=eps, capturable=True)
+        opt.state[hk] = {"step": hk.new_zeros(()),
+                         "exp_avg": torch.zeros_like(hk),
+                         "exp_avg_sq": torch.zeros_like(hk)}
+        return opt
 
     factory.schedule = schedule
     return factory
 
 
+def _set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The step's lr: written into a capturable Adam's lr tensor on the
+    card (a kernel launch, no host sync), set as a float elsewhere."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
 class TrainState:
     """The train state: ``hk`` (a leaf tensor with ``requires_grad``), the
     torch optimizer over it, the lr ``schedule`` (None for a constant lr)
-    and ``count``, the steps taken (the schedule's count)."""
+    and ``count``, the steps taken (the schedule's count). On the card it
+    keeps its steps' CUDA graphs (``_graphs``): a graph holds the addresses
+    of this state's ``hk`` and Adam moments, so a new state, or one that
+    :func:`load_train_state` makes, captures its own."""
 
     def __init__(self, hk: torch.Tensor, optimizer: torch.optim.Optimizer,
                  schedule=None, count: int = 0):
@@ -190,6 +243,7 @@ class TrainState:
         self.optimizer = optimizer
         self.schedule = schedule
         self.count = count
+        self._graphs = {}
 
 
 def _batch_on(x, like: torch.Tensor) -> torch.Tensor:
@@ -216,7 +270,18 @@ def make_train_step(optimizer=None, mesh=None, precision: str = "highest",
     :func:`make_finetune_loss`'s result for quality fine-tuning.
     ``remat=True`` recomputes the loss's forward in the backward
     (``torch.utils.checkpoint``) instead of keeping its activations.
-    ``mesh`` (data-parallel training) is not ported yet and raises."""
+    ``mesh`` (data-parallel training) is not ported yet and raises.
+
+    On the card the step is one CUDA graph a ``(batch shape, dtype,
+    precision, remat, loss)``, kept on the state (``jax.jit(step)``): its
+    first call runs eagerly (Adam's lazy set-up, cuDNN's algorithm choice
+    and the loss's cached constants happen there), then the body — the
+    loss and its gradient, the ``hk.grad`` assignment and
+    ``optimizer.step()`` — is captured, and every later step copies the
+    batch into the graph's buffer, writes the schedule's lr into Adam's lr
+    tensor and replays. ``hk`` and Adam's moments are updated in place by
+    the replay. ``step_fn.eager`` takes the same step without the graph
+    (the card checks hold the graph against it)."""
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...): data-parallel training over a mesh "
@@ -232,7 +297,9 @@ def make_train_step(optimizer=None, mesh=None, precision: str = "highest",
         inner = loss_fn
 
         def loss_fn(hk, x, precision):
-            return checkpoint(inner, hk, x, precision, use_reentrant=False)
+            # the loss draws no random numbers: no RNG state to keep
+            return checkpoint(inner, hk, x, precision, use_reentrant=False,
+                              preserve_rng_state=False)
 
     def init_fn(hk) -> TrainState:
         t = (hk.detach().to(dev).clone() if isinstance(hk, torch.Tensor)
@@ -240,17 +307,32 @@ def make_train_step(optimizer=None, mesh=None, precision: str = "highest",
         t.requires_grad_(True)
         return TrainState(t, optimizer(t), schedule)
 
-    def step_fn(state: TrainState, x):
-        loss, state.hk.grad = loss_and_grad(
-            loss_fn, state.hk, _batch_on(x, state.hk), precision)
+    def step(state: TrainState, x, graphed: bool):
+        x = _batch_on(x, state.hk)
         if state.schedule is not None:
-            lr = state.schedule(state.count)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-        state.optimizer.step()
+            _set_lr(state.optimizer, state.schedule(state.count))
+
+        def body(xb):
+            loss, state.hk.grad = loss_and_grad(loss_fn, state.hk, xb,
+                                                precision)
+            state.optimizer.step()
+            return loss
+
+        if graphed:
+            key = (tuple(x.shape), x.dtype, precision, remat, loss_fn)
+            prog = state._graphs.get(key)
+            if prog is None:
+                prog = state._graphs[key] = graphs.Program(body, x.device)
+            loss = prog(x)
+        else:
+            loss = body(x)
         state.count += 1
         return state, loss
 
+    def step_fn(state: TrainState, x):
+        return step(state, x, graphs._graphed(state.hk.device))
+
+    step_fn.eager = lambda state, x: step(state, x, False)
     return init_fn, step_fn
 
 
@@ -427,7 +509,11 @@ def load_train_state(template: TrainState, path: str) -> TrainState:
     sd["state"] = {0: {"step": torch.tensor(float(leaves[1])),
                        "exp_avg": torch.from_numpy(leaves[2]),
                        "exp_avg_sq": torch.from_numpy(leaves[3])}}
-    opt.load_state_dict(sd)
+    opt.load_state_dict(sd)  # deep-copies the groups: the lr tensor too
+    if opt.defaults.get("capturable"):
+        # load_state_dict makes a capturable count float32; adam() keeps
+        # it in hk's dtype
+        opt.state[hk]["step"] = opt.state[hk]["step"].to(hk.dtype)
     count = int(leaves[4]) if n == 5 else int(leaves[1])
     return TrainState(hk, opt, template.schedule, count)
 

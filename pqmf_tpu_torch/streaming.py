@@ -21,11 +21,14 @@ same wrappers run their plain versions at the same tier.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from pqmf_tpu_torch import graphs
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.ops import filterbank as fb
 
@@ -236,6 +239,7 @@ class StreamingPQMF:
         self.n_channels = int(n_channels)
         self.device = resolve_device(device)
         self.weights_version = 0
+        self._graphs = {}  # scan_blocks' CUDA graphs (graphs.call)
         self._install(fb.build_filterbank(attenuation, n_band))
 
     def _install(self, params, hkf=None, hki=None):
@@ -437,17 +441,57 @@ class StreamingPQMF:
         return y.reshape(B, self.n_channels, -1)
 
 
-def scan_blocks(step_fn, state, blocks):
-    """Run a streaming step over pre-framed blocks ``[n_blocks, B, C,
-    T_block]`` (an array or a tensor): ``state, y = step_fn(state,
-    blocks[i])`` in order, the state carried. Returns ``(state, ys)`` with
-    the steps' outputs (tensors) stacked on a new first axis — the contract
-    of the reference's ``scan_blocks`` (``lax.scan``), as a loop: PyTorch
-    runs each step eagerly."""
-    if len(blocks) == 0:
-        raise ValueError("scan_blocks needs at least one block")
+def _versioned_owner(step_fn):
+    """The object whose banks a bound ``step_fn`` reads, and their
+    version: a ``StreamingPQMF`` (``process_block``) or a wrapper with one
+    (``pitchshift_fn``, ``pitchshift_streams``); ``(None, None)`` for any
+    other callable."""
+    owner = getattr(step_fn, "__self__", None)
+    if owner is None or not hasattr(owner, "_graphs"):
+        return None, None
+    version = getattr(owner, "weights_version", None)
+    if version is None:
+        version = getattr(getattr(owner, "pqmf", None), "weights_version",
+                          None)
+    return (owner, version) if version is not None else (None, None)
+
+
+def _scan(step_fn, state, blocks):
     ys = []
     for block in blocks:
         state, y = step_fn(state, block)
         ys.append(y)
     return state, torch.stack(ys)
+
+
+def scan_blocks(step_fn, state, blocks):
+    """Run a streaming step over pre-framed blocks ``[n_blocks, B, C,
+    T_block]`` (an array or a tensor): ``state, y = step_fn(state,
+    blocks[i])`` in order, the state carried. Returns ``(state, ys)`` with
+    the steps' outputs (tensors) stacked on a new first axis — the contract
+    of the reference's ``scan_blocks`` (``lax.scan``, one program with no
+    host round trip).
+
+    On a CUDA device, when ``step_fn`` is a bound method of a
+    ``StreamingPQMF`` (``process_block``) or of a wrapper over one
+    (``pitchshift_fn``, ``pitchshift_streams``), the whole loop and the
+    stack are one CUDA graph (``graphs.call``), cached on that object per
+    (step, n_blocks, block shape, dtype, the state's tree and shapes,
+    device, ``weights_version``): the first call of a stream's geometry
+    runs the loop and captures it, later calls replay it; a graphed step
+    runs its eager body inside that capture. The blocks then become one
+    tensor on the object's device first. Any other callable runs the loop,
+    one step at a time, on whatever device its tensors are."""
+    if len(blocks) == 0:
+        raise ValueError("scan_blocks needs at least one block")
+    owner, version = _versioned_owner(step_fn)
+    if owner is None or not graphs._graphed(owner.device):
+        return _scan(step_fn, state, blocks)
+    blocks = as_device_tensor(blocks, owner.device)
+    leaves, spec = pytree.tree_flatten(state)
+    key = ("scan_blocks", step_fn.__name__, blocks.shape[0],
+           tuple(blocks.shape[1:]), blocks.dtype, str(spec),
+           tuple((tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor)
+                 else t for t in leaves), owner.device, version)
+    return graphs.call(owner._graphs, key,
+                       functools.partial(_scan, step_fn), state, blocks)

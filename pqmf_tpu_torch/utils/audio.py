@@ -2,9 +2,13 @@
 
 Counterpart of ``pqmf_tpu/utils/audio.py`` (which replaces the reference's
 torchaudio/soundfile loaders, VocoderPitchShifter.py:309-344,
-PQMFWrapper.py:113/134) on the stdlib ``wave`` module and NumPy: PCM
-8/16/24/32 and IEEE float32 WAVs. The sample-format conversion is the JAX
-package's NumPy path; its optional native C decoder is not ported.
+PQMFWrapper.py:113/134) on the stdlib ``wave`` module: PCM 8/16/24/32 and
+IEEE float32 WAVs. As in the JAX package, PCM16/24 decoding and PCM16
+encoding run in the port's native C library (``pqmf_tpu_torch.native``)
+when it builds, and in NumPy when no C compiler is available. The two
+paths give the same bits on samples in [-1, 1]; below -1.0 the C encoder
+writes -32768 where NumPy's writes -32767 (the JAX package's two paths
+differ the same way).
 """
 
 from __future__ import annotations
@@ -55,7 +59,19 @@ def _read_float_wav(path: str):
     raise ValueError(f"unsupported WAV format tag {tag} bits {bits}")
 
 
+def _native():
+    from pqmf_tpu_torch import native
+
+    return native.get()
+
+
 def _decode_pcm(raw: bytes, bits: int) -> np.ndarray:
+    nat = _native()
+    if nat is not None:
+        if bits == 16:
+            return nat.pcm16_to_f32(raw)
+        if bits == 24:
+            return nat.pcm24_to_f32(raw)
     if bits == 16:
         return np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
     if bits == 32:
@@ -91,8 +107,8 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
 def write_wav(path: str, x: np.ndarray, sr: int, subtype: str = "PCM_16"):
     """Write float32 audio [C, T] or [T] to a WAV file.
 
-    subtype: 'PCM_16' (default, the reference's save path; clipped to
-    [-1, 1] and rounded) or 'FLOAT' for IEEE float32."""
+    subtype: 'PCM_16' (default, the reference's save path; scaled by 32767,
+    clipped and rounded to nearest even) or 'FLOAT' for IEEE float32."""
     x = np.asarray(x, dtype=np.float32)
     if x.ndim == 1:
         x = x[None]
@@ -113,7 +129,11 @@ def write_wav(path: str, x: np.ndarray, sr: int, subtype: str = "PCM_16"):
         return
     if subtype != "PCM_16":
         raise ValueError(f"unknown subtype {subtype!r}: 'PCM_16' or 'FLOAT'")
-    pcm = (np.clip(inter, -1.0, 1.0) * 32767.0).round().astype("<i2")
+    nat = _native()
+    if nat is not None:
+        pcm = nat.f32_to_pcm16(inter)
+    else:
+        pcm = (np.clip(inter, -1.0, 1.0) * 32767.0).round().astype("<i2")
     with wave.open(str(path), "wb") as w:
         w.setnchannels(C)
         w.setsampwidth(2)

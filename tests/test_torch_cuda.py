@@ -1156,6 +1156,18 @@ def test_aot_program_bit_equal_to_live(dev, tmp_path, kind, tier):
     torch.cuda.synchronize()
     assert dict(cc.LAUNCHES) == {"analysis": 2, "synthesis": 2,
                                  "roundtrip": 0}
+    # the first block ran the module eagerly, the second replayed its graph:
+    # both equal the module run without a graph
+    eager, tail_e = [], tail_l
+    for x in xs:
+        if kind == "flagship":
+            tail_e, y = program.eager(tail_e, x[0])
+            eager.append(y)
+        elif kind == "ta":
+            eager.append(program.eager(x))
+        else:
+            eager.extend(program.eager(x))
+    _bit_equal(got, eager, f"AOT {kind} graph vs eager [{tier}]")
     for x in xs:
         if kind == "flagship":
             state, y = w.pitchshift_fn({"prev_tail": tail_l}, x[0])
@@ -1445,3 +1457,140 @@ def test_dropped_wrapper_returns_its_graph_pools(dev):
     now = memory()
     assert now[0] - base[0] < 1 << 20 and now[1] - base[1] < 1 << 20, \
         (now, base)
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("owner", ["StreamingPQMF.process_block",
+                                   "flagship.pitchshift_fn"])
+def test_graph_scan_blocks_equals_the_loop(dev, tier, owner):
+    """``scan_blocks`` over 8 pre-framed 8192 blocks is one graph a stream:
+    its replay equals the loop of eager steps bit for bit (state too), and
+    launches 8 K1 + 8 K2."""
+    from pqmf_tpu_torch.streaming import scan_blocks
+
+    if owner.startswith("StreamingPQMF"):
+        sp = StreamingPQMF(100, 16, precision=tier, device="cuda")
+        step, eager, s0 = sp.process_block, sp.process_block, sp.init_state()
+        x = torch.stack(_blocks(dev, 8, 70))[:, :, None]  # [8, 1, 1, T]
+        graphs_of = sp._graphs
+    else:
+        w = _flagship16(tier, dev)
+        step, eager, s0 = (w.pitchshift_fn, w._pitchshift_fn_eager,
+                           w.init_state())
+        x = torch.stack(_blocks(dev, 8, 71))              # [8, 1, T]
+        graphs_of = w._graphs
+    state, loop = s0, []
+    for b in x:
+        state, y = eager(state, b)
+        loop.append(y)
+    first = scan_blocks(step, s0, x)
+    cc.reset_launches()
+    replay = scan_blocks(step, s0, x)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"analysis": 8, "synthesis": 8, "roundtrip": 0}
+    for ts, ys in (first, replay):
+        _bit_equal([ys, *pytree_leaves(ts)],
+                   [torch.stack(loop), *pytree_leaves(state)],
+                   f"scan_blocks over {owner} [{tier}]")
+    scans = [p for k, p in graphs_of.items() if k[0] == "scan_blocks"]
+    assert len(scans) == 1 and scans[0].launches[0] == {
+        "analysis": 8, "synthesis": 8, "roundtrip": 0}
+
+
+def pytree_leaves(tree):
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def _train(tier, remat, hk=None, steps=8):
+    from pqmf_tpu_torch.parallel import training as tt
+
+    init, step = tt.make_train_step(
+        tt.adam(tt.cosine_decay_schedule(2e-5, steps)), precision=tier,
+        remat=remat, loss_fn=tt.make_finetune_loss(16, 512), device="cuda")
+    if hk is None:
+        hk = StreamingPQMF(100, 16, device="cpu").params["hk"]
+    xs = list(torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (steps, 4, 1, 8192)).astype(np.float32)).cuda())
+    return tt, init, step, hk, xs
+
+
+def _same_state(a, b, what):
+    ma, mb = a.optimizer.state[a.hk], b.optimizer.state[b.hk]
+    _bit_equal([a.hk, ma["exp_avg"], ma["exp_avg_sq"], ma["step"]],
+               [b.hk, mb["exp_avg"], mb["exp_avg_sq"], mb["step"]], what)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("tier", ["highest", "bf16x3"])
+def test_graph_train_step_equals_the_eager_step(dev, tier, remat):
+    """Eight steps of the committed recipe's loss and shapes (cosine lr):
+    the graphed step (one capture, then one replay a step) equals the eager
+    capturable step bit for bit in every loss, in hk and in Adam's moments
+    and count; no K1/K2/K3 runs."""
+    _, init, step, hk, xs = _train(tier, remat)
+    sg, se = init(hk), init(hk)
+    assert sg.optimizer.param_groups[0]["capturable"]
+    cc.reset_launches()
+    for x in xs:
+        _, lg = step(sg, x)
+        _, le = step.eager(se, x)
+        _bit_equal([lg], [le], f"train step loss [{tier}, remat={remat}]")
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in cc.LAUNCHES.values())
+    _same_state(sg, se, f"train state [{tier}, remat={remat}]")
+    (prog,) = sg._graphs.values()
+    assert prog.stats["capture_ms"] > 0 and se._graphs == {}
+
+
+def test_graph_train_step_after_load_train_state(dev, tmp_path):
+    """A checkpoint loaded into a new state captures its own graph: its
+    graphed steps equal eager steps from the same checkpoint bit for bit,
+    and the saving state's graph goes on unchanged."""
+    tt, init, step, hk, xs = _train("highest", False)
+    a = init(hk)
+    for x in xs[:3]:
+        step(a, x)
+    path = tt.save_train_state(a, str(tmp_path / "a.npz"))
+    c, e = tt.load_train_state(a, path), tt.load_train_state(a, path)
+    assert c._graphs == {} and c.count == 3
+    for x in xs[3:]:
+        _, lc = step(c, x)
+        _, le = step.eager(e, x)
+        _bit_equal([lc], [le], "loaded state's graphed step")
+        step(a, x)
+    _same_state(c, e, "loaded state after graphed steps")
+    _same_state(a, c, "the saving state's own graph")
+
+
+_FAILED_CAPTURE = r"""
+import torch
+from pqmf_tpu_torch import graphs
+x = torch.ones(4, device="cuda")
+prog = graphs.Program(lambda t: t * t.sum().item(), x.device)
+try:
+    prog(x)  # the eager run, then the capture, which cannot sync
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0])
+else:
+    raise SystemExit("a failed capture did not raise")
+assert prog._replay is None
+ok = graphs.Program(lambda t: t * 2.0, x.device)
+for _ in range(3):
+    assert torch.equal(ok(x), x * 2.0)
+print("OK")
+"""
+
+
+def test_a_failed_capture_raises_on_the_card(dev):
+    """A body that syncs with the host cannot be captured: the capture
+    raises (no eager fallback), and later graphs in the process still
+    capture and replay. In a process of its own, so a broken capture cannot
+    reach the other tests."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    print(res.stdout)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "raised:" in res.stdout and res.stdout.rstrip().endswith("OK")

@@ -50,22 +50,32 @@ class StandIn:
     """A capture for the CPU: records the body, and its replay runs the body
     again over the static arguments and copies the result into the static
     outputs. A real replay touches no Python counter, so neither does this
-    one's body. ``fail`` makes the capture raise."""
+    one's body. While the body runs in either, ``graphs._capturing()`` is
+    true (a program it calls runs its body into this one, as it would into
+    a real capture). ``fail`` makes the capture raise."""
 
     def __init__(self):
         self.events = []
         self.fail = False
+        self.capturing = False
+
+    def inside(self, fn, args):
+        self.capturing = True
+        try:
+            return fn(*args)
+        finally:
+            self.capturing = False
 
     def __call__(self, fn, args, device):
         self.events.append("capture")
         if self.fail:
             raise RuntimeError("capture refused")
-        out = fn(*args)
+        out = self.inside(fn, args)
 
         def replay():
             self.events.append("replay")
             counts = _counts()
-            new = fn(*args)
+            new = self.inside(fn, args)
             _restore(counts)
             for o, n in zip(torch.utils._pytree.tree_leaves(out),
                             torch.utils._pytree.tree_leaves(new)):
@@ -80,6 +90,7 @@ def stand_in(monkeypatch):
     cap = StandIn()
     monkeypatch.setattr(graphs, "_graphed", lambda device: True)
     monkeypatch.setattr(graphs, "_capture", cap)
+    monkeypatch.setattr(graphs, "_capturing", lambda: cap.capturing)
     return cap
 
 

@@ -288,8 +288,9 @@ def test_cli_ps_torchaudio_default_shifts_and_bank(tmp_path, wav, capsys):
 @pytest.mark.parametrize("extra", [[], ["--scan"], ["--stereo"],
                                    ["--stereo", "--scan", "--finetuned"]])
 def test_cli_blocks(tmp_path, wav, extra):
-    """The host loop with its NumPy OLA and the --scan path write the
-    stream wavs and the whole-file pass; --stereo keeps both channels."""
+    """The host loop with its host OLA (the native C library, or NumPy:
+    the same bits) and the --scan path write the stream wavs and the
+    whole-file pass; --stereo keeps both channels."""
     from pqmf_tpu_torch.cli.blocks import main
 
     args = [wav, "--block", "1024", "--buffer", str(BUF), "--shifts",
@@ -312,9 +313,9 @@ def test_cli_blocks(tmp_path, wav, extra):
 
 @pytest.mark.parametrize("extra", [[], ["--stereo"]])
 def test_cli_blocks_host_loop_matches_jax(tmp_path, wav, extra):
-    """The host loop (float32 NumPy Hann window, NumPy OLA) against the JAX
-    CLI's own host loop on the same wav and flags: the two streams and the
-    whole-file pass agree to one PCM16 step."""
+    """The host loop (float32 NumPy Hann window, the host OLA) against the
+    JAX CLI's own host loop on the same wav and flags: the two streams and
+    the whole-file pass agree to one PCM16 step."""
     from pqmf_tpu.cli.blocks import main as j_main
 
     from pqmf_tpu_torch.cli.blocks import main

@@ -27,14 +27,13 @@ the JAX package. The checks (``tools/tpu_checks.py`` lines in brackets):
   carried (<= 1e-6; bit-equal expected) [:245-258]. It repeats, small, what
   ``chip_smoke.py``'s phase 3b holds for all five programs over 8 blocks
   (and ``tests/test_torch_cuda.py -k aot`` for each kind and tier): it is
-  kept so the script answers for every check of ``tools/tpu_checks.py``.
+  kept so the script answers for every check of ``tools/tpu_checks.py``;
+- fast serving: the ``default``-tier flagship against ``highest`` on one
+  8192 block (> 30 dB) [:261-270].
 
 ``tests/test_torch_cuda.py::test_gpu_checks_pass`` runs this script on the
 card and prints its lines; a card call needs no second run of it.
-
-Not here: the fast-serving quality check [:268], which waits for the bf16
-DFT GEMMs of the ``default`` tier (ROADMAP queue 1, item 4). ``--device
-cpu`` rehearses the same checks on the plain versions.
+``--device cpu`` rehearses the same checks on the plain versions.
 """
 
 from __future__ import annotations
@@ -193,6 +192,14 @@ def main(argv=None) -> int:
                       (tail_a - tail_l).abs().max().item())
     ok &= check("AOT program reload == live wrapper (2 blocks, tail)", err,
                 1e-6)
+
+    # fast serving: the default tier's flagship against highest
+    w_lo = PQMFPitchShiftWrapper(100, 16, 8192, SR, SHIFTS16,
+                                 precision="default", device=dev)
+    _, y_lo = w_lo.pitchshift_fn(w_lo.init_state(), on(xb))
+    _, y_hi = w.pitchshift_fn(w.init_state(), on(xb))
+    ok &= floor("fast-serving (default) flagship vs highest",
+                snr_db(y_hi.cpu().numpy(), y_lo.cpu().numpy()), 30.0)
 
     print("ALL PASS" if ok else "FAILURES PRESENT")
     return 0 if ok else 1
