@@ -138,6 +138,23 @@ fails without them; it never falls back to the CPU and imports no JAX.
    the committed bank through ``StreamingPQMF.roundtrip`` (K3, one launch
    each; the trained bank >= 100 dB), the worst stopband (<= -55 dB);
    (c) a remat step against a plain one.
+6. The (data, band) mesh (``parallel/sharding.py``), on the one card, so
+   a correctness run and never a scaling result. Ranks spawned together:
+   (a) one rank over NCCL, a (1, 1) mesh at full width (atten 100, 16
+   bands, 8192 blocks): ``StreamingPQMF(mesh=)``'s round trip, ``PQMF``,
+   ``PQMFWrapper.process``, the graphed ``ShardedPitchShift`` step over 8
+   blocks (the band all-reduce inside the capture), the graphed TA block
+   and 10 graphed data-parallel train steps, each bit-equal to the
+   unsharded entry on the card; (b) two and four ranks sharing the card
+   over gloo (band 2 and 4: Mb = 8 and 4), through the eager forms: the
+   round trip at each tier and ``PQMF`` within K12_TOL of the unsharded
+   card result, the ``ShardedPitchShift`` step >= 90 dB (the tail
+   gathered from every rank), one data-parallel train step within phase
+   5's tolerances, and every graphed step raising (gloo cannot be
+   captured); launches and all-reduces per rank printed; (c) K1/K2
+   (K1t/K2t) and K4/K5 at Mb = 8 and 4, every rank's shard, every tier,
+   against their plain versions (K12_TOL), then timed at their headline
+   shapes beside their plain versions, one ``F.conv1d`` and their bounds.
 
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 Any failure raises and the exit code is non-zero.
@@ -1296,6 +1313,587 @@ def _native_phase(card: str, dev: str = "cuda") -> dict:
     shutil.rmtree(td)
     return {"library": path.name, "calls": calls["C"],
             "cli_bit_equal": True, "peak": peak}
+
+
+# -- 6. the (data, band) mesh -------------------------------------------------
+#
+# Three runs of ranks spawned on the one card (one card can show correctness,
+# never multi-card scaling): "nccl_1x1", a (1, 1) mesh over NCCL whose graphs
+# hold the band and gradient all-reduces; "gloo_1x2" and "gloo_1x4", two and
+# four ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one card),
+# band 2 and 4 (Mb = 8 and 4), through the steps' eager forms (gloo cannot be
+# captured; the graphs must raise there).
+
+MESH_RUNS = {"nccl_1x1": ("nccl", 1), "gloo_1x2": ("gloo", 2),
+             "gloo_1x4": ("gloo", 4)}
+MESH_TIMEOUT = 420  # seconds for all three runs, started together
+
+
+def _mesh_rank(rank: int, world: int, init: str, backend: str, which: str,
+               out_dir: str, dev: str = "cuda") -> None:
+    """One rank of a mesh run: writes ``<which>_<rank>.json`` (its checks,
+    errors, launches and collectives) or ``.err`` (its traceback).
+    ``dev="cpu"`` rehearses it on the plain versions over gloo."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(backend if dev == "cuda" else "gloo",
+                            init_method=init, rank=rank, world_size=world)
+    try:
+        res = (_mesh_nccl(dev) if backend == "nccl"
+               else _mesh_gloo(rank, world, dev))
+        with open(os.path.join(out_dir, f"{which}_{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"{which}_{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_counts() -> dict:
+    """The kernels' launches and the collectives since the last reset."""
+    from pqmf_tpu_torch import graphs
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import polyphase as pk
+
+    return {**{f"K{i + 1}": cc.LAUNCHES[k] for i, k in enumerate(
+        ("analysis", "synthesis", "roundtrip"))},
+            **{f"K{i + 4}": pk.LAUNCHES[k] for i, k in enumerate(
+                ("analysis", "synthesis", "roundtrip"))},
+            **graphs.COLLECTIVES}
+
+
+def _mesh_reset() -> None:
+    from pqmf_tpu_torch import graphs
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import polyphase as pk
+
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    cc.reset_launches()
+    pk.reset_launches()
+    graphs.reset_collectives()
+
+
+def _mesh_nccl(dev: str = "cuda") -> dict:
+    """(a) A (1, 1) mesh over NCCL at full width (atten 100, 16 bands,
+    8192-sample blocks): every entry through the mesh is bit-equal to the
+    unsharded entry on the card, the steps' CUDA graphs included (the band
+    all-reduce and the gradient all-reduce inside the capture)."""
+    import torch
+
+    from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper,
+                                PQMFPitchShiftWrapperTA, PQMFWrapper,
+                                StreamingPQMF)
+    from pqmf_tpu_torch.ops import filterbank as fb_ops
+    from pqmf_tpu_torch.parallel import training as tt
+    from pqmf_tpu_torch.parallel.sharding import ShardedPitchShift, make_mesh
+
+    mesh = make_mesh(1, n_band=N_BAND, device_type=dev)
+    assert tuple(mesh.shape) == (1, 1), mesh.shape
+    res = {"checks": {}, "launches": {}}
+    on = {"device": dev}
+
+    def equal(what, got, want):
+        got = got.to_local() if hasattr(got, "to_local") else got
+        want = want.to_local() if hasattr(want, "to_local") else want
+        assert got.shape == want.shape, (what, got.shape, want.shape)
+        assert torch.isfinite(got).all(), what
+        err = (got - want).abs().max().item()
+        assert torch.equal(got, want), (what, err)
+        res["checks"][what] = err
+
+    x = torch.from_numpy(_audio(8 * BLOCK, 21)[None]).to(dev)  # [1,1,8T]
+    sp, spu = (StreamingPQMF(100, N_BAND, mesh=mesh, **on),
+               StreamingPQMF(100, N_BAND, **on))
+    _mesh_reset()
+    y = sp.roundtrip(x)
+    res["launches"]["StreamingPQMF.roundtrip"] = _mesh_counts()
+    equal("StreamingPQMF(mesh).roundtrip == unsharded K1+K2", y,
+          spu.inverse(spu.forward(x)))
+    k3 = (y.to_local() - spu.roundtrip(x)).abs().max().item()
+    assert k3 <= K3_TOL["atol"], k3
+    res["checks"]["StreamingPQMF(mesh).roundtrip vs unsharded K3"] = k3
+    pq, pqu = PQMF(100, N_BAND, mesh=mesh, **on), PQMF(100, N_BAND, **on)
+    _mesh_reset()
+    sub = pq.forward(x)
+    rec = pq.inverse(sub)
+    rt = pq.roundtrip(x)
+    res["launches"]["PQMF forward, inverse, roundtrip"] = _mesh_counts()
+    equal("PQMF(mesh).forward", sub, pqu.forward(x))
+    equal("PQMF(mesh).inverse", rec, pqu.inverse(pqu.forward(x)))
+    equal("PQMF(mesh).roundtrip == K4+K5", rt, pqu.inverse(pqu.forward(x)))
+    blk = x[..., :BLOCK]
+    wr, wru = (PQMFWrapper(100, N_BAND, mesh=mesh, **on),
+               PQMFWrapper(100, N_BAND, **on))
+    _mesh_reset()
+    r_m, s_m = wr.process(blk)
+    res["launches"]["PQMFWrapper.process"] = _mesh_counts()
+    r_u, s_u = wru.process(blk)
+    equal("PQMFWrapper(mesh).process rec", r_m, r_u)
+    equal("PQMFWrapper(mesh).process sub", s_m, s_u)
+
+    # the graphed ShardedPitchShift step: 8 blocks, the tail carried
+    w = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR,
+                              shifts_in_semitones=SHIFTS16, **on)
+    sh = ShardedPitchShift(w, mesh)
+    blocks = torch.from_numpy(_audio(8 * BLOCK, 22)).to(dev).reshape(
+        8, 1, 1, BLOCK)
+    _mesh_reset()
+    tail, ys = sh.init_state(), []
+    for b in blocks:
+        tail, yb = sh(tail, b)
+        ys.append(yb.to_local())
+    res["launches"]["ShardedPitchShift x8 (graph)"] = _mesh_counts()
+    if dev == "cuda":
+        prog = next(iter(sh.wrapper._graphs.values()))
+        res["sharded_step_graph"] = {
+            "collectives_a_replay": prog.collectives,
+            "launches_a_replay": prog.launches, "capture": prog.stats}
+    st, ys_u = w.init_state(), []
+    for b in blocks:
+        st, yb = w.pitchshift_fn(st, b)
+        ys_u.append(yb)
+    equal("ShardedPitchShift (graph) y x8", torch.stack(ys),
+          torch.stack(ys_u))
+    equal("ShardedPitchShift (graph) tail", tail, st["prev_tail"])
+    te, ye = sh.eager(sh.init_state(), blocks[0])
+    equal("ShardedPitchShift eager == graph", ye, ys[0])
+    if dev == "cuda":
+        res["times_ms"] = {
+            "sharded_step_graph": _events_ms(lambda: sh(tail, blocks[1]),
+                                             100),
+            "unsharded_step_graph": _events_ms(
+                lambda: w.pitchshift_fn(st, blocks[1]), 100)}
+
+    # the TA block through the wrapper's mesh, graphed
+    ta = PQMFPitchShiftWrapperTA(100, N_BAND, BLOCK, SR,
+                                 shifts_in_semitones=TA_SHIFTS16, mesh=mesh,
+                                 **on)
+    tau = PQMFPitchShiftWrapperTA(100, N_BAND, BLOCK, SR,
+                                  shifts_in_semitones=TA_SHIFTS16, **on)
+    _mesh_reset()
+    y_ta = [ta.pitchshifter(blocks[i]) for i in range(3)]
+    res["launches"]["TA pitchshifter x3 (graph)"] = _mesh_counts()
+    for i in range(3):
+        equal(f"TA(mesh) block {i}", y_ta[i], tau.pitchshifter(blocks[i]))
+
+    # the graphed data-parallel train step over 10 steps
+    hk = fb_ops.build_filterbank(100, N_BAND)["hk"]
+    loss_fn = tt.make_finetune_loss(N_BAND, hk.shape[-1])
+    xs = [torch.from_numpy(a).to(dev) for a in np.random.default_rng(
+        3).standard_normal((10, 4, 1, 8192)).astype(np.float32)]
+    init_m, step_m = tt.make_train_step(tt.adam(2e-5), mesh=mesh,
+                                        loss_fn=loss_fn, **on)
+    init_u, step_u = tt.make_train_step(tt.adam(2e-5), loss_fn=loss_fn,
+                                        **on)
+    sm, su = init_m(hk), init_u(hk)
+    _mesh_reset()
+    lm = [step_m(sm, xb)[1] for xb in xs]
+    res["launches"]["train step x10 (graph)"] = _mesh_counts()
+    lu = [step_u(su, xb)[1] for xb in xs]
+    equal("train step (mesh, graph) losses x10", torch.stack(lm),
+          torch.stack(lu))
+    equal("train step (mesh, graph) hk", sm.hk, su.hk)
+    return res
+
+
+def _mesh_gloo(rank: int, world: int, dev: str = "cuda") -> dict:
+    """(b) ``world`` ranks sharing the card over gloo, band = world: the
+    eager forms against the unsharded entries on the card (K12_TOL, >= 90
+    dB, the training phase's tolerances), the graphs refused."""
+    import torch
+    import torch.distributed as dist
+
+    from pqmf_tpu_torch import (PQMF, PQMFPitchShiftWrapper,
+                                PQMFPitchShiftWrapperTA, StreamingPQMF)
+    from pqmf_tpu_torch.ops import filterbank as fb_ops
+    from pqmf_tpu_torch.parallel import training as tt
+    from pqmf_tpu_torch.parallel.sharding import ShardedPitchShift, make_mesh
+    from pqmf_tpu_torch.utils.metrics import snr_db
+
+    mesh = make_mesh(world, n_band=N_BAND, device_type=dev)
+    assert tuple(mesh.shape) == (1, world), mesh.shape
+    Mb = N_BAND // world
+    sl = slice(rank * Mb, (rank + 1) * Mb)
+    res = {"Mb": Mb, "checks": {}, "launches": {}}
+    on = {"device": dev}
+
+    def graph_refused(fn, what):
+        """On the card a graphed step over gloo raises; on the CPU nothing
+        is captured and it runs."""
+        if dev != "cuda":
+            return
+        try:
+            fn()
+        except RuntimeError as e:
+            assert "NCCL only" in str(e), e
+            return
+        raise AssertionError(f"a graphed {what} over gloo ran")
+
+    def close(what, got, want, tol=K12_TOL):
+        got = got.to_local() if hasattr(got, "to_local") else got
+        assert got.shape == want.shape, (what, got.shape, want.shape)
+        assert torch.isfinite(got).all(), what
+        torch.testing.assert_close(got, want, **tol,
+                                   msg=lambda m: f"{what}: {m}")
+        res["checks"][what] = (got - want).abs().max().item()
+
+    x = torch.from_numpy(_audio(8 * BLOCK, 21)[None]).to(dev)
+    for tier in ("highest", "bf16x3", "default"):
+        sp = StreamingPQMF(100, N_BAND, precision=tier, mesh=mesh, **on)
+        spu = StreamingPQMF(100, N_BAND, precision=tier, **on)
+        assert sp.hkf_shard.shape[0] == Mb and sp.hki_shard.shape[1] == Mb
+        _mesh_reset()
+        sub = sp.forward(x)
+        y = sp.roundtrip(x)
+        res["launches"][f"StreamingPQMF forward + roundtrip [{tier}]"] = \
+            _mesh_counts()
+        sub_u = spu.forward(x)
+        close(f"StreamingPQMF(mesh).forward band shard [{tier}]", sub,
+              sub_u[:, sl])
+        close(f"StreamingPQMF(mesh).roundtrip [{tier}]", y,
+              spu.inverse(sub_u))
+    pq, pqu = PQMF(100, N_BAND, mesh=mesh, **on), PQMF(100, N_BAND, **on)
+    _mesh_reset()
+    sub = pq.forward(x)
+    rec = pq.inverse(sub)
+    res["launches"]["PQMF forward + inverse"] = _mesh_counts()
+    sub_u = pqu.forward(x)
+    close("PQMF(mesh).forward band shard", sub, sub_u[:, sl])
+    close("PQMF(mesh).inverse", rec, pqu.inverse(sub_u))
+
+    w = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR,
+                              shifts_in_semitones=SHIFTS16, **on)
+    sh = ShardedPitchShift(w, mesh)
+    blocks = torch.from_numpy(_audio(8 * BLOCK, 22)).to(dev).reshape(
+        8, 1, 1, BLOCK)
+    graph_refused(lambda: sh(sh.init_state(), blocks[0]),
+                  "ShardedPitchShift step")
+    _mesh_reset()
+    tail, ys = sh.init_state(), []
+    for b in blocks:
+        tail, yb = sh.eager(tail, b)
+        ys.append(yb.to_local())
+    res["launches"]["ShardedPitchShift.eager x8"] = _mesh_counts()
+    st, ys_u = w.init_state(), []
+    for b in blocks:
+        st, yb = w.pitchshift_fn(st, b)
+        ys_u.append(yb)
+    db = min(snr_db(ys_u[i].cpu().numpy(), ys[i].cpu().numpy())
+             for i in range(8))
+    # the whole tail from every rank's bands (gloo gathers CPU copies; a
+    # shard of near-silent bands alone has no meaningful dB)
+    parts = [torch.empty((Mb, w.band_overlap)) for _ in range(world)]
+    dist.all_gather(parts, tail.to_local().cpu())
+    tail_db = snr_db(st["prev_tail"].cpu().numpy(),
+                     torch.cat(parts).numpy())
+    assert db >= BAR_DB and tail_db >= BAR_DB, (db, tail_db)
+    res["checks"]["ShardedPitchShift.eager y x8, min dB"] = db
+    res["checks"]["ShardedPitchShift.eager tail dB"] = tail_db
+    ta = PQMFPitchShiftWrapperTA(100, N_BAND, BLOCK, SR,
+                                 shifts_in_semitones=TA_SHIFTS16, mesh=mesh,
+                                 **on)
+    graph_refused(lambda: ta.pitchshifter(blocks[0]), "TA block")
+
+    if world == 2:  # one data-parallel step, batch 4 over 2 ranks
+        hk = fb_ops.build_filterbank(100, N_BAND)["hk"]
+        loss_fn = tt.make_finetune_loss(N_BAND, hk.shape[-1])
+        xb = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (4, 1, 8192)).astype(np.float32)).to(dev)
+        hkt = torch.from_numpy(hk).to(dev)
+        lc, gc = tt.loss_and_grad(loss_fn, hkt, xb)
+        ll, gl = tt.loss_and_grad(loss_fn, hkt, xb[2 * rank:2 * rank + 2])
+        dist.all_reduce(ll)
+        dist.all_reduce(gl)
+        rel = abs(ll.item() / 2 - lc.item()) / lc.item()
+        gerr = ((gl / 2 - gc).abs().max() / gc.abs().max()).item()
+        assert rel <= TRAIN_LOSS_RTOL and gerr <= TRAIN_GRAD_RTOL, (rel,
+                                                                    gerr)
+        init_m, step_m = tt.make_train_step(tt.adam(2e-5), mesh=mesh,
+                                            loss_fn=loss_fn, **on)
+        init_u, step_u = tt.make_train_step(tt.adam(2e-5), loss_fn=loss_fn,
+                                            **on)
+        sm, su = init_m(hk), init_u(hk)
+        graph_refused(lambda: step_m(sm, xb), "train step")
+        sm = init_m(hk)
+        _mesh_reset()
+        _, lm = step_m.eager(sm, xb)
+        res["launches"]["train step.eager"] = _mesh_counts()
+        _, lu = step_u.eager(su, xb)
+        step_rel = abs(lm.item() - lu.item()) / lu.item()
+        hk_err = (sm.hk - su.hk).abs().max().item()
+        assert step_rel <= TRAIN_LOSS_RTOL and hk_err <= 2 * 2e-5, (
+            step_rel, hk_err)
+        res["checks"]["DP loss rel, grad rel (mean of 2 ranks)"] = [rel,
+                                                                    gerr]
+        res["checks"]["DP step loss rel, max|dhk|"] = [step_rel, hk_err]
+    return res
+
+
+def _mesh_runs(card: str, dev: str = "cuda") -> dict:
+    """Spawn the three runs together on the card and return every rank's
+    results; a rank that fails or hangs fails the smoke."""
+    import torch.multiprocessing as mp
+
+    td = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ctx = mp.get_context("spawn")
+    procs = []
+    t0 = time.perf_counter()
+    for which, (backend, world) in MESH_RUNS.items():
+        init = "file://" + os.path.join(td, f"{which}.rendezvous")
+        for r in range(world):
+            p = ctx.Process(target=_mesh_rank,
+                            args=(r, world, init, backend, which, td, dev))
+            p.start()
+            procs.append(p)
+    deadline = time.monotonic() + MESH_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    errs = [open(os.path.join(td, f)).read() for f in sorted(os.listdir(td))
+            if f.endswith(".err")]
+    codes = [p.exitcode for p in procs]
+    assert not hung and not any(codes) and not errs, (
+        f"mesh ranks: {len(hung)} hung, exit codes {codes}\n"
+        + "\n".join(errs))
+    out = {}
+    for which, (_, world) in MESH_RUNS.items():
+        out[which] = []
+        for r in range(world):
+            with open(os.path.join(td, f"{which}_{r}.json")) as f:
+                out[which].append(json.load(f))
+    shutil.rmtree(td)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _shard_bound(kind: str, B: int, T: int, M: int, Mb: int, K: int,
+                 precision: str = "highest") -> tuple:
+    """``_bound`` for a band shard of Mb of M bands: K1 [B, 1, T] ->
+    [B, Mb, T_out] (K taps, stride M); K2 [B, Mb, T] -> [B, T_out, M]; K4
+    [B, 1, T] -> [B, Mb, T/M] (K = L taps a phase); K5 [B, Mb, T] ->
+    [B, 1, M*T] (K = L)."""
+    if kind == "analysis":
+        t_out = (T - K) // M + 1
+        fma, io = B * t_out * Mb * K, B * T + Mb * K + B * Mb * t_out
+    elif kind == "synthesis":
+        t_out = T - K + 1
+        fma, io = (B * t_out * M * Mb * K,
+                   B * Mb * T + M * Mb * K + B * t_out * M)
+    elif kind == "polyphase_analysis":
+        fma, io = B * T * Mb * K, B * T + B * Mb * T // M + Mb * M * K
+    else:  # polyphase_synthesis
+        fma, io = B * T * M * Mb * K, B * Mb * T + B * M * T + M * Mb * K
+    peak = F32_FLOPS if precision == "highest" else BF16_FLOPS
+    ops_ms = 2 * fma * PASSES[precision] / peak * 1e3
+    bytes_ms = 4 * io / HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def _shard_kernels(card: str, dev: str = "cuda") -> dict:
+    """(c) K1/K2 (K1t/K2t) and K4/K5 at the band shards Mb = 8 and 4 of the
+    16-band bank, every rank's shard (first band 0, 4, 8 or 12: even), at
+    every tier, against their plain versions on the card (K12_TOL), the
+    output memory NaN-filled before each call; then each at its headline
+    shape (a 8192-sample block for K1/K2, 60 s for K4/K5, a shard's part)
+    timed against its plain version and one ``F.conv1d`` of the same
+    product (``library_ms``; TF32 at the tiers, as phase 4's), with their
+    device times and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from pqmf_tpu_torch import PQMF, StreamingPQMF
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import polyphase as pk
+
+    sp, pq = (StreamingPQMF(100, N_BAND, device=dev),
+              PQMF(100, N_BAND, device=dev))
+    wa, ws = sp.hkf, sp.hki
+    hp, hi = pq.params["hk_poly"], pq.params["hk_ipoly"]
+    Ka, Ks, L = wa.shape[-1], ws.shape[-1], hp.shape[-1]
+    gen = torch.Generator(device="cpu").manual_seed(15)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def nan_junk():
+        junk = torch.full((1 << 22,), float("nan"), device=dev)
+        del junk
+
+    errs, rows = {}, {}
+    x_blk = {B: rand(B, 1, BLOCK + Ka - 1) for B in (1, 16)}
+    x60 = rand(1, 1, 60 * SR // N_BAND * N_BAND)
+    print(f"  band-shard kernels vs plain on {card}:")
+    for Mb in (8, 4):
+        for tier in ("highest", "bf16x3", "default"):
+            for r in range(N_BAND // Mb):
+                sl = slice(r * Mb, (r + 1) * Mb)
+                w_a, w_s = wa[sl].contiguous(), ws[:, sl].contiguous()
+                hp_s, hi_s = hp[sl].contiguous(), hi[:, sl].contiguous()
+                w2 = pk.analysis_weights(hp_s)
+                banks = ({} if tier == "highest" else {
+                    k: cc.arrange_tc_bank(w, kind, tier) for k, w, kind in (
+                        ("a", w_a, "analysis"), ("s", w_s, "synthesis"),
+                        ("4", w2, "analysis"), ("5", hi_s, "synthesis"))})
+                cases = []
+                for B, x in x_blk.items():
+                    sub = rand(B, Mb, BLOCK // N_BAND + Ks - 1)
+                    cases += [
+                        ("K1", lambda x=x: cc.strided_analysis_conv(
+                            x, w_a, N_BAND, precision=tier,
+                            bank=banks.get("a")),
+                         lambda x=x: cc.analysis_conv_plain(
+                             x, w_a, N_BAND, precision=tier), B),
+                        ("K2", lambda s=sub: cc.dense_synthesis_conv(
+                            s, w_s, True, -16, tier, bank=banks.get("s")),
+                         lambda s=sub: cc.synthesis_conv_plain(
+                             s, w_s, True, -16, tier), B)]
+                if tier == "highest":
+                    xb = x_blk[1][..., :BLOCK].contiguous()
+                    sub5 = rand(1, Mb, 60 * SR // N_BAND)
+                    cases += [
+                        ("K4", lambda xx=xb: pk.polyphase_analysis(
+                            xx, hp_s, w2),
+                         lambda xx=xb: pk.polyphase_analysis_plain(xx, hp_s),
+                         1),
+                        ("K4", lambda: pk.polyphase_analysis(x60, hp_s, w2),
+                         lambda: pk.polyphase_analysis_plain(x60, hp_s), 1),
+                        ("K5", lambda: pk.polyphase_synthesis(sub5, hi_s),
+                         lambda: pk.polyphase_synthesis_plain(sub5, hi_s),
+                         1)]
+                for name, kern, plain, B in cases:
+                    nan_junk()
+                    got = kern()
+                    want = plain()
+                    assert got.shape == want.shape and \
+                        torch.isfinite(got).all(), (name, Mb, tier)
+                    torch.testing.assert_close(
+                        got, want, **K12_TOL,
+                        msg=lambda m: f"{name} Mb={Mb} [{tier}]: {m}")
+                    key = (name, Mb, tier)
+                    errs[key] = max(errs.get(key, 0.0),
+                                    (got - want).abs().max().item())
+            print(f"    Mb={Mb} [{tier}]: " + ", ".join(
+                f"{k[0]} max|err| {v:.3g}" for k, v in errs.items()
+                if k[1:] == (Mb, tier)))
+    # the headline shapes: rank 0's shard
+    for Mb in (8, 4):
+        sl = slice(0, Mb)
+        w_a, w_s = wa[sl].contiguous(), ws[:, sl].contiguous()
+        hp_s, hi_s = hp[sl].contiguous(), hi[:, sl].contiguous()
+        w2 = pk.analysis_weights(hp_s)
+        xk1 = x_blk[1]
+        xk2 = rand(1, Mb, BLOCK // N_BAND + Ks - 1)
+        x5 = rand(1, Mb, 60 * SR // N_BAND)
+        for tier in ("highest", "bf16x3", "default"):
+            ba = None if tier == "highest" else cc.arrange_tc_bank(
+                w_a, "analysis", tier)
+            bs = None if tier == "highest" else cc.arrange_tc_bank(
+                w_s, "synthesis", tier)
+            specs = [
+                ("K1", "analysis", xk1,
+                 lambda: cc.strided_analysis_conv(xk1, w_a, N_BAND,
+                                                  precision=tier, bank=ba),
+                 lambda: cc.analysis_conv_plain(xk1, w_a, N_BAND,
+                                                precision=tier),
+                 lambda: F.conv1d(xk1, w_a, stride=N_BAND), Ka),
+                ("K2", "synthesis", xk2,
+                 lambda: cc.dense_synthesis_conv(xk2, w_s, True, -16, tier,
+                                                 bank=bs),
+                 lambda: cc.synthesis_conv_plain(xk2, w_s, True, -16, tier),
+                 lambda: F.conv1d(xk2, w_s), Ks)]
+            if tier == "highest":
+                x4p = F.pad(x60, (256, 240))
+                x5p = F.pad(x5, (15, 16))
+                specs += [
+                    ("K4", "polyphase_analysis", x60,
+                     lambda: pk.polyphase_analysis(x60, hp_s, w2),
+                     lambda: pk.polyphase_analysis_plain(x60, hp_s),
+                     lambda: F.conv1d(x4p, w2, stride=N_BAND), L),
+                    ("K5", "polyphase_synthesis", x5,
+                     lambda: pk.polyphase_synthesis(x5, hi_s),
+                     lambda: pk.polyphase_synthesis_plain(x5, hi_s),
+                     lambda: F.conv1d(x5p, hi_s), L)]
+            for name, kind, x, kern, plain, lib, K in specs:
+                if tier != "highest":  # the tiers' yardstick: TF32 cuDNN
+                    def lib(lib=lib):
+                        with _tf32():
+                            return lib()
+                iters = 20 if name in ("K4", "K5") else 200
+                p1, k1 = _events_ms(plain, iters), _events_ms(kern, iters)
+                k2, p2 = _events_ms(kern, iters), _events_ms(plain, iters)
+                lib_ms = min(_events_ms(lib, iters) for _ in range(2))
+                n_dev = 10 if name in ("K4", "K5") else 50
+                dev_us = _device_us(kern, n_dev)
+                lib_dev_us = _device_us(lib, n_dev)
+                B_, _, T_ = x.shape
+                bound = _shard_bound(kind, B_, T_, N_BAND, Mb, K, tier)
+                rows[name, Mb, tier] = {
+                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                    "library_ms": lib_ms, "device_us": dev_us,
+                    "library_device_us": lib_dev_us,
+                    "bound_ms": bound[0], "bound_by": bound[1],
+                    "shape": list(x.shape),
+                    "max_abs_err": errs[name, Mb, tier]}
+                print(f"    {name} Mb={Mb} [{tier}] x{tuple(x.shape)}: "
+                      f"kernel {min(k1, k2):.4f} ms (device {dev_us:.2f} "
+                      f"us), plain {min(p1, p2):.4f}, F.conv1d {lib_ms:.4f} "
+                      f"ms (device {lib_dev_us:.2f} us), bound "
+                      f"{bound[0]:.5f} ms ({bound[1]})")
+    return rows
+
+
+def _mesh_phase(card: str, dev: str = "cuda") -> tuple:
+    """Phase 6: the (data, band) mesh on the card (the mesh runs, then the
+    band-shard kernels). Returns (summary, the kernels line's shard
+    rows). ``dev="cpu"`` rehearses the mesh runs on the plain versions."""
+    print(f"the (data, band) mesh on {card} (one card: correctness, not "
+          f"scaling):")
+    runs = _mesh_runs(card, dev)
+    for which, (backend, world) in MESH_RUNS.items():
+        for r, res in enumerate(runs[which]):
+            for what, v in res["checks"].items():
+                print(f"  {which} rank {r}: {what}: {v}")
+            for what, n in res["launches"].items():
+                print(f"  {which} rank {r} launches, {what}: {n}")
+    a = runs["nccl_1x1"][0]
+    if dev == "cuda":
+        g, t = a["sharded_step_graph"], a["times_ms"]
+        print(f"  nccl_1x1: one replay of the sharded step = "
+              f"{g['launches_a_replay']} launches, "
+              f"{g['collectives_a_replay']} collectives; the sharded step's "
+              f"graph {t['sharded_step_graph']:.4f} ms vs the unsharded "
+              f"{t['unsharded_step_graph']:.4f} ms (CUDA events, {card}; "
+              f"one-card correctness run, not scaling)")
+        assert g["collectives_a_replay"]["band_all_reduce"] == 1, g
+    for which in ("gloo_1x2", "gloo_1x4") if dev == "cuda" else ():
+        for res in runs[which]:
+            la = res["launches"]
+            n = la["ShardedPitchShift.eager x8"]
+            assert (n["K1"], n["K2"], n["band_all_reduce"]) == (8, 8, 8), n
+            for tier in ("highest", "bf16x3", "default"):
+                n = la[f"StreamingPQMF forward + roundtrip [{tier}]"]
+                assert (n["K1"], n["K2"], n["K3"]) == (2, 1, 0), n
+    print(f"  mesh runs: {runs['seconds']:.1f} s")
+    rows = _shard_kernels(card) if dev == "cuda" else {}
+    return runs, rows
 
 
 def main() -> int:
@@ -2919,6 +3517,10 @@ def main() -> int:
     print("fine-tuning (parallel/training.py):")
     print(json.dumps({"training": _training_phase(sixty, card)}))
 
+    # -- 6. the (data, band) mesh ---------------------------------------------
+    mesh_runs, shard_rows = _mesh_phase(card)
+    print(json.dumps({"mesh": mesh_runs}))
+
     # (key, name, replaces, launches on its path: the flagship for K1-K3,
     # the offline path for K4-K6)
     rows = [
@@ -3045,6 +3647,38 @@ def main() -> int:
             "composition_ms": row["composition_ms"],
             "device_us": row["device_us"],
             "composition_device_us": row["composition_device_us"]})
+    # K1/K2 (K1t/K2t) and K4/K5 at the band shards Mb = 8 and 4: launches
+    # per rank on the mesh runs' main paths (2 and 4 ranks over gloo on the
+    # card: the round trips at each tier, PQMF, the ShardedPitchShift
+    # step), times at each kernel's headline shape on one shard
+    mesh_path = {8: mesh_runs["gloo_1x2"][0], 4: mesh_runs["gloo_1x4"][0]}
+    shard_meta = {
+        "K1": ("K1 strided_analysis_conv", "analysis",
+               "pqmf_tpu/kernels/cached_conv.py:408"),
+        "K2": ("K2 dense_synthesis_conv", "synthesis",
+               "pqmf_tpu/kernels/cached_conv.py:542"),
+        "K4": ("K4 polyphase_analysis (over K1)", "analysis",
+               "pqmf_tpu/kernels/polyphase.py:168"),
+        "K5": ("K5 polyphase_synthesis (over K2)", "synthesis",
+               "pqmf_tpu/kernels/polyphase.py:197")}
+    for (name, Mb, tier), row in shard_rows.items():
+        label, _, where = shard_meta[name]
+        if tier != "highest":
+            label = label.replace("K1 ", "K1t ").replace("K2 ", "K2t ")
+        launches = sum(
+            n[name] for what, n in mesh_path[Mb]["launches"].items()
+            if tier in what or (tier == "highest" and "[" not in what))
+        kernels.append({
+            "name": f"{label} Mb={Mb} band shard [{tier}]", "route": "cuda",
+            "source": ("pqmf_tpu_torch/csrc/cached_conv.cu"
+                       if tier == "highest" else tc_source),
+            "replaces": where, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_us": row["device_us"],
+            "library_device_us": row["library_device_us"],
+            "shape": row["shape"]})
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

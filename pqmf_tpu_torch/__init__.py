@@ -1,7 +1,7 @@
 """pqmf_tpu_torch — the PyTorch + CUDA port of ``pqmf_tpu`` for NVIDIA Hopper.
 
 A second package beside the JAX one, which stays the reference every part
-of the port is tested against. Ported so far:
+of the port is tested against. Ported:
 
 - the streaming PQMF filterbank (:class:`StreamingPQMF`) on three
   hand-written CUDA kernels, K1/K2/K3 (``kernels/cached_conv.py``,
@@ -20,6 +20,9 @@ of the port is tested against. Ported so far:
 - filterbank fine-tuning (``parallel.training``: ``finetune_filterbank``,
   ``make_train_step``, ``TrainablePQMF``, checkpoints in the JAX package's
   layout) and ``models``, the wrappers' re-export;
+- the (data, band) mesh over ``torch.distributed``
+  (``parallel.sharding``: ``make_mesh``, ``ShardedPitchShift``; ``mesh=``
+  on every entry point the JAX package gives one);
 - the CLIs ``cli.export_pqmf``, ``cli.export_pvoc``, ``cli.vocoder``,
   ``cli.ps_torchaudio``, ``cli.blocks`` and ``cli.finetune_bank``.
 

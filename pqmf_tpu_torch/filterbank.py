@@ -8,22 +8,32 @@ batch of a mono core. The polyphase path runs the adapters of
 ``roundtrip``; on the CPU the same wrappers run their plain versions. The
 classic path (``polyphase=False``) is plain tensor code on every device, as
 in the JAX package, whose classic path reaches no Pallas kernel.
+
+Under a (data, band) mesh (``mesh=``) each rank keeps its row shard of
+``hk_poly`` and its column shard of ``hk_ipoly``: K4 and K5 run on its band
+shard (``streaming.shard_band_analysis`` / ``shard_band_synthesis``, K5's
+partial outputs summed over the band group), and ``roundtrip`` is K4 then
+K5, without K6, as in the JAX package (``pqmf_tpu/filterbank.py:244``).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.kernels import polyphase as pk
 from pqmf_tpu_torch.ops import filterbank as fb
-from pqmf_tpu_torch.streaming import _on, as_device_tensor, resolve_device
+from pqmf_tpu_torch.streaming import (BandLayout, _on, as_device_tensor,
+                                      resolve_device, shard_band_analysis,
+                                      shard_band_synthesis)
 
 __all__ = ["PQMF"]
 
 
 class PQMF:
-    """Pseudo-QMF analysis/synthesis filterbank, on one device.
+    """Pseudo-QMF analysis/synthesis filterbank, on one device or over a
+    mesh.
 
     Parameters
     ----------
@@ -44,11 +54,18 @@ class PQMF:
         ``"cuda"`` (the default; raises without a card) or ``"cpu"``;
         inputs may be NumPy arrays (copied to the device) or float32
         tensors already on it.
+    mesh : DeviceMesh or None
+        A (data, band) mesh (``parallel.sharding.make_mesh``) whose band
+        axis splits ``n_band`` into even shards (else ``ValueError``): K4
+        and K5 run band-partitioned, inputs are global tensors or
+        ``DTensor`` s and outputs ``DTensor`` s over the mesh (as
+        ``StreamingPQMF``'s). The classic path runs unsharded and warns,
+        as the JAX package's.
     """
 
     def __init__(self, attenuation: float, n_band: int, polyphase: bool = True,
                  n_channels: int = 1, precision: str = "highest",
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if polyphase:
             power = math.log2(n_band)
             if power != math.floor(power):
@@ -61,6 +78,16 @@ class PQMF:
         self.n_channels = n_channels
         self.precision = fb.check_precision(precision)
         self.device = resolve_device(device)
+        checked = pk.check_band_mesh(mesh, n_band)
+        if mesh is not None and not polyphase:
+            warnings.warn(
+                "mesh provided but the band-partitioned path is the "
+                "polyphase one (polyphase=False); convs run unsharded",
+                stacklevel=2)
+            checked = None
+        self.mesh = checked
+        self._layout = None if checked is None else BandLayout(checked,
+                                                                n_band)
         self.set_weights(fb.build_filterbank(attenuation, n_band))
 
     def set_weights(self, params):
@@ -82,15 +109,20 @@ class PQMF:
                 f"the CUDA kernels do not take polyphase banks of {L} taps "
                 f"per phase at n_band={M} (see kernels.polyphase.supports)")
         self.params = params
-        self._w2 = pk.analysis_weights(params["hk_poly"]) if L else None
-        # K1t/K2t's banks at a tier, arranged here once
+        # this rank's row shard of hk_poly and column shard of hk_ipoly
+        # (the whole banks without a mesh), cut here once
+        sl = slice(None) if self._layout is None else self._layout.bands
+        self._hp = params["hk_poly"][sl].contiguous()
+        self._hi = params["hk_ipoly"][:, sl].contiguous()
+        self._w2 = pk.analysis_weights(self._hp) if L else None
+        # K1t/K2t's banks of the shards at a tier, arranged here once
         self.tc_banks = {"analysis": None, "synthesis": None}
         if self.polyphase and L and M > 1 and self.precision != "highest":
             self.tc_banks = {
                 "analysis": cc.arrange_tc_bank(self._w2, "analysis",
                                                self.precision),
-                "synthesis": cc.arrange_tc_bank(params["hk_ipoly"],
-                                                "synthesis", self.precision)}
+                "synthesis": cc.arrange_tc_bank(self._hi, "synthesis",
+                                                self.precision)}
         # aliases mirroring the reference's buffers
         self.h = params["h"]
         self.hk = params["hk"]
@@ -114,12 +146,15 @@ class PQMF:
         return x
 
     def _fold(self, x):
-        """[B, C, T] -> ([B*C, 1, T], B, T), checking T % n_band."""
+        """[B, C, T] -> ([B*C, 1, T] of this rank's rows, B, T), checking
+        T % n_band."""
         B, C, T = x.shape
         if T % self.n_band:
             raise ValueError(
                 f"T={T} must be divisible by n_band={self.n_band}")
-        return x.reshape(B * C, 1, T), B, T
+        if self._layout is not None:
+            x = self._layout.local(x, data_dim=0)
+        return x.reshape(-1, 1, T), B, T
 
     # -- public API ----------------------------------------------------------
 
@@ -130,14 +165,21 @@ class PQMF:
         if self.n_band == 1:
             return x
         xc, B, T = self._fold(x)
+        lay = self._layout
         if self.polyphase:
-            y = pk.polyphase_analysis(xc, self.params["hk_poly"], self._w2,
-                                      self.precision,
-                                      self.tc_banks["analysis"])
+            def k4(v, hp):
+                return pk.polyphase_analysis(v, hp, self._w2, self.precision,
+                                             self.tc_banks["analysis"])
+
+            y = (k4(xc, self._hp) if lay is None
+                 else shard_band_analysis(self.mesh, k4, xc, self._hp))
         else:
             y = fb.reverse_half(fb.classic_forward(xc, self.params["hk"],
                                                    self.precision))
-        return y.reshape(B, self.n_channels * self.n_band, T // self.n_band)
+        if lay is None:
+            return y.reshape(B, self.n_channels * self.n_band,
+                             T // self.n_band)
+        return lay.wrap_bands(y, B, self.n_channels)
 
     def inverse(self, x):
         """Reconstruct from sub-bands: [B, C*M, T'] -> [B, C, T'*M] (also
@@ -153,27 +195,35 @@ class PQMF:
                 f"expected {self.n_channels * self.n_band} rows "
                 f"({self.n_channels} channel(s) x {self.n_band} bands), "
                 f"got {CM}")
-        xc = x.reshape(B * self.n_channels, self.n_band, Tp)
+        lay, C, M = self._layout, self.n_channels, self.n_band
+        xc = (x.reshape(B * C, M, Tp) if lay is None
+              else lay.local_bands(x, C))
         if self.polyphase:
-            y = pk.polyphase_synthesis(xc, self.params["hk_ipoly"],
-                                       self.precision,
-                                       self.tc_banks["synthesis"])
+            def k5(v, hi):
+                return pk.polyphase_synthesis(v, hi, self.precision,
+                                              self.tc_banks["synthesis"])
+
+            y = (k5(xc, self._hi) if lay is None
+                 else shard_band_synthesis(self.mesh, k5, xc, self._hi))
         else:
             y = fb.classic_inverse(fb.reverse_half(xc), self.params["hk"],
                                    self.precision)
-        return y.reshape(B, self.n_channels, Tp * self.n_band)
+        if lay is None:
+            return y.reshape(B, C, Tp * M)
+        return lay.wrap_signal(y, B, C)
 
     def roundtrip(self, x):
         """``inverse(forward(x))`` ([B, C, T] -> [B, C, T]): one K6 launch
         where K3 takes the geometry (``roundtrip_supported``: every
         committed bank, M = 2 to 64; K3t at a tier, reading the kept
-        arranged banks), else K4 then K5."""
+        arranged banks), else K4 then K5 — and K4 then K5 under a mesh."""
         x = self._to_bct(x)
         if self.n_band == 1:
             return x
         M = self.n_band
         hk_poly, hk_ipoly = self.params["hk_poly"], self.params["hk_ipoly"]
-        if not (self.polyphase and pk.roundtrip_supported(
+        if not (self.polyphase and self._layout is None
+                and pk.roundtrip_supported(
                 M, hk_poly.shape[-1] * M, hk_ipoly.shape[-1],
                 self.precision)):
             return self.inverse(self.forward(x))

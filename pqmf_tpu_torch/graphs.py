@@ -31,6 +31,13 @@ the body anew and is not used).
   stream (``scan_blocks`` over the graphed ``pitchshift_fn``) runs its
   eager body and records nothing, and the outer capture records its
   launches.
+- A step over a (data, band) mesh holds collectives: the band
+  ``all_reduce`` of the synthesis, the data-parallel gradient's. A graph
+  captures them only over NCCL (``group=``): the communicator is made,
+  and used once on the capture stream, before the capture, and
+  :data:`COLLECTIVES` counts them as the launch counters count kernels.
+  Over any other backend (gloo) a program on the card raises; the step's
+  ``.eager`` form runs without a graph.
 
 The graphs live where the caller keeps them: on the wrapper instance
 (``wrapper._graphs``, ``wrapper._stream_ola_fns``), on the
@@ -54,7 +61,18 @@ from torch.utils import _pytree as pytree
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.kernels import polyphase as pk
 
-__all__ = ["Program", "call"]
+__all__ = ["Program", "call", "COLLECTIVES", "reset_collectives"]
+
+# the collectives the sharded steps run (``streaming.band_all_reduce``,
+# ``parallel.training``'s gradient and loss all-reduce), counted like the
+# kernels' launches: a capture adds nothing, a replay what it recorded
+COLLECTIVES = {"band_all_reduce": 0, "grad_all_reduce": 0}
+
+
+def reset_collectives() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
 
 _COUNTERS = (cc.LAUNCHES, pk.LAUNCHES)
 
@@ -94,6 +112,32 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
         torch.cuda.current_stream(device).wait_stream(s)
         _STREAMS[device.index] = s
     return s
+
+
+_WARM_GROUPS: set = set()
+
+
+def _check_group(group, device: torch.device) -> None:
+    """A graph on the card captures collectives over NCCL only; before the
+    first capture over ``group`` its communicator is made and used once
+    on the capture stream (as ``_capture_stream`` does for cuBLAS), so the
+    capture records the collective and not the set-up."""
+    if group is None or not _graphed(device):
+        return
+    import torch.distributed as dist
+
+    backend = dist.get_backend(group)
+    if backend != "nccl":
+        raise RuntimeError(
+            f"a CUDA graph captures collectives over NCCL only, this "
+            f"step's group runs on {backend!r}: call the step's .eager form")
+    if id(group) in _WARM_GROUPS:
+        return
+    s = _capture_stream(device)
+    with torch.cuda.device(device), torch.cuda.stream(s):
+        dist.all_reduce(torch.zeros(1, device=device), group=group)
+    torch.cuda.synchronize(device)
+    _WARM_GROUPS.add(id(group))
 
 
 def _capture(fn, args, device: torch.device):
@@ -138,13 +182,16 @@ def _capture(fn, args, device: torch.device):
 class Program:
     """One step body over one static geometry: eager on the first call
     (then captured), replayed after; eager on the CPU and inside another
-    program's capture."""
+    program's capture. ``group``: the process group of the collectives
+    the body runs, if any (NCCL only on the card)."""
 
-    def __init__(self, fn, device: torch.device):
+    def __init__(self, fn, device: torch.device, group=None):
         self.fn = fn
         self.device = device
+        self.group = group
         self.stats = None        # capture ms, instantiate ms, pool bytes
         self.launches = None     # the kernel launches one replay makes
+        self.collectives = None  # and the collectives (COLLECTIVES' keys)
         self._replay = None
         self._static_in = None
         self._static_out = None
@@ -152,6 +199,7 @@ class Program:
     def __call__(self, *args):
         if not _graphed(self.device) or _capturing():
             return self.fn(*args)
+        _check_group(self.group, self.device)
         if self._replay is None:
             out = self.fn(*args)
             self._record(args)
@@ -162,16 +210,18 @@ class Program:
         leaves, spec = pytree.tree_flatten(args)
         static = [a.clone() if isinstance(a, torch.Tensor) else a
                   for a in leaves]
-        before = _counts()
+        before, coll = _counts(), dict(COLLECTIVES)
         try:
             replay, out, stats = _capture(
                 self.fn, pytree.tree_unflatten(static, spec), self.device)
         finally:
-            after = _counts()
+            after, coll_after = _counts(), dict(COLLECTIVES)
             for c, b in zip(_COUNTERS, before):
                 c.update(b)
+            COLLECTIVES.update(coll)
         self.launches = [{k: a[k] - b[k] for k in a}
                          for a, b in zip(after, before)]
+        self.collectives = {k: coll_after[k] - coll[k] for k in coll}
         self._replay, self.stats = replay, stats
         self._static_in = (static, spec)
         self._static_out = out
@@ -197,7 +247,8 @@ class Program:
                         if isinstance(a, torch.Tensor) else repr(a)))
             s.copy_(a)
         self._replay()
-        for c, n in zip(_COUNTERS, self.launches):
+        for c, n in zip(_COUNTERS + (COLLECTIVES,),
+                        self.launches + [self.collectives]):
             for k, v in n.items():
                 c[k] += v
         return pytree.tree_map(
@@ -205,12 +256,12 @@ class Program:
             self._static_out)
 
 
-def call(cache: dict, key: tuple, fn, *args):
+def call(cache: dict, key: tuple, fn, *args, group=None):
     """``fn(*args)`` through the program of ``key`` in ``cache`` (a dict on
     the wrapper; ``key[-1]`` is the PQMF's ``weights_version``). Entries
     of another version are evicted when a key is first seen. On the CPU,
     and inside another program's capture, ``fn`` runs and nothing is
-    cached."""
+    cached. ``group``: as :class:`Program`'s."""
     device = key[-2]
     if not _graphed(device) or _capturing():
         return fn(*args)
@@ -218,5 +269,5 @@ def call(cache: dict, key: tuple, fn, *args):
     if prog is None:
         for stale in [k for k in cache if k[-1] != key[-1]]:
             del cache[stale]
-        prog = cache[key] = Program(fn, device)
+        prog = cache[key] = Program(fn, device, group)
     return prog(*args)

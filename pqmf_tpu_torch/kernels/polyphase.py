@@ -50,6 +50,7 @@ __all__ = [
     "roundtrip_over_k3",
     "supports",
     "roundtrip_supported",
+    "check_band_mesh",
 ]
 
 # adapter launches since the last reset_launches(), by kernel
@@ -88,6 +89,29 @@ def roundtrip_supported(n_band: int, analysis_taps: int,
     runs K4 then K5."""
     return cc.fused_roundtrip_supported(n_band, analysis_taps,
                                         synthesis_taps, precision)
+
+
+def check_band_mesh(mesh, n_band: int):
+    """Validate a (data, band) mesh (a 2-D ``DeviceMesh``) for the
+    band-partitioned kernels: two dims, and a band dim that splits
+    ``n_band`` into even shards (the fused ``reverse_half`` sign mask reads
+    the local band index, whose parity must equal the global one). Returns
+    the mesh (or None), so callers can store the validated value. The JAX
+    package's ``check_band_mesh`` (``pqmf_tpu/kernels/polyphase.py:82``)."""
+    if mesh is None:
+        return None
+    ndim = getattr(mesh, "ndim", None)
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if ndim != 2 or len(names) != 2:
+        raise ValueError(
+            f"expected a 2-axis (data, band) mesh, got {ndim} dim(s) "
+            f"named {names}")
+    band = mesh.size(1)
+    if n_band % band or (n_band // band) % 2:
+        raise ValueError(
+            f"band axis size {band} must divide n_band={n_band} "
+            f"into even shards for the band-partitioned kernels")
+    return mesh
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,14 @@ of ``jax.jit(step)``: forward, backward and a capturable Adam, captured
 once per batch geometry on the :class:`TrainState` and replayed every
 step after (:func:`make_train_step`).
 
-Data-parallel training over a mesh (``mesh=``) is not ported yet (ROADMAP
-queue 1, item 9); passing one raises. Every entry point runs on the card
-unless the caller asks for ``device="cpu"``.
+Over a (data, band) mesh (``mesh=``, ``parallel.sharding.make_mesh``) the
+training is fully data-parallel, as the JAX package's: the batch splits
+over every rank of the mesh (world = data x band), ``hk`` and Adam's
+moments are replicated, each rank takes the gradient of its local loss,
+and the mean gradient and loss are summed over the mesh with
+``all_reduce`` before every rank takes the same Adam step (on the card
+inside the step's CUDA graph, over NCCL). Every entry point runs on the
+card unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -229,6 +234,51 @@ def _set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
             group["lr"] = lr
 
 
+class _DataParallel:
+    """The data-parallel layout of a mesh: this rank's index among the
+    mesh's ``world`` ranks (data-major, as the JAX package flattens
+    ``("data", "band")``) and the group over all of them."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        ndim = getattr(mesh, "ndim", None)
+        if ndim != 2:
+            raise ValueError(f"expected a 2-axis (data, band) mesh, got "
+                             f"{ndim} dim(s)")
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not in the mesh")
+        self.world = mesh.size()
+        self.rank = coord[0] * mesh.size(1) + coord[1]
+        ranks = mesh.mesh.flatten().tolist()
+        # every rank of the default group makes the group, in or out of it
+        self.group = (dist.group.WORLD if len(ranks) == dist.get_world_size()
+                      else dist.new_group(ranks))
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the global batch (or of a DTensor's)."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        B = x.shape[0]
+        if B % self.world:
+            raise ValueError(
+                f"batch of {B} does not split over the mesh's {self.world} "
+                f"devices: its size must be divisible by {self.world}")
+        n = B // self.world
+        return x[self.rank * n:(self.rank + 1) * n]
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the mesh's ranks, in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, group=self.group)
+        graphs.COLLECTIVES["grad_all_reduce"] += 1
+        return t.div_(self.world)
+
+
 class TrainState:
     """The train state: ``hk`` (a leaf tensor with ``requires_grad``), the
     torch optimizer over it, the lr ``schedule`` (None for a constant lr)
@@ -270,7 +320,10 @@ def make_train_step(optimizer=None, mesh=None, precision: str = "highest",
     :func:`make_finetune_loss`'s result for quality fine-tuning.
     ``remat=True`` recomputes the loss's forward in the backward
     (``torch.utils.checkpoint``) instead of keeping its activations.
-    ``mesh`` (data-parallel training) is not ported yet and raises.
+    ``mesh``: a (data, band) mesh for full data parallelism (the module
+    docstring); ``x`` is then the global batch (the same on every rank, or
+    a DTensor), whose size must divide by the mesh's device count, as the
+    JAX package's sharded step requires, and the loss is the global one.
 
     On the card the step is one CUDA graph a ``(batch shape, dtype,
     precision, remat, loss)``, kept on the state (``jax.jit(step)``): its
@@ -281,11 +334,9 @@ def make_train_step(optimizer=None, mesh=None, precision: str = "highest",
     batch into the graph's buffer, writes the schedule's lr into Adam's lr
     tensor and replays. ``hk`` and Adam's moments are updated in place by
     the replay. ``step_fn.eager`` takes the same step without the graph
-    (the card checks hold the graph against it)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): data-parallel training over a mesh "
-            "is not ported to pqmf_tpu_torch yet (ROADMAP queue 1, item 9)")
+    (the card checks hold the graph against it; over gloo on the card the
+    graph raises and ``eager`` is the step)."""
+    dp = None if mesh is None else _DataParallel(mesh)
     fb.check_precision(precision)
     dev = resolve_device(device)
     if optimizer is None:
@@ -308,13 +359,19 @@ def make_train_step(optimizer=None, mesh=None, precision: str = "highest",
         return TrainState(t, optimizer(t), schedule)
 
     def step(state: TrainState, x, graphed: bool):
+        if dp is not None:
+            x = dp.local(x)
         x = _batch_on(x, state.hk)
         if state.schedule is not None:
             _set_lr(state.optimizer, state.schedule(state.count))
 
         def body(xb):
-            loss, state.hk.grad = loss_and_grad(loss_fn, state.hk, xb,
-                                                precision)
+            loss, grad = loss_and_grad(loss_fn, state.hk, xb, precision)
+            if dp is not None:
+                # the mean of the ranks' equal-sized local means is the
+                # global batch's mean, as the JAX package's loss
+                loss, grad = dp.mean(loss), dp.mean(grad)
+            state.hk.grad = grad
             state.optimizer.step()
             return loss
 
@@ -322,7 +379,8 @@ def make_train_step(optimizer=None, mesh=None, precision: str = "highest",
             key = (tuple(x.shape), x.dtype, precision, remat, loss_fn)
             prog = state._graphs.get(key)
             if prog is None:
-                prog = state._graphs[key] = graphs.Program(body, x.device)
+                prog = state._graphs[key] = graphs.Program(
+                    body, x.device, None if dp is None else dp.group)
             loss = prog(x)
         else:
             loss = body(x)
@@ -378,7 +436,10 @@ def finetune_filterbank(attenuation: float, n_band: int, steps: int = 2000,
     every committed bank is ``lr=2e-5, steps=8000, batch=4, length=8192,
     lr_schedule="cosine"`` at its band count (M=64: ``length=16384,
     steps=12000, batch=2``). The losses stay on the device until the end:
-    the loop never waits for the card."""
+    the loop never waits for the card. Under a ``mesh`` every rank draws
+    the same global noise and trains on its rows of it (data-parallel,
+    :func:`make_train_step`); ``batch`` must divide by the mesh's device
+    count, and every rank returns the same bank and losses."""
     dev = resolve_device(device)
     base = fb.build_filterbank(attenuation, n_band)
     n_taps = base["hk"].shape[-1]

@@ -29,6 +29,14 @@ CPU. Every wrapper takes the JAX package's precision tiers
 and ``"default"``), the middles' DFT matmuls round their operands to bf16
 at ``"default"`` only, and the resample stays in full f32 (JAX hard-codes
 HIGHEST there, ``pqmf_tpu/pipelines.py:311-313``).
+
+Every wrapper takes ``mesh=`` (a (data, band) ``DeviceMesh``) and hands it
+to its ``StreamingPQMF``: the batch rides the data axis, and every rank
+runs K1 on its band shard, its bands' middle (their rows of the per-band
+rates, plans and crossfade tail) and K2 on its shard, then the band
+``all_reduce``. Inputs are global tensors or ``DTensor`` s; outputs and the
+carried state are ``DTensor`` s (``streaming.BandLayout``). On the card the
+steps' CUDA graphs hold the band all-reduce (NCCL only, ``graphs.py``).
 """
 
 from __future__ import annotations
@@ -249,11 +257,12 @@ class PQMFWrapper(_RegistryMixin):
 
     def __init__(self, attenuation: int = 100, n_band: int = 16,
                  m_buffer_size: int = 512, precision: str = "highest",
-                 max_buffer_size: int | None = 16384, device="cuda"):
+                 max_buffer_size: int | None = 16384, device="cuda",
+                 mesh=None):
         self.n_band = n_band
         self.attenuation = attenuation
         self.pqmf = StreamingPQMF(attenuation, n_band, precision=precision,
-                                  device=device)
+                                  device=device, mesh=mesh)
         self.device = self.pqmf.device
         self._methods = ["forward", "inverse", "process"]
         self._attributes = [
@@ -318,19 +327,24 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
     (step, B, T, precision, device, ``pqmf.weights_version``), kept on the
     wrapper: the first call of a shape runs the eager body and captures
     it, later calls replay it; ``pqmf.set_weights`` drops them.
+
+    Under a ``mesh`` the state is a ``DTensor``: the tail [M, L] split over
+    band ([S, M, L] for ``init_streams``, over data and band); ``y`` is
+    split over data (when B divides by it) and replicated over band.
     """
 
     def __init__(self, attenuation: int = 100, n_band: int = 16,
                  m_buffer_size: int = 8192, sample_rate: int = 44100,
                  shifts_in_semitones=None, precision: str = "highest",
                  phase_rule: str = "reference",
-                 max_buffer_size: int | None = 16384, device="cuda"):
+                 max_buffer_size: int | None = 16384, device="cuda",
+                 mesh=None):
         self.n_band = n_band
         self.attenuation = attenuation
         self.sample_rate = sample_rate
         self.precision = fb.check_precision(precision)
         self.pqmf = StreamingPQMF(attenuation, n_band, precision=precision,
-                                  device=device)
+                                  device=device, mesh=mesh)
         self.device = self.pqmf.device
 
         self._methods = ["forward", "pitchshift"]
@@ -387,8 +401,11 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
     def init_state(self):
         """Crossfade state: per-band previous tail (reference buffers
         :172-180)."""
-        return {"prev_tail": torch.zeros((self.n_band, self.band_overlap),
-                                         device=self.device)}
+        lay = self.pqmf._layout
+        tail = torch.zeros((self.n_band if lay is None else lay.Mb,
+                            self.band_overlap), device=self.device)
+        return {"prev_tail": tail if lay is None
+                else lay.wrap(tail, band_dim=0)}
 
     def _block(self, x):
         """x [1, T] / [B, 1, T] (array or tensor) -> [B, 1, T] on device."""
@@ -431,10 +448,14 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         return plan
 
     def _shift(self, sub, prev_tail, crossfade):
+        """The middle of this rank's bands (all bands without a mesh): their
+        rows of the rates and the plan, the padding to the max frame count
+        of all bands kept."""
         Tb = sub.shape[-1]
         frames_out, FO_max = self._plan(Tb)
+        sl = self.pqmf.band_slice
         return _fused_band_pitchshift(
-            sub, self._rates, frames_out, prev_tail, self._fade_out,
+            sub, self._rates[sl], frames_out[sl], prev_tail, self._fade_out,
             self._fade_in, self.n_fft, self.hop, self.win, Tb, FO_max,
             crossfade=crossfade, phase_rule=self.phase_rule,
             precision=self.precision)
@@ -449,30 +470,71 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         there is no crossfade and the tail passes through untouched (the
         reference's batch==1 guard). A CUDA graph per (B, T) on the card."""
         x = self._block(x)
+        lay = self.pqmf._layout
+        if lay is not None:
+            return self._pitchshift_sharded(lay, state, x, graphed=True)
         return graphs.call(self._graphs,
                            self._key("pitchshift_fn", x.shape[0],
                                      x.shape[-1]),
                            self._pitchshift_fn_eager, state, x)
 
-    def _pitchshift_fn_eager(self, state, x):
-        sub = self.decompose(x)  # [B, M, Tb]
-        shifted, new_tail = self._shift(sub, state["prev_tail"],
-                                        crossfade=(sub.shape[0] == 1))
-        y = self.inverse(shifted)  # [B, 1, T]
+    def _pitchshift_fn_eager(self, state, x, crossfade=None):
+        """The step on this rank's rows and bands (all of them without a
+        mesh): K1, the middle, K2 (and the band sum). ``crossfade``
+        defaults to the reference's batch==1 guard on x's batch; a
+        sharded step passes the global batch's."""
+        x = self._block(x)
+        sub = self.pqmf._forward_local(x)  # [B, Mb, Tb]
+        if crossfade is None:
+            crossfade = x.shape[0] == 1
+        shifted, new_tail = self._shift(sub, state["prev_tail"], crossfade)
+        y = self.pqmf._inverse_local(shifted)  # [B, 1, T]
         return {"prev_tail": new_tail}, y[:, 0, :]
+
+    def _pitchshift_sharded(self, lay, state, x, graphed: bool):
+        """``pitchshift_fn`` over ``lay`` (``streaming.BandLayout``): this
+        rank's rows of x and bands of the tail through the step (its CUDA
+        graph when ``graphed``, on the card), the results made DTensors."""
+        B, T = x.shape[0], x.shape[-1]
+        args = ({"prev_tail": lay.local(state["prev_tail"], band_dim=0)},
+                lay.local(x, data_dim=0), B == 1)
+        if graphed:
+            new, y = graphs.call(self._graphs,
+                                 self._key("pitchshift_fn", B, T),
+                                 self._pitchshift_fn_eager, *args,
+                                 group=lay.group)
+        else:
+            new, y = self._pitchshift_fn_eager(*args)
+        return ({"prev_tail": lay.wrap(new["prev_tail"], band_dim=0)},
+                lay.wrap(y, data_dim=0, batch=B))
 
     def forward_fn(self, x):
         """Pure round trip (reference ``forward``, :303-316) -> [B, T],
-        through ``StreamingPQMF.roundtrip`` (K3 on a CUDA device)."""
-        return self.pqmf.roundtrip(self._block(x))[:, 0, :]
+        through ``StreamingPQMF.roundtrip`` (K3 on a CUDA device; K1 and K2
+        on the band shard under a mesh)."""
+        x = self._block(x)
+        lay = self.pqmf._layout
+        if lay is None:
+            return self.pqmf.roundtrip(x)[:, 0, :]
+        y = self.pqmf._roundtrip_local(lay.local(x, data_dim=0))
+        return lay.wrap(y[:, 0, :], data_dim=0, batch=x.shape[0])
 
     # -- multi-stream serving -------------------------------------------------
 
     def init_streams(self, n_streams: int):
         """Per-stream crossfade state [S, M, L] for ``n_streams``
         independent real-time streams."""
-        return {"prev_tail": torch.zeros(
-            (n_streams, self.n_band, self.band_overlap), device=self.device)}
+        lay = self.pqmf._layout
+        if lay is None:
+            return {"prev_tail": torch.zeros(
+                (n_streams, self.n_band, self.band_overlap),
+                device=self.device)}
+        rows = (n_streams // lay.data if n_streams % lay.data == 0
+                else n_streams)
+        tail = torch.zeros((rows, lay.Mb, self.band_overlap),
+                           device=self.device)
+        return {"prev_tail": lay.wrap(tail, data_dim=0, band_dim=1,
+                                      batch=n_streams)}
 
     def pitchshift_streams(self, states, x):
         """Stateful step over S independent streams at once, each with its
@@ -480,16 +542,26 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         kernels. x: [n_streams, T] -> (states', y [n_streams, T]). A CUDA
         graph per (S, T) on the card."""
         x = self.pqmf.as_tensor(x)
-        return graphs.call(self._graphs,
-                           self._key("pitchshift_streams", x.shape[0],
-                                     x.shape[-1]),
-                           self._pitchshift_streams_eager, states, x)
+        S, T = x.shape[0], x.shape[-1]
+        key = self._key("pitchshift_streams", S, T)
+        lay = self.pqmf._layout
+        if lay is None:
+            return graphs.call(self._graphs, key,
+                               self._pitchshift_streams_eager, states, x)
+        tails = lay.local(states["prev_tail"], data_dim=0, band_dim=1)
+        new, y = graphs.call(self._graphs, key,
+                             self._pitchshift_streams_eager,
+                             {"prev_tail": tails}, lay.local(x, data_dim=0),
+                             group=lay.group)
+        return ({"prev_tail": lay.wrap(new["prev_tail"], data_dim=0,
+                                       band_dim=1, batch=S)},
+                lay.wrap(y, data_dim=0, batch=S))
 
     def _pitchshift_streams_eager(self, states, x):
-        sub = self.decompose(x[:, None, :])  # [S, M, Tb]
-        tails = states["prev_tail"].transpose(0, 1)  # [M, S, L]
+        sub = self.pqmf._forward_local(self._block(x[:, None, :]))
+        tails = states["prev_tail"].transpose(0, 1)  # [Mb, S, L]
         shifted, new_tails = self._shift(sub, tails, crossfade="batched")
-        y = self.inverse(shifted)
+        y = self.pqmf._inverse_local(shifted)
         return ({"prev_tail": new_tails.transpose(0, 1).contiguous()},
                 y[:, 0, :])
 
@@ -523,25 +595,33 @@ def _stream_ola_program(wrapper, block: int, hop: int, n_frames: int,
     carried -> all blocks' round trips as one batch (one K3 on the card) ->
     windowed overlap-add / sum of window^2 -> trim back to T. On a CUDA
     device the whole ``run`` is one CUDA graph (``graphs.Program``): one
-    launch a call once captured. On the CPU it runs eagerly."""
+    launch a call once captured. On the CPU it runs eagerly. Under a mesh
+    every rank runs every stream on its bands (the band sums in the
+    graph), and the outputs are DTensors replicated over the mesh."""
     if C == 1:
         step = wrapper._pitchshift_fn_eager
     else:
         step = wrapper._pitchshift_streams_eager
     total = (n_frames - 1) * hop + block
+    lay = wrapper.pqmf._layout
+    Mb = wrapper.n_band if lay is None else lay.Mb
+    L = wrapper.band_overlap
 
     def run(x):
         window = S.hann_window(block, x.device)
         framed = S._frame_signal(F.pad(x, (0, total - T)), block, hop,
                                  n_frames)
         blocks = (framed * window).transpose(0, 1)  # [N, C, block]
-        state = wrapper.init_state() if C == 1 else wrapper.init_streams(C)
+        # this rank's bands of the zero tails (all of them without a mesh)
+        state = {"prev_tail": x.new_zeros(
+            (Mb, L) if C == 1 else (C, Mb, L))}
         outs = []
         for blk in blocks:  # [C, block] -> [C, block]
             state, out = step(state, blk)
             outs.append(out)
         outs = torch.stack(outs, dim=1)  # [C, N, block]
-        recs = wrapper.forward_fn(blocks.reshape(n_frames * C, 1, block))
+        recs = wrapper.pqmf._roundtrip_local(
+            wrapper._block(blocks.reshape(n_frames * C, 1, block)))[:, 0, :]
         recs = recs.reshape(n_frames, C, block).transpose(0, 1)
 
         wsq = (window * window).expand(n_frames, block)
@@ -550,7 +630,8 @@ def _stream_ola_program(wrapper, block: int, hop: int, n_frames: int,
         recon = S._ola(recs * window, block, hop) / norm
         return pitch[:, :T], recon[:, :T]
 
-    return graphs.Program(run, wrapper.device)
+    return graphs.Program(run, wrapper.device,
+                          None if lay is None else lay.group)
 
 
 def stream_ola(wrapper, x, block: int, overlap: int | None = None):
@@ -575,9 +656,12 @@ def stream_ola(wrapper, x, block: int, overlap: int | None = None):
     harness eagerly and captures it, and every later call of the same
     geometry one replay; ``pqmf.set_weights`` evicts the programs of the
     old bank. Returns (pitch_stream [C, T], recon_stream [C, T]) on the
-    wrapper's device.
+    wrapper's device (DTensors replicated over a wrapper's mesh).
     """
     x = wrapper.pqmf.as_tensor(x)
+    lay = wrapper.pqmf._layout
+    if lay is not None:
+        x = lay.local(x)  # the global signal, on every rank
     if x.ndim == 1:
         x = x[None]
     C, T = x.shape
@@ -597,7 +681,9 @@ def stream_ola(wrapper, x, block: int, overlap: int | None = None):
             del fns[stale]
         run = fns[key] = _stream_ola_program(wrapper, block, hop, n_frames,
                                              C, T)
-    return run(x)
+    if lay is None:
+        return run(x)
+    return tuple(lay.wrap(t) for t in run(x))
 
 
 # ---------------------------------------------------------------------------
@@ -666,19 +752,22 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
     per-band resample ratios batch through the banded sinc plan) and
     synthesis (K2), on a CUDA device as a CUDA graph per (B, T) (the JAX
     package's ``_pitchshifter_jit``); ``pitchshifter_loop`` keeps the
-    reference's per-band structure as its parity oracle.
+    reference's per-band structure as its parity oracle. Under a ``mesh``
+    each rank shifts its bands (its rows of the plan) between K1 and K2 on
+    its shard, the batch split over data, and ``y`` is a DTensor.
     """
 
     def __init__(self, attenuation: int = 100, n_band: int = 16,
                  m_buffer_size: int = 512, sample_rate: int = 44100,
                  shifts_in_semitones=None, precision: str = "highest",
-                 max_buffer_size: int | None = 8192, device="cuda"):
+                 max_buffer_size: int | None = 8192, device="cuda",
+                 mesh=None):
         self.n_band = n_band
         self.attenuation = attenuation
         self.sample_rate = sample_rate
         self.precision = fb.check_precision(precision)
         self.pqmf = StreamingPQMF(attenuation, n_band, precision=precision,
-                                  device=device)
+                                  device=device, mesh=mesh)
         self.device = self.pqmf.device
 
         self._methods = ["forward", "inverse", "pitchshifter"]
@@ -810,19 +899,32 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
         x = self._block(x)
         key = ("pitchshifter", x.shape[0], x.shape[-1], self.precision,
                self.device, self.pqmf.weights_version)
-        return graphs.call(self._graphs, key, self._pitchshifter_eager, x)
+        lay = self.pqmf._layout
+        if lay is None:
+            return graphs.call(self._graphs, key, self._pitchshifter_eager,
+                               x)
+        y = graphs.call(self._graphs, key, self._pitchshifter_eager,
+                        lay.local(x, data_dim=0), group=lay.group)
+        return lay.wrap(y, data_dim=0, batch=x.shape[0])
 
     def _pitchshifter_eager(self, x):
+        """K1, the shift of this rank's bands (all of them without a mesh)
+        and K2 (then the band sum) over this rank's rows."""
+        x = self._block(x)
         plan = self._ta_plan(x.shape[-1] // self.n_band)
-        shifted = _fused_ta_pitchshift(self.pqmf.forward(x), plan,
+        sl = self.pqmf.band_slice
+        plan = tuple(a[sl] for a in plan[:6]) + plan[6:]
+        shifted = _fused_ta_pitchshift(self.pqmf._forward_local(x), plan,
                                        self._n_fft, self._hop, self._win,
                                        self.precision)
-        return self.pqmf.inverse(shifted)
+        return self.pqmf._inverse_local(shifted)
 
     def pitchshifter_loop(self, x):
         """The reference's per-band dispatch structure, kept as the fused
         path's parity oracle (PQMFPsWrapper.py:114-150)."""
         subbands = self.forward(x)  # [B, M, Tb]
+        if self.pqmf._layout is not None:  # the oracle runs every band
+            subbands = subbands.full_tensor()
         target = subbands.shape[-1]
         out = []
         for i in range(self.n_band):

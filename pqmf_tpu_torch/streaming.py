@@ -17,6 +17,17 @@ Every conv of :class:`StreamingPQMF` goes through the kernel wrappers in
 runs K1, the synthesis K2 and :meth:`StreamingPQMF.roundtrip` K3 (K1t,
 K2t and K3t at the ``"bf16x3"`` and ``"default"`` tiers); on the CPU the
 same wrappers run their plain versions at the same tier.
+
+Under a (data, band) mesh (``mesh=``, a 2-D ``DeviceMesh`` from
+``parallel.sharding.make_mesh``; one process a device, SPMD over
+``torch.distributed``) each rank keeps its row shard of the analysis bank
+and its column shard of the synthesis bank, runs K1/K2 (K1t/K2t) on its
+band shard and sums the partial synthesis outputs over the band group with
+one ``all_reduce`` (:func:`shard_band_analysis`,
+:func:`shard_band_synthesis`, the JAX package's ``shard_map`` regions).
+Inputs are the global value (the same tensor on every rank) or a
+``DTensor``; outputs are ``DTensor`` s over the mesh whose
+``full_tensor()`` is the JAX package's global array (:class:`BandLayout`).
 """
 
 from __future__ import annotations
@@ -41,6 +52,9 @@ __all__ = [
     "resolve_device",
     "as_device_tensor",
     "scan_blocks",
+    "shard_band_analysis",
+    "shard_band_synthesis",
+    "BandLayout",
     "StreamingPQMF",
 ]
 
@@ -153,54 +167,200 @@ def offline_conv(x, w, stride: int = 1, causal: bool = False,
     return fb._conv1d(x, w, stride=stride, padding=pad, precision=precision)
 
 
+# ---------------------------------------------------------------------------
+# the (data, band) mesh
+# ---------------------------------------------------------------------------
+
+
+class BandLayout:
+    """This rank's part of the tensors of a (data, band) mesh.
+
+    A batch axis is split over ``data`` when the global batch divides by
+    it, else replicated (as the JAX package's ``shard_band_*`` choose, its
+    ``streaming.py:143``); a band axis is split over ``band`` into even
+    shards of ``Mb = n_band / band`` bands when ``split_bands`` (else every
+    rank keeps every band, as ``ShardedPitchShift`` does on a mesh whose
+    band shards would be odd). ``local`` takes this rank's part of a global
+    tensor (the same on every rank) or of a ``DTensor`` (redistributed only
+    where its placements differ), ``wrap`` makes a rank's part into the
+    ``DTensor`` of the global value. ``group`` is the band group of the
+    synthesis ``all_reduce`` (None without a band split)."""
+
+    def __init__(self, mesh, n_band: int, split_bands: bool = True):
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not in the mesh")
+        self.mesh = mesh
+        self.data, self.band = mesh.size(0), mesh.size(1)
+        self.data_rank, self.band_rank = coord
+        self.split_bands = split_bands
+        if split_bands:
+            self.Mb = n_band // self.band
+            self.bands = slice(self.band_rank * self.Mb,
+                               (self.band_rank + 1) * self.Mb)
+            self.group = mesh.get_group(1)
+        else:
+            self.Mb, self.bands, self.group = n_band, slice(None), None
+
+    def _placements(self, data_dim, band_dim, batch):
+        from torch.distributed.tensor import Replicate, Shard
+
+        split = data_dim is not None and batch % self.data == 0
+        return [Shard(data_dim) if split else Replicate(),
+                Shard(band_dim) if band_dim is not None and self.split_bands
+                else Replicate()]
+
+    def local(self, x, data_dim=None, band_dim=None, batch=None):
+        """This rank's part of ``x``: its rows of ``data_dim`` (when
+        ``batch``, by default that axis's global size, divides by the data
+        axis) and its band shard of ``band_dim``."""
+        from torch.distributed.tensor import DTensor
+
+        if batch is None and data_dim is not None:
+            batch = x.shape[data_dim]
+        want = self._placements(data_dim, band_dim, batch)
+        if isinstance(x, DTensor):
+            if x.device_mesh != self.mesh:
+                raise ValueError("the DTensor lies on another mesh")
+            if list(x.placements) != want:
+                x = x.redistribute(self.mesh, want)
+            return x.to_local()
+        for dim, p, rank, size in (
+                (data_dim, want[0], self.data_rank, self.data),
+                (band_dim, want[1], self.band_rank, self.band)):
+            if p.is_shard():
+                n = x.shape[dim] // size
+                x = x.narrow(dim, rank * n, n)
+        return x
+
+    def wrap(self, t, data_dim=None, band_dim=None, batch=None):
+        """The ``DTensor`` whose local part on this rank is ``t``; ``batch``
+        is the global size of ``data_dim``."""
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(
+            t, self.mesh, self._placements(data_dim, band_dim, batch),
+            run_check=False)
+
+    def local_bands(self, x, C: int):
+        """This rank's rows and bands of global sub-bands [B, C*M, T'] (a
+        tensor or DTensor) -> [B*C, Mb, T'] (rows of the data shard)."""
+        if C == 1:
+            return self.local(x, data_dim=0, band_dim=1)
+        x = self.local(x, data_dim=0)
+        x = x.reshape(x.shape[0], C, -1, x.shape[-1])[:, :, self.bands]
+        return x.reshape(-1, self.Mb, x.shape[-1])
+
+    def wrap_bands(self, y, B: int, C: int):
+        """This rank's sub-bands [B*C, Mb, T'] -> the DTensor [B, C*M, T']:
+        band-split for one channel; for more, whose bands interleave with
+        the channels, gathered over the band axis."""
+        if C == 1:
+            return self.wrap(y, data_dim=0, band_dim=1, batch=B)
+        from torch.distributed.tensor import Replicate
+
+        Tp = y.shape[-1]
+        d = self.wrap(y.reshape(-1, C, self.Mb, Tp), data_dim=0, band_dim=2,
+                      batch=B)
+        full = d.redistribute(self.mesh, [d.placements[0], Replicate()])
+        return self.wrap(full.to_local().reshape(-1, C * self.band * self.Mb,
+                                                 Tp), data_dim=0, batch=B)
+
+    def wrap_signal(self, y, B: int, C: int):
+        """This rank's rows [B*C, 1, T] -> the DTensor [B, C, T]."""
+        return self.wrap(y.reshape(-1, C, y.shape[-1]), data_dim=0, batch=B)
+
+
+def shard_band_analysis(mesh, conv, x, w):
+    """Band-partitioned analysis: this rank runs ``conv(x, w)`` with its
+    ROW shard of the bank (``w`` [Mb, ...], sharded on axis 0) over its
+    rows of the band-replicated signal, and gets its [B, Mb, T'] sub-band
+    shard; no collective. The sharding contract of the streaming and
+    offline paths lives here and in :func:`shard_band_synthesis` (the JAX
+    package's ``shard_band_analysis``, ``pqmf_tpu/streaming.py:133``)."""
+    return conv(x, w)
+
+
+def band_all_reduce(y, group):
+    """Sum ``y`` over the band group in place: the one collective of a
+    round trip. Counted in ``graphs.COLLECTIVES["band_all_reduce"]``."""
+    import torch.distributed as dist
+
+    dist.all_reduce(y, group=group)
+    graphs.COLLECTIVES["band_all_reduce"] += 1
+    return y
+
+
+def shard_band_synthesis(mesh, conv, x, w):
+    """Band-partitioned synthesis: this rank contracts its band shard (the
+    signal's axis 1 and the bank's COLUMN shard, ``w`` [M, Mb, ...]) with
+    ``conv(x, w)``, and the partial outputs are summed over the band group
+    by one ``all_reduce`` (the JAX package's ``psum``,
+    ``pqmf_tpu/streaming.py:151``)."""
+    if x.shape[1] != w.shape[1]:
+        raise ValueError(f"synthesis shard: {x.shape[1]} bands against a "
+                         f"bank of {w.shape[1]}")
+    return band_all_reduce(conv(x, w), mesh.get_group(1))
+
+
 def _cached_analysis(x, hkf, state, mode="offline", precision="highest",
-                     bank=None):
+                     bank=None, mesh=None):
     """CachedPQMF.forward (pqmf.py:339-343): strided 1->M conv and sign
     mask, as K1 (K1t at a tier, reading the arranged ``bank``) over the
     mode's padded input (K1 applies the offline and causal zero pads
-    itself). Returns (state', y)."""
-    M, _, K = hkf.shape
+    itself). Returns (state', y). Under a ``mesh`` x and state are this
+    rank's rows and ``hkf`` its row shard of the bank
+    (:func:`shard_band_analysis`)."""
+    K = hkf.shape[-1]
+    M = hkf.shape[0] * (1 if mesh is None else mesh.size(1))
     if mode == "offline":
-        return state, cc.strided_analysis_conv(x.contiguous(), hkf, M,
-                                               pad=centered_padding(K),
-                                               precision=precision,
-                                               bank=bank)
-    if mode == "causal":
-        return state, cc.strided_analysis_conv(x.contiguous(), hkf, M,
-                                               pad=(K - M, 0),
-                                               precision=precision,
-                                               bank=bank)
-    xx = torch.cat([state, x], dim=-1)  # streaming
-    new_state = xx[..., xx.shape[-1] - (K - M):]
-    return new_state, cc.strided_analysis_conv(xx, hkf, M,
-                                               precision=precision,
-                                               bank=bank)
+        pad, xx, new_state = centered_padding(K), x.contiguous(), state
+    elif mode == "causal":
+        pad, xx, new_state = (K - M, 0), x.contiguous(), state
+    else:  # streaming
+        xx = torch.cat([state, x], dim=-1)
+        pad, new_state = (0, 0), xx[..., xx.shape[-1] - (K - M):]
+
+    def conv(v, w):
+        return cc.strided_analysis_conv(v, w, M, pad=pad,
+                                        precision=precision, bank=bank)
+
+    if mesh is not None:
+        return new_state, shard_band_analysis(mesh, conv, xx, hkf)
+    return new_state, conv(xx, hkf)
 
 
 def _cached_synthesis(x, hki, state, mode="offline", precision="highest",
-                      bank=None):
+                      bank=None, mesh=None):
     """CachedPQMF.inverse (pqmf.py:345-354): sign mask, M->M conv * M, band
     flip, phase interleave, as K2 (K2t at a tier, reading the arranged
     ``bank``) over the mode's padded input (K2 applies the offline and
-    causal zero pads itself). Returns (state', y [B, 1, T'*M])."""
-    M, _, K = hki.shape
+    causal zero pads itself). Returns (state', y [B, 1, T'*M]). Under a
+    ``mesh`` x and state are this rank's rows and band shard, ``hki`` its
+    column shard of the bank, and y the sum over the band group
+    (:func:`shard_band_synthesis`)."""
+    K = hki.shape[-1]
     if mode in ("offline", "causal"):
         pad = centered_padding(K) if mode == "offline" else (K - 1, 0)
-        y = cc.dense_synthesis_conv(x.contiguous(), hki, x_offset=0,
-                                    precision=precision, pad=pad, bank=bank)
-        new_state = state
+        xx, fuse, new_state = x.contiguous(), True, state
     else:
         # block-local sign mask first: the carried tail keeps the previous
         # block's masked samples
         xx = torch.cat([state, fb.reverse_half(x)], dim=-1)
-        new_state = xx[..., xx.shape[-1] - (K - 1):]
-        y = cc.dense_synthesis_conv(xx, hki, fuse_mask=False,
-                                    precision=precision, bank=bank)
+        pad, fuse, new_state = (0, 0), False, xx[..., xx.shape[-1] - (K - 1):]
+
+    def conv(v, w):
+        return cc.dense_synthesis_conv(v, w, fuse_mask=fuse, x_offset=0,
+                                       precision=precision, pad=pad,
+                                       bank=bank)
+
+    y = (conv(xx, hki) if mesh is None
+         else shard_band_synthesis(mesh, conv, xx, hki))
     return new_state, y.reshape(y.shape[0], 1, -1)
 
 
 class StreamingPQMF:
-    """Streaming PQMF with explicit state, on one device.
+    """Streaming PQMF with explicit state, on one device or over a mesh.
 
     ``n_channels > 1`` folds channels into the batch of the mono conv
     core: ``forward`` maps [B, C, T] -> [B, C*M, T/M] and the streaming
@@ -225,11 +385,22 @@ class StreamingPQMF:
     package's tier of every conv: ``"highest"`` (full f32, K1/K2/K3),
     ``"bf16x3"`` or ``"default"`` (split-bf16 on the tensor cores,
     K1t/K2t/K3t).
+
+    ``mesh``: a (data, band) ``DeviceMesh`` (``parallel.sharding.
+    make_mesh``) whose band axis splits ``n_band`` into even shards
+    (``kernels.polyphase.check_band_mesh``; anything else raises
+    ``ValueError``). Every rank then keeps its shard of both banks
+    (``hkf_shard``, ``hki_shard``, their arranged banks in ``tc_banks``),
+    runs K1/K2 on it, and the synthesis sums over the band group; inputs
+    are global tensors or ``DTensor`` s, outputs ``DTensor`` s (the module
+    docstring), the streaming state too: its analysis cache is split over
+    data, its synthesis cache over data and band. ``roundtrip`` is then
+    ``inverse(forward(x))``: no K3, as in the JAX package.
     """
 
     def __init__(self, attenuation: float, n_band: int,
                  precision: str = "highest", n_channels: int = 1,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         power = math.log2(n_band)
         if power != math.floor(power):
             raise ValueError(f"n_band must be a power of 2, got {n_band}")
@@ -238,9 +409,24 @@ class StreamingPQMF:
         self.precision = fb.check_precision(precision)
         self.n_channels = int(n_channels)
         self.device = resolve_device(device)
+        self.mesh = self._check_mesh(mesh)
+        self._layout = (None if self.mesh is None
+                        else BandLayout(self.mesh, n_band))
         self.weights_version = 0
         self._graphs = {}  # scan_blocks' CUDA graphs (graphs.call)
         self._install(fb.build_filterbank(attenuation, n_band))
+
+    def _check_mesh(self, mesh):
+        """Validate a (data, band) mesh for the band-partitioned kernels
+        (``kernels.polyphase.check_band_mesh``)."""
+        from pqmf_tpu_torch.kernels.polyphase import check_band_mesh
+
+        return check_band_mesh(mesh, self.n_band)
+
+    @property
+    def band_slice(self) -> slice:
+        """This rank's bands: ``slice(None)`` without a mesh."""
+        return slice(None) if self._layout is None else self._layout.bands
 
     def _install(self, params, hkf=None, hki=None):
         if hkf is None or hki is None:
@@ -255,13 +441,19 @@ class StreamingPQMF:
                 f"n_band={M} (see kernels.cached_conv.supports)")
         self.params = {k: _on(v, self.device) for k, v in params.items()}
         self.hkf, self.hki = hkf, hki
-        # K1t/K2t's banks, arranged here once (none at "highest")
+        # this rank's row shard of the analysis bank and column shard of
+        # the synthesis bank, cut here once (the whole banks without a mesh)
+        sl = self.band_slice
+        self.hkf_shard = hkf[sl].contiguous()
+        self.hki_shard = hki[:, sl].contiguous()
+        # K1t/K2t's banks of the shards, arranged here once (none at
+        # "highest")
         self.tc_banks = {"analysis": None, "synthesis": None}
         if self.precision != "highest" and M > 1:
             self.tc_banks = {
-                "analysis": cc.arrange_tc_bank(hkf, "analysis",
+                "analysis": cc.arrange_tc_bank(self.hkf_shard, "analysis",
                                                self.precision),
-                "synthesis": cc.arrange_tc_bank(hki, "synthesis",
+                "synthesis": cc.arrange_tc_bank(self.hki_shard, "synthesis",
                                                 self.precision)}
         self._update_delays()
 
@@ -269,8 +461,8 @@ class StreamingPQMF:
         """Install filterbank weights (restored from an artifact, carried
         over from ``pqmf_tpu`` with ``params_from_jax``, or fine-tuned) in
         place of the designed ones; the conv kernels derive from ``params``
-        unless given, and K1t/K2t's arranged banks are built again.
-        Recomputes the latency bookkeeping and bumps
+        unless given, and the rank's shards and K1t/K2t's arranged banks are
+        built again. Recomputes the latency bookkeeping and bumps
         ``weights_version`` so caches keyed on it see the swap."""
         self._install(params, hkf, hki)
         self.weights_version += 1
@@ -302,7 +494,8 @@ class StreamingPQMF:
         return as_device_tensor(x, self.device)
 
     def _fold(self, x):
-        """[B, C, T] (or [C, T] / [T]) -> ([B*C, 1, T], B)."""
+        """[B, C, T] (or [C, T] / [T]) -> ([B*C, 1, T] of this rank's rows,
+        global B)."""
         x = self.as_tensor(x)
         if x.ndim == 1:
             x = x[None, None, :]
@@ -312,19 +505,83 @@ class StreamingPQMF:
         if C != self.n_channels:
             raise ValueError(
                 f"expected {self.n_channels} channel(s), got {C}")
-        return x.reshape(B * C, 1, T), B
+        if self._layout is not None:
+            x = self._layout.local(x, data_dim=0)
+        return x.reshape(-1, 1, T), B
 
     def _fold_bands(self, x):
-        """[B, C*M, T'] (or [C*M, T']) -> ([B*C, M, T'], B)."""
+        """[B, C*M, T'] (or [C*M, T']) -> ([B*C, Mb, T'] of this rank's rows
+        and bands, global B)."""
         x = self.as_tensor(x)
         if x.ndim == 2:
             x = x[None]
         B, CM, Tp = x.shape
-        if CM != self.n_channels * self.n_band:
+        C, M = self.n_channels, self.n_band
+        if CM != C * M:
             raise ValueError(
-                f"expected {self.n_channels * self.n_band} rows "
-                f"(C*M), got {CM}")
-        return x.reshape(B * self.n_channels, self.n_band, Tp), B
+                f"expected {C * M} rows (C*M), got {CM}")
+        if self._layout is None:
+            return x.reshape(B * C, M, Tp), B
+        return self._layout.local_bands(x, C), B
+
+    def _bands_out(self, y, B):
+        """This rank's sub-bands [B*C, Mb, T'] -> [B, C*M, T'] (a DTensor
+        under a mesh)."""
+        if self._layout is None:
+            return y.reshape(B, self.n_channels * self.n_band, y.shape[-1])
+        return self._layout.wrap_bands(y, B, self.n_channels)
+
+    def _signal_out(self, y, B):
+        """This rank's rows [B*C, 1, T] -> [B, C, T] (a DTensor under a
+        mesh, band-replicated)."""
+        if self._layout is None:
+            return y.reshape(-1, self.n_channels, y.shape[-1])
+        return self._layout.wrap_signal(y, B, self.n_channels)
+
+    def _state_out(self, t, B, banded: bool):
+        if self._layout is None:
+            return t
+        return self._layout.wrap(t, data_dim=0, batch=B,
+                                 band_dim=1 if banded else None)
+
+    # -- this rank's part: the bodies of the entries and of the wrappers ----
+
+    def _forward_local(self, xf):
+        """Offline analysis of this rank's rows [R, 1, T] -> its sub-band
+        shard [R, Mb, T/M] (a passthrough at n_band == 1)."""
+        if self.n_band == 1:
+            return xf
+        return _cached_analysis(xf, self.hkf_shard, None, mode="offline",
+                                precision=self.precision,
+                                bank=self.tc_banks["analysis"],
+                                mesh=self.mesh)[1]
+
+    def _inverse_local(self, xf):
+        """Offline synthesis of this rank's sub-band shard [R, Mb, T'] ->
+        [R, 1, T'*M], summed over the band group under a mesh."""
+        if self.n_band == 1:
+            return xf
+        return _cached_synthesis(xf, self.hki_shard, None, mode="offline",
+                                 precision=self.precision,
+                                 bank=self.tc_banks["synthesis"],
+                                 mesh=self.mesh)[1]
+
+    def _roundtrip_local(self, xf):
+        """The round trip of this rank's rows [R, 1, T] -> [R, 1, T]: one K3
+        (K3t) where it takes the geometry and there is no mesh, else K1
+        then K2 (and the band sum)."""
+        M = self.n_band
+        Ka, Ks = self.hkf.shape[-1], self.hki.shape[-1]
+        if (M == 1 or self.mesh is not None
+                or not cc.fused_roundtrip_supported(M, Ka, Ks,
+                                                    self.precision)):
+            return self._inverse_local(self._forward_local(xf))
+        banks = None if self.precision == "highest" else (
+            self.tc_banks["analysis"], self.tc_banks["synthesis"])
+        out = cc.fused_roundtrip_conv(xf.contiguous(), self.hkf, self.hki, M,
+                                      centered_padding(Ks), self.precision,
+                                      pad=centered_padding(Ka), banks=banks)
+        return out.reshape(out.shape[0], 1, -1)
 
     # -- offline (centered) ------------------------------------------------
 
@@ -332,21 +589,13 @@ class StreamingPQMF:
         """[B, C, T] -> [B, C*M, T/M]."""
         xf, B = self._fold(x)
         if self.n_band == 1:
-            return xf.reshape(B, self.n_channels, -1)
-        _, y = _cached_analysis(xf, self.hkf, None, mode="offline",
-                                precision=self.precision,
-                                bank=self.tc_banks["analysis"])
-        return y.reshape(B, self.n_channels * self.n_band, -1)
+            return self._signal_out(xf, B)
+        return self._bands_out(self._forward_local(xf), B)
 
     def inverse(self, x):
         """[B, C*M, T'] -> [B, C, T'*M]."""
         xf, B = self._fold_bands(x)
-        if self.n_band == 1:
-            return xf.reshape(B, self.n_channels, -1)
-        _, y = _cached_synthesis(xf, self.hki, None, mode="offline",
-                                 precision=self.precision,
-                                 bank=self.tc_banks["synthesis"])
-        return y.reshape(B, self.n_channels, -1)
+        return self._signal_out(self._inverse_local(xf), B)
 
     def roundtrip(self, x):
         """``inverse(forward(x))`` as one kernel, K3 ([B, C, T] ->
@@ -355,33 +604,39 @@ class StreamingPQMF:
         kept arranged banks). K3 applies the centered pad itself. Every
         committed bank, M = 2 to 64, designed or fine-tuned, takes one K3
         launch; a geometry K3 does not take (see
-        ``fused_roundtrip_supported``) runs as K1 then K2."""
-        M = self.n_band
-        Ka, Ks = self.hkf.shape[-1], self.hki.shape[-1]
-        if M == 1 or not cc.fused_roundtrip_supported(M, Ka, Ks,
-                                                      self.precision):
+        ``fused_roundtrip_supported``) runs as K1 then K2, and so does
+        every round trip under a mesh (K1 and K2 on the band shard, then
+        the band sum: the JAX package's ``streaming.py:447``)."""
+        if self._layout is not None:
             return self.inverse(self.forward(x))
         xf, B = self._fold(x)
-        banks = None if self.precision == "highest" else (
-            self.tc_banks["analysis"], self.tc_banks["synthesis"])
-        out = cc.fused_roundtrip_conv(xf.contiguous(), self.hkf, self.hki, M,
-                                      centered_padding(Ks), self.precision,
-                                      pad=centered_padding(Ka), banks=banks)
-        return out.reshape(B, self.n_channels, -1)
+        return self._signal_out(self._roundtrip_local(xf), B)
 
     # -- streaming ----------------------------------------------------------
 
     def init_state(self, batch: int = 1, dtype=torch.float32) -> dict:
         """Zero streaming state for ``batch`` signals, float32 (``dtype``
-        as the reference takes it; anything else raises ``ValueError``)."""
+        as the reference takes it; anything else raises ``ValueError``).
+        Under a mesh, ``DTensor`` s: the analysis cache [B*C, 1, K-M] split
+        over data, the synthesis cache [B*C, M, K-1] over data and band."""
         M = self.n_band
         rows = batch * self.n_channels  # one cache per (batch, channel)
-        return {
-            "analysis": conv_state_init(rows, 1, self.hkf.shape[-1], M,
-                                        self.device, dtype),
-            "synthesis": conv_state_init(rows, M, self.hki.shape[-1], 1,
-                                         self.device, dtype),
-        }
+        lay = self._layout
+        if lay is not None:
+            rows = rows // lay.data if batch % lay.data == 0 else rows
+        ana = conv_state_init(rows, 1, self.hkf.shape[-1], M, self.device,
+                              dtype)
+        syn = conv_state_init(rows, M if lay is None else lay.Mb,
+                              self.hki.shape[-1], 1, self.device, dtype)
+        return {"analysis": self._state_out(ana, batch, banded=False),
+                "synthesis": self._state_out(syn, batch, banded=True)}
+
+    def _state_in(self, t, B, banded: bool):
+        """This rank's part of a streaming cache (global or DTensor)."""
+        if self._layout is None:
+            return t
+        return self._layout.local(t, data_dim=0, batch=B,
+                                  band_dim=1 if banded else None)
 
     def _check_block_parity(self, sub_len: int, what: str):
         """``reverse_half``'s sign is block-local, so a block with an odd
@@ -403,21 +658,26 @@ class StreamingPQMF:
                 f"block length {T} must be a multiple of "
                 f"n_band={self.n_band}")
         self._check_block_parity(T // self.n_band, "analysis")
-        new, y = _cached_analysis(xf, self.hkf, state["analysis"],
+        new, y = _cached_analysis(xf, self.hkf_shard,
+                                  self._state_in(state["analysis"], B, False),
                                   mode="streaming", precision=self.precision,
-                                  bank=self.tc_banks["analysis"])
-        return ({**state, "analysis": new},
-                y.reshape(B, self.n_channels * self.n_band, -1))
+                                  bank=self.tc_banks["analysis"],
+                                  mesh=self.mesh)
+        return ({**state, "analysis": self._state_out(new, B, False)},
+                self._bands_out(y, B))
 
     def inverse_block(self, state: dict, x):
         xf, B = self._fold_bands(x)
         self._check_block_parity(xf.shape[-1], "synthesis")
-        new, y = _cached_synthesis(xf, self.hki, state["synthesis"],
+        new, y = _cached_synthesis(xf, self.hki_shard,
+                                   self._state_in(state["synthesis"], B,
+                                                  True),
                                    mode="streaming",
                                    precision=self.precision,
-                                   bank=self.tc_banks["synthesis"])
-        return ({**state, "synthesis": new},
-                y.reshape(B, self.n_channels, -1))
+                                   bank=self.tc_banks["synthesis"],
+                                   mesh=self.mesh)
+        return ({**state, "synthesis": self._state_out(new, B, True)},
+                self._signal_out(y, B))
 
     def process_block(self, state: dict, x):
         """Analysis + synthesis round-trip of one block."""
@@ -428,17 +688,19 @@ class StreamingPQMF:
 
     def forward_causal(self, x):
         xf, B = self._fold(x)
-        _, y = _cached_analysis(xf, self.hkf, None, mode="causal",
+        _, y = _cached_analysis(xf, self.hkf_shard, None, mode="causal",
                                 precision=self.precision,
-                                bank=self.tc_banks["analysis"])
-        return y.reshape(B, self.n_channels * self.n_band, -1)
+                                bank=self.tc_banks["analysis"],
+                                mesh=self.mesh)
+        return self._bands_out(y, B)
 
     def inverse_causal(self, x):
         xf, B = self._fold_bands(x)
-        _, y = _cached_synthesis(xf, self.hki, None, mode="causal",
+        _, y = _cached_synthesis(xf, self.hki_shard, None, mode="causal",
                                  precision=self.precision,
-                                 bank=self.tc_banks["synthesis"])
-        return y.reshape(B, self.n_channels, -1)
+                                 bank=self.tc_banks["synthesis"],
+                                 mesh=self.mesh)
+        return self._signal_out(y, B)
 
 
 def _versioned_owner(step_fn):
@@ -480,8 +742,10 @@ def scan_blocks(step_fn, state, blocks):
     device, ``weights_version``): the first call of a stream's geometry
     runs the loop and captures it, later calls replay it; a graphed step
     runs its eager body inside that capture. The blocks then become one
-    tensor on the object's device first. Any other callable runs the loop,
-    one step at a time, on whatever device its tensors are."""
+    tensor on the object's device first. Under a mesh the graph holds the
+    steps' band all-reduces (NCCL only, ``graphs.Program``). Any other
+    callable runs the loop, one step at a time, on whatever device its
+    tensors are."""
     if len(blocks) == 0:
         raise ValueError("scan_blocks needs at least one block")
     owner, version = _versioned_owner(step_fn)
@@ -493,5 +757,7 @@ def scan_blocks(step_fn, state, blocks):
            tuple(blocks.shape[1:]), blocks.dtype, str(spec),
            tuple((tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor)
                  else t for t in leaves), owner.device, version)
+    layout = getattr(getattr(owner, "pqmf", owner), "_layout", None)
     return graphs.call(owner._graphs, key,
-                       functools.partial(_scan, step_fn), state, blocks)
+                       functools.partial(_scan, step_fn), state, blocks,
+                       group=None if layout is None else layout.group)

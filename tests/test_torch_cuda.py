@@ -1594,3 +1594,65 @@ def test_a_failed_capture_raises_on_the_card(dev):
     print(res.stdout)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert "raised:" in res.stdout and res.stdout.rstrip().endswith("OK")
+
+
+# -- the (data, band) mesh -----------------------------------------------------
+
+
+def test_mesh_runs_on_the_card(dev):
+    """chip_smoke.py's mesh runs (its phase 6 a-b): one rank over NCCL, a
+    (1, 1) mesh whose graphed steps hold the band and gradient all-reduces,
+    bit-equal to the unsharded entries; two and four ranks sharing the card
+    over gloo (Mb = 8 and 4), the eager forms within K12_TOL and >= 90 dB
+    of the unsharded card results, every graph refused. One K1 and one K2
+    a sharded step, one band all-reduce a synthesis."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    runs = chip_smoke._mesh_runs(torch.cuda.get_device_name(0))
+    one = runs["nccl_1x1"][0]
+    assert all(v == 0.0 for k, v in one["checks"].items()
+               if "K3" not in k), one["checks"]
+    graph = one["sharded_step_graph"]
+    assert graph["collectives_a_replay"]["band_all_reduce"] == 1
+    assert graph["launches_a_replay"][0]["analysis"] == 1
+    assert one["launches"]["train step x10 (graph)"]["grad_all_reduce"] == 20
+    for which in ("gloo_1x2", "gloo_1x4"):
+        for res in runs[which]:
+            n = res["launches"]["ShardedPitchShift.eager x8"]
+            assert (n["K1"], n["K2"], n["band_all_reduce"]) == (8, 8, 8), n
+
+
+@pytest.mark.parametrize("tier", ["highest", "bf16x3", "default"])
+@pytest.mark.parametrize("Mb", [8, 4])
+def test_band_shard_kernels_match_plain(dev, tier, Mb):
+    """K1/K2 (K1t/K2t) on every rank's band shard of the 16-band bank, and
+    K4/K5 at `highest`, against their plain versions (K12's bar) at a host
+    block, 16 blocks and (K4/K5) 60 s."""
+    sp, pq = StreamingPQMF(100, 16), PQMF(100, 16)
+    hp, hi = pq.params["hk_poly"], pq.params["hk_ipoly"]
+    g = torch.Generator().manual_seed(Mb)
+    for r in range(16 // Mb):
+        sl = slice(r * Mb, (r + 1) * Mb)
+        wa, ws = sp.hkf[sl].contiguous(), sp.hki[:, sl].contiguous()
+        for B in (1, 16):
+            x = torch.randn(B, 1, 8192 + 512, generator=g).to(dev)
+            s = torch.randn(B, Mb, 512 + 32, generator=g).to(dev)
+            torch.testing.assert_close(
+                cc.strided_analysis_conv(x, wa, 16, precision=tier),
+                cc.analysis_conv_plain(x, wa, 16, precision=tier), **TOL)
+            torch.testing.assert_close(
+                cc.dense_synthesis_conv(s, ws, True, -16, tier),
+                cc.synthesis_conv_plain(s, ws, True, -16, tier), **TOL)
+        if tier == "highest":
+            hp_s, hi_s = hp[sl].contiguous(), hi[:, sl].contiguous()
+            x = torch.randn(1, 1, 60 * 44100 // 16 * 16, generator=g).to(dev)
+            s = torch.randn(1, Mb, 60 * 44100 // 16, generator=g).to(dev)
+            torch.testing.assert_close(
+                pk.polyphase_analysis(x, hp_s),
+                pk.polyphase_analysis_plain(x, hp_s), **TOL)
+            torch.testing.assert_close(
+                pk.polyphase_synthesis(s, hi_s),
+                pk.polyphase_synthesis_plain(s, hi_s), **TOL)
