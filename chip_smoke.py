@@ -155,6 +155,17 @@ fails without them; it never falls back to the CPU and imports no JAX.
    (K1t/K2t) and K4/K5 at Mb = 8 and 4, every rank's shard, every tier,
    against their plain versions (K12_TOL), then timed at their headline
    shapes beside their plain versions, one ``F.conv1d`` and their bounds.
+7. The entry points (``pqmf_tpu_torch/entry.py``): ``entry()``'s step
+   (the flagship, a CUDA graph) for 3 carried steps on seeded audio blocks,
+   each >= 90 dB against ``entry(device="cpu")`` with the tail, and on its
+   own example input (a pure sine, ill-conditioned for the reference's
+   phase rule) at ``entry.EXAMPLE_FLOOR_DB``; one K1 and one K2 a step;
+   its CUDA-event ms beside the flagship block's graph on the same block,
+   on the card's ``nvidia-smi`` line; ``dryrun_multichip(4)`` (4 ranks
+   sharing the card over gloo, the JAX dry run's four steps); K4 and K4
+   over K1t (``bf16x3``, ``default``) with ``fuse_mask=False`` against
+   their plain versions (K12_TOL) at M = 4, 16, 32, 64 host blocks of B =
+   1 and 16 and on 60 s; their errors join the K4 rows of the kernels line.
 
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 Any failure raises and the exit code is non-zero.
@@ -1757,7 +1768,7 @@ def _shard_kernels(card: str, dev: str = "cuda") -> dict:
                     sub = rand(B, Mb, BLOCK // N_BAND + Ks - 1)
                     cases += [
                         ("K1", lambda x=x: cc.strided_analysis_conv(
-                            x, w_a, N_BAND, precision=tier,
+                            x, w_a, N_BAND, mxu_precision=tier,
                             bank=banks.get("a")),
                          lambda x=x: cc.analysis_conv_plain(
                              x, w_a, N_BAND, precision=tier), B),
@@ -1810,7 +1821,7 @@ def _shard_kernels(card: str, dev: str = "cuda") -> dict:
             specs = [
                 ("K1", "analysis", xk1,
                  lambda: cc.strided_analysis_conv(xk1, w_a, N_BAND,
-                                                  precision=tier, bank=ba),
+                                                  mxu_precision=tier, bank=ba),
                  lambda: cc.analysis_conv_plain(xk1, w_a, N_BAND,
                                                 precision=tier),
                  lambda: F.conv1d(xk1, w_a, stride=N_BAND), Ka),
@@ -1894,6 +1905,130 @@ def _mesh_phase(card: str, dev: str = "cuda") -> tuple:
     print(f"  mesh runs: {runs['seconds']:.1f} s")
     rows = _shard_kernels(card) if dev == "cuda" else {}
     return runs, rows
+
+
+# -- 7. the entry points (pqmf_tpu_torch/entry.py) ---------------------------
+
+ENTRY_STEPS = 3
+
+
+def _entry_phase(card: str, block_ms: float, flagship) -> dict:
+    """Phase 7: ``entry()``'s step on the card for ``ENTRY_STEPS`` carried
+    steps against ``entry(device="cpu")``'s, on seeded blocks (>= 90 dB) and
+    on its own example input (held at ``entry.EXAMPLE_FLOOR_DB``: an
+    ill-conditioned input, see there), one K1 and one K2 a step; its CUDA
+    event ms beside the flagship block's graph (``flagship``, phase 4's
+    wrapper, on the same card-resident block, and phase 4's ``block_ms``,
+    which copies a NumPy block each call); ``dryrun_multichip(4)`` on
+    the card; K4 and K4t without the sign mask (``fuse_mask=False``)
+    against their plain versions at K12_TOL, at the host blocks and on
+    60 s. Returns the phase's numbers and K4's errors by tier."""
+    import torch
+
+    from pqmf_tpu_torch import PQMF
+    from pqmf_tpu_torch import entry as ent
+    from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import polyphase as pk
+    from pqmf_tpu_torch.utils.metrics import snr_db
+
+    out = {"steps": {}}
+    fg, (tail_g, x_g) = ent.entry()
+    fc, (tail_c, x_c) = ent.entry(device="cpu")
+    assert x_g.is_cuda and tail_g.is_cuda and torch.equal(x_g.cpu(), x_c)
+    blocks = np.split(_audio(ENTRY_STEPS * BLOCK, 23), ENTRY_STEPS, axis=-1)
+    for label, xs, bar in (
+            ("seeded blocks", [torch.from_numpy(b)[None] for b in blocks],
+             BAR_DB),
+            ("example x", [x_c] * ENTRY_STEPS, ent.EXAMPLE_FLOOR_DB)):
+        tg, tc = tail_g, tail_c
+        torch.cuda.synchronize()
+        cc.reset_launches()
+        ys = []
+        for x in xs:
+            tg, y = fg(tg, x.cuda())
+            ys.append(y)
+        torch.cuda.synchronize()
+        n = dict(cc.LAUNCHES)
+        assert (n["analysis"], n["synthesis"], n["roundtrip"]) == (
+            ENTRY_STEPS, ENTRY_STEPS, 0), (label, n)
+        dbs = []
+        for i, x in enumerate(xs):
+            tc, yc = fc(tc, x)
+            assert ys[i].shape == yc.shape == (1, BLOCK)
+            assert torch.isfinite(ys[i]).all()
+            dbs.append(snr_db(yc.numpy(), ys[i].cpu().numpy()))
+        tail_db = snr_db(tc.numpy(), tg.cpu().numpy())
+        print(f"  entry() step, {label}: {ENTRY_STEPS} carried steps "
+              f"{', '.join(f'{d:.2f}' for d in dbs)} dB vs entry('cpu'), "
+              f"tail {tail_db:.2f} dB (bar {bar} dB); launches {n}")
+        assert min(dbs) >= bar and tail_db >= bar, (label, dbs, tail_db)
+        out["steps"][label] = {"y_db": dbs, "tail_db": tail_db,
+                               "launches": n, "bar_db": bar}
+    state = {"t": tail_g}
+
+    def step():
+        state["t"], _ = fg(state["t"], x_g)
+
+    fstate = {"s": flagship.init_state()}
+
+    def flagship_step():
+        fstate["s"], _ = flagship.pitchshift_fn(fstate["s"], x_g)
+
+    out["entry_step_graph_ms"] = _events_ms(step, 100)
+    out["flagship_block_graph_ms_same_block"] = _events_ms(flagship_step,
+                                                           100)
+    out["flagship_block_graph_ms_numpy_block"] = block_ms
+    print(f"  {card}: entry() step {out['entry_step_graph_ms']:.4f} ms "
+          f"beside the flagship block's graph "
+          f"{out['flagship_block_graph_ms_same_block']:.4f} ms on the same "
+          f"card-resident block ({block_ms:.4f} ms with phase 4's NumPy "
+          f"block copied in; CUDA events, the same program, entry's "
+          f"default shifts against phase 4's SHIFTS16)")
+
+    t0 = time.perf_counter()
+    res = ent.dryrun_multichip(4)
+    out["dryrun"] = {"seconds": time.perf_counter() - t0,
+                     "checks": res["checks"], "launches": res["launches"],
+                     "mesh": res["mesh"]}
+    n = res["launches"]["sharded step"]
+    assert n["K1"] >= 1 and n["K2"] >= 1, n
+    print(f"  dryrun_multichip(4) on {card}: {out['dryrun']['seconds']:.1f} "
+          f"s, rank 0 {res['checks']}, launches {res['launches']}")
+
+    # K4 and K4 over K1t without the sign mask (phase 2's shapes)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    raw60 = torch.from_numpy(_headline_signal(60 * SR)).to(dev)[None, None]
+    errs = {}
+    for M in (4, 16, 32, 64):
+        pq = PQMF(100, M, device="cuda")
+        hp, w2 = pq.params["hk_poly"], pq._w2
+        xs = [torch.randn(B, 1, BLOCK, generator=gen).to(dev)
+              for B in (1, 16)]
+        if M == 16:
+            xs.append(raw60)
+        for tier in ("highest",) + TIERS:
+            bank = (None if tier == "highest"
+                    else cc.arrange_tc_bank(w2, "analysis", tier))
+            for x in xs:
+                junk = torch.full((1 << 22,), float("nan"), device=dev)
+                del junk
+                pk.reset_launches()
+                got = pk.polyphase_analysis(x, hp, w2, fuse_mask=False,
+                                            mxu_precision=tier,
+                                            tc_bank=bank)
+                torch.cuda.synchronize()
+                assert pk.LAUNCHES["analysis"] == 1
+                ref = pk.polyphase_analysis_plain(x, hp, tier,
+                                                  fuse_mask=False)
+                assert got.shape == ref.shape and torch.isfinite(got).all()
+                torch.testing.assert_close(got, ref, **K12_TOL)
+                err = (got - ref).abs().max().item()
+                errs[tier] = max(errs.get(tier, 0.0), err)
+                print(f"  K4 fuse_mask=False M={M} x{tuple(x.shape)} "
+                      f"[{tier}]: max|err| {err:.3g}")
+    out["k4_no_mask_max_abs_err"] = errs
+    return out
 
 
 def main() -> int:
@@ -2264,7 +2399,7 @@ def main() -> int:
                 nan_junk()
                 tcheck("analysis", tier,
                        cc.strided_analysis_conv(x, wa, 16, fuse,
-                                                precision=tier),
+                                                mxu_precision=tier),
                        cc.analysis_conv_plain(x, wa, 16, fuse,
                                               precision=tier),
                        f"K1t x{tuple(x.shape)} fuse_mask={fuse}")
@@ -2349,7 +2484,8 @@ def main() -> int:
                 sub = cc.strided_analysis_conv(x, bw_a, M)
                 nan_junk()
                 tcheck("analysis", tier,
-                       cc.strided_analysis_conv(x, bw_a, M, precision=tier),
+                       cc.strided_analysis_conv(x, bw_a, M,
+                                                mxu_precision=tier),
                        cc.analysis_conv_plain(x, bw_a, M, precision=tier),
                        f"K1t M={M} x{tuple(x.shape)}")
                 nan_junk()
@@ -2441,7 +2577,8 @@ def main() -> int:
             for B in (1, 16):
                 x, sub = rand(B, 1, BLOCK), rand(B, M, BLOCK // M)
                 tcheck("polyphase_analysis", tier,
-                       pk.polyphase_analysis(x, hp_m, w2_m, tier),
+                       pk.polyphase_analysis(x, hp_m, w2_m,
+                                             mxu_precision=tier),
                        pk.polyphase_analysis_plain(x, hp_m, tier),
                        f"K4 M={M} x{tuple(x.shape)}")
                 tcheck("polyphase_synthesis", tier,
@@ -2463,7 +2600,7 @@ def main() -> int:
                        pk.polyphase_roundtrip_plain(x6, hp_m, hi_m, tier),
                        f"K6 M={M} 60 s x{tuple(x6.shape)}",
                        pk.polyphase_analysis(x6, hp_m, w2_m), hi_m)
-        sub60_t = pk.polyphase_analysis(raw60, hp, w2, tier)
+        sub60_t = pk.polyphase_analysis(raw60, hp, w2, mxu_precision=tier)
         tcheck("polyphase_analysis", tier, sub60_t,
                pk.polyphase_analysis_plain(raw60, hp, tier), "K4 60 s")
         tcheck("polyphase_synthesis", tier,
@@ -2641,7 +2778,7 @@ def main() -> int:
                       != xc.to(torch.bfloat16)).float().mean().item())
         yg = cc.dense_synthesis_conv(
             xc.to(dev), tg.pqmf.hki, x_offset=kw["x_offset"],
-            precision="default", pad=kw["pad"],
+            mxu_precision="default", pad=kw["pad"],
             bank=tg.pqmf.tc_banks["synthesis"])
         iso.append(snr_db(yc.numpy(), yg.cpu().numpy()))
     default_f32_dft_db = dbs
@@ -3125,7 +3262,8 @@ def main() -> int:
         kb = kept[tier]
         return {
             "analysis": (
-                lambda x: cc.strided_analysis_conv(x, wa, 16, precision=tier,
+                lambda x: cc.strided_analysis_conv(x, wa, 16,
+                                                   mxu_precision=tier,
                                                    bank=kb["wa"]),
                 lambda x: cc.analysis_conv_plain(x, wa, 16, precision=tier)),
             "synthesis": (
@@ -3139,7 +3277,8 @@ def main() -> int:
                 lambda x: cc.roundtrip_conv_plain(x, wa, ws, 16, (16, 16),
                                                   tier)),
             "polyphase_analysis": (
-                lambda x: pk.polyphase_analysis(x, hp, w2, tier, kb["w2"]),
+                lambda x: pk.polyphase_analysis(x, hp, w2, mxu_precision=tier,
+                                                tc_bank=kb["w2"]),
                 lambda x: pk.polyphase_analysis_plain(x, hp, tier)),
             "polyphase_synthesis": (
                 lambda x: pk.polyphase_synthesis(x, hi, tier, kb["hi"]),
@@ -3272,7 +3411,7 @@ def main() -> int:
 
             def comp(x, tier=tier, kb=kb, bw_a=bw_a, bw_s=bw_s, M=M):
                 sub = cc.strided_analysis_conv(
-                    x, bw_a, M, precision=tier,
+                    x, bw_a, M, mxu_precision=tier,
                     bank=None if kb is None else kb[0])
                 return cc.dense_synthesis_conv(
                     sub, bw_s, True, 0, tier, (16, 16),
@@ -3351,8 +3490,9 @@ def main() -> int:
                 return pk.polyphase_roundtrip(x, hp_m, hi_m, w2_m, tier, tb)
 
             def k45(x, tier=tier, tb=tb, hp_m=hp_m, hi_m=hi_m, w2_m=w2_m):
-                sub = pk.polyphase_analysis(x, hp_m, w2_m, tier,
-                                            None if tb is None else tb[0])
+                sub = pk.polyphase_analysis(
+                    x, hp_m, w2_m, mxu_precision=tier,
+                    tc_bank=None if tb is None else tb[0])
                 return pk.polyphase_synthesis(sub, hi_m, tier,
                                               None if tb is None else tb[1])
 
@@ -3521,6 +3661,11 @@ def main() -> int:
     mesh_runs, shard_rows = _mesh_phase(card)
     print(json.dumps({"mesh": mesh_runs}))
 
+    # -- 7. the entry points --------------------------------------------------
+    print(f"the entry points (pqmf_tpu_torch/entry.py) on {card}:")
+    entry_res = _entry_phase(card, block_ms, gpu)
+    print(json.dumps({"entry": entry_res}))
+
     # (key, name, replaces, launches on its path: the flagship for K1-K3,
     # the offline path for K4-K6)
     rows = [
@@ -3679,6 +3824,15 @@ def main() -> int:
             "device_us": row["device_us"],
             "library_device_us": row["library_device_us"],
             "shape": row["shape"]})
+    # K4 (K4t) without the sign mask: the same kernel with fuse_mask=False
+    # (phase 7), its error beside the masked one
+    no_mask = entry_res["k4_no_mask_max_abs_err"]
+    for k in kernels:
+        if k["name"].startswith("K4 polyphase_analysis") and \
+                "band shard" not in k["name"]:
+            tier = next((t for t in TIERS if f"[{t}]" in k["name"]),
+                        "highest")
+            k["max_abs_err_fuse_mask_false"] = no_mask[tier]
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

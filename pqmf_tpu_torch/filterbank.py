@@ -168,8 +168,9 @@ class PQMF:
         lay = self._layout
         if self.polyphase:
             def k4(v, hp):
-                return pk.polyphase_analysis(v, hp, self._w2, self.precision,
-                                             self.tc_banks["analysis"])
+                return pk.polyphase_analysis(
+                    v, hp, self._w2, mxu_precision=self.precision,
+                    tc_bank=self.tc_banks["analysis"])
 
             y = (k4(xc, self._hp) if lay is None
                  else shard_band_analysis(self.mesh, k4, xc, self._hp))
@@ -200,8 +201,9 @@ class PQMF:
               else lay.local_bands(x, C))
         if self.polyphase:
             def k5(v, hi):
-                return pk.polyphase_synthesis(v, hi, self.precision,
-                                              self.tc_banks["synthesis"])
+                return pk.polyphase_synthesis(
+                    v, hi, mxu_precision=self.precision,
+                    tc_bank=self.tc_banks["synthesis"])
 
             y = (k5(xc, self._hi) if lay is None
                  else shard_band_synthesis(self.mesh, k5, xc, self._hi))

@@ -872,13 +872,14 @@ def _launch(fn, *args):
 
 _LIB = torch.library.Library("pqmf_tpu_torch", "DEF")
 _LIB.define("analysis_conv(Tensor x, Tensor w, Tensor? bank, int M, "
-            "bool fuse_mask, int pad_l, int pad_r, str precision) -> Tensor")
+            "bool fuse_mask, int pad_l, int pad_r, str mxu_precision) "
+            "-> Tensor")
 _LIB.define("synthesis_conv(Tensor x, Tensor w, Tensor? bank, "
             "bool fuse_mask, int x_offset, int pad_l, int pad_r, "
-            "str precision) -> Tensor")
+            "str mxu_precision) -> Tensor")
 _LIB.define("roundtrip_conv(Tensor x, Tensor w_ana, Tensor w_syn, "
             "Tensor? bank_ana, Tensor? bank_syn, int M, int pad_l, "
-            "int pad_r, int syn_pad_l, int syn_pad_r, str precision) "
+            "int pad_r, int syn_pad_l, int syn_pad_r, str mxu_precision) "
             "-> Tensor")
 OPS = torch.ops.pqmf_tpu_torch
 
@@ -900,26 +901,28 @@ def _roundtrip_shape(x, w_ana, w_syn, M, pad_l, pad_r, syn_pad_l,
             M)
 
 
-def _analysis_operands(x, w, bank, precision):
+def _analysis_operands(x, w, bank, mxu_precision):
     _check_operands(x, (("w", w),), (("bank", bank, w, "analysis"),),
-                    precision)
+                    mxu_precision)
     if x.shape[1] != 1 or w.shape[1] != 1:
         raise ValueError(f"analysis is mono: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
 
 
-def _synthesis_operands(x, w, bank, precision):
+def _synthesis_operands(x, w, bank, mxu_precision):
     _check_operands(x, (("w", w),), (("bank", bank, w, "synthesis"),),
-                    precision)
+                    mxu_precision)
     if x.shape[1] != w.shape[1]:
         raise ValueError(f"band dims disagree: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
 
 
-def _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, precision):
+def _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M,
+                        mxu_precision):
     _check_operands(x, (("w_ana", w_ana), ("w_syn", w_syn)),
                     (("bank_ana", bank_ana, w_ana, "analysis"),
-                     ("bank_syn", bank_syn, w_syn, "synthesis")), precision)
+                     ("bank_syn", bank_syn, w_syn, "synthesis")),
+                    mxu_precision)
     if (x.shape[1] != 1 or tuple(w_ana.shape[:2]) != (M, 1)
             or tuple(w_syn.shape[:2]) != (M, M)):
         raise ValueError("the round trip is mono and full-bank: x "
@@ -927,8 +930,8 @@ def _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, precision):
                          f"w_syn {tuple(w_syn.shape)}, M={M}")
 
 
-def _analysis_cuda(x, w, bank, M, fuse_mask, pad_l, pad_r, precision):
-    _analysis_operands(x, w, bank, precision)
+def _analysis_cuda(x, w, bank, M, fuse_mask, pad_l, pad_r, mxu_precision):
+    _analysis_operands(x, w, bank, mxu_precision)
     B, _, T = x.shape
     Mb, _, K = w.shape
     out = torch.empty(_analysis_shape(x, w, M, pad_l, pad_r),
@@ -936,18 +939,18 @@ def _analysis_cuda(x, w, bank, M, fuse_mask, pad_l, pad_r, precision):
     args = (out.data_ptr(), B, T, M, Mb, K, out.shape[-1], pad_l,
             int(fuse_mask))
     with torch.cuda.device(x.device):
-        if precision == "highest":
+        if mxu_precision == "highest":
             _launch("pqmf_analysis_conv", x.data_ptr(), w.data_ptr(), *args)
         else:
             _launch("pqmf_tc_analysis_conv", x.data_ptr(), bank.data_ptr(),
-                    *args, _PASSES[precision])
+                    *args, _PASSES[mxu_precision])
     LAUNCHES["analysis"] += 1
     return out
 
 
 def _synthesis_cuda(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
-                    precision):
-    _synthesis_operands(x, w, bank, precision)
+                    mxu_precision):
+    _synthesis_operands(x, w, bank, mxu_precision)
     B, Mb, T = x.shape
     M, _, K = w.shape
     out = torch.empty(_synthesis_shape(x, w, pad_l, pad_r),
@@ -955,18 +958,18 @@ def _synthesis_cuda(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
     args = (out.data_ptr(), B, Mb, T, M, K, out.shape[1], pad_l,
             int(fuse_mask), int(x_offset))
     with torch.cuda.device(x.device):
-        if precision == "highest":
+        if mxu_precision == "highest":
             _launch("pqmf_synthesis_conv", x.data_ptr(), w.data_ptr(), *args)
         else:
             _launch("pqmf_tc_synthesis_conv", x.data_ptr(), bank.data_ptr(),
-                    *args, _PASSES[precision])
+                    *args, _PASSES[mxu_precision])
     LAUNCHES["synthesis"] += 1
     return out
 
 
 def _roundtrip_cuda(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
-                    syn_pad_l, syn_pad_r, precision):
-    _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, precision)
+                    syn_pad_l, syn_pad_r, mxu_precision):
+    _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, mxu_precision)
     B, _, T = x.shape
     Ka, Ks = w_ana.shape[-1], w_syn.shape[-1]
     T_ana = (pad_l + T + pad_r - Ka) // M + 1
@@ -976,34 +979,35 @@ def _roundtrip_cuda(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
     args = (out.data_ptr(), B, T, M, Ka, Ks, T_ana, out.shape[1], pad_l,
             syn_pad_l)
     with torch.cuda.device(x.device):
-        if precision == "highest":
+        if mxu_precision == "highest":
             _launch("pqmf_roundtrip_conv", x.data_ptr(), w_ana.data_ptr(),
                     w_syn.data_ptr(), *args)
         else:
             _launch("pqmf_tc_roundtrip_conv", x.data_ptr(),
                     bank_ana.data_ptr(), bank_syn.data_ptr(), *args,
-                    _PASSES[precision])
+                    _PASSES[mxu_precision])
     LAUNCHES["roundtrip"] += 1
     return out
 
 
-def _analysis_cpu(x, w, bank, M, fuse_mask, pad_l, pad_r, precision):
-    _analysis_operands(x, w, bank, precision)
-    return analysis_conv_plain(x, w, M, fuse_mask, (pad_l, pad_r), precision)
+def _analysis_cpu(x, w, bank, M, fuse_mask, pad_l, pad_r, mxu_precision):
+    _analysis_operands(x, w, bank, mxu_precision)
+    return analysis_conv_plain(x, w, M, fuse_mask, (pad_l, pad_r),
+                               mxu_precision)
 
 
 def _synthesis_cpu(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
-                   precision):
-    _synthesis_operands(x, w, bank, precision)
-    return synthesis_conv_plain(x, w, fuse_mask, x_offset, precision,
+                   mxu_precision):
+    _synthesis_operands(x, w, bank, mxu_precision)
+    return synthesis_conv_plain(x, w, fuse_mask, x_offset, mxu_precision,
                                 (pad_l, pad_r))
 
 
 def _roundtrip_cpu(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
-                   syn_pad_l, syn_pad_r, precision):
-    _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, precision)
+                   syn_pad_l, syn_pad_r, mxu_precision):
+    _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, mxu_precision)
     return roundtrip_conv_plain(x, w_ana, w_syn, M, (syn_pad_l, syn_pad_r),
-                                precision, (pad_l, pad_r))
+                                mxu_precision, (pad_l, pad_r))
 
 
 for _name, _cuda, _cpu in [("analysis_conv", _analysis_cuda, _analysis_cpu),
@@ -1016,25 +1020,25 @@ for _name, _cuda, _cpu in [("analysis_conv", _analysis_cuda, _analysis_cpu),
 
 
 @torch.library.register_fake("pqmf_tpu_torch::analysis_conv", lib=_LIB)
-def _analysis_fake(x, w, bank, M, fuse_mask, pad_l, pad_r, precision):
+def _analysis_fake(x, w, bank, M, fuse_mask, pad_l, pad_r, mxu_precision):
     return x.new_empty(_analysis_shape(x, w, M, pad_l, pad_r))
 
 
 @torch.library.register_fake("pqmf_tpu_torch::synthesis_conv", lib=_LIB)
 def _synthesis_fake(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
-                    precision):
+                    mxu_precision):
     return x.new_empty(_synthesis_shape(x, w, pad_l, pad_r))
 
 
 @torch.library.register_fake("pqmf_tpu_torch::roundtrip_conv", lib=_LIB)
 def _roundtrip_fake(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
-                    syn_pad_l, syn_pad_r, precision):
+                    syn_pad_l, syn_pad_r, mxu_precision):
     return x.new_empty(_roundtrip_shape(x, w_ana, w_syn, M, pad_l, pad_r,
                                         syn_pad_l, syn_pad_r))
 
 
 def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
-                          pad=(0, 0), precision: str = "highest",
+                          pad=(0, 0), mxu_precision: str = "highest",
                           bank: TcBank | None = None):
     """K1 — valid stride-M conv of a mono signal zero-padded by ``pad`` =
     (left, right) samples, plus the fused ``reverse_half`` on the output.
@@ -1042,13 +1046,13 @@ def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
     padded signal is never written.
 
     x: [B, 1, T]; w: [Mb, 1, K]. Returns [B, Mb, T_out] with
-    ``T_out = (left + T + right - K) // M + 1``. ``precision`` "highest"
+    ``T_out = (left + T + right - K) // M + 1``. ``mxu_precision`` "highest"
     launches K1, "bf16x3" / "default" K1t, which reads ``bank`` =
-    ``arrange_tc_bank(w, "analysis", precision)`` where the caller keeps
+    ``arrange_tc_bank(w, "analysis", mxu_precision)`` where the caller keeps
     one (else it is arranged for the call). Every check runs here, on
     static shapes; the call itself is the operator
     ``pqmf_tpu_torch::analysis_conv``."""
-    fb.check_precision(precision)
+    fb.check_precision(mxu_precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w", w, 3, dev)
@@ -1068,21 +1072,21 @@ def strided_analysis_conv(x, w, M: int, fuse_mask: bool = True,
                          f"K={K}")
     if dev.type == "cuda":
         if (smem_bytes("analysis", M, Mb, K, 0) > SMEM_LIMIT
-                or smem_bytes("analysis", M, Mb, K, 0, precision)
+                or smem_bytes("analysis", M, Mb, K, 0, mxu_precision)
                 > SMEM_LIMIT):
             raise ValueError(f"analysis kernel length {K} exceeds the "
                              "kernel's shared memory; gate with supports()")
-        if precision != "highest":
-            bank = _tc_bank(bank, w, "analysis", precision)
+        if mxu_precision != "highest":
+            bank = _tc_bank(bank, w, "analysis", mxu_precision)
     else:  # the plain version reads no arranged bank
         bank = None
     return OPS.analysis_conv.default(
         x, w, None if bank is None else bank.words, M, bool(fuse_mask),
-        pad_l, pad_r, precision)
+        pad_l, pad_r, mxu_precision)
 
 
 def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
-                         precision: str = "highest", pad=(0, 0),
+                         mxu_precision: str = "highest", pad=(0, 0),
                          bank: TcBank | None = None):
     """K2 — valid stride-1 M->M conv of sub-bands zero-padded by ``pad`` =
     (left, right) steps, with the synthesis post-amble fused: optional
@@ -1092,12 +1096,12 @@ def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
     copies its input window, so the padded sub-bands are never written.
 
     x: [B, Mb, T]; w: [M, Mb, K]. Returns [B, T_out, M] with
-    ``T_out = left + T + right - K + 1``. ``precision`` "highest" launches
+    ``T_out = left + T + right - K + 1``. ``mxu_precision`` "highest" launches
     K2, "bf16x3" / "default" K2t, which reads ``bank`` =
-    ``arrange_tc_bank(w, "synthesis", precision)`` where the caller keeps
+    ``arrange_tc_bank(w, "synthesis", mxu_precision)`` where the caller keeps
     one (else it is arranged for the call). Every check runs here; the
     call itself is the operator ``pqmf_tpu_torch::synthesis_conv``."""
-    fb.check_precision(precision)
+    fb.check_precision(mxu_precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w", w, 3, dev)
@@ -1116,21 +1120,21 @@ def dense_synthesis_conv(x, w, fuse_mask: bool = True, x_offset: int = 0,
                          f"K={K}")
     if dev.type == "cuda":
         if (smem_bytes("synthesis", M, Mb, 0, K) > SMEM_LIMIT
-                or smem_bytes("synthesis", M, Mb, 0, K, precision)
+                or smem_bytes("synthesis", M, Mb, 0, K, mxu_precision)
                 > SMEM_LIMIT):
             raise ValueError(f"synthesis bank [{M}, {Mb}, {K}] exceeds the "
                              "kernel's shared memory; gate with supports()")
-        if precision != "highest":
-            bank = _tc_bank(bank, w, "synthesis", precision)
+        if mxu_precision != "highest":
+            bank = _tc_bank(bank, w, "synthesis", mxu_precision)
     else:  # the plain version reads no arranged bank
         bank = None
     return OPS.synthesis_conv.default(
         x, w, None if bank is None else bank.words, bool(fuse_mask),
-        int(x_offset), pad_l, pad_r, precision)
+        int(x_offset), pad_l, pad_r, mxu_precision)
 
 
 def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
-                         precision: str = "highest", pad=(0, 0),
+                         mxu_precision: str = "highest", pad=(0, 0),
                          banks=None):
     """K3 — zero pad ``pad`` -> analysis -> zero pad ``syn_pad`` ->
     synthesis in one kernel; the sub-band intermediate stays in shared
@@ -1142,13 +1146,13 @@ def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
     right) of the analysis input and syn_pad of the sub-bands, both >= 0.
     Returns [B, T_out, M] with ``T_ana = (left + T + right - Ka) // M + 1``
     and ``T_out = syn_left + T_ana + syn_right - Ks + 1``, equal to
-    :func:`roundtrip_conv_plain`. ``precision`` "highest" launches K3,
+    :func:`roundtrip_conv_plain`. ``mxu_precision`` "highest" launches K3,
     "bf16x3" / "default" K3t, which reads ``banks`` =
     ``(arrange_tc_bank(w_ana, "analysis", tier), arrange_tc_bank(w_syn,
     "synthesis", tier))`` where the caller keeps them (else they are
     arranged for the call). Every check runs here; the call itself is the
     operator ``pqmf_tpu_torch::roundtrip_conv``."""
-    fb.check_precision(precision)
+    fb.check_precision(mxu_precision)
     dev = x.device if isinstance(x, torch.Tensor) else None
     _check("x", x, 3, dev)
     _check("w_ana", w_ana, 3, dev)
@@ -1170,21 +1174,21 @@ def fused_roundtrip_conv(x, w_ana, w_syn, M: int, syn_pad,
     if B < 1 or T_ana < 1 or T_out < 1:
         raise ValueError(f"empty round trip: B={B}, T={T}, pad={pad}")
     if banks is not None:  # a kept pair is checked on every device
-        if precision == "highest":
+        if mxu_precision == "highest":
             raise ValueError("arranged banks are for the tiers 'bf16x3' "
                              "and 'default'")
         ba, bs = banks
-        banks = (_tc_bank(ba, w_ana, "analysis", precision),
-                 _tc_bank(bs, w_syn, "synthesis", precision))
+        banks = (_tc_bank(ba, w_ana, "analysis", mxu_precision),
+                 _tc_bank(bs, w_syn, "synthesis", mxu_precision))
     if dev.type == "cuda":
-        if not fused_roundtrip_supported(M, Ka, Ks, precision):
+        if not fused_roundtrip_supported(M, Ka, Ks, mxu_precision):
             raise ValueError(f"fused round trip of M={M}, Ka={Ka}, Ks={Ks} "
                              "exceeds the kernel's shared memory; gate with "
                              "fused_roundtrip_supported()")
-        if precision != "highest" and banks is None:
-            banks = (arrange_tc_bank(w_ana, "analysis", precision),
-                     arrange_tc_bank(w_syn, "synthesis", precision))
+        if mxu_precision != "highest" and banks is None:
+            banks = (arrange_tc_bank(w_ana, "analysis", mxu_precision),
+                     arrange_tc_bank(w_syn, "synthesis", mxu_precision))
     words = (None, None) if banks is None else (banks[0].words,
                                                 banks[1].words)
     return OPS.roundtrip_conv.default(x, w_ana, w_syn, *words, M, pa_l, pa_r,
-                                      pad_l, pad_r, precision)
+                                      pad_l, pad_r, mxu_precision)

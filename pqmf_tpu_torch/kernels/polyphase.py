@@ -22,10 +22,12 @@ Each has a plain version (``*_plain``) built from the reference's formula in
 order than the kernels', so the card check compares two formulations. A
 wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
 runs the kernel route (``*_over_k1/k2/k3``) or raises. Every op takes the
-JAX package's precision tiers (``precision=``, its ``mxu_precision=``) and
+JAX package's precision tiers by its keyword, ``mxu_precision=``, and
 passes its tier on: at ``"bf16x3"`` and ``"default"`` the routes run K1t,
-K2t and K3t. Every launch adds one to :data:`LAUNCHES` (K1/K2/K3 count
-theirs in ``cached_conv.LAUNCHES``).
+K2t and K3t. K4 takes ``fuse_mask`` as the JAX op does: False leaves out
+the ``reverse_half`` sign mask, in K1/K1t and in the plain version. Every
+launch adds one to :data:`LAUNCHES` (K1/K2/K3 count theirs in
+``cached_conv.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -119,9 +121,12 @@ def check_band_mesh(mesh, n_band: int):
 # ---------------------------------------------------------------------------
 
 
-def polyphase_analysis_plain(x, hk_poly, precision: str = "highest"):
-    """Plain K4: ``reverse_half(polyphase_forward(x, hk_poly))``."""
-    return fb.reverse_half(fb.polyphase_forward(x, hk_poly, precision))
+def polyphase_analysis_plain(x, hk_poly, precision: str = "highest",
+                             fuse_mask: bool = True):
+    """Plain K4: ``reverse_half(polyphase_forward(x, hk_poly))``, or
+    without ``reverse_half`` when ``fuse_mask`` is False."""
+    y = fb.polyphase_forward(x, hk_poly, precision)
+    return fb.reverse_half(y) if fuse_mask else y
 
 
 def polyphase_synthesis_plain(x, hk_ipoly, precision: str = "highest"):
@@ -152,15 +157,17 @@ def _analysis_pad(M: int, L: int) -> tuple:
 
 
 def analysis_over_k1(x, w2, M: int, precision: str = "highest",
-                     tc_bank=None):
+                     tc_bank=None, fuse_mask: bool = True):
     """K4's route: K1 with the centered pad, which K1 applies while it
-    copies its window (the padded signal is never written). x [B, 1, T];
-    w2 [Mb, 1, L*M] (:func:`analysis_weights`); at a tier K1t reads
-    ``tc_bank`` (``cached_conv.arrange_tc_bank(w2, "analysis", tier)``)
-    where the caller keeps one. Returns [B, Mb, T/M]."""
+    copies its window (the padded signal is never written), and the sign
+    mask unless ``fuse_mask`` is False. x [B, 1, T]; w2 [Mb, 1, L*M]
+    (:func:`analysis_weights`); at a tier K1t reads ``tc_bank``
+    (``cached_conv.arrange_tc_bank(w2, "analysis", tier)``) where the
+    caller keeps one. Returns [B, Mb, T/M]."""
     L = w2.shape[-1] // M
-    return cc.strided_analysis_conv(x, w2, M, pad=_analysis_pad(M, L),
-                                    precision=precision, bank=tc_bank)
+    return cc.strided_analysis_conv(x, w2, M, fuse_mask,
+                                    pad=_analysis_pad(M, L),
+                                    mxu_precision=precision, bank=tc_bank)
 
 
 def synthesis_over_k2(x, hk_ipoly, precision: str = "highest",
@@ -176,7 +183,7 @@ def synthesis_over_k2(x, hk_ipoly, precision: str = "highest",
     M, L = hk_ipoly.shape[0], hk_ipoly.shape[-1]
     off = L // 2 - 1
     out = cc.dense_synthesis_conv(x.contiguous(), hk_ipoly, x_offset=0,
-                                  precision=precision,
+                                  mxu_precision=precision,
                                   pad=(off, L - 1 - off),
                                   bank=tc_bank)  # [B, T', M]
     return out.reshape(B, 1, Tp * M)
@@ -215,9 +222,10 @@ def _check_signal(x, M: int):
         raise ValueError(f"T={x.shape[-1]} must be divisible by M={M}")
 
 
-def polyphase_analysis(x, hk_poly, w2=None, precision: str = "highest",
-                       tc_bank=None):
-    """K4 — offline polyphase analysis plus the fused ``reverse_half``.
+def polyphase_analysis(x, hk_poly, w2=None, fuse_mask: bool = True,
+                       mxu_precision: str = "highest", tc_bank=None):
+    """K4 — offline polyphase analysis plus the fused ``reverse_half``
+    (left out when ``fuse_mask`` is False).
 
     x: [B, 1, T] (T divisible by M); hk_poly: [Mb, M, L]; ``w2`` is
     ``analysis_weights(hk_poly)`` and ``tc_bank`` its arrangement for K1t
@@ -226,15 +234,16 @@ def polyphase_analysis(x, hk_poly, w2=None, precision: str = "highest",
     M = hk_poly.shape[1]
     _check_signal(x, M)
     if x.device.type == "cpu":
-        return polyphase_analysis_plain(x, hk_poly, precision)
+        return polyphase_analysis_plain(x, hk_poly, mxu_precision,
+                                        fuse_mask)
     if w2 is None:
         w2 = analysis_weights(hk_poly)
-    out = analysis_over_k1(x, w2, M, precision, tc_bank)
+    out = analysis_over_k1(x, w2, M, mxu_precision, tc_bank, fuse_mask)
     LAUNCHES["analysis"] += 1
     return out
 
 
-def polyphase_synthesis(x, hk_ipoly, precision: str = "highest",
+def polyphase_synthesis(x, hk_ipoly, mxu_precision: str = "highest",
                         tc_bank=None):
     """K5 — ``reverse_half`` plus offline polyphase synthesis.
 
@@ -246,14 +255,14 @@ def polyphase_synthesis(x, hk_ipoly, precision: str = "highest",
     if x.ndim != 3:
         raise ValueError(f"x must be [B, Mb, T'], got {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return polyphase_synthesis_plain(x, hk_ipoly, precision)
-    out = synthesis_over_k2(x, hk_ipoly, precision, tc_bank)
+        return polyphase_synthesis_plain(x, hk_ipoly, mxu_precision)
+    out = synthesis_over_k2(x, hk_ipoly, mxu_precision, tc_bank)
     LAUNCHES["synthesis"] += 1
     return out
 
 
 def polyphase_roundtrip(x, hk_poly, hk_ipoly, w2=None,
-                        precision: str = "highest", tc_banks=None):
+                        mxu_precision: str = "highest", tc_banks=None):
     """K6 — analysis -> synthesis in one kernel (K3): the sub-bands stay in
     shared memory and the two masks cancel. Equal to
     ``polyphase_synthesis(polyphase_analysis(x, hk_poly), hk_ipoly)`` up to
@@ -264,9 +273,9 @@ def polyphase_roundtrip(x, hk_poly, hk_ipoly, w2=None,
     M = hk_poly.shape[1]
     _check_signal(x, M)
     if x.device.type == "cpu":
-        return polyphase_roundtrip_plain(x, hk_poly, hk_ipoly, precision)
+        return polyphase_roundtrip_plain(x, hk_poly, hk_ipoly, mxu_precision)
     if w2 is None:
         w2 = analysis_weights(hk_poly)
-    out = roundtrip_over_k3(x, w2, hk_ipoly, M, precision, tc_banks)
+    out = roundtrip_over_k3(x, w2, hk_ipoly, M, mxu_precision, tc_banks)
     LAUNCHES["roundtrip"] += 1
     return out

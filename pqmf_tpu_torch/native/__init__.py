@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -51,10 +52,11 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libpqmf_wavio_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path | None:
+def build(quiet: bool = True) -> Path | None:
     """Compile ``wavio.c`` unless this source was built already; returns
     the library's path, or ``None`` without a compiler or when the build
-    fails (the compiler's report is kept beside it as ``.log``)."""
+    fails (the compiler's report is kept beside it as ``.log``, and with
+    ``quiet=False`` also written to stderr)."""
     out = _library_path()
     if out.exists():
         return out
@@ -67,9 +69,14 @@ def build() -> Path | None:
         proc = subprocess.run([cc, *CC_FLAGS, str(SOURCE), "-o", str(tmp)],
                               capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired) as e:
-        out.with_suffix(".log").write_text(f"{cc}: {e}\n")
+        report = f"{cc}: {e}\n"
+        out.with_suffix(".log").write_text(report)
+        if not quiet:
+            sys.stderr.write(report)
         return None
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if not quiet:
+        sys.stderr.write(proc.stdout + proc.stderr)
     if proc.returncode:
         tmp.unlink(missing_ok=True)
         return None

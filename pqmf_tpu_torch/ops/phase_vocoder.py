@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pqmf_tpu_torch.ops.stft import float_dtype
+
 __all__ = [
     "principal_angle",
     "phase_advance",
@@ -42,31 +44,34 @@ def principal_angle(x: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=32)
 def phase_advance(n_freq: int, hop_length: int, n_fft: int,
-                  device="cpu") -> torch.Tensor:
+                  dtype=torch.float32, *, device="cpu") -> torch.Tensor:
     """Expected per-hop phase advance per bin, ``2 pi k hop / n_fft``,
-    computed in float64 and rounded once to float32 — torchaudio's
+    computed in float64 and rounded once to ``dtype`` — torchaudio's
     ``linspace(0, pi*hop, n_freq)`` for ``n_freq = n_fft//2 + 1``. The
     omega of the torchaudio-rule paths (:func:`stretch_accumulate`), NOT
     the reference's (:func:`phase_advance_reference`). Cached per
-    (geometry, device): callers must not write to it."""
+    (geometry, dtype, device): callers must not write to it."""
     k = np.arange(n_freq)
     om = 2.0 * np.pi * k * hop_length / n_fft
-    return torch.as_tensor(om.astype(np.float32), device=device)
+    return torch.as_tensor(om).to(float_dtype(dtype)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
 def phase_advance_reference(n_freq: int, hop_length: int, n_fft: int,
+                            dtype=torch.float32, *,
                             device="cpu") -> torch.Tensor:
     """Bit-exact transcription of the reference's omega construction
     (VocoderPitchShifter.py:197-198): float32 STEPWISE
     ``2.0*pi * k * hop / n_fft``. The float64-then-cast values differ by
     1 ulp on about a third of the bins, and the stretch's boundary-clamped
     frames feed ``princarg(-omega)`` exactly at the ±pi wrap, where that
-    ulp flips the branch (25-60 dB on shifts +6/+7/+9). Cached per
-    (geometry, device): callers must not write to it."""
+    ulp flips the branch (25-60 dB on shifts +6/+7/+9). The float32 values
+    are then cast to ``dtype``. Cached per (geometry, dtype, device):
+    callers must not write to it."""
     k = np.arange(n_freq, dtype=np.float32)
     om = np.float32(2.0 * math.pi) * k * np.float32(hop_length)
-    return torch.as_tensor(om / np.float32(n_fft), device=device)
+    return torch.as_tensor(om / np.float32(n_fft)).to(
+        float_dtype(dtype)).to(device)
 
 
 def _f32(rate, device) -> torch.Tensor:

@@ -82,39 +82,59 @@ def interpolate_linear_dynamic(x: torch.Tensor, src_len: torch.Tensor,
     return x0 * (1 - a) + x1 * a
 
 
-# torchaudio.functional.resample's defaults, the only setting the shifters
-# use: a Hann-windowed sinc of 6 zero crossings, cut off at 0.99 of the
-# lower Nyquist
+# torchaudio.functional.resample's defaults, the setting the shifters use:
+# a Hann-windowed sinc of 6 zero crossings, cut off at 0.99 of the lower
+# Nyquist
 LOWPASS_FILTER_WIDTH = 6
 ROLLOFF = 0.99
+KAISER_BETA = 14.769656459379492  # torchaudio's default beta
 
 
-def sinc_resample_kernel(orig_freq: int, new_freq: int):
+def sinc_resample_kernel(orig_freq: int, new_freq: int,
+                         lowpass_filter_width: int = LOWPASS_FILTER_WIDTH,
+                         rolloff: float = ROLLOFF,
+                         window: str = "hann",
+                         beta: float | None = None,
+                         dtype=np.float32):
     """The polyphase windowed-sinc kernel bank (host-side NumPy), following
-    the torchaudio/resampy construction with the Hann window: one FIR per
-    output phase at the reduced ratio ``new/orig``.
+    the torchaudio/resampy construction: one FIR per output phase at the
+    reduced ratio ``new/orig``, of ``lowpass_filter_width`` zero crossings
+    cut off at ``rolloff`` of the lower Nyquist, under the ``"hann"`` or
+    the ``"kaiser"`` window (``beta``, by default torchaudio's), in NumPy
+    ``dtype``.
 
-    Returns (kernels [new, 1, K] float32, width, orig, new) with the reduced
-    rates; width is the one-sided support in input samples."""
+    Returns (kernels [new, 1, K], width, orig, new) with the reduced rates;
+    width is the one-sided support in input samples."""
     g = math.gcd(int(orig_freq), int(new_freq))
     orig_freq, new_freq = int(orig_freq) // g, int(new_freq) // g
 
-    base_freq = min(orig_freq, new_freq) * ROLLOFF
-    width = int(math.ceil(LOWPASS_FILTER_WIDTH * orig_freq / base_freq))
+    base_freq = min(orig_freq, new_freq) * rolloff
+    width = int(math.ceil(lowpass_filter_width * orig_freq / base_freq))
     idx = np.arange(-width, width + orig_freq, dtype=np.float64) / orig_freq
     t = (-np.arange(new_freq, dtype=np.float64)[:, None] / new_freq + idx[None]
          ) * base_freq
-    t = np.clip(t, -LOWPASS_FILTER_WIDTH, LOWPASS_FILTER_WIDTH)
-    win = np.cos(t * np.pi / LOWPASS_FILTER_WIDTH / 2) ** 2
+    t = np.clip(t, -lowpass_filter_width, lowpass_filter_width)
+
+    if window == "hann":
+        win = np.cos(t * np.pi / lowpass_filter_width / 2) ** 2
+    elif window == "kaiser":
+        if beta is None:
+            beta = KAISER_BETA
+        win = np.i0(beta * np.sqrt(np.clip(
+            1 - (t / lowpass_filter_width) ** 2, 0, 1))) / np.i0(beta)
+    else:
+        raise ValueError(f"unknown window {window}")
 
     scale = base_freq / orig_freq
     with np.errstate(invalid="ignore", divide="ignore"):
         kernels = np.where(t == 0, 1.0, np.sin(np.pi * t) / (np.pi * t))
-    kernels = (kernels * win * scale).astype(np.float32)
+    kernels = (kernels * win * scale).astype(dtype)
     return kernels[:, None, :], width, orig_freq, new_freq
 
 
-def banded_resample_plan(orig_freq: int, new_freq: int, n_out: int):
+def banded_resample_plan(orig_freq: int, new_freq: int, n_out: int,
+                         lowpass_filter_width: int = LOWPASS_FILTER_WIDTH,
+                         rolloff: float = ROLLOFF, window: str = "hann"):
     """Row-sparse (banded) form of :func:`sinc_resample` for a fixed output
     length (host-side NumPy, one-time per plan).
 
@@ -133,11 +153,13 @@ def banded_resample_plan(orig_freq: int, new_freq: int, n_out: int):
         # identity plan, mirroring torchaudio's equal-rate short-circuit
         return (np.ones((n_out, 1), np.float32),
                 np.arange(n_out, dtype=np.int32), 0)
-    kernels, width, o, n = sinc_resample_kernel(orig_freq, new_freq)
+    kernels, width, o, n = sinc_resample_kernel(
+        orig_freq, new_freq, lowpass_filter_width, rolloff, window)
     kern = kernels[:, 0, :]  # [n, K], K = 2*width + o
 
-    # per used phase: nonzero span (the sinc support; everything outside
-    # is exactly zero because the cos^2 window vanishes at |t| = width)
+    # per used phase: nonzero span (the sinc support; outside it the Hann
+    # window's taps are exactly zero, the Kaiser window's tiny but not
+    # zero, so its span is wider: no threshold, as in the JAX package)
     used = sorted({j % n for j in range(n_out)})
     spans = {}
     for p in used:
@@ -156,23 +178,30 @@ def banded_resample_plan(orig_freq: int, new_freq: int, n_out: int):
 
 
 @functools.lru_cache(maxsize=16)
-def _sinc_bank(orig_freq: int, new_freq: int, device):
+def _sinc_bank(orig_freq: int, new_freq: int, lowpass_filter_width: int,
+               rolloff: float, window: str, device):
     """The kernel bank of :func:`sinc_resample_kernel` as a [new, K] f32
-    tensor on ``device`` with (width, orig, new): built once per ratio,
-    since a large reduced ratio makes a bank of tens of MB."""
-    kernels, width, o, n = sinc_resample_kernel(orig_freq, new_freq)
+    tensor on ``device`` with (width, orig, new): built once per ratio and
+    filter, since a large reduced ratio makes a bank of tens of MB."""
+    kernels, width, o, n = sinc_resample_kernel(
+        orig_freq, new_freq, lowpass_filter_width, rolloff, window)
     return torch.as_tensor(kernels[:, 0, :], device=device), width, o, n
 
 
-def sinc_resample(x: torch.Tensor, orig_freq: int,
-                  new_freq: int) -> torch.Tensor:
-    """Windowed-sinc polyphase resample, torchaudio-style.
+def sinc_resample(x: torch.Tensor, orig_freq: int, new_freq: int,
+                  lowpass_filter_width: int = LOWPASS_FILTER_WIDTH,
+                  rolloff: float = ROLLOFF,
+                  window: str = "hann") -> torch.Tensor:
+    """Windowed-sinc polyphase resample, torchaudio-style, with the filter
+    of :func:`sinc_resample_kernel`.
 
     x: [B, T] -> [B, ceil(T * new/orig)]; equal rates return x (torchaudio
     short-circuits them before any filtering)."""
     if orig_freq == new_freq:
         return x
-    kern, width, o, _ = _sinc_bank(int(orig_freq), int(new_freq), x.device)
+    kern, width, o, _ = _sinc_bank(int(orig_freq), int(new_freq),
+                                   int(lowpass_filter_width), float(rolloff),
+                                   window, x.device)
     B, T = x.shape
     target_len = int(math.ceil(new_freq * T / orig_freq))
     # one frame of K input taps per conv step (one step per `new` output

@@ -44,14 +44,41 @@ __all__ = [
 ]
 
 
+def float_dtype(dtype) -> torch.dtype:
+    """``dtype`` — a ``torch.dtype`` or a NumPy float dtype, the JAX
+    package's ``dtype`` argument — as a floating ``torch.dtype``. A device
+    in its place raises ``TypeError``: the tables below take the device as
+    the keyword ``device``."""
+    if isinstance(dtype, torch.dtype):
+        t = dtype
+    elif isinstance(dtype, torch.device):
+        t = None
+    else:
+        try:
+            t = torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+        except TypeError:
+            t = None
+    if t is None or not t.is_floating_point:
+        raise TypeError(f"dtype must be a float dtype, got {dtype!r} (pass "
+                        "the device as device=)")
+    return t
+
+
+def _on(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """A float64 NumPy table rounded once to ``dtype``, then on ``device``."""
+    return torch.as_tensor(a).to(float_dtype(dtype)).to(device)
+
+
 @functools.lru_cache(maxsize=32)
-def hann_window(win_length: int, device="cpu") -> torch.Tensor:
+def hann_window(win_length: int, dtype=torch.float32, *,
+                device="cpu") -> torch.Tensor:
     """torch.hann_window (periodic=True): 0.5 - 0.5 cos(2 pi n / N),
-    evaluated in float64 and rounded once to float32. Cached per
-    (length, device), like the DFT bases: callers must not write to it."""
+    evaluated in float64 and rounded once to ``dtype``. Cached per
+    (length, dtype, device), like the DFT bases: callers must not write to
+    it."""
     n = np.arange(win_length)
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
-    return torch.as_tensor(w.astype(np.float32), device=device)
+    return _on(w, dtype, device)
 
 
 def _padded_window(window: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -63,9 +90,13 @@ def _padded_window(window: torch.Tensor, n_fft: int) -> torch.Tensor:
     return F.pad(window, (left, n_fft - wl - left))
 
 
-def frame_count(T: int, n_fft: int, hop_length: int) -> int:
-    """Frames of a centered STFT of T samples."""
-    return 1 + (T + 2 * (n_fft // 2) - n_fft) // hop_length
+def frame_count(T: int, n_fft: int, hop_length: int,
+                center: bool = True) -> int:
+    """Frames of an STFT of T samples, centered (padded by n_fft//2 each
+    side) or not."""
+    if center:
+        T = T + 2 * (n_fft // 2)
+    return 1 + (T - n_fft) // hop_length
 
 
 def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
@@ -144,13 +175,13 @@ def _dft_basis_np(n_fft: int):
 
 
 @functools.lru_cache(maxsize=32)
-def dft_basis(n_fft: int, device="cpu"):
+def dft_basis(n_fft: int, dtype=torch.float32, *, device="cpu"):
     """rfft as matmul: re = frames @ C, im = frames @ (-S).
 
-    Returns (C [n_fft, F], S [n_fft, F]) float32 with F = n_fft//2 + 1."""
+    Returns (C [n_fft, F], S [n_fft, F]) in ``dtype`` (built in float64,
+    rounded once) with F = n_fft//2 + 1."""
     c, s = _dft_basis_np(n_fft)
-    return (torch.as_tensor(c.astype(np.float32), device=device),
-            torch.as_tensor(s.astype(np.float32), device=device))
+    return _on(c, dtype, device), _on(s, dtype, device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -169,12 +200,11 @@ def _idft_basis_np(n_fft: int):
 
 
 @functools.lru_cache(maxsize=32)
-def idft_basis(n_fft: int, device="cpu"):
+def idft_basis(n_fft: int, dtype=torch.float32, *, device="cpu"):
     """irfft as matmul: x = re @ Ci + im @ Si (hermitian-symmetric
-    weights folded in)."""
+    weights folded in), in ``dtype`` (built in float64, rounded once)."""
     ci, si = _idft_basis_np(n_fft)
-    return (torch.as_tensor(ci.astype(np.float32), device=device),
-            torch.as_tensor(si.astype(np.float32), device=device))
+    return _on(ci, dtype, device), _on(si, dtype, device)
 
 
 def _frame_signal(x: torch.Tensor, n_fft: int, hop: int, frames: int):
@@ -257,7 +287,7 @@ def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
     x: [B, T] -> (re, im) each [B, F, frames], in x's dtype (float32, or
     float64 over the same float32 basis)."""
     framed = _framed(x, n_fft, hop_length, window, center, pad_mode)
-    C, S = dft_basis(n_fft, x.device)
+    C, S = dft_basis(n_fft, device=x.device)
     # one matmul for both parts: each output column is its own dot
     both = dft_matmul(framed, torch.cat([C, S], dim=1).to(x.dtype),
                       precision)
@@ -303,7 +333,7 @@ def istft_ri_parts(re, im, n_fft: int, hop_length: int, window,
     (:func:`dft_matmul`)."""
     frames = re.shape[-1]
     w = _padded_window(window, n_fft)
-    Ci, Si = idft_basis(n_fft, re.device)
+    Ci, Si = idft_basis(n_fft, device=re.device)
     ri = torch.cat([re, im], dim=-2).transpose(-1, -2)  # [..., frames, 2F]
     y_f = dft_matmul(ri, torch.cat([Ci, Si], dim=0), precision)
     if normalized:

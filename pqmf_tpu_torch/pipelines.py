@@ -131,7 +131,7 @@ def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
     B, M, _ = bands.shape
     dev = bands.device
     f32 = torch.float32
-    window = S.hann_window(win, dev)
+    window = S.hann_window(win, device=dev)
 
     # --- batched STFT of all bands, band-major rows [M*B, Tb] ---
     x = bands.transpose(0, 1).reshape(M * B, Tb)
@@ -145,10 +145,10 @@ def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
 
     # f32-stepwise omega: the clamped boundary frames evaluate
     # princarg(-omega) exactly at the ±pi wrap (phase_advance_reference)
-    omega = pv.phase_advance_reference(F_, hop, n_fft, dev)
+    omega = pv.phase_advance_reference(F_, hop, n_fft, device=dev)
     trim = n_fft // 2
     one_off = (n_fft - win) // 2  # placement of the 1-frame irfft fallback
-    Ci, Si = S.idft_basis(n_fft, dev)
+    Ci, Si = S.idft_basis(n_fft, device=dev)
 
     # reference magphase + stretch rule, padded to FO_max and masked
     mag = torch.sqrt(re * re + im * im + 1e-12)
@@ -257,8 +257,8 @@ class PQMFWrapper(_RegistryMixin):
 
     def __init__(self, attenuation: int = 100, n_band: int = 16,
                  m_buffer_size: int = 512, precision: str = "highest",
-                 max_buffer_size: int | None = 16384, device="cuda",
-                 mesh=None):
+                 mesh=None, max_buffer_size: int | None = 16384,
+                 device="cuda"):
         self.n_band = n_band
         self.attenuation = attenuation
         self.pqmf = StreamingPQMF(attenuation, n_band, precision=precision,
@@ -336,9 +336,8 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
     def __init__(self, attenuation: int = 100, n_band: int = 16,
                  m_buffer_size: int = 8192, sample_rate: int = 44100,
                  shifts_in_semitones=None, precision: str = "highest",
-                 phase_rule: str = "reference",
-                 max_buffer_size: int | None = 16384, device="cuda",
-                 mesh=None):
+                 phase_rule: str = "reference", mesh=None,
+                 max_buffer_size: int | None = 16384, device="cuda"):
         self.n_band = n_band
         self.attenuation = attenuation
         self.sample_rate = sample_rate
@@ -387,7 +386,7 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         self.phase_rule = phase_rule
 
         L = self.band_overlap
-        full = S.hann_window(2 * L, self.device) if L > 0 else None
+        full = S.hann_window(2 * L, device=self.device) if L > 0 else None
         # copies, not views of the cached window: each is a tensor of its
         # own in an exported program
         self._fade_out = full[:L].clone() if L > 0 else None
@@ -608,7 +607,7 @@ def _stream_ola_program(wrapper, block: int, hop: int, n_frames: int,
     L = wrapper.band_overlap
 
     def run(x):
-        window = S.hann_window(block, x.device)
+        window = S.hann_window(block, device=x.device)
         framed = S._frame_signal(F.pad(x, (0, total - T)), block, hop,
                                  n_frames)
         blocks = (framed * window).transpose(0, 1)  # [N, C, block]
@@ -708,13 +707,13 @@ def _fused_ta_pitchshift(bands, plan, n_fft, hop, win, precision="highest"):
      Lbuf) = plan
     B, M, Tb = bands.shape
     dev = bands.device
-    window = S.hann_window(win, dev)
+    window = S.hann_window(win, device=dev)
 
     # torchaudio's STFT of all bands, band-major rows [M*B, Tb]
     x = bands.transpose(0, 1).reshape(M * B, Tb)
     re, im = S.ta_stft_ri(x, n_fft, hop, window, precision)
     F_, frames = re.shape[1], re.shape[2]
-    omega = pv.phase_advance(F_, hop, n_fft, dev)
+    omega = pv.phase_advance(F_, hop, n_fft, device=dev)
     re_s, im_s = pv.stretch_accumulate(re.reshape(M, B, F_, frames),
                                        im.reshape(M, B, F_, frames),
                                        rates, omega, FO_max)
@@ -760,8 +759,8 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
     def __init__(self, attenuation: int = 100, n_band: int = 16,
                  m_buffer_size: int = 512, sample_rate: int = 44100,
                  shifts_in_semitones=None, precision: str = "highest",
-                 max_buffer_size: int | None = 8192, device="cuda",
-                 mesh=None):
+                 mesh=None, max_buffer_size: int | None = 8192,
+                 device="cuda"):
         self.n_band = n_band
         self.attenuation = attenuation
         self.sample_rate = sample_rate

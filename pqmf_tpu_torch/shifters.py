@@ -84,12 +84,13 @@ def _pvoc_shift_core(x, rate, n_fft, hop, win_length, T, frames_out,
     """The phase-vocoder shift of x [B, T_in >= n_fft] (already
     right-padded) for one geometry; returns [B, T]."""
     dev = x.device
-    window = S.hann_window(win_length, dev)
+    window = S.hann_window(win_length, device=dev)
     re, im = S.stft_ri(x, n_fft, hop, window, center=True, normalized=True,
                        pad_mode="constant")
     # f32-stepwise omega: bit-parity with the reference's construction at
     # the stretch's ±pi wrap boundaries (see phase_advance_reference)
-    omega = pv.phase_advance_reference(re.shape[1], hop, n_fft, dev)
+    omega = pv.phase_advance_reference(re.shape[1], hop, n_fft,
+                                       device=dev)
     if accumulate:
         re_s, im_s = pv.stretch_accumulate(re, im, rate, omega, frames_out)
     else:
@@ -104,7 +105,7 @@ def _pvoc_shift_core(x, rate, n_fft, hop, win_length, T, frames_out,
         # reference 1-frame fallback: direct irfft cropped to win_length
         # (VocoderTPitchShifter.py:127-138); it does NOT undo the
         # normalized analysis scaling — reproduced as it is
-        Ci, Si = S.idft_basis(n_fft, dev)
+        Ci, Si = S.idft_basis(n_fft, device=dev)
         with full_f32():
             y = re_s[..., 0] @ Ci + im_s[..., 0] @ Si
         y = y[..., :win_length]
@@ -179,9 +180,9 @@ def _ta_shift_core(x, rate, n_fft, hop, win_length, T, frames_out,
     (unnormalized), running-phase stretch, ISTFT to ``len_stretch``, sinc
     resample ``orig -> new``, right crop / right zero-pad to T."""
     dev = x.device
-    window = S.hann_window(win_length, dev)
+    window = S.hann_window(win_length, device=dev)
     re, im = S.ta_stft_ri(x, n_fft, hop, window)
-    omega = pv.phase_advance(re.shape[1], hop, n_fft, dev)
+    omega = pv.phase_advance(re.shape[1], hop, n_fft, device=dev)
     re_s, im_s = pv.stretch_accumulate(re, im, rate, omega, frames_out)
     y = S.istft_ri(re_s, im_s, n_fft, hop, window, center=True,
                    normalized=False, length=len_stretch)

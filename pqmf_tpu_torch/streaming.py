@@ -323,7 +323,7 @@ def _cached_analysis(x, hkf, state, mode="offline", precision="highest",
 
     def conv(v, w):
         return cc.strided_analysis_conv(v, w, M, pad=pad,
-                                        precision=precision, bank=bank)
+                                        mxu_precision=precision, bank=bank)
 
     if mesh is not None:
         return new_state, shard_band_analysis(mesh, conv, xx, hkf)
@@ -351,7 +351,7 @@ def _cached_synthesis(x, hki, state, mode="offline", precision="highest",
 
     def conv(v, w):
         return cc.dense_synthesis_conv(v, w, fuse_mask=fuse, x_offset=0,
-                                       precision=precision, pad=pad,
+                                       mxu_precision=precision, pad=pad,
                                        bank=bank)
 
     y = (conv(xx, hki) if mesh is None
@@ -399,8 +399,8 @@ class StreamingPQMF:
     """
 
     def __init__(self, attenuation: float, n_band: int,
-                 precision: str = "highest", n_channels: int = 1,
-                 device="cuda", mesh=None):
+                 precision: str = "highest", mesh=None, n_channels: int = 1,
+                 device="cuda"):
         power = math.log2(n_band)
         if power != math.floor(power):
             raise ValueError(f"n_band must be a power of 2, got {n_band}")

@@ -321,8 +321,8 @@ def test_export_leaves_no_fake_tensor_in_live_caches(kind):
     tex.export_stablehlo(w, T)
     assert cache and _no_fake(cache)
     # the module-level tensor caches the steps read are real too
-    assert _no_fake([tS.hann_window(128, torch.device("cpu")),
-                     tS.idft_basis(128, torch.device("cpu"))])
+    assert _no_fake([tS.hann_window(128, device=torch.device("cpu")),
+                     tS.idft_basis(128, device=torch.device("cpu"))])
     # the next live block equals a fresh wrapper's
     fresh = _wrapper(kind)
     x = _blocks(11)[0]

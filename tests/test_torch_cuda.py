@@ -488,13 +488,13 @@ def test_tier_kernels_match_plain(dev, tier, M, B, T_sub):
     x = torch.randn(B, 1, M * T_sub + Ka - 1, generator=g).to(dev)
     for fuse in (True, False):
         torch.testing.assert_close(
-            cc.strided_analysis_conv(x, hkf, M, fuse, precision=tier),
+            cc.strided_analysis_conv(x, hkf, M, fuse, mxu_precision=tier),
             cc.analysis_conv_plain(x, hkf, M, fuse, precision=tier), **TOL)
     sub = F.pad(cc.strided_analysis_conv(x, hkf, M), (Ks // 2, Ks // 2))
     for fuse, off in [(True, -(Ks // 2)), (True, -15), (True, 3),
                       (False, 0)]:
         torch.testing.assert_close(
-            cc.dense_synthesis_conv(sub, hki, fuse, off, precision=tier),
+            cc.dense_synthesis_conv(sub, hki, fuse, off, mxu_precision=tier),
             cc.synthesis_conv_plain(sub, hki, fuse, off, precision=tier),
             **TOL)
     if cc.fused_roundtrip_supported(M, Ka, Ks, tier):
@@ -628,15 +628,15 @@ def test_tier_polyphase_kernels_match_plain(dev, tier, M):
     g = torch.Generator().manual_seed(M * 7)
     x = torch.randn(2, 1, M * 300, generator=g).to(dev)
     s = torch.randn(2, M, 300, generator=g).to(dev)
-    torch.testing.assert_close(pk.polyphase_analysis(x, hp, precision=tier),
-                               pk.polyphase_analysis_plain(x, hp, tier),
-                               **TOL)
-    torch.testing.assert_close(pk.polyphase_synthesis(s, hi, precision=tier),
-                               pk.polyphase_synthesis_plain(s, hi, tier),
-                               **TOL)
+    torch.testing.assert_close(
+        pk.polyphase_analysis(x, hp, mxu_precision=tier),
+        pk.polyphase_analysis_plain(x, hp, tier), **TOL)
+    torch.testing.assert_close(
+        pk.polyphase_synthesis(s, hi, mxu_precision=tier),
+        pk.polyphase_synthesis_plain(s, hi, tier), **TOL)
     L = hp.shape[-1]
     if pk.roundtrip_supported(M, L * M, L, tier):
-        got = pk.polyphase_roundtrip(x, hp, hi, precision=tier)
+        got = pk.polyphase_roundtrip(x, hp, hi, mxu_precision=tier)
         ref = pk.polyphase_roundtrip_plain(x, hp, hi, tier)
         if tier == "bf16x3":
             torch.testing.assert_close(got, ref, **TOL)
@@ -644,6 +644,28 @@ def test_tier_polyphase_kernels_match_plain(dev, tier, M):
             assert_k3t_close(got, ref, pk.polyphase_analysis(x, hp), hi,
                              tier)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("M", [4, 16, 32])
+def test_k4_without_mask_matches_plain(dev, tier, M):
+    """K4 (K4t at a tier) with ``fuse_mask=False`` launches K1 (K1t) once
+    without the sign mask: equal to the plain version without it, and not
+    to the masked output."""
+    p = fb.build_filterbank(100, M)
+    hp = torch.tensor(p["hk_poly"], device=dev)
+    g = torch.Generator().manual_seed(M * 11)
+    x = torch.randn(2, 1, M * 300, generator=g).to(dev)
+    cc.reset_launches()
+    pk.reset_launches()
+    got = pk.polyphase_analysis(x, hp, fuse_mask=False, mxu_precision=tier)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["analysis"] == 1 and pk.LAUNCHES["analysis"] == 1
+    torch.testing.assert_close(
+        got, pk.polyphase_analysis_plain(x, hp, tier, fuse_mask=False),
+        **TOL)
+    assert not torch.equal(got, pk.polyphase_analysis(
+        x, hp, mxu_precision=tier))
 
 
 @pytest.mark.parametrize("tier", TIERS)
@@ -1208,9 +1230,9 @@ def test_operators_launch_and_count(dev, tier):
     assert dict(cc.LAUNCHES) == {"analysis": 1, "synthesis": 1,
                                  "roundtrip": 1}
     assert torch.equal(a, cc.strided_analysis_conv(
-        x, hkf, 16, pad=(256, 256), precision=tier))
+        x, hkf, 16, pad=(256, 256), mxu_precision=tier))
     assert torch.equal(s, cc.dense_synthesis_conv(
-        sub, hki, pad=(16, 16), precision=tier))
+        sub, hki, pad=(16, 16), mxu_precision=tier))
     assert torch.equal(r, cc.fused_roundtrip_conv(
         x, hkf, hki, 16, (16, 16), tier, pad=(256, 256)))
 
@@ -1641,7 +1663,7 @@ def test_band_shard_kernels_match_plain(dev, tier, Mb):
             x = torch.randn(B, 1, 8192 + 512, generator=g).to(dev)
             s = torch.randn(B, Mb, 512 + 32, generator=g).to(dev)
             torch.testing.assert_close(
-                cc.strided_analysis_conv(x, wa, 16, precision=tier),
+                cc.strided_analysis_conv(x, wa, 16, mxu_precision=tier),
                 cc.analysis_conv_plain(x, wa, 16, precision=tier), **TOL)
             torch.testing.assert_close(
                 cc.dense_synthesis_conv(s, ws, True, -16, tier),

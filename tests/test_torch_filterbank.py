@@ -149,7 +149,7 @@ def test_import_leaves_jax_out():
         "'cli.export_pqmf', 'utils.audio', 'parallel.training', "
         "'shifters', 'pipelines', 'ops.resample', 'cli._common', "
         "'cli.vocoder', 'cli.ps_torchaudio', 'cli.blocks', "
-        "'cli.export_pvoc']\n"
+        "'cli.export_pvoc', 'entry']\n"
         "missing = [w for w in want if 'pqmf_tpu_torch.' + w "
         "not in sys.modules]\n"
         "assert not missing, missing\n"

@@ -142,10 +142,10 @@ def test_k4_hands_k1_the_unpadded_input_and_its_pad(monkeypatch):
     seen = {}
     real = cc.strided_analysis_conv
 
-    def spy(xx, w, m, fuse_mask=True, pad=(0, 0), precision="highest",
+    def spy(xx, w, m, fuse_mask=True, pad=(0, 0), mxu_precision="highest",
             bank=None):
-        seen.update(x=xx, pad=tuple(pad), precision=precision, bank=bank)
-        return real(xx, w, m, fuse_mask, pad, precision, bank)
+        seen.update(x=xx, pad=tuple(pad), precision=mxu_precision, bank=bank)
+        return real(xx, w, m, fuse_mask, pad, mxu_precision, bank)
 
     monkeypatch.setattr(cc, "strided_analysis_conv", spy)
     got = pk.analysis_over_k1(x, pk.analysis_weights(hp), M)

@@ -206,7 +206,7 @@ def test_k1_tier(M, tier, fuse_mask):
     K = hkf.shape[-1]
     x = _rand(M, 2, 1, 39 * M + K - 9)
     got = cc.strided_analysis_conv(_t(x), _t(hkf), M, fuse_mask,
-                                   pad=(3, 6), precision=tier)
+                                   pad=(3, 6), mxu_precision=tier)
     _close(got, model_k1(x, hkf, M, tier, (3, 6), fuse_mask))
     if tier == "bf16x3":
         xx = np.pad(x, ((0, 0), (0, 0), (3, 6)))
@@ -223,7 +223,7 @@ def test_k2_tier(M, tier, fuse_mask, x_offset):
     _, hki = _bank(M)
     x = _rand(M - x_offset, 2, M, 37 + hki.shape[-1] - 1)
     got = cc.dense_synthesis_conv(_t(x), _t(hki), fuse_mask, x_offset,
-                                  precision=tier)
+                                  mxu_precision=tier)
     _close(got, model_k2(x, hki, tier, fuse_mask, x_offset))
     if tier == "bf16x3":
         _close(got, jcc.dense_synthesis_conv(
@@ -239,7 +239,7 @@ def test_k3_tier(M, T, tier):
     syn_pad = centered_padding(hki.shape[-1])
     xx = np.pad(_rand(T, 1, 1, T), ((0, 0), (0, 0), (al, ar)))
     got = cc.fused_roundtrip_conv(_t(xx), _t(hkf), _t(hki), M, syn_pad,
-                                  precision=tier)
+                                  mxu_precision=tier)
     want = model_k3(xx, hkf, hki, M, tier, syn_pad)
     if tier == "bf16x3":
         _close(got, want)
@@ -260,23 +260,24 @@ def test_k3_tier_is_the_composition_split_again(tier):
     x = _t(_rand(5, 2, 1, 8 * 30 + hkf.shape[-1] - 1))
     for pad in [(16, 16), (3, 0)]:
         sub = torch.nn.functional.pad(
-            cc.strided_analysis_conv(x, hkf, 8, precision=tier), pad)
+            cc.strided_analysis_conv(x, hkf, 8, mxu_precision=tier), pad)
         comp = cc.dense_synthesis_conv(sub, hki, x_offset=-pad[0],
-                                       precision=tier)
+                                       mxu_precision=tier)
         np.testing.assert_array_equal(
             cc.fused_roundtrip_conv(x, hkf, hki, 8, pad,
-                                    precision=tier).numpy(), comp.numpy())
+                                    mxu_precision=tier).numpy(), comp.numpy())
 
 
 def test_wrappers_refuse_an_unknown_tier():
     hkf, hki = (_t(a) for a in _bank(8))
     x = _t(np.zeros((1, 1, 600), np.float32))
-    for call in (lambda: cc.strided_analysis_conv(x, hkf, 8, precision="hi"),
+    for call in (lambda: cc.strided_analysis_conv(x, hkf, 8,
+                                                  mxu_precision="hi"),
                  lambda: cc.dense_synthesis_conv(
                      _t(np.zeros((1, 8, 60), np.float32)), hki,
-                     precision="hi"),
+                     mxu_precision="hi"),
                  lambda: cc.fused_roundtrip_conv(x, hkf, hki, 8, (16, 16),
-                                                 precision="hi")):
+                                                 mxu_precision="hi")):
         with pytest.raises(ValueError, match="unknown precision"):
             call()
 
@@ -293,9 +294,9 @@ def test_polyphase_tiers(M, tier):
     hp, hi = p["hk_poly"], p["hk_ipoly"]
     L = hp.shape[-1]
     x, s = _rand(3 * M, 2, 1, M * 37), _rand(3 * M + 1, 2, M, 37)
-    ana = pk.polyphase_analysis(_t(x), _t(hp), precision=tier)
-    syn = pk.polyphase_synthesis(_t(s), _t(hi), precision=tier)
-    rt = pk.polyphase_roundtrip(_t(x), _t(hp), _t(hi), precision=tier)
+    ana = pk.polyphase_analysis(_t(x), _t(hp), mxu_precision=tier)
+    syn = pk.polyphase_synthesis(_t(s), _t(hi), mxu_precision=tier)
+    rt = pk.polyphase_roundtrip(_t(x), _t(hp), _t(hi), mxu_precision=tier)
     # the model: K4/K5/K6's routes over the K1/K2 models (the routes equal
     # the polyphase formula, tests/test_torch_offline.py)
     w2 = pk.analysis_weights(_t(hp)).numpy()

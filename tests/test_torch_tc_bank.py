@@ -373,10 +373,10 @@ def test_k5_and_the_offline_synthesis_hand_k2_the_unpadded_input(
     seen = []
     real = cc.dense_synthesis_conv
 
-    def spy(x, w, fuse_mask=True, x_offset=0, precision="highest",
+    def spy(x, w, fuse_mask=True, x_offset=0, mxu_precision="highest",
             pad=(0, 0), bank=None):
         seen.append((x.data_ptr(), tuple(x.shape), tuple(pad), x_offset))
-        return real(x, w, fuse_mask, x_offset, precision, pad, bank)
+        return real(x, w, fuse_mask, x_offset, mxu_precision, pad, bank)
 
     monkeypatch.setattr(cc, "dense_synthesis_conv", spy)
     p = jfb.build_filterbank(100, 16)

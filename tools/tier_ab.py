@@ -62,6 +62,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
+def _tier(fn, tier: str) -> dict:
+    """The tier as the keyword ``fn`` takes it: ``mxu_precision`` (the JAX
+    package's name) in a checkout whose kernel wrappers take it, else
+    ``precision``."""
+    name = ("mxu_precision" if "mxu_precision"
+            in inspect.signature(fn).parameters else "precision")
+    return {name: tier}
+
+
 def measure() -> dict:
     """The device times (us per call) of the checkout on sys.path[0]."""
     import torch
@@ -118,15 +127,18 @@ def measure() -> dict:
             kw = {k: cc.arrange_tc_bank(w, kind, tier) for k, w, kind in [
                 ("wa", wa, "analysis"), ("ws", ws, "synthesis"),
                 ("w2", w2, "analysis"), ("hi", hi, "synthesis")]}
+        k1_tier = _tier(cc.strided_analysis_conv, tier)
+        k4_tier = _tier(pk.polyphase_analysis, tier)
         calls = {
             "K1t": lambda x: cc.strided_analysis_conv(
-                x, wa, 16, precision=tier,
+                x, wa, 16, **k1_tier,
                 **({"bank": kw["wa"]} if kept else {})),
             "K2t": lambda x: cc.dense_synthesis_conv(
                 x, ws, True, -16, tier,
                 **({"bank": kw["ws"]} if kept else {})),
             "K4t": lambda x: pk.polyphase_analysis(
-                x, hp, w2, tier, *([kw["w2"]] if kept else [])),
+                x, hp, w2, **k4_tier,
+                **({"tc_bank": kw["w2"]} if kept else {})),
             "K5t": lambda x: pk.polyphase_synthesis(
                 x, hi, tier, *([kw["hi"]] if kept else [])),
             "K3t": lambda x: cc.fused_roundtrip_conv(
@@ -204,7 +216,8 @@ def measure_bands() -> dict:
 
             def halves(x, pad, tier=tier, kb=kb):
                 sub = cc.strided_analysis_conv(
-                    x, wa, M, pad=pad, precision=tier,
+                    x, wa, M, pad=pad,
+                    **_tier(cc.strided_analysis_conv, tier),
                     bank=None if kb is None else kb[0])
                 return cc.dense_synthesis_conv(
                     sub, ws, True, 0, tier, (16, 16),
