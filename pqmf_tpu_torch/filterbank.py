@@ -27,6 +27,7 @@ from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.streaming import (BandLayout, _on, as_device_tensor,
                                       resolve_device, shard_band_analysis,
                                       shard_band_synthesis)
+from pqmf_tpu_torch.utils.profiling import span
 
 __all__ = ["PQMF"]
 
@@ -219,21 +220,23 @@ class PQMF:
         where K3 takes the geometry (``roundtrip_supported``: every
         committed bank, M = 2 to 64; K3t at a tier, reading the kept
         arranged banks), else K4 then K5 — and K4 then K5 under a mesh."""
-        x = self._to_bct(x)
-        if self.n_band == 1:
-            return x
-        M = self.n_band
-        hk_poly, hk_ipoly = self.params["hk_poly"], self.params["hk_ipoly"]
-        if not (self.polyphase and self._layout is None
-                and pk.roundtrip_supported(
-                M, hk_poly.shape[-1] * M, hk_ipoly.shape[-1],
-                self.precision)):
-            return self.inverse(self.forward(x))
-        xc, B, T = self._fold(x)
-        banks = None if self.precision == "highest" else (
-            self.tc_banks["analysis"], self.tc_banks["synthesis"])
-        y = pk.polyphase_roundtrip(xc, hk_poly, hk_ipoly, self._w2,
-                                   self.precision, banks)
-        return y.reshape(B, self.n_channels, T)
+        with span("pqmf.entry.roundtrip"):
+            x = self._to_bct(x)
+            if self.n_band == 1:
+                return x
+            M = self.n_band
+            hk_poly = self.params["hk_poly"]
+            hk_ipoly = self.params["hk_ipoly"]
+            if not (self.polyphase and self._layout is None
+                    and pk.roundtrip_supported(
+                    M, hk_poly.shape[-1] * M, hk_ipoly.shape[-1],
+                    self.precision)):
+                return self.inverse(self.forward(x))
+            xc, B, T = self._fold(x)
+            banks = None if self.precision == "highest" else (
+                self.tc_banks["analysis"], self.tc_banks["synthesis"])
+            y = pk.polyphase_roundtrip(xc, hk_poly, hk_ipoly, self._w2,
+                                       self.precision, banks)
+            return y.reshape(B, self.n_channels, T)
 
     __call__ = forward

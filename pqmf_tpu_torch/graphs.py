@@ -25,6 +25,11 @@ the body anew and is not used).
 - The kernels' launch counters (``cached_conv.LAUNCHES``,
   ``polyphase.LAUNCHES``) count device launches: the capture adds nothing,
   and each replay adds the counts the capture recorded.
+- Under a running ``torch.profiler`` a replay records three host spans:
+  ``pqmf.graph.copy_in`` (the arguments' checks and copies into the
+  static buffers), ``pqmf.graph.launch`` (the replay and the counters)
+  and ``pqmf.graph.clone_out`` (the outputs' clones); a capture records
+  ``pqmf.graph.capture``. The captured body itself holds no span.
 - On the CPU nothing is captured: the body runs. On CUDA there is no
   fallback: a capture or replay that fails raises with its error.
 - Programs nest: one called while another capture runs on the current
@@ -60,6 +65,7 @@ from torch.utils import _pytree as pytree
 
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.kernels import polyphase as pk
+from pqmf_tpu_torch.utils.profiling import span
 
 __all__ = ["Program", "call", "COLLECTIVES", "reset_collectives"]
 
@@ -193,6 +199,7 @@ class Program:
         self.launches = None     # the kernel launches one replay makes
         self.collectives = None  # and the collectives (COLLECTIVES' keys)
         self._replay = None
+        self._adds = ()          # (counter, key, count) a replay adds
         self._static_in = None
         self._static_out = None
 
@@ -202,7 +209,8 @@ class Program:
         _check_group(self.group, self.device)
         if self._replay is None:
             out = self.fn(*args)
-            self._record(args)
+            with span("pqmf.graph.capture"):
+                self._record(args)
             return out
         return self._run(args)
 
@@ -222,11 +230,28 @@ class Program:
         self.launches = [{k: a[k] - b[k] for k in a}
                          for a, b in zip(after, before)]
         self.collectives = {k: coll_after[k] - coll[k] for k in coll}
+        self._adds = tuple(
+            (c, k, n)
+            for c, counts in zip(_COUNTERS + (COLLECTIVES,),
+                                 self.launches + [self.collectives])
+            for k, n in counts.items() if n)
         self._replay, self.stats = replay, stats
         self._static_in = (static, spec)
         self._static_out = out
 
     def _run(self, args):
+        with span("pqmf.graph.copy_in"):
+            self._copy_in(args)
+        with span("pqmf.graph.launch"):
+            self._replay()
+            for c, k, n in self._adds:
+                c[k] += n
+        with span("pqmf.graph.clone_out"):
+            return pytree.tree_map(
+                lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                self._static_out)
+
+    def _copy_in(self, args):
         static, spec = self._static_in
         leaves, given = pytree.tree_flatten(args)
         if given != spec:
@@ -246,14 +271,6 @@ class Program:
                         f"{a.dtype} {tuple(a.shape)} on {a.device}"
                         if isinstance(a, torch.Tensor) else repr(a)))
             s.copy_(a)
-        self._replay()
-        for c, n in zip(_COUNTERS + (COLLECTIVES,),
-                        self.launches + [self.collectives]):
-            for k, v in n.items():
-                c[k] += v
-        return pytree.tree_map(
-            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-            self._static_out)
 
 
 def call(cache: dict, key: tuple, fn, *args, group=None):

@@ -55,6 +55,7 @@ from pqmf_tpu_torch.ops import resample as rs
 from pqmf_tpu_torch.ops import stft as S
 from pqmf_tpu_torch.shifters import TorchaudioPitchShift
 from pqmf_tpu_torch.streaming import StreamingPQMF
+from pqmf_tpu_torch.utils.profiling import span
 
 __all__ = [
     "PQMFWrapper",
@@ -307,9 +308,10 @@ class PQMFWrapper(_RegistryMixin):
         return self.pqmf.inverse(x)
 
     def process(self, x):
-        subbands = self.forward(x)
-        reconstructed = self.inverse(subbands)
-        return reconstructed, subbands
+        with span("pqmf.entry.process"):
+            subbands = self.forward(x)
+            reconstructed = self.inverse(subbands)
+            return reconstructed, subbands
 
     __call__ = forward
 
@@ -468,14 +470,15 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         """(state, x [1,T] | [B,1,T]) -> (state', y [B, T]). With B > 1
         there is no crossfade and the tail passes through untouched (the
         reference's batch==1 guard). A CUDA graph per (B, T) on the card."""
-        x = self._block(x)
-        lay = self.pqmf._layout
-        if lay is not None:
-            return self._pitchshift_sharded(lay, state, x, graphed=True)
-        return graphs.call(self._graphs,
-                           self._key("pitchshift_fn", x.shape[0],
-                                     x.shape[-1]),
-                           self._pitchshift_fn_eager, state, x)
+        with span("pqmf.entry.pitchshift_fn"):
+            x = self._block(x)
+            lay = self.pqmf._layout
+            if lay is not None:
+                return self._pitchshift_sharded(lay, state, x, graphed=True)
+            return graphs.call(self._graphs,
+                               self._key("pitchshift_fn", x.shape[0],
+                                         x.shape[-1]),
+                               self._pitchshift_fn_eager, state, x)
 
     def _pitchshift_fn_eager(self, state, x, crossfade=None):
         """The step on this rank's rows and bands (all of them without a
@@ -540,21 +543,22 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         own crossfade tail; the streams ride the batch axis of the same
         kernels. x: [n_streams, T] -> (states', y [n_streams, T]). A CUDA
         graph per (S, T) on the card."""
-        x = self.pqmf.as_tensor(x)
-        S, T = x.shape[0], x.shape[-1]
-        key = self._key("pitchshift_streams", S, T)
-        lay = self.pqmf._layout
-        if lay is None:
-            return graphs.call(self._graphs, key,
-                               self._pitchshift_streams_eager, states, x)
-        tails = lay.local(states["prev_tail"], data_dim=0, band_dim=1)
-        new, y = graphs.call(self._graphs, key,
-                             self._pitchshift_streams_eager,
-                             {"prev_tail": tails}, lay.local(x, data_dim=0),
-                             group=lay.group)
-        return ({"prev_tail": lay.wrap(new["prev_tail"], data_dim=0,
-                                       band_dim=1, batch=S)},
-                lay.wrap(y, data_dim=0, batch=S))
+        with span("pqmf.entry.pitchshift_streams"):
+            x = self.pqmf.as_tensor(x)
+            S, T = x.shape[0], x.shape[-1]
+            key = self._key("pitchshift_streams", S, T)
+            lay = self.pqmf._layout
+            if lay is None:
+                return graphs.call(self._graphs, key,
+                                   self._pitchshift_streams_eager, states, x)
+            tails = lay.local(states["prev_tail"], data_dim=0, band_dim=1)
+            new, y = graphs.call(self._graphs, key,
+                                 self._pitchshift_streams_eager,
+                                 {"prev_tail": tails},
+                                 lay.local(x, data_dim=0), group=lay.group)
+            return ({"prev_tail": lay.wrap(new["prev_tail"], data_dim=0,
+                                           band_dim=1, batch=S)},
+                    lay.wrap(y, data_dim=0, batch=S))
 
     def _pitchshift_streams_eager(self, states, x):
         sub = self.pqmf._forward_local(self._block(x[:, None, :]))

@@ -42,6 +42,7 @@ from torch.utils import _pytree as pytree
 from pqmf_tpu_torch import graphs
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.ops import filterbank as fb
+from pqmf_tpu_torch.utils.profiling import span
 
 __all__ = [
     "centered_padding",
@@ -88,14 +89,16 @@ def _on(v, device) -> torch.Tensor:
 
 
 def as_device_tensor(x, device: torch.device) -> torch.Tensor:
-    """An input as a tensor on ``device``: arrays are copied there; a tensor
-    must already be there (no silent transfer)."""
+    """An input as a tensor on ``device``: arrays are copied there (the
+    ``pqmf.handover`` span); a tensor must already be there (no silent
+    transfer)."""
     if isinstance(x, torch.Tensor):
         if x.device != device:
             raise ValueError(f"input is on {x.device}, this PQMF on "
                              f"{device}")
         return x
-    return _on(x, device)
+    with span("pqmf.handover"):
+        return _on(x, device)
 
 
 def kernels_from_params(params, device="cpu") -> tuple:

@@ -6,6 +6,11 @@ launch, and :func:`chained_ms` times chains of ``n`` and ``2n``
 applications and differences them, so a constant overhead (the first
 launch, the final synchronize) cancels. On the card they time with CUDA
 events; on a CPU tensor :func:`chained_ms` uses the host clock.
+
+:func:`span` marks a stretch of the port's host code (its entries, a host
+block's handover, a graph's replay) in a running profiler's trace, beside
+the device's kernels and copies on the same clock. It records only while
+a ``torch.profiler`` records; otherwise it costs a gate check.
 """
 
 from __future__ import annotations
@@ -16,7 +21,22 @@ import time
 
 import torch
 
-__all__ = ["trace", "chained_ms", "dispatch_floor_ms"]
+__all__ = ["trace", "span", "chained_ms", "dispatch_floor_ms"]
+
+_OFF = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context that records ``name`` as a ``record_function`` event while
+    a ``torch.profiler`` records (:func:`trace`, or any profiler of the
+    caller), and the one shared no-op otherwise, also while
+    ``torch.compile`` or ``torch.export`` traces: a span never enters a
+    traced or exported program. The profiler keeps the events and writes
+    them with its trace."""
+    if torch.compiler.is_compiling() or not _profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
