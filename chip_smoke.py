@@ -121,6 +121,14 @@ fails without them; it never falls back to the CPU and imports no JAX.
    there and at host blocks of B = 1 and 16 beside the K1 + K2 (K1t +
    K2t) composition's, with each shape's bound and the cluster plan (one
    "K3 vs its halves" line per M and tier).
+4b. The flagship's middle (``kernels/middle.py``) at 1 and 128 streams:
+   pv_frame_kernel, pv_spectral_kernel and pv_resynth_kernel each launched
+   once, its count zeroed just before and read just after, against its
+   plain version on the same card inputs (frames and resynthesis bit for
+   bit, the spectrum within MIDDLE_ULPS under both phase rules, no branch
+   flipped); device time, events beside the plain version's, bound; the
+   two DFT products' TFLOP/s and the whole middle's share of its bound on
+   a ``{"middle": ...}`` line. Their rows join the kernels line.
 
 5. Fine-tuning (``parallel/training.py``) on the card: (a) one loss and
    gradient of the fine-tune loss at the committed recipe's full width (M
@@ -289,6 +297,7 @@ def _plain_versions_refused():
     """Make every plain version the offline path could reach raise, so a
     run inside shows the CUDA path never took one."""
     from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import middle as pm
     from pqmf_tpu_torch.kernels import polyphase as pk
     from pqmf_tpu_torch.ops import filterbank as fb
 
@@ -301,6 +310,8 @@ def _plain_versions_refused():
     patched += [(cc, n) for n in ("analysis_conv_plain",
                                   "synthesis_conv_plain",
                                   "roundtrip_conv_plain")]
+    patched += [(pm, n) for n in ("frame_plain", "spectral_plain",
+                                  "resynth_plain")]
     patched += [(fb, n) for n in ("polyphase_forward", "polyphase_inverse",
                                   "_conv1d")]
     saved = [(mod, n, getattr(mod, n)) for mod, n in patched]
@@ -323,18 +334,18 @@ def _checksum(t) -> list:
 @contextlib.contextmanager
 def _stage_checksums(out: dict):
     """Record, in ``out``, the checksum of each stage of the flagship's CPU
-    step run inside: the sub-bands (K1's wrapper), the STFT's real and
-    imaginary parts, the stretched spectrum the ISTFT takes, the ISTFT's
-    overlap-add and the synthesis output (K2's wrapper). A later call on a
-    host that computes the reference differently names the first stage
-    that moved."""
+    step run inside: the sub-bands (K1's wrapper), the windowed frames, the
+    STFT product, the stretched spectrum the ISTFT takes, the ISTFT
+    product, the shifted bands and the synthesis output (K2's wrapper). A
+    later call on a host that computes the reference differently names the
+    first stage that moved."""
     from pqmf_tpu_torch.kernels import cached_conv as cc
-    from pqmf_tpu_torch.ops import stft as S
+    from pqmf_tpu_torch.kernels import middle as pm
 
     saved = {(cc, "strided_analysis_conv"): cc.strided_analysis_conv,
              (cc, "dense_synthesis_conv"): cc.dense_synthesis_conv,
-             (S, "stft_ri"): S.stft_ri,
-             (S, "istft_ri_parts"): S.istft_ri_parts}
+             (pm, "frame"): pm.frame, (pm, "spectral"): pm.spectral,
+             (pm, "resynth"): pm.resynth}
 
     def wrap(mod, name, record):
         real = saved[mod, name]
@@ -347,12 +358,13 @@ def _stage_checksums(out: dict):
 
     wrap(cc, "strided_analysis_conv",
          lambda a, r: out.setdefault("subbands", _checksum(r)))
-    wrap(S, "stft_ri", lambda a, r: (out.setdefault("stft_re", _checksum(r[0])),
-                                     out.setdefault("stft_im", _checksum(r[1]))))
-    wrap(S, "istft_ri_parts",
-         lambda a, r: (out.setdefault("stretched_re", _checksum(a[0])),
-                       out.setdefault("stretched_im", _checksum(a[1])),
-                       out.setdefault("istft", _checksum(r[0]))))
+    wrap(pm, "frame", lambda a, r: out.setdefault("frames", _checksum(r)))
+    wrap(pm, "spectral",
+         lambda a, r: (out.setdefault("stft", _checksum(a[0])),
+                       out.setdefault("stretched", _checksum(r))))
+    wrap(pm, "resynth",
+         lambda a, r: (out.setdefault("istft", _checksum(a[0])),
+                       out.setdefault("shifted", _checksum(r[0]))))
     wrap(cc, "dense_synthesis_conv",
          lambda a, r: out.setdefault("synthesis", _checksum(r)))
     try:
@@ -666,8 +678,13 @@ def _aot_phase(card: str, dev: str = "cuda") -> dict:
         ops = [str(n.target) for n in ep.graph.nodes
                if n.op == "call_function"
                and "pqmf_tpu_torch" in str(n.target)]
-        assert sorted(ops) == ["pqmf_tpu_torch.analysis_conv.default",
-                               "pqmf_tpu_torch.synthesis_conv.default"], ops
+        middle = (["pqmf_tpu_torch.pv_frame.default",
+                   "pqmf_tpu_torch.pv_resynth.default",
+                   "pqmf_tpu_torch.pv_spectral.default"]
+                  if key.startswith("flagship") else [])
+        assert sorted(ops) == sorted(
+            ["pqmf_tpu_torch.analysis_conv.default",
+             "pqmf_tpu_torch.synthesis_conv.default", *middle]), ops
         consts = list(ep.constants.values()) + list(ep.state_dict.values())
         assert all(c.device.type == dev for c in consts), "a constant moved"
         program = load_stablehlo(path, device=dev)
@@ -1324,6 +1341,158 @@ def _native_phase(card: str, dev: str = "cuda") -> dict:
     shutil.rmtree(td)
     return {"library": path.name, "calls": calls["C"],
             "cli_bit_equal": True, "peak": peak}
+
+
+# -- 4b. the flagship's middle, stage by stage --------------------------------
+
+# pvoc16.live's block and pvoc16.streams' step
+MIDDLE_STREAMS = (1, 128)
+# the spectral kernel's bar against its plain version on the card, in f32
+# ulps of magnitude and of phase (tests/test_torch_cuda.py's MIDDLE_ULPS)
+MIDDLE_ULPS = 2
+
+
+def _middle_phase(card: str) -> list:
+    """Phase 4b: the flagship's middle (``kernels/middle.py``) at the main
+    path's shapes: the 16-band flagship at its defaults (blocks of 8192,
+    shifts 0-15), 1 and 128 streams, the crossfade as those steps take it.
+    Each kernel on the card's own inputs: its launches, counted from zero
+    around its one call; its output against its plain version
+    (pv_frame_kernel against the plain frames on the card and
+    pv_resynth_kernel against the plain resynthesis on the host: bit for
+    bit; pv_spectral_kernel under both phase rules: within MIDDLE_ULPS of
+    magnitude and phase, no phase-rule branch flipped); its device time
+    (``_device_us``), its CUDA-event time beside its plain version's and
+    its bound (its operands read once and its outputs written once at the
+    HBM rate). Beside them, on a ``{"middle": ...}`` line: the two DFT
+    products' device time and TFLOP/s, and the whole middle's device time
+    against its bound (the products' FLOPs at the f32 peak, or the
+    sub-bands in and the shifted bands and tail out at the HBM rate, the
+    larger). Returns the kernels line's rows."""
+    import torch
+
+    from pqmf_tpu_torch import PQMFPitchShiftWrapper
+    from pqmf_tpu_torch.kernels import middle as pm
+    from pqmf_tpu_torch.ops import stft as S
+
+    dev = torch.device("cuda")
+    w = PQMFPitchShiftWrapper(100, N_BAND, BLOCK, SR, device="cuda")
+    fades = (w._fade_out, w._fade_in)
+    names = {"frame": "pv_frame_kernel", "spectral": "pv_spectral_kernel",
+             "resynth": "pv_resynth_kernel"}
+    rows, summary = [], {}
+    print(f"the flagship's middle on {card}:")
+    for B in MIDDLE_STREAMS:
+        x = torch.from_numpy(_audio(BLOCK, 20 + B, batch=B)).to(dev)
+        sub = w.pqmf._forward_local(x[:, None, :])  # [B, 16, 512]
+        p = w._plan(sub.shape[-1])
+        stft_basis, istft_basis = pm.bases(p.n_fft, dev)
+        mode, crossfade = ((pm.SHARED_FADE, True) if B == 1
+                           else (pm.STREAM_FADE, "batched"))
+        g = torch.Generator().manual_seed(B)
+        prev = (torch.randn(pm._tail_shape(B, N_BAND, w.band_overlap, mode),
+                            generator=g) * 0.1).to(dev)
+
+        def counted(k, fn):
+            pm.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            n = dict(pm.LAUNCHES)
+            assert n == {**dict.fromkeys(n, 0), k: 1}, (k, B, n)
+            return out
+
+        calls = {
+            "frame": lambda: pm.frame(sub, p),
+            "spectral": lambda: pm.spectral(spec, p, B, False),
+            "resynth": lambda: pm.resynth(prod, p, B, prev, *fades, mode)}
+        plain = {
+            "frame": lambda: pm.frame_plain(sub, p.window, p.n_fft, p.hop,
+                                            p.frames),
+            "spectral": lambda: pm.spectral_plain(
+                spec, p.rates, p.table, p.omega, B, p.n_fft, False),
+            "resynth": lambda: pm.resynth_plain(
+                prod, p.table, p.wsq, p.window, prev, *fades, B, p.Tb,
+                p.n_fft, p.hop, p.win, mode)}
+        frames = counted("frame", calls["frame"])
+        spec = S.dft_matmul(frames, stft_basis)
+        got = counted("spectral", calls["spectral"])
+        prod = S.dft_matmul(got, istft_basis)
+        shifted, tail = counted("resynth", calls["resynth"])
+
+        want = plain["frame"]()
+        assert torch.equal(frames, want), B
+        errs = {"frame": (frames - want).abs().max().item()}
+        ulps = {}
+        for rule in ("reference", "accumulate"):
+            acc = rule == "accumulate"
+            rows_ = pm.spectral(spec, p, B, acc)
+            want = pm.spectral_plain(spec, p.rates, p.table, p.omega, B,
+                                     p.n_fft, acc)
+            mag, phase = pm._spectral_ulps(rows_, want, p, acc)
+            flips = int((phase > MIDDLE_ULPS).sum())
+            ulps[rule] = [mag.max().item(), phase.max().item(), flips]
+            assert mag.max() <= MIDDLE_ULPS and flips == 0, (B, rule, ulps)
+            if not acc:
+                errs["spectral"] = (rows_ - want).abs().max().item()
+        # on the host: the card's index_add and division by a Python
+        # scalar round otherwise than the kernel's one order
+        host = [t.cpu() for t in (prod, p.table, p.wsq, p.window, prev,
+                                  *fades)]
+        want, want_tail = pm.resynth_plain(*host, B, p.Tb, p.n_fft, p.hop,
+                                           p.win, mode)
+        assert torch.equal(shifted.cpu(), want), B
+        assert torch.equal(tail.cpu(), want_tail), B
+        errs["resynth"] = 0.0
+
+        # bytes each kernel must move: its operands once, its outputs once
+        f4 = 4
+        io = {"frame": (sub.numel() + p.window.numel() + frames.numel())
+              * f4,
+              "spectral": sum(t.numel() for t in (
+                  spec, p.rates, p.table, p.omega, got)) * f4,
+              "resynth": sum(t.numel() for t in (
+                  prod, p.table, p.wsq, p.window, prev, *fades, shifted,
+                  tail)) * f4}
+        iters, n_dev = (200, 20) if B == 1 else (50, 20)
+        label = f"{B} stream" + ("s" if B > 1 else "")
+        for k, fn in calls.items():
+            p1, k1 = _events_ms(plain[k], iters), _events_ms(fn, iters)
+            k2, p2 = _events_ms(fn, iters), _events_ms(plain[k], iters)
+            row = {"name": f"{names[k]} [{label}]", "route": "cuda",
+                   "source": "pqmf_tpu_torch/csrc/middle.cu",
+                   "replaces": "no Pallas kernel: pqmf_tpu/pipelines.py "
+                               "_fused_band_pitchshift (XLA fuses it)",
+                   "launches": 1, "max_abs_err": errs[k],
+                   "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                   "bound_ms": io[k] / HBM_BYTES * 1e3, "bound_by": "bytes",
+                   "library_ms": None, "device_us": _device_us(fn, n_dev),
+                   "shape": list(sub.shape)}
+            if k == "spectral":
+                row["ulps_mag_phase_flips"] = ulps
+            rows.append(row)
+            print(f"  {row['name']}: device {row['device_us']:.2f} us, "
+                  f"events {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                  f"ms, bound {row['bound_ms'] * 1e3:.3f} us")
+
+        flops = {"stft": 2 * frames.shape[0] * frames.shape[1] * p.n_fft
+                 * (p.n_fft + 2),
+                 "istft": 2 * got.shape[0] * (p.n_fft + 2) * p.n_fft}
+        products = {}
+        for k, fn in (("stft", lambda: S.dft_matmul(frames, stft_basis)),
+                      ("istft", lambda: S.dft_matmul(got, istft_basis))):
+            us = _device_us(fn, n_dev)
+            products[k] = {"device_us": us, "gflop": flops[k] * 1e-9,
+                           "tflops": flops[k] / us * 1e-6}
+        bound_us = max(sum(flops.values()) / F32_FLOPS,
+                       (sub.numel() + shifted.numel() + tail.numel()) * f4
+                       / HBM_BYTES) * 1e6
+        whole = _device_us(lambda: w._shift(sub, prev, crossfade), n_dev)
+        summary[label] = {"rows": got.shape[0], "products": products,
+                          "middle_device_us": whole,
+                          "middle_bound_us": bound_us,
+                          "middle_bound_share": bound_us / whole}
+    print(json.dumps({"middle": summary}))
+    return rows
 
 
 # -- 6. the (data, band) mesh -------------------------------------------------
@@ -2053,6 +2222,7 @@ def main() -> int:
                                     vocoder)
     from pqmf_tpu_torch.kernels import _build
     from pqmf_tpu_torch.kernels import cached_conv as cc
+    from pqmf_tpu_torch.kernels import middle as pm
     from pqmf_tpu_torch.kernels import polyphase as pk
     from pqmf_tpu_torch.ops import filterbank as fb_ops
     from pqmf_tpu_torch.parallel.training import load_pretrained_bank
@@ -2620,6 +2790,8 @@ def main() -> int:
     streams = _audio(BLOCK, 3, batch=16)
 
     cc.reset_launches()
+    pk.reset_launches()
+    pm.reset_launches()
     gs, g_out = gpu.init_state(), []
     for blk in blocks:
         gs, y = gpu.pitchshift_fn(gs, blk)
@@ -2628,9 +2800,12 @@ def main() -> int:
     g_rt = gpu.forward_fn(blocks[0])
     torch.cuda.synchronize()
     launches = dict(cc.LAUNCHES)
-    print(f"main-path launches: {launches}")
+    print(f"main-path launches: {launches}, polyphase {dict(pk.LAUNCHES)}, "
+          f"middle {dict(pm.LAUNCHES)}")
     assert launches == {"analysis": 9, "synthesis": 9, "roundtrip": 1}, \
         launches
+    # one frame, spectral and resynth kernel a flagship step (8 + 1)
+    assert pm.LAUNCHES == dict.fromkeys(pm.LAUNCHES, 9), pm.LAUNCHES
 
     cs = cpu.init_state()
     for i, blk in enumerate(blocks):
@@ -2681,6 +2856,7 @@ def main() -> int:
                                    precision=tier, device="cpu")
         tier_gpu[tier] = tg
         cc.reset_launches()
+        pm.reset_launches()
         with _plain_versions_refused():
             ts_, t_out = tg.init_state(), []
             for blk in blocks:
@@ -2691,9 +2867,11 @@ def main() -> int:
             t_rt = tg.forward_fn(blocks[0])
         torch.cuda.synchronize()
         tier_launches[tier] = dict(cc.LAUNCHES)
-        print(f"main-path launches at {tier}: {tier_launches[tier]}")
+        print(f"main-path launches at {tier}: {tier_launches[tier]}, "
+              f"middle {dict(pm.LAUNCHES)}")
         assert tier_launches[tier] == {"analysis": 9, "synthesis": 9,
                                        "roundtrip": 1}, tier_launches[tier]
+        assert pm.LAUNCHES == dict.fromkeys(pm.LAUNCHES, 9), pm.LAUNCHES
         cs, dbs = tc.init_state(), []
         for i, blk in enumerate(blocks):
             cs, y = tc.pitchshift_fn(cs, blk)
@@ -3653,6 +3831,9 @@ def main() -> int:
                             ("TA blocks B=16 (graph)", ta_step16, ta16_ms)]:
         print(json.dumps({"profile": label, **_profile(step, 10, ms)}))
 
+    # -- 4b. the flagship's middle, stage by stage ----------------------------
+    middle_rows = _middle_phase(card)
+
     # -- 5. fine-tuning on the card ------------------------------------------
     print("fine-tuning (parallel/training.py):")
     print(json.dumps({"training": _training_phase(sixty, card)}))
@@ -3833,6 +4014,7 @@ def main() -> int:
             tier = next((t for t in TIERS if f"[{t}]" in k["name"]),
                         "highest")
             k["max_abs_err_fuse_mask_false"] = no_mask[tier]
+    kernels += middle_rows
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,8 +74,9 @@ def entry(device="cuda"):
 
     ``fn(prev_tail [M, L], x [1, 1, T]) -> (new_tail [M, L], y [1, T])``:
     streaming PQMF analysis (K1), the batched per-band STFT, stretch with
-    per-band rates, masked OLA ISTFT and resample, the crossfade against
-    the carried tail, streaming PQMF synthesis (K2); on the card the
+    per-band rates, ISTFT of the frames that exist and resample, the
+    crossfade against the carried tail (the middle's three kernels around
+    its two DFT products), streaming PQMF synthesis (K2); on the card the
     wrapper's CUDA graph of all of it. ``x`` is ``sin(linspace(0, 800 pi,
     8192))`` in float32, as in the JAX package's entry."""
     from pqmf_tpu_torch.pipelines import PQMFPitchShiftWrapper

@@ -16,8 +16,10 @@ so each package loads the other's artifacts as wrappers:
   program of the wrapper's block method at one block length: a
   ``torch.export`` program (``torch.export.save``), NOT StableHLO. Its ops
   are ATen's and the kernel operators of ``kernels/cached_conv.py``
-  (``pqmf_tpu_torch::analysis_conv`` / ``synthesis_conv``), so a reloaded
-  program launches the same hand-written kernels as the live wrapper. The
+  (``pqmf_tpu_torch::analysis_conv`` / ``synthesis_conv``) and, in the
+  flagship's, of ``kernels/middle.py`` (``pv_frame`` / ``pv_spectral`` /
+  ``pv_resynth``), so a reloaded program launches the same hand-written
+  kernels as the live wrapper. The
   manifest records it under ``"torch_export"`` (with the block length and
   the device type it was exported on), never under JAX's ``"stablehlo"``:
   neither package's :func:`load_stablehlo` takes the other's program.
@@ -280,8 +282,9 @@ def export_stablehlo(wrapper, length: int) -> bytes:
     - plain wrapper: ``x [1, 1, length] -> (reconstructed, subbands)``.
 
     The program is fixed to the wrapper's device and carries every tensor
-    it reads; its convs are the kernel operators, so on the card it
-    launches K1 and K2 (K1t/K2t at a tier), one of each a block.
+    it reads; its convs (and the flagship's middle) are the kernel
+    operators, so on the card it launches K1 and K2 (K1t/K2t at a tier),
+    one of each a block, and the flagship's three middle kernels.
 
     The step runs once eagerly first: a plan or cached tensor that the
     trace filled would hold a FakeTensor, and the wrapper's next live call

@@ -23,8 +23,9 @@ the body anew and is not used).
   returns clones of the static outputs: a replay never changes a tensor
   that an earlier call returned, and no static buffer is handed out.
 - The kernels' launch counters (``cached_conv.LAUNCHES``,
-  ``polyphase.LAUNCHES``) count device launches: the capture adds nothing,
-  and each replay adds the counts the capture recorded.
+  ``polyphase.LAUNCHES``, ``middle.LAUNCHES``) count device launches: the
+  capture adds nothing, and each replay adds the counts the capture
+  recorded.
 - Under a running ``torch.profiler`` a replay records three host spans:
   ``pqmf.graph.copy_in`` (the arguments' checks and copies into the
   static buffers), ``pqmf.graph.launch`` (the replay and the counters)
@@ -64,6 +65,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from pqmf_tpu_torch.kernels import cached_conv as cc
+from pqmf_tpu_torch.kernels import middle as pm
 from pqmf_tpu_torch.kernels import polyphase as pk
 from pqmf_tpu_torch.utils.profiling import span
 
@@ -80,7 +82,7 @@ def reset_collectives() -> None:
         COLLECTIVES[k] = 0
 
 
-_COUNTERS = (cc.LAUNCHES, pk.LAUNCHES)
+_COUNTERS = (cc.LAUNCHES, pk.LAUNCHES, pm.LAUNCHES)
 
 
 def _counts() -> list:

@@ -1,5 +1,6 @@
 """Build and bind the hand-written CUDA kernels (``csrc/cached_conv.cu``,
-the f32 kernels, and ``csrc/cached_conv_tc.cu``, the tensor-core tiers).
+the f32 kernels, ``csrc/cached_conv_tc.cu``, the tensor-core tiers, and
+``csrc/middle.cu``, the flagship pitch shifter's middle).
 
 Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into an
 object, all at once in parallel, and the objects are linked into one shared
@@ -23,7 +24,8 @@ __all__ = ["SOURCES", "HEADERS", "BUILD_DIR", "nvcc_command", "link_command",
            "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "cached_conv.cu", _PKG / "csrc" / "cached_conv_tc.cu")
+SOURCES = (_PKG / "csrc" / "cached_conv.cu", _PKG / "csrc" / "cached_conv_tc.cu",
+           _PKG / "csrc" / "middle.cu")
 # included by both sources (the fused round trip's call-size tile choice)
 HEADERS = (_PKG / "csrc" / "rt_plan.h",)
 BUILD_DIR = _PKG / "_build"
@@ -143,6 +145,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pqmf_rt_max_clusters.argtypes = [i, i, i, p]
     lib.pqmf_tc_rt_max_clusters.argtypes = [i, i, i, i, p]
     for fn in (lib.pqmf_rt_max_clusters, lib.pqmf_tc_rt_max_clusters):
+        fn.restype = ctypes.c_int
+    # the pitch shifter's middle (kernels/middle.py): pointers, geometry,
+    # the scales as floats
+    f = ctypes.c_float
+    lib.pqmf_pv_frame.argtypes = [p, p, p] + [i] * 6 + [p]
+    lib.pqmf_pv_spectral.argtypes = [p] * 5 + [i] * 4 + [f, i, p]
+    lib.pqmf_pv_resynth.argtypes = [p] * 9 + [i] * 9 + [f, p]
+    for fn in (lib.pqmf_pv_frame, lib.pqmf_pv_spectral, lib.pqmf_pv_resynth):
         fn.restype = ctypes.c_int
     lib.pqmf_error_string.argtypes = [i]
     lib.pqmf_error_string.restype = ctypes.c_char_p

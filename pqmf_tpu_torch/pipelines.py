@@ -8,9 +8,9 @@ PyTorch counterpart of ``pqmf_tpu/pipelines.py``:
   1-PitchShifterWrapper.py:104-323)::
 
     analysis conv (K1) -> batched matmul-DFT STFT of all bands -> stretch
-    of every band at its own rate (padded to the max frame count, masked)
-    -> masked OLA ISTFT -> per-band linear resample -> crossfade against
-    the carried tail -> synthesis conv (K2)
+    of every band at its own rate -> ISTFT of the frames that exist, one
+    dense product -> overlap-add, per-band linear resample, crossfade
+    against the carried tail -> synthesis conv (K2)
 
   with the crossfade state (``prev_tail``) threaded explicitly:
   ``pitchshift_fn(state, x) -> (state', y)``; ``forward_fn`` is the plain
@@ -22,9 +22,11 @@ PyTorch counterpart of ``pqmf_tpu/pipelines.py``:
 - :func:`stream_ola`, the block-streaming overlap-add harness (reference
   2-TestBlocks.py:86-126).
 
-The middles are plain tensor code over all bands at once; the convs are
-the hand-written kernels on a CUDA device and their plain versions on the
-CPU. Every wrapper takes the JAX package's precision tiers
+The convs are the hand-written kernels on a CUDA device and their plain
+versions on the CPU. The flagship's middle is three more
+(``kernels/middle.py``: framing, the stretch, the resynthesis) around its
+two DFT products; the torchaudio variant's middle is plain tensor code over
+all bands at once. Every wrapper takes the JAX package's precision tiers
 (``precision=``): the convs run at the tier (K1t/K2t/K3t at ``"bf16x3"``
 and ``"default"``), the middles' DFT matmuls round their operands to bf16
 at ``"default"`` only, and the resample stays in full f32 (JAX hard-codes
@@ -49,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from pqmf_tpu_torch import graphs
+from pqmf_tpu_torch.kernels import middle as pm
 from pqmf_tpu_torch.ops import filterbank as fb
 from pqmf_tpu_torch.ops import phase_vocoder as pv
 from pqmf_tpu_torch.ops import resample as rs
@@ -114,95 +117,23 @@ def derive_stft_geometry(m_buffer_size: int, n_band: int):
     return win, hop, n_fft, band_overlap
 
 
-def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
-                           fade_in, n_fft, hop, win, Tb, FO_max,
+def _fused_band_pitchshift(bands, plan, prev_tail, fade_out, fade_in,
                            crossfade=True, phase_rule="reference",
                            precision="highest"):
-    """Pitch-shift every sub-band at once.
+    """Pitch-shift every sub-band at once: the three stages of
+    ``kernels.middle`` around the STFT and ISTFT products.
 
-    bands: [B, M, Tb]; rates: [M] f32; frames_out: [M] int64.
+    bands: [B, M, Tb]; plan: ``kernels.middle.plan`` of these bands.
     crossfade True (reference semantics, batch==1 guard at
     1-PitchShifterWrapper.py:262): prev_tail [M, L].
-    crossfade "batched" (multi-stream serving): prev_tail [M, B, L] —
-    every batch row keeps its own carried tail.
+    crossfade "batched" (multi-stream serving): prev_tail [B, M, L], the
+    streams' state as it stands — every batch row keeps its own carried
+    tail.
     crossfade False: no blend, the tail is returned untouched.
-    ``precision``: the DFT matmuls' tier (``ops.stft.dft_matmul``).
+    ``precision``: the DFT products' tier (``ops.stft.dft_matmul``).
     Returns (shifted [B, M, Tb], new_tail like prev_tail).
     """
-    B, M, _ = bands.shape
-    dev = bands.device
-    f32 = torch.float32
-    window = S.hann_window(win, device=dev)
-
-    # --- batched STFT of all bands, band-major rows [M*B, Tb] ---
-    x = bands.transpose(0, 1).reshape(M * B, Tb)
-    if Tb < n_fft:  # reference pads short sub-bands right to n_fft
-        x = F.pad(x, (0, n_fft - Tb))
-    re, im = S.stft_ri(x, n_fft, hop, window, normalized=True,
-                       precision=precision)
-    F_, frames = re.shape[1], re.shape[2]
-    re = re.reshape(M, B, F_, frames)
-    im = im.reshape(M, B, F_, frames)
-
-    # f32-stepwise omega: the clamped boundary frames evaluate
-    # princarg(-omega) exactly at the ±pi wrap (phase_advance_reference)
-    omega = pv.phase_advance_reference(F_, hop, n_fft, device=dev)
-    trim = n_fft // 2
-    one_off = (n_fft - win) // 2  # placement of the 1-frame irfft fallback
-    Ci, Si = S.idft_basis(n_fft, device=dev)
-
-    # reference magphase + stretch rule, padded to FO_max and masked
-    mag = torch.sqrt(re * re + im * im + 1e-12)
-    phase = torch.atan2(im, re)
-    j = torch.arange(FO_max, dtype=f32, device=dev)
-    t_prime = j[None, :] * rates[:, None]  # [M, FO]
-    t0 = torch.floor(t_prime).to(torch.int64).clamp(0, frames - 1)
-    t1 = (t0 + 1).clamp_max(frames - 1)
-    a = (t_prime - t0.to(f32))[:, None, None, :]  # [M, 1, 1, FO]
-    mag0, phi0 = pv._select_frames(mag, phase, t0)
-    mag1, phi1 = pv._select_frames(mag, phase, t1)
-    mag_s = (1 - a) * mag0 + a * mag1
-    om = omega[None, None, :, None]
-    dp = pv.principal_angle(phi1 - phi0 - om)
-    if phase_rule == "accumulate":
-        # librosa/torchaudio running phase: accumulate wrapped advances
-        incs = torch.cat([phi0[..., :1], (dp + om)[..., :-1]], dim=-1)
-        phi = torch.cumsum(incs, dim=-1)
-    else:  # the reference's per-frame-independent rule
-        phi = phi0 + om + a * dp
-    fmask = (torch.arange(FO_max, device=dev)[None, :]
-             < frames_out[:, None]).to(f32)  # [M, FO]
-    fm = fmask[:, None, None, :]
-    re_s = mag_s * torch.cos(phi) * fm
-    im_s = mag_s * torch.sin(phi) * fm
-
-    # masked OLA ISTFT over the full (untrimmed) buffer
-    y, wsq = S.istft_ri_parts(re_s, im_s, n_fft, hop, window,
-                              normalized=True, frame_mask=fmask[:, None, :],
-                              precision=precision)
-    ola = y / torch.where(wsq > 1e-11, wsq, torch.ones_like(wsq))  # [M,B,tot]
-    total = ola.shape[-1]
-    i = torch.arange(total, device=dev)[None, :]
-    fo = frames_out[:, None]
-    # center-fit of the istft output (length (fo-1)*hop) into
-    # length_stretch = (fo-1)*hop + n_fft lands at buffer positions
-    # [trim, trim + (fo-1)*hop) — a pure mask
-    valid = (i >= trim) & (i < trim + (fo - 1) * hop)  # [M, total]
-    p_multi = ola * valid[:, None, :].to(f32)
-
-    # reference 1-frame fallback: direct (normalized-in, unscaled-out)
-    # irfft of frame 0, cropped to win, centered in n_fft
-    y1 = (S.dft_matmul(re_s[..., 0], Ci, precision)
-          + S.dft_matmul(im_s[..., 0], Si, precision))  # [M, B, n_fft]
-    p_one = torch.zeros_like(ola)
-    p_one[..., one_off:one_off + win] = y1[..., :win]
-    P = torch.where((frames_out == 1)[:, None, None], p_one, p_multi)
-
-    # per-band resample back to Tb from each band's stretch length
-    length_stretch = ((frames_out - 1) * hop + n_fft).clamp_min(1)
-    shifted = rs.interpolate_linear_dynamic(P, length_stretch[:, None], Tb)
-
-    # --- crossfade against the carried per-band tail ---
+    B, M, Tb = bands.shape
     L = prev_tail.shape[-1]
     wants_crossfade = (crossfade == "batched"
                        or (crossfade is True and B == 1))
@@ -214,19 +145,16 @@ def _fused_band_pitchshift(bands, rates, frames_out, prev_tail, fade_out,
             f"overlap {L}: blocks must be >= n_band*band_overlap = "
             f"{M * L} samples for this wrapper's geometry; construct the "
             f"wrapper with a matching m_buffer_size for smaller blocks")
-    if crossfade == "batched" and L > 0:
-        # per-batch tails [M, B, L]: every stream crossfades independently
-        blended = prev_tail * fade_out + shifted[:, :, :L] * fade_in
-        new_tail = shifted[:, :, Tb - L:].contiguous()
-        shifted = torch.cat([blended, shifted[:, :, L:]], dim=-1)
-    elif crossfade is True and L > 0 and B == 1:
-        # reference semantics: single shared tail, batch==1 only (:262)
-        blended = prev_tail * fade_out + shifted[:, 0, :L] * fade_in
-        new_tail = shifted[:, 0, Tb - L:].contiguous()
-        shifted = torch.cat([blended[:, None], shifted[:, :, L:]], dim=-1)
-    else:
-        new_tail = prev_tail
-    return shifted.transpose(0, 1), new_tail  # [B, M, Tb]
+    mode = (pm.NO_FADE if not wants_crossfade or L == 0
+            else pm.STREAM_FADE if crossfade == "batched" else pm.SHARED_FADE)
+    stft_basis, istft_basis = pm.bases(plan.n_fft, bands.device)
+    frames = pm.frame(bands, plan)  # [M*B, frames, n_fft]
+    spec = S.dft_matmul(frames, stft_basis, precision)
+    rows = pm.spectral(spec, plan, B, phase_rule == "accumulate")
+    prod = S.dft_matmul(rows, istft_basis, precision)  # [B*sum(fo), n_fft]
+    shifted, new_tail = pm.resynth(prod, plan, B, prev_tail, fade_out,
+                                   fade_in, mode)
+    return shifted, prev_tail if mode == pm.NO_FADE else new_tail
 
 
 class _RegistryMixin:
@@ -433,32 +361,25 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
         return self.pqmf.inverse(x)
 
     def _plan(self, Tb: int):
-        """Static stretch plan for a band length: the reference derives
-        frame counts from each call's input length (short inputs pad to
-        n_fft), so blocks shorter than m_buffer_size get their own plan.
-        Returns (frames_out [M] int64 on the device, max frames_out)."""
-        plan = self._plans.get(Tb)
+        """The static stretch plan (``kernels.middle.plan``) of this rank's
+        bands (all bands without a mesh) for a band length: the reference
+        derives frame counts from each call's input length (short inputs
+        pad to n_fft), so blocks shorter than m_buffer_size get their own
+        plan."""
+        sl = self.pqmf.band_slice
+        key = (Tb, sl.start, sl.stop)
+        plan = self._plans.get(key)
         if plan is None:
-            Tp = max(Tb, self.n_fft)
-            frames = S.frame_count(Tp, self.n_fft, self.hop)
-            fo = [max(1, int(math.floor(frames / r)))
-                  for r in self._rates_py]
-            plan = (torch.tensor(np.asarray(fo, np.int64),
-                                 device=self.device), max(fo))
-            self._plans[Tb] = plan
+            plan = pm.plan(self._rates_py[sl], self.n_fft, self.hop,
+                           self.win, Tb, self.device)
+            self._plans[key] = plan
         return plan
 
     def _shift(self, sub, prev_tail, crossfade):
-        """The middle of this rank's bands (all bands without a mesh): their
-        rows of the rates and the plan, the padding to the max frame count
-        of all bands kept."""
-        Tb = sub.shape[-1]
-        frames_out, FO_max = self._plan(Tb)
-        sl = self.pqmf.band_slice
+        """The middle of this rank's bands (all bands without a mesh)."""
         return _fused_band_pitchshift(
-            sub, self._rates[sl], frames_out[sl], prev_tail, self._fade_out,
-            self._fade_in, self.n_fft, self.hop, self.win, Tb, FO_max,
-            crossfade=crossfade, phase_rule=self.phase_rule,
+            sub, self._plan(sub.shape[-1]), prev_tail, self._fade_out,
+            self._fade_in, crossfade=crossfade, phase_rule=self.phase_rule,
             precision=self.precision)
 
     def _key(self, entry: str, B: int, T: int) -> tuple:
@@ -562,11 +483,10 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
 
     def _pitchshift_streams_eager(self, states, x):
         sub = self.pqmf._forward_local(self._block(x[:, None, :]))
-        tails = states["prev_tail"].transpose(0, 1)  # [Mb, S, L]
-        shifted, new_tails = self._shift(sub, tails, crossfade="batched")
+        shifted, new_tails = self._shift(sub, states["prev_tail"],
+                                         crossfade="batched")
         y = self.pqmf._inverse_local(shifted)
-        return ({"prev_tail": new_tails.transpose(0, 1).contiguous()},
-                y[:, 0, :])
+        return {"prev_tail": new_tails}, y[:, 0, :]
 
     # -- stateful facade (reference-style implicit buffers) ------------------
 

@@ -154,11 +154,16 @@ def test_program_signature_reads_only_buffers_and_constants(saved, kind):
                                                  else 1)
     assert set(kinds) <= {InputKind.USER_INPUT, InputKind.BUFFER,
                           InputKind.CONSTANT_TENSOR}
-    # the convs are the kernel operators, one K1 and one K2 a block
+    # the convs are the kernel operators, one K1 and one K2 a block, and
+    # the flagship's middle the three stages' operators, one each
     ops = sorted(str(n.target) for n in ep.graph.nodes
                  if "pqmf_tpu_torch" in str(n.target))
-    assert ops == ["pqmf_tpu_torch.analysis_conv.default",
-                   "pqmf_tpu_torch.synthesis_conv.default"]
+    middle = (["pqmf_tpu_torch.pv_frame.default",
+               "pqmf_tpu_torch.pv_resynth.default",
+               "pqmf_tpu_torch.pv_spectral.default"]
+              if kind == "flagship" else [])
+    assert ops == sorted(["pqmf_tpu_torch.analysis_conv.default",
+                          "pqmf_tpu_torch.synthesis_conv.default", *middle])
 
 
 @pytest.fixture(scope="module")

@@ -1678,3 +1678,272 @@ def test_band_shard_kernels_match_plain(dev, tier, Mb):
             torch.testing.assert_close(
                 pk.polyphase_synthesis(s, hi_s),
                 pk.polyphase_synthesis_plain(s, hi_s), **TOL)
+
+
+# -- the flagship's middle: pv_frame, pv_spectral, pv_resynth ----------------
+
+# (n_band, m_buffer_size, block, shifts): the flagship's default; 8 bands
+# with bands of one frame (rates above the frame count); 32 bands; 4 bands
+# (n_fft 1024) with one band of one frame; blocks of 256 through a
+# 16 x 1024 wrapper (Tb = 16 against n_fft 64: short bands, bands of one
+# frame); a hop that does not divide n_fft (188 / 47 / 256)
+MIDDLE_GEOMETRIES = {
+    "16x8192": (16, 8192, 8192, None),
+    "8x2048": (8, 2048, 2048, [0, -48, 5, -40, 12, -36, 3, 7]),
+    "32x8192": (32, 8192, 8192, None),
+    "4x4096": (4, 4096, 4096, [-50, 7, -3, 1]),
+    "16x1024_short": (16, 1024, 256, [-48] * 4 + [3, -2, 0, 1] * 3),
+    "16x3008_odd_hop": (16, 3008, 3008, None),
+}
+# the spectral kernel against its plain version on the card: the same
+# libdevice atan2f / sinf / cosf / sqrt and the same explicitly rounded
+# arithmetic, so the magnitudes and phases agree to an ulp (the running
+# phase: the kernel's double sum in frame order against the plain
+# version's double scan, each rounded once to f32); a phase past it is a
+# phase-rule branch that fell the other way
+MIDDLE_ULPS = 2
+# the whole step against the plain step: the products' inputs agree to an
+# ulp of the phase, the rest is the same arithmetic
+MIDDLE_STEP_DB = 100.0
+
+
+@functools.lru_cache(maxsize=None)
+def _middle_wrapper(geometry, phase_rule, tier):
+    M, buf, _, shifts = MIDDLE_GEOMETRIES[geometry]
+    return PQMFPitchShiftWrapper(100, M, buf, 44100, shifts,
+                                 precision=tier, phase_rule=phase_rule,
+                                 device="cuda")
+
+
+def _middle_input(dev, geometry, B, seed):
+    M, _, block, _ = MIDDLE_GEOMETRIES[geometry]
+    x = np.random.default_rng(seed).standard_normal((B, 1, block)).astype(
+        np.float32) * 0.3
+    return torch.from_numpy(x).to(dev)
+
+
+def _plain_resynth(prod, p, B, prev, fade_out, fade_in, mode):
+    """The plain resynthesis of the card's operands, run on the host and
+    returned to the card: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal (the resample's ``src_len / Tb``, one ulp
+    off where Tb is no power of two), and a card's index_add (the
+    overlap-add where hop does not divide n_fft) adds in any order; the
+    kernel, like the host, divides and adds the frames in one order."""
+    from pqmf_tpu_torch.kernels import middle as pm
+
+    cpu = [None if t is None else t.cpu() for t in (
+        prod, p.table, p.wsq, p.window, prev.contiguous(), fade_out,
+        fade_in)]
+    return tuple(t.to(prod.device) for t in pm.resynth_plain(
+        *cpu, B, p.Tb, p.n_fft, p.hop, p.win, mode))
+
+
+def _plain_middle(monkeypatch):
+    """Route the wrappers' middle through the plain stage functions (the
+    frames and the spectrum on the card's tensors, the resynthesis on the
+    host's copies of them): the plain step."""
+    from pqmf_tpu_torch.kernels import middle as pm
+
+    monkeypatch.setattr(pm, "frame", lambda sub, p: pm.frame_plain(
+        sub, p.window, p.n_fft, p.hop, p.frames))
+    monkeypatch.setattr(pm, "spectral", lambda spec, p, B, acc:
+                        pm.spectral_plain(spec, p.rates, p.table, p.omega,
+                                          B, p.n_fft, acc))
+    monkeypatch.setattr(pm, "resynth", _plain_resynth)
+
+
+def _middle_stages_match(w, sub, plan, prev, B, tag):
+    """Each kernel against its plain version on the same card inputs; every
+    launch counted once."""
+    from pqmf_tpu_torch.kernels import middle as pm
+    from pqmf_tpu_torch.ops import stft as S
+
+    acc = w.phase_rule == "accumulate"
+    stft_basis, istft_basis = pm.bases(plan.n_fft, sub.device)
+    pm.reset_launches()
+    frames = pm.frame(sub, plan)
+    assert torch.equal(frames, pm.frame_plain(sub, plan.window, plan.n_fft,
+                                              plan.hop, plan.frames)), tag
+    spec = S.dft_matmul(frames, stft_basis, w.precision)
+    rows = pm.spectral(spec, plan, B, acc)
+    want = pm.spectral_plain(spec, plan.rates, plan.table, plan.omega, B,
+                             plan.n_fft, acc)
+    assert rows.shape == want.shape == (B * plan.rows, plan.n_fft + 2)
+    mag, phase = pm._spectral_ulps(rows, want, plan, acc)
+    flips = int((phase > MIDDLE_ULPS).sum())
+    print(f"{tag}: spectral max {mag.max().item():.2f} magnitude ulps, "
+          f"{phase.max().item():.2f} phase ulps, {flips} past "
+          f"{MIDDLE_ULPS}")
+    assert mag.max() <= MIDDLE_ULPS and flips == 0, tag
+    prod = S.dft_matmul(want, istft_basis, w.precision)
+    modes = [pm.NO_FADE, pm.STREAM_FADE] + ([pm.SHARED_FADE] if B == 1
+                                            else [])
+    L = w.band_overlap
+    for mode in modes:
+        tail = prev[0] if mode == pm.SHARED_FADE else prev
+        got = pm.resynth(prod, plan, B, tail, w._fade_out, w._fade_in, mode)
+        exp = _plain_resynth(prod, plan, B, tail, w._fade_out, w._fade_in,
+                             mode)
+        for g, e in zip(got, exp):
+            assert g.shape == e.shape and g.is_contiguous(), (tag, mode)
+            assert torch.equal(g, e), (tag, mode)
+        if mode != pm.NO_FADE:
+            assert got[1].shape[-1] == L
+    torch.cuda.synchronize()
+    assert pm.LAUNCHES == {"frame": 1, "spectral": 1,
+                           "resynth": len(modes)}, (tag, pm.LAUNCHES)
+
+
+@pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("phase_rule", ["reference", "accumulate"])
+@pytest.mark.parametrize("geometry", sorted(MIDDLE_GEOMETRIES))
+def test_middle_kernels_match_plain(dev, geometry, phase_rule, B):
+    """pv_frame_kernel and pv_resynth_kernel equal their plain versions bit
+    for bit (every crossfade mode); pv_spectral_kernel's rows agree with
+    the plain rows at the frames that exist to an ulp of magnitude and
+    phase, no phase-rule branch flipped."""
+    w = _middle_wrapper(geometry, phase_rule, "highest")
+    x = _middle_input(dev, geometry, B, 40 + B)
+    sub = w.pqmf._forward_local(x)
+    g = torch.Generator().manual_seed(B)
+    prev = torch.randn(B, w.n_band, w.band_overlap, generator=g).to(dev)
+    _middle_stages_match(w, sub, w._plan(sub.shape[-1]), prev, B,
+                         f"{geometry} {phase_rule} B={B}")
+
+
+@pytest.mark.parametrize("phase_rule", ["reference", "accumulate"])
+def test_middle_kernels_on_a_band_slice(dev, phase_rule):
+    """A mesh rank's middle: the plan of bands 8-15 of the 16-band
+    geometry over those bands only."""
+    from pqmf_tpu_torch.kernels import middle as pm
+
+    w = _middle_wrapper("16x8192", phase_rule, "highest")
+    sl = slice(8, 16)
+    plan = pm.plan(w._rates_py[sl], w.n_fft, w.hop, w.win, 512, dev)
+    for B in (1, 3):
+        sub = w.pqmf._forward_local(_middle_input(dev, "16x8192", B, 7))
+        sub = sub[:, sl].contiguous()
+        g = torch.Generator().manual_seed(B)
+        prev = torch.randn(B, 8, w.band_overlap, generator=g).to(dev)
+        _middle_stages_match(w, sub, plan, prev, B,
+                             f"bands 8-15 {phase_rule} B={B}")
+
+
+def _middle_case(w, x, case, state):
+    """One step of a crossfade mode: (state', y)."""
+    if case == "fn_shared":        # B = 1, the reference's shared tail
+        return w._pitchshift_fn_eager(state, x)
+    if case == "fn_no_fade":       # a sharded step's B > 1 (the global batch)
+        return w._pitchshift_fn_eager(state, x, crossfade=False)
+    if case == "fn_batch":         # B > 1: no blend, the tail untouched
+        return w._pitchshift_fn_eager(state, x)
+    return w._pitchshift_streams_eager(state, x[:, 0])  # a tail a stream
+
+
+def _middle_graphed(w, x, case, state):
+    if case in ("fn_shared", "fn_batch"):
+        return w.pitchshift_fn(state, x)
+    if case == "streams":
+        return w.pitchshift_streams(state, x[:, 0])
+    return None
+
+
+MIDDLE_CASES = {"fn_shared": 1, "fn_no_fade": 1, "fn_batch": 3,
+                "streams": 128}
+
+
+@pytest.mark.parametrize("case", sorted(MIDDLE_CASES))
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+@pytest.mark.parametrize("phase_rule", ["reference", "accumulate"])
+@pytest.mark.parametrize("geometry", sorted(MIDDLE_GEOMETRIES))
+def test_middle_step_matches_the_plain_step(dev, monkeypatch, geometry,
+                                            phase_rule, tier, case):
+    """Three blocks, the tail carried, at each tier and crossfade mode: the
+    step on the kernels (eager, and its CUDA graph where the entry has
+    one) against the same step on the plain stages; the graph equals the
+    eager step bit for bit, and each step launches each kernel once."""
+    from pqmf_tpu_torch.kernels import middle as pm
+
+    w = _middle_wrapper(geometry, phase_rule, tier)
+    B = MIDDLE_CASES[case]
+    xs = [_middle_input(dev, geometry, B, 60 + i) for i in range(3)]
+    init = (w.init_streams(B) if case == "streams" else w.init_state())
+    pm.reset_launches()
+    eager, graph, se, sg = [], [], init, init
+    for x in xs:
+        se, y = _middle_case(w, x, case, se)
+        eager.append((y, se["prev_tail"]))
+        res = _middle_graphed(w, x, case, sg)
+        if res is not None:
+            sg, y = res
+            graph.append((y, sg["prev_tail"]))
+    torch.cuda.synchronize()
+    n = len(xs) * (2 if graph else 1)
+    assert pm.LAUNCHES == dict.fromkeys(pm.LAUNCHES, n), pm.LAUNCHES
+    for (gy, gt), (ey, et) in zip(graph, eager):
+        _bit_equal([gy, gt], [ey, et], f"{geometry} {case} [{tier}]")
+    with monkeypatch.context() as m:
+        _plain_middle(m)
+        sp, plain = init, []
+        for x in xs:
+            sp, y = _middle_case(w, x, case, sp)
+            plain.append((y, sp["prev_tail"]))
+    dbs = []
+    for (ey, et), (py, pt) in zip(eager, plain):
+        dbs.append(snr_db(py.cpu().numpy(), ey.cpu().numpy()))
+        if case in ("fn_shared", "streams"):
+            dbs.append(snr_db(pt.cpu().numpy(), et.cpu().numpy()))
+        else:
+            assert torch.equal(et, pt)
+    print(f"{geometry} {phase_rule} {case} [{tier}]: kernels vs plain "
+          f"{min(dbs):.1f} dB")
+    assert min(dbs) >= MIDDLE_STEP_DB, dbs
+
+
+def test_middle_launches_once_a_step_and_a_replay(dev):
+    """On the card every flagship step launches pv_frame_kernel,
+    pv_spectral_kernel and pv_resynth_kernel once: eagerly, and in each
+    graph replay (a capture adds nothing), and the graph records them."""
+    from pqmf_tpu_torch.kernels import middle as pm
+
+    w = _flagship16("highest", dev)
+    xs = _blocks(dev, 5, 70)
+    pm.reset_launches()
+    st = w.init_state()
+    for x in xs:
+        st, _ = w.pitchshift_fn(st, x)
+    ss = w.init_streams(4)
+    for x in xs[:3]:
+        ss, _ = w.pitchshift_streams(ss, x.expand(4, -1))
+    torch.cuda.synchronize()
+    assert pm.LAUNCHES == {"frame": 8, "spectral": 8, "resynth": 8}
+    for prog in w._graphs.values():
+        assert prog.launches[2] == {"frame": 1, "spectral": 1, "resynth": 1}
+
+
+def test_no_cuda_route_reaches_the_plain_middle(dev, monkeypatch):
+    """Every entry that steps the flagship on the card takes the kernels:
+    the plain stage functions raise there, and each step counts one launch
+    of each kernel."""
+    from pqmf_tpu_torch.entry import entry
+    from pqmf_tpu_torch.kernels import middle as pm
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain middle stage ran on the card")
+
+    for name in ("frame_plain", "spectral_plain", "resynth_plain"):
+        monkeypatch.setattr(pm, name, refuse)
+    w = _flagship16("highest", dev)
+    x = _blocks(dev, 1, 71)[0]
+    pm.reset_launches()
+    st, _ = w.pitchshift_fn(w.init_state(), x)           # eager + capture
+    w.pitchshift_fn(st, x)                               # replay
+    w._pitchshift_fn_eager(st, x)
+    w.pitchshift_streams(w.init_streams(2), x.expand(2, -1))
+    w.pitchshift(x)
+    stream_ola(w, x.cpu().numpy(), 4096)
+    fn, args = entry(device="cuda")
+    fn(*args)
+    torch.cuda.synchronize()
+    assert min(pm.LAUNCHES.values()) >= 7 and len(set(
+        pm.LAUNCHES.values())) == 1, pm.LAUNCHES

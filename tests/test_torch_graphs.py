@@ -146,7 +146,8 @@ def test_replays_add_the_captured_launches(stand_in):
     assert (cc.LAUNCHES["analysis"], pk.LAUNCHES["roundtrip"]) == (1, 2)
     assert cache[key].launches == [
         {"analysis": 1, "synthesis": 0, "roundtrip": 0},
-        {"analysis": 0, "synthesis": 0, "roundtrip": 2}]
+        {"analysis": 0, "synthesis": 0, "roundtrip": 2},
+        {"frame": 0, "spectral": 0, "resynth": 0}]
     for n in range(2, 5):
         state, _ = graphs.call(cache, key, _body(log), state, x)
         assert (cc.LAUNCHES["analysis"], pk.LAUNCHES["roundtrip"]) == (n,

@@ -744,7 +744,7 @@ def _kernel_ab():
 @pytest.mark.parametrize("name", sorted(_kernel_ab().VARIANTS))
 def test_kernel_ab_variants_edit_the_sources(name):
     """Each edit of a ``tools/kernel_ab.py`` variant names text found
-    exactly once in its file (the two sources and ``rt_plan.h``), so no
+    exactly once in its file (the three sources and ``rt_plan.h``), so no
     A/B silently builds the sources as they are."""
     from pqmf_tpu_torch.kernels import _build
 

@@ -161,7 +161,8 @@ def test_build_targets_hopper():
     text = "".join(s.read_text() for s in _build.SOURCES)
     for entry in ("pqmf_analysis_conv", "pqmf_synthesis_conv",
                   "pqmf_roundtrip_conv", "pqmf_tc_analysis_conv",
-                  "pqmf_tc_synthesis_conv", "pqmf_tc_roundtrip_conv"):
+                  "pqmf_tc_synthesis_conv", "pqmf_tc_roundtrip_conv",
+                  "pqmf_pv_frame", "pqmf_pv_spectral", "pqmf_pv_resynth"):
         assert f"int {entry}(" in text
 
 

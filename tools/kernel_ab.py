@@ -5,9 +5,10 @@
                                [--shapes K1t,K2t]
 
 Run from the root of a checkout on a machine with an NVIDIA card and
-``nvcc``. Each variant is the two sources of ``pqmf_tpu_torch/csrc``
-(``cached_conv.cu``, the f32 kernels; ``cached_conv_tc.cu``, the tiers)
-and their header ``rt_plan.h`` with a few text edits (``VARIANTS``: the
+``nvcc``. Each variant is the sources of ``pqmf_tpu_torch/csrc``
+(``cached_conv.cu``, the f32 kernels; ``cached_conv_tc.cu``, the tiers;
+``middle.cu``, the pitch shifter's middle) and the header ``rt_plan.h``
+with a few text edits (``VARIANTS``: the
 sources as they are, and each design choice of K1/K2/K3 or of K1t/K2t
 undone); every edit must match its file exactly once. All variants are built at once, each into its own
 library loaded with ctypes; each is checked against the plain versions,
@@ -51,7 +52,9 @@ _K1_W8K = ("kAnaWindow = 4096;", "kAnaWindow = 8192;")
 _TC_LD = "const int LD = S % 8 == 0 ? 0 : S % 2 == 0 ? 1 : 2;"
 
 # name -> [(source index, text in that source, its replacement)]: source
-# 0 is cached_conv.cu, 1 cached_conv_tc.cu, 2 the header rt_plan.h
+# 0 is cached_conv.cu, 1 cached_conv_tc.cu, 2 middle.cu, _RT_PLAN the
+# header rt_plan.h (the index into SOURCES + HEADERS of kernels/_build.py)
+_RT_PLAN = 3
 VARIANTS = {
     "as_is": [],
     "tap_loop_unroll_4": [(0, _TAPS, _TAPS.replace("unroll 8", "unroll 4"))],
@@ -96,8 +99,8 @@ VARIANTS = {
                         "g.stage = false && g.bank_bytes")],
     "rt_stage_always": [(1, "p.stage = g.stage && (persist || n_tiles <= "
                             "n_sms || g.C > 1);", "p.stage = g.stage;")],
-    "rt_fill_div_8": [(2, "kRtFillDiv = 4;", "kRtFillDiv = 8;")],
-    "rt_fill_div_1": [(2, "kRtFillDiv = 4;", "kRtFillDiv = 1;")],
+    "rt_fill_div_8": [(_RT_PLAN, "kRtFillDiv = 4;", "kRtFillDiv = 8;")],
+    "rt_fill_div_1": [(_RT_PLAN, "kRtFillDiv = 4;", "kRtFillDiv = 1;")],
     "rt_sub_512": [(1, "kRtTcSub = 256;", "kRtTcSub = 512;")],
     "rt_sub_128": [(1, "kRtTcSub = 256;", "kRtTcSub = 128;")],
     "rt_no_split_k": [(1, "while (2 * wk * items <= kRtTcWarps",
