@@ -25,7 +25,9 @@ the body anew and is not used).
 - The kernels' launch counters (``cached_conv.LAUNCHES``,
   ``polyphase.LAUNCHES``, ``middle.LAUNCHES``) count device launches: the
   capture adds nothing, and each replay adds the counts the capture
-  recorded.
+  recorded. So do the conv kernels' count by tier
+  (``cached_conv.KERNELS``) and the DFT operands' roundings
+  (``ops.stft.ROUNDED``), which ``Program.launches`` leaves out.
 - Under a running ``torch.profiler`` a replay records three host spans:
   ``pqmf.graph.copy_in`` (the arguments' checks and copies into the
   static buffers), ``pqmf.graph.launch`` (the replay and the counters)
@@ -67,6 +69,7 @@ from torch.utils import _pytree as pytree
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.kernels import middle as pm
 from pqmf_tpu_torch.kernels import polyphase as pk
+from pqmf_tpu_torch.ops import stft as S
 from pqmf_tpu_torch.utils.profiling import span
 
 __all__ = ["Program", "call", "COLLECTIVES", "reset_collectives"]
@@ -83,10 +86,13 @@ def reset_collectives() -> None:
 
 
 _COUNTERS = (cc.LAUNCHES, pk.LAUNCHES, pm.LAUNCHES)
+# every counter a replay adds to: the launches (``Program.launches``), the
+# conv kernels by tier, the rounded DFT operands, the collectives
+_ALL = _COUNTERS + (cc.KERNELS, S.ROUNDED, COLLECTIVES)
 
 
 def _counts() -> list:
-    return [dict(c) for c in _COUNTERS]
+    return [dict(c) for c in _ALL]
 
 
 def _graphed(device: torch.device) -> bool:
@@ -220,23 +226,19 @@ class Program:
         leaves, spec = pytree.tree_flatten(args)
         static = [a.clone() if isinstance(a, torch.Tensor) else a
                   for a in leaves]
-        before, coll = _counts(), dict(COLLECTIVES)
+        before = _counts()
         try:
             replay, out, stats = _capture(
                 self.fn, pytree.tree_unflatten(static, spec), self.device)
         finally:
-            after, coll_after = _counts(), dict(COLLECTIVES)
-            for c, b in zip(_COUNTERS, before):
+            after = _counts()
+            for c, b in zip(_ALL, before):
                 c.update(b)
-            COLLECTIVES.update(coll)
-        self.launches = [{k: a[k] - b[k] for k in a}
-                         for a, b in zip(after, before)]
-        self.collectives = {k: coll_after[k] - coll[k] for k in coll}
-        self._adds = tuple(
-            (c, k, n)
-            for c, counts in zip(_COUNTERS + (COLLECTIVES,),
-                                 self.launches + [self.collectives])
-            for k, n in counts.items() if n)
+        made = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+        self.launches = made[:len(_COUNTERS)]
+        self.collectives = made[-1]
+        self._adds = tuple((c, k, n) for c, counts in zip(_ALL, made)
+                           for k, n in counts.items() if n)
         self._replay, self.stats = replay, stats
         self._static_in = (static, spec)
         self._static_out = out

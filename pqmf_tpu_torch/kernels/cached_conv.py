@@ -33,7 +33,8 @@ route. The operator's CPU impl is the kernel's plain PyTorch version
 for CPU tensors; its CUDA impl launches the kernel of its tier or raises;
 no shape or tier falls back to the plain version or to another tier's
 kernel there. Every launch adds one to :data:`LAUNCHES`, whatever the
-tier; its fake impl gives the output's shape to a trace.
+tier, and every call of either impl one to :data:`KERNELS` under the
+kernel of its tier; its fake impl gives the output's shape to a trace.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from pqmf_tpu_torch.ops import filterbank as fb
 
 __all__ = [
     "LAUNCHES",
+    "KERNELS",
     "reset_launches",
     "strided_analysis_conv",
     "dense_synthesis_conv",
@@ -67,11 +69,21 @@ __all__ = [
 
 # kernel launches since the last reset_launches(), by kernel
 LAUNCHES = {"analysis": 0, "synthesis": 0, "roundtrip": 0}
+# calls of the three operators since the last reset_launches(), by the
+# kernel of their tier (K1/K2/K3 at "highest", K1t/K2t/K3t at "bf16x3" and
+# "default"): a launch on a CUDA device, a run of its plain version on the
+# CPU
+KERNELS = {"K1": 0, "K1t": 0, "K2": 0, "K2t": 0, "K3": 0, "K3t": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, KERNELS):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(kernel: str, precision: str) -> None:
+    KERNELS[kernel if precision == "highest" else kernel + "t"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -945,6 +957,7 @@ def _analysis_cuda(x, w, bank, M, fuse_mask, pad_l, pad_r, mxu_precision):
             _launch("pqmf_tc_analysis_conv", x.data_ptr(), bank.data_ptr(),
                     *args, _PASSES[mxu_precision])
     LAUNCHES["analysis"] += 1
+    _count("K1", mxu_precision)
     return out
 
 
@@ -964,6 +977,7 @@ def _synthesis_cuda(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
             _launch("pqmf_tc_synthesis_conv", x.data_ptr(), bank.data_ptr(),
                     *args, _PASSES[mxu_precision])
     LAUNCHES["synthesis"] += 1
+    _count("K2", mxu_precision)
     return out
 
 
@@ -987,11 +1001,13 @@ def _roundtrip_cuda(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
                     bank_ana.data_ptr(), bank_syn.data_ptr(), *args,
                     _PASSES[mxu_precision])
     LAUNCHES["roundtrip"] += 1
+    _count("K3", mxu_precision)
     return out
 
 
 def _analysis_cpu(x, w, bank, M, fuse_mask, pad_l, pad_r, mxu_precision):
     _analysis_operands(x, w, bank, mxu_precision)
+    _count("K1", mxu_precision)
     return analysis_conv_plain(x, w, M, fuse_mask, (pad_l, pad_r),
                                mxu_precision)
 
@@ -999,6 +1015,7 @@ def _analysis_cpu(x, w, bank, M, fuse_mask, pad_l, pad_r, mxu_precision):
 def _synthesis_cpu(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
                    mxu_precision):
     _synthesis_operands(x, w, bank, mxu_precision)
+    _count("K2", mxu_precision)
     return synthesis_conv_plain(x, w, fuse_mask, x_offset, mxu_precision,
                                 (pad_l, pad_r))
 
@@ -1006,6 +1023,7 @@ def _synthesis_cpu(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
 def _roundtrip_cpu(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
                    syn_pad_l, syn_pad_r, mxu_precision):
     _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, mxu_precision)
+    _count("K3", mxu_precision)
     return roundtrip_conv_plain(x, w_ana, w_syn, M, (syn_pad_l, syn_pad_r),
                                 mxu_precision, (pad_l, pad_r))
 

@@ -13,7 +13,8 @@ matmul gives +0.0 real parts (phase 0) where an FFT gives -0.0 (phase pi),
 and the pitch shifters' stretch reads that phase. The matmuls run in full
 f32 (:func:`~pqmf_tpu_torch.ops.filterbank.full_f32`); at the ``"default"``
 precision tier both operands are rounded to bf16 first (:func:`dft_matmul`),
-the TPU's one bf16 pass with f32 sums, on every device. The complex
+the TPU's one bf16 pass with f32 sums, on every device; :data:`ROUNDED`
+counts the operands so rounded. The complex
 :func:`stft` / :func:`istft` on ``torch.fft`` are kept for parity checks,
 as in the JAX package.
 """
@@ -33,6 +34,8 @@ __all__ = [
     "reflect_pad",
     "frame_count",
     "dft_matmul",
+    "ROUNDED",
+    "reset_rounded",
     "dft_basis",
     "idft_basis",
     "stft",
@@ -151,6 +154,16 @@ def _trim_or_pad(out: torch.Tensor, total: int, center: bool,
     return out
 
 
+# the DFT operands (matrices) rounded to bf16, the "default" tier of
+# dft_matmul, since the last reset_rounded()
+ROUNDED = {"operands": 0}
+
+
+def reset_rounded() -> None:
+    for k in ROUNDED:
+        ROUNDED[k] = 0
+
+
 def dft_matmul(a: torch.Tensor, b: torch.Tensor,
                precision: str = "highest") -> torch.Tensor:
     """``a @ b`` of a DFT at a precision tier (JAX's ``einsum_precision``,
@@ -158,8 +171,9 @@ def dft_matmul(a: torch.Tensor, b: torch.Tensor,
     rounded to bf16 (nearest even) and the product runs in full f32, the
     TPU's one bf16 pass with f32 sums; ``"highest"`` and ``"bf16x3"`` run
     it in full f32 (the JAX package's bf16x3 changes only its conv
-    kernels)."""
+    kernels). Each rounded operand adds to :data:`ROUNDED`."""
     if check_precision(precision) == "default":
+        ROUNDED["operands"] += 2
         a = a.to(torch.bfloat16).to(a.dtype)
         b = b.to(torch.bfloat16).to(b.dtype)
     with full_f32():
