@@ -246,10 +246,10 @@ def _step_of(wrapper, length: int):
             torch.zeros((wrapper.n_band, wrapper.band_overlap),
                         dtype=torch.float32, device=dev),
             torch.zeros((1, length), dtype=torch.float32, device=dev))
-    # the TA block's eager body: its public method replays a CUDA graph
+    # the block's eager body: the public method replays a CUDA graph
     method = (wrapper._pitchshifter_eager
               if isinstance(wrapper, PQMFPitchShiftWrapperTA)
-              else getattr(wrapper, _AOT_METHOD[kind]))
+              else wrapper._process_eager)
     return _Step(method), (
         torch.zeros((1, 1, length), dtype=torch.float32, device=dev),)
 

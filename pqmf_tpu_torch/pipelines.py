@@ -160,10 +160,22 @@ def _fused_band_pitchshift(bands, plan, prev_tail, fade_out, fade_in,
 class _RegistryMixin:
     """conTorchionist protocol surface (PQMFWrapper.py:27-49): the host
     introspects exported modules via get_methods()/get_attributes() plus
-    per-method channel counts and buffer-size attributes."""
+    per-method channel counts and buffer-size attributes. Also the check
+    of a host block that every wrapper's entries share (``_block``)."""
 
     _methods: list
     _attributes: list
+
+    def _block(self, x):
+        """x [1, T] / [B, 1, T] (array or tensor) -> [B, 1, T] on device."""
+        x = self.pqmf.as_tensor(x)
+        if x.ndim == 2:
+            x = x[None]
+        if not (x.ndim == 3 and x.shape[1] == 1):
+            raise ValueError(
+                "input must be [1, buffer_size] or [batch, 1, buffer_size]")
+        _check_buffer(x.shape[-1], self.n_band, self.max_buffer_size)
+        return x
 
     def get_methods(self):
         return list(self._methods)
@@ -182,6 +194,11 @@ class PQMFWrapper(_RegistryMixin):
     Methods: ``forward`` (mono -> n_band sub-bands), ``inverse``,
     ``process`` (-> (reconstructed, subbands), the reference's actual
     return order — its docstring says the opposite, SURVEY §2.5-5).
+
+    On a CUDA device ``process`` is a CUDA graph per (B, T, precision,
+    device, ``pqmf.weights_version``), kept on the wrapper as the other
+    wrappers keep theirs; ``forward`` and ``inverse`` stay eager, and so
+    does ``process`` under a ``mesh``.
     """
 
     def __init__(self, attenuation: int = 100, n_band: int = 16,
@@ -211,17 +228,11 @@ class PQMFWrapper(_RegistryMixin):
         self.m_buffer_size = m_buffer_size
         self.max_buffer_size = max_buffer_size
         _check_declared_buffers(m_buffer_size, max_buffer_size)
+        self._graphs = {}  # process's CUDA graphs (graphs.call)
 
     def forward(self, x):
         """x [1, T] / [B, 1, T] (array or tensor) -> [B, n_band, T/n_band]."""
-        x = self.pqmf.as_tensor(x)
-        if x.ndim == 2:
-            x = x[None]
-        if not (x.ndim == 3 and x.shape[1] == 1):
-            raise ValueError(
-                "input must be [1, buffer_size] or [batch, 1, buffer_size]")
-        _check_buffer(x.shape[-1], self.n_band, self.max_buffer_size)
-        return self.pqmf.forward(x)
+        return self.pqmf.forward(self._block(x))
 
     def inverse(self, x):
         """[B, n_band, T'] -> [B, 1, T'*n_band]."""
@@ -236,10 +247,23 @@ class PQMFWrapper(_RegistryMixin):
         return self.pqmf.inverse(x)
 
     def process(self, x):
+        """x [1, T] / [B, 1, T] -> (reconstructed [B, 1, T], sub-bands
+        [B, n_band, T/n_band]). The block is checked here, before any
+        graph (``inverse``'s checks hold for ``forward``'s output); then a
+        CUDA graph per (B, T) on the card."""
         with span("pqmf.entry.process"):
-            subbands = self.forward(x)
-            reconstructed = self.inverse(subbands)
-            return reconstructed, subbands
+            x = self._block(x)
+            if self.pqmf._layout is not None:
+                return self._process_eager(x)
+            key = ("process", x.shape[0], x.shape[-1], self.pqmf.precision,
+                   self.device, self.pqmf.weights_version)
+            return graphs.call(self._graphs, key, self._process_eager, x)
+
+    def _process_eager(self, x):
+        """The block's body: K1 then K2 (K1t/K2t at a tier) on the bank
+        installed at the time of the call."""
+        sub = self.pqmf.forward(self._block(x))
+        return self.pqmf.inverse(sub), sub
 
     __call__ = forward
 
@@ -335,17 +359,6 @@ class PQMFPitchShiftWrapper(_RegistryMixin):
                             self.band_overlap), device=self.device)
         return {"prev_tail": tail if lay is None
                 else lay.wrap(tail, band_dim=0)}
-
-    def _block(self, x):
-        """x [1, T] / [B, 1, T] (array or tensor) -> [B, 1, T] on device."""
-        x = self.pqmf.as_tensor(x)
-        if x.ndim == 2:
-            x = x[None]
-        if not (x.ndim == 3 and x.shape[1] == 1):
-            raise ValueError(
-                "input must be [1, buffer_size] or [batch, 1, buffer_size]")
-        _check_buffer(x.shape[-1], self.n_band, self.max_buffer_size)
-        return x
 
     def decompose(self, x):
         return self.pqmf.forward(self._block(x))
@@ -731,17 +744,6 @@ class PQMFPitchShiftWrapperTA(_RegistryMixin):
                                              sh0.hop_length)
         self._ta_plans = {}
         self._graphs = {}  # the block's CUDA graphs (graphs.call)
-
-    def _block(self, x):
-        """x [1, T] / [B, 1, T] (array or tensor) -> [B, 1, T] on device."""
-        x = self.pqmf.as_tensor(x)
-        if x.ndim == 2:
-            x = x[None]
-        if not (x.ndim == 3 and x.shape[1] == 1):
-            raise ValueError(
-                "input must be [1, buffer_size] or [batch, 1, buffer_size]")
-        _check_buffer(x.shape[-1], self.n_band, self.max_buffer_size)
-        return x
 
     def forward(self, x):
         """[B, 1, T] -> [B, n_band, T/n_band] (one K1 on a CUDA device)."""

@@ -1394,6 +1394,70 @@ def test_graph_ta_pitchshifter_equals_eager(dev, tier, B):
     _bit_equal(graph, eager, f"TA pitchshifter B={B} [{tier}]")
 
 
+def _host_blocks(n, T, seed):
+    """``n`` host blocks [1, T] as NumPy arrays, as a plug-in hands them
+    over."""
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((1, T)) * 0.3).astype(np.float32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("tier", ["highest", *TIERS])
+def test_graph_process_equals_eager(dev, tier):
+    """``PQMFWrapper.process`` on 512-sample host blocks: the second call
+    replays (its ``pqmf.graph.launch`` span in a trace), each replay adds
+    one K1 and one K2 (K1t/K2t at a tier) to the counters, the outputs
+    equal the eager body bit for bit and no later call changes them, and
+    a block of 1024 captures a graph of its own."""
+    w = PQMFWrapper(100, 16, 512, precision=tier, device="cuda")
+    xs = _host_blocks(6, 512, 70)
+    eager = [w._process_eager(torch.from_numpy(x).to(dev)) for x in xs]
+    w.process(xs[0])  # the eager call, then the capture
+    (prog,) = w._graphs.values()
+    assert prog.launches[0] == {"analysis": 1, "synthesis": 1,
+                                "roundtrip": 0}
+    cc.reset_launches()
+    with torch.profiler.profile() as prof:
+        graph = [w.process(x) for x in xs]
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert "pqmf.graph.launch" in names and "pqmf.graph.capture" not in names
+    assert cc.LAUNCHES == {"analysis": 6, "synthesis": 6, "roundtrip": 0}
+    k1, k2 = ("K1", "K2") if tier == "highest" else ("K1t", "K2t")
+    assert cc.KERNELS == {**dict.fromkeys(cc.KERNELS, 0), k1: 6, k2: 6}
+    flat = [t for pair in graph for t in pair]
+    kept = [t.clone() for t in flat]
+    _bit_equal(flat, [t for pair in eager for t in pair],
+               f"process [{tier}]")
+    w.process(xs[1])
+    torch.cuda.synchronize()
+    _bit_equal(flat, kept, "outputs after a later call")
+    (x2,) = _host_blocks(1, 1024, 71)
+    first, second = w.process(x2), w.process(x2)
+    assert {k[:3] for k in w._graphs} == {("process", 1, 512),
+                                          ("process", 1, 1024)}
+    _bit_equal(list(first) + list(second),
+               list(w._process_eager(torch.from_numpy(x2).to(dev))) * 2,
+               f"process at 1024 [{tier}]")
+
+
+def test_graph_process_follows_set_weights(dev):
+    """After set_weights to the committed fine-tuned M = 16 bank the old
+    graph is evicted, and the new one equals the eager body on the new
+    bank (and differs from the old bank's output)."""
+    from pqmf_tpu_torch.parallel.training import load_pretrained_bank
+
+    w = PQMFWrapper(100, 16, 512, device="cuda")
+    (x,) = _host_blocks(1, 512, 72)
+    old = [w.process(x) for _ in range(2)]
+    w.pqmf.set_weights(load_pretrained_bank("hk16_atten100_finetuned"))
+    new = [w.process(x) for _ in range(2)]
+    assert [k[-1] for k in w._graphs] == [1]
+    _bit_equal(new[1], w._process_eager(torch.from_numpy(x).to(dev)),
+               "process after set_weights")
+    assert (new[1][1] - old[1][1]).abs().max().item() > 1e-4
+
+
 @pytest.mark.parametrize("tier", ["highest", *TIERS])
 @pytest.mark.parametrize("C", [1, 2])
 def test_graph_stream_ola_equals_eager(dev, tier, C):

@@ -2,7 +2,7 @@
 stand-in capture.
 
 On the card every graphed entry (``pitchshift_fn``, ``pitchshift_streams``,
-the TA ``pitchshifter``, ``stream_ola``) captures its eager body once per
+the TA ``pitchshifter``, ``stream_ola``, ``PQMFWrapper.process``) captures its eager body once per
 key and replays it; ``tests/test_torch_cuda.py`` holds the graphs bit for
 bit against the eager bodies there. Here the tests patch in a stand-in for
 the capture, whose "graph" runs the body again over the static buffers and
@@ -14,6 +14,8 @@ collected. Through the stand-in every entry equals its eager body exactly.
 """
 
 import gc
+import io
+import re
 import weakref
 
 import numpy as np
@@ -21,7 +23,8 @@ import pytest
 import torch
 
 from pqmf_tpu_torch import (PQMFPitchShiftWrapper, PQMFPitchShiftWrapperTA,
-                            graphs, stream_ola)
+                            PQMFWrapper, graphs, stream_ola)
+from pqmf_tpu_torch import export as ex
 from pqmf_tpu_torch.kernels import cached_conv as cc
 from pqmf_tpu_torch.kernels import polyphase as pk
 from pqmf_tpu_torch.ops import filterbank as fb
@@ -336,3 +339,102 @@ def test_dropped_wrapper_is_collected(stand_in):
     del w
     gc.collect()
     assert ref() is None
+
+
+# ---------------------------------------------------------------------------
+# the plain wrapper's process
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def bank():
+    return PQMFWrapper(70, 4, 512, device="cpu")
+
+
+def test_cpu_process_is_the_eager_round_trip(bank):
+    """On the CPU ``process`` runs its body and caches nothing: it is
+    (inverse(forward(x)), forward(x)) bit for bit."""
+    x = _audio((1, 512), 90)
+    rec, sub = bank.process(x)
+    want = bank.forward(x)
+    torch.testing.assert_close(sub, want, rtol=0, atol=0)
+    torch.testing.assert_close(rec, bank.inverse(want), rtol=0, atol=0)
+    assert bank._graphs == {}
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_process_replays_equal_the_eager_body(stand_in, bank, B):
+    """Four blocks: the first runs the body and captures it, the others
+    replay; each equals the eager body bit for bit, and no later call
+    changes what an earlier one returned."""
+    kept = []
+    for i in range(4):
+        blk = _audio((B, 1, 512) if B > 1 else (1, 512), 91 + i)
+        got = bank.process(blk)
+        want = bank._process_eager(torch.from_numpy(blk))
+        for g, e in zip(got, want):
+            torch.testing.assert_close(g, e, rtol=0, atol=0)
+        kept.append([(g, g.clone()) for g in got])
+    assert stand_in.events == ["capture"] + ["replay"] * 3
+    assert list(bank._graphs) == [("process", B, 512, "highest", CPU, 0)]
+    assert all(torch.equal(g, c) for pairs in kept for g, c in pairs)
+
+
+def test_process_keys_and_set_weights(stand_in, bank):
+    """A graph per (B, T, precision, device, weights_version); a new bank
+    evicts the old graphs, and the next call equals a fresh wrapper's on
+    that bank."""
+    x = _audio((1, 512), 100)
+    bank.process(_audio((1, 1024), 101))
+    old = bank.process(x)
+    assert set(bank._graphs) == {("process", 1, 1024, "highest", CPU, 0),
+                                 ("process", 1, 512, "highest", CPU, 0)}
+    params = _scaled_bank(bank.pqmf)
+    bank.pqmf.set_weights(*params)
+    new = bank.process(x)
+    assert list(bank._graphs) == [("process", 1, 512, "highest", CPU, 1)]
+    fresh = PQMFWrapper(70, 4, 512, device="cpu")
+    fresh.pqmf.set_weights(*params)
+    for n, f, o in zip(new, fresh.process(x), old):
+        torch.testing.assert_close(n, f, rtol=0, atol=0)
+        assert not torch.allclose(n, o)
+    tier = PQMFWrapper(70, 4, 512, precision="bf16x3", device="cpu")
+    tier.process(x)
+    assert list(tier._graphs) == [("process", 1, 512, "bf16x3", CPU, 0)]
+
+
+@pytest.mark.parametrize("shape", [(2, 512), (1, 2, 512), (1, 1, 510),
+                                   (1, 1, 32768)])
+def test_process_refuses_a_bad_block_before_any_graph(stand_in, bank,
+                                                      shape):
+    """A block of the wrong shape, a length that does not divide into the
+    bands or one past ``max_buffer_size`` raises ``forward``'s
+    ``ValueError`` from ``process``, and nothing is run or captured."""
+    x = np.zeros(shape, np.float32)
+    with pytest.raises(ValueError) as want:
+        bank.forward(x)
+    with pytest.raises(ValueError, match=re.escape(str(want.value))):
+        bank.process(x)
+    assert stand_in.events == [] and bank._graphs == {}
+
+
+def test_export_traces_the_eager_process_node_for_node(bank):
+    """The exported plain program is the eager body's (a trace of the
+    graphed method would try a capture), node for node the program that
+    ``inverse(forward(x))``, the body ``process`` ran before it was
+    graphed, exports to."""
+    module, args = ex._step_of(bank, 512)
+    assert module.fn == bank._process_eager
+
+    def old(x):
+        sub = bank.forward(x)
+        return bank.inverse(sub), sub
+
+    def targets(ep):
+        return [str(n.target) for n in ep.graph.nodes]
+
+    got = torch.export.load(io.BytesIO(ex.export_stablehlo(bank, 512)))
+    want = torch.export.export(ex._Step(old), args)
+    assert targets(got) == targets(want)
+    assert targets(got).count("pqmf_tpu_torch.analysis_conv.default") == 1
+    assert targets(got).count("pqmf_tpu_torch.synthesis_conv.default") == 1

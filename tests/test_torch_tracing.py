@@ -29,7 +29,7 @@ from test_torch_graphs import StandIn
 
 PROGRAM_SPANS = ("pqmf.entry.", "pqmf.handover", "pqmf.graph.")
 NEW_METRICS = ("handover_ms.streams", "handover_ms.live", "handover_ms.bank",
-               "replay_ms.streams", "replay_ms.live",
+               "replay_ms.streams", "replay_ms.live", "replay_ms.bank",
                "entry_self_ms.streams", "entry_self_ms.files",
                "entry_self_ms.live", "entry_self_ms.bank")
 
@@ -155,6 +155,24 @@ def test_a_replay_records_its_three_spans_and_no_capture(monkeypatch,
     _assert_one_replay(_replay_spans(w, _audio((1, 512), 4), tmp_path))
 
 
+def test_a_process_replay_records_its_three_spans(monkeypatch, tmp_path):
+    """``PQMFWrapper.process`` replays its graph inside its entry span,
+    after the host block's handover."""
+    monkeypatch.setattr(graphs, "_graphed", lambda device: True)
+    monkeypatch.setattr(graphs, "_capture", StandIn())
+    w = PQMFWrapper(70, 4, 512, device="cpu")
+    x = _audio((1, 512), 7)
+    for _ in range(2):
+        w.process(x)
+    with profiling.trace(str(tmp_path)):
+        w.process(x)
+    found = _spans(tmp_path)
+    assert [s[0] for s in found] == [
+        "pqmf.entry.process", "pqmf.handover", "pqmf.graph.copy_in",
+        "pqmf.graph.launch", "pqmf.graph.clone_out"]
+    assert all(_inside(s, found[0]) for s in found[1:])
+
+
 def test_a_capture_records_its_span(monkeypatch, tmp_path):
     monkeypatch.setattr(graphs, "_graphed", lambda device: True)
     monkeypatch.setattr(graphs, "_capture", StandIn())
@@ -212,7 +230,7 @@ def test_handover_ms_clips_to_the_slice(tmp_path, cell):
         pytest.approx(0.005)
 
 
-@pytest.mark.parametrize("cell", ["streams", "live"])
+@pytest.mark.parametrize("cell", ["streams", "live", "bank"])
 def test_replay_ms_is_the_union_of_the_three_spans(tmp_path, cell):
     # [16, 28] and [50, 60] over 2 calls
     assert read_layer(f"replay_ms.{cell}", fake_trace(tmp_path)) == \
