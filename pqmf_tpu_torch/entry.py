@@ -50,7 +50,7 @@ BAR_DB = 90.0          # the card's sharded step against the CPU port
 # its output to 82.7 dB, the CPU port reads 60.65 dB against the JAX
 # package (tail 68.2; ``tools/entry_conditioning.py``), and an NVIDIA H100
 # 80GB HBM3 at 700 W reads 57.55 dB against the CPU port (tail 66.95;
-# ``chip_smoke.py`` phase 7, the CPU's MKL pinned). Audio blocks hold
+# ``tests/test_torch_cuda.py``, the CPU's MKL pinned). Audio blocks hold
 # BAR_DB (115.7 dB on the CPU against JAX, 120.1 dB on the H100). On the
 # example input a step is held only at this floor, which a wrong
 # configuration (no shift: 4.7 dB, attenuation 70: 21.1, the accumulating

@@ -272,7 +272,7 @@ def _spectral_ulps(got, want, p: Plan, accumulate: bool):
     (accumulate): a phase is rounded at that size, so an ulp upstream moves
     it by about an ulp there. A phase-rule branch that falls the other way
     moves the phase by ``a * 2 pi``: thousands of such ulps. The tests'
-    and ``chip_smoke.py``'s comparison, not part of the stages."""
+    comparison, not part of the stages."""
     F_ = p.n_fft // 2 + 1
     g, w = got.double(), want.double()
     mg, mw = g[:, :F_].hypot(g[:, F_:]), w[:, :F_].hypot(w[:, F_:])

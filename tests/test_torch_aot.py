@@ -9,8 +9,8 @@ mode on the CPU, as its own tests run it) on the same inputs: the flagship
 and the TA wrapper >= 90 dB (the JAX package's parity bar), ``PQMFWrapper``
 atol 2e-5 / rtol 1e-4 (its kernel-vs-lax bar). Also: the kernel operators'
 fake shapes and operand checks, the program's argument checks, the plan
-caches after a trace, a failing export, a stale program, cross-package
-loading, the device refusal, the ``--stablehlo``
+caches after a trace, a failing export, a stale program, the reload in a
+fresh process, cross-package loading, the device refusal, the ``--stablehlo``
 CLIs, the three demos and ``tools/gpu_checks.py`` at ``--device cpu``.
 """
 
@@ -174,6 +174,59 @@ def jax_saved(tmp_path_factory):
     return {kind: jex.save_artifact(_wrapper(kind, pkg="jax"),
                                     str(root / kind), with_stablehlo=True)
             for kind in KINDS}
+
+
+# the child of the fresh-process reload: it imports only load_stablehlo (no
+# wrapper, no JAX) and runs each program over the blocks in in.npy, the
+# flagship's tail carried from the zeros of its manifest's state spec
+_RELOAD_CHILD = r"""
+import json, os, sys
+import numpy as np, torch
+from pqmf_tpu_torch.export import load_stablehlo
+td, kind, paths = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+blocks = [torch.from_numpy(b) for b in np.load(os.path.join(td, "in.npy"))]
+for i, path in enumerate(paths):
+    program = load_stablehlo(path, device="cpu")
+    outs = []
+    if kind == "flagship":
+        with open(os.path.join(path, "manifest.json")) as f:
+            tail = torch.zeros(json.load(f)["state_spec"]["prev_tail"])
+        for x in blocks:
+            tail, y = program(tail, x)
+            outs.append(y)
+        outs.append(tail)
+    else:
+        for x in blocks:
+            y = program(x[None])
+            outs.extend(y if isinstance(y, tuple) else [y])
+    np.savez(os.path.join(td, f"out{i}.npz"), *[o.numpy() for o in outs])
+assert "jax" not in sys.modules
+"""
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_program_reloads_in_a_fresh_process(saved, tmp_path, kind):
+    """Each saved program of ``kind`` (``highest`` and ``bf16x3``),
+    reloaded in a fresh interpreter that imports only ``load_stablehlo``
+    and run there over ``_blocks()`` (the flagship's tail carried), is
+    bit-equal to the live wrapper."""
+    import subprocess
+
+    blocks = _blocks()
+    np.save(tmp_path / "in.npy", np.stack(blocks))
+    arts = [saved[kind, precision] for precision in ("highest", "bf16x3")]
+    res = subprocess.run(
+        [sys.executable, "-c", _RELOAD_CHILD, str(tmp_path), kind,
+         json.dumps([path for _, path in arts])], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    for i, (w, _) in enumerate(arts):
+        want = _run(kind, _live(kind, w), blocks, _tail0(kind))
+        with np.load(tmp_path / f"out{i}.npz") as z:
+            got = [z[f"arr_{j}"] for j in range(len(z.files))]
+        assert len(got) == len(want)
+        for g, r in zip(got, want):
+            assert g.shape == r.shape and np.array_equal(g, r)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -551,24 +604,6 @@ def test_demo_runs_on_the_cpu(name, argv, capsys):
     assert "device: cpu" in out
     if name == "serving_demo":
         assert "(bit-equal)" in out
-
-
-def test_chip_smoke_aot_phase_rehearses_on_the_cpu():
-    """``chip_smoke.py``'s AOT phase (3b) at full width on the plain
-    versions, in its own process (the module pins the CPU reference's
-    environment at import): five programs, the fresh-process reload, the
-    ``--stablehlo`` CLIs."""
-    import subprocess
-
-    code = ("import json, chip_smoke; r = chip_smoke._aot_phase('cpu', "
-            "'cpu'); print(json.dumps({k: v['bit_equal'] for k, v in "
-            "r.items()}))")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    assert json.loads(res.stdout.strip().splitlines()[-1]) == {
-        "flagship highest": True, "flagship bf16x3": True,
-        "flagship default": True, "plain": True, "ta": True}
 
 
 def test_gpu_checks_rehearse_on_the_cpu(capsys):

@@ -80,7 +80,8 @@ def test_cli_without_device_refuses_to_run_without_a_card(module, tmp_path):
     """A CLI given only its input runs on the card: without one it raises
     naming CUDA instead of falling back to the CPU."""
     if torch.cuda.is_available():
-        pytest.skip("a card is present: chip_smoke.py runs the CLIs there")
+        pytest.skip("a card is present: tests/test_torch_cuda.py's "
+                    "test_cli_runs_on_the_card runs the CLIs there")
     from pqmf_tpu_torch.utils.audio import write_wav
 
     wav = str(tmp_path / "in.wav")

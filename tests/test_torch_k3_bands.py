@@ -25,7 +25,7 @@ as its own tests run it.
 Tolerance: the JAX package's kernel-vs-lax bar, atol=2e-5 / rtol=1e-4
 (sums of up to 2112 f32 products taken in another order). On the CPU the
 wrappers run their plain versions; the CUDA kernels are held against those
-on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+on the card (``tests/test_torch_cuda.py``).
 """
 
 import ctypes
@@ -748,7 +748,7 @@ def test_kernel_ab_variants_edit_the_sources(name):
     A/B silently builds the sources as they are."""
     from pqmf_tpu_torch.kernels import _build
 
-    files = _build.SOURCES + _build.HEADERS
+    files = {f.name: f for f in _build.SOURCES + _build.HEADERS}
     for which, old, new in _kernel_ab().VARIANTS[name]:
         assert files[which].read_text().count(old) == 1, (name, old)
         assert old != new

@@ -4,7 +4,7 @@ as tests/test_kernels.py runs them).
 
 On the CPU a wrapper runs its kernel's plain PyTorch version; the CUDA
 kernels themselves are checked against those plain versions on the card
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py``). Tolerance: the JAX
+(``tests/test_torch_cuda.py``). Tolerance: the JAX
 package's own kernel-vs-lax bar, atol=2e-5 / rtol=1e-4 (sums of up to 513
 f32 products taken in another order).
 """

@@ -265,25 +265,3 @@ def test_the_pcm_header_reads_back(nat, tmp_path):
         head = f.read(44)
     tag, ch, sr, _, _, bits = struct.unpack("<HHIIHH", head[20:36])
     assert (tag, ch, sr, bits) == (1, 1, SR, 16)
-
-
-def test_chip_smoke_native_phase_rehearses_on_the_cpu(nat):
-    """``chip_smoke.py``'s native phase (3d) with the CLI on the CPU, in its
-    own process (the module pins the CPU reference's environment at
-    import): the library builds, the blocks CLI's host loop runs through it
-    (430 OLA calls for 215 blocks), and the run with the library withheld
-    writes the same bits."""
-    import json
-    import os
-    import subprocess
-    import sys
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import json, chip_smoke; print(json.dumps("
-            "chip_smoke._native_phase('cpu', 'cpu')))")
-    res = subprocess.run([sys.executable, "-c", code], cwd=root,
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["cli_bit_equal"] and out["calls"] == {
-        "pcm16_to_f32": 1, "ola_accumulate": 430, "f32_to_pcm16": 3}

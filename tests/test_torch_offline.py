@@ -6,7 +6,7 @@ artifacts in both directions, the bank loader, WAV I/O and the
 The JAX side runs as its own tests run it: lax with ``use_pallas=False``,
 or its Pallas kernels in interpret mode. On the CPU the port's wrappers run
 their plain versions; the CUDA kernels are held against those on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``). Tolerance: the JAX
+(``tests/test_torch_cuda.py``). Tolerance: the JAX
 package's own kernel-vs-lax bar, atol=2e-5 / rtol=1e-4 (f32 sums of up to
 1024 products taken in another order).
 """

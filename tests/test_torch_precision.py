@@ -18,7 +18,7 @@ Tolerance against the reference of the same tier: atol=2e-5 / rtol=1e-4,
 the JAX package's kernel-vs-lax bar (the same exact products summed in
 another order). On the CPU the port's wrappers run their plain versions;
 the tier kernels K1t/K2t/K3t are held against those on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp

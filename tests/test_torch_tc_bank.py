@@ -13,7 +13,7 @@ in-kernel pad of K2/K2t, and the pinned CPU reference — on the CPU.
   window holds every ldmatrix row where the kernel reads it, without bank
   conflicts.
 - K2's pad: a padded call equals ``F.pad`` and the call, bit for bit.
-- The pin of ``chip_smoke.py`` and ``tests/test_torch_cuda.py``: with it,
+- The pin of ``tests/test_torch_cuda.py`` (``CPU_PIN``): with it,
   the CPU flagship is bit-equal under MKL's SSE4.2 path and its default.
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Checks of the port on the card that ``chip_smoke.py`` does not make —
-the counterpart of ``tools/tpu_checks.py`` for ``pqmf_tpu_torch``.
+"""Checks of the port on the card, answering ``tools/tpu_checks.py``'s for
+``pqmf_tpu_torch`` line by line.
 
     python tools/gpu_checks.py [--device cuda]
 
@@ -25,9 +25,9 @@ the JAX package. The checks (``tools/tpu_checks.py`` lines in brackets):
 - the ahead-of-time artifact: the flagship's ``torch.export`` program,
   saved and reloaded, against the live wrapper over two blocks, the tail
   carried (<= 1e-6; bit-equal expected) [:245-258]. It repeats, small, what
-  ``chip_smoke.py``'s phase 3b holds for all five programs over 8 blocks
-  (and ``tests/test_torch_cuda.py -k aot`` for each kind and tier): it is
-  kept so the script answers for every check of ``tools/tpu_checks.py``;
+  ``tests/test_torch_cuda.py -k aot`` holds for each kind and tier and for
+  five programs over 8 blocks in a fresh process: it is kept so the script
+  answers for every check of ``tools/tpu_checks.py``;
 - fast serving: the ``default``-tier flagship against ``highest`` on one
   8192 block (> 30 dB) [:261-270].
 

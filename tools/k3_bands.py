@@ -14,9 +14,10 @@ case.
 the same tier, at M = 16, 32 and 64, designed and committed fine-tuned
 banks: unit-variance seeded noise at a host block (B = 1, 3, 16), at 300
 sub-band steps (B = 2) and at ``n_sms * 256 + 64`` steps (B = 1, the
-persistent plan), and chip_smoke.py's 60 s signal (analysis pad in the
+persistent plan), and the 60 s ``bench_signal`` (analysis pad in the
 kernel). Each line gives the share of outputs past K3_TOL (1e-5), the
-largest error and the one-flip bound of ``chip_smoke._k3t_default_close``.
+largest error and the one-flip bound of ``tests/test_torch_cuda.py``'s
+``assert_k3t_close``.
 
 ``entry``: ``StreamingPQMF.roundtrip`` and ``PQMF.roundtrip`` with the
 committed fine-tuned bank at M = 32 and 64 at each tier, on one host
@@ -216,10 +217,10 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from chip_smoke import _headline_signal
+    from pqmf_tpu_torch.cli.finetune_bank import bench_signal
 
     print(_card())
-    sixty = _headline_signal(60 * SR)
+    sixty = bench_signal(60 * SR)
     if args.what in ("offshare", "both"):
         offshare(sixty)
     if args.what in ("entry", "both"):

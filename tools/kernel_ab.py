@@ -51,69 +51,72 @@ _K1_W8K = ("kAnaWindow = 4096;", "kAnaWindow = 8192;")
 
 _TC_LD = "const int LD = S % 8 == 0 ? 0 : S % 2 == 0 ? 1 : 2;"
 
-# name -> [(source index, text in that source, its replacement)]: source
-# 0 is cached_conv.cu, 1 cached_conv_tc.cu, 2 middle.cu, _RT_PLAN the
-# header rt_plan.h (the index into SOURCES + HEADERS of kernels/_build.py)
-_RT_PLAN = 3
+# name -> [(file of csrc/, text in that file, its replacement)]: the
+# sources and headers of kernels/_build.py, by file name
+_F32, _TC, _RT_PLAN = "cached_conv.cu", "cached_conv_tc.cu", "rt_plan.h"
 VARIANTS = {
     "as_is": [],
-    "tap_loop_unroll_4": [(0, _TAPS, _TAPS.replace("unroll 8", "unroll 4"))],
-    "tap_loop_unroll_2": [(0, _TAPS, _TAPS.replace("unroll 8", "unroll 2"))],
-    "k2_phase_groups_4": [(0, _GROUPS, _GROUPS.replace("4), 2)", "4), 4)"))],
-    "k2_phase_groups_1": [(0, _GROUPS, _GROUPS.replace("4), 2)", "4), 1)"))],
-    "k2_fill_256": [(0, "kSynFill = 128;", "kSynFill = 256;")],
-    "k2_max_steps_512": [(0, "kSynMaxSteps = 256;", "kSynMaxSteps = 512;")],
-    "k1_no_split": [(0, _K1_SPLIT, _K1_SPLIT.replace(" M,", " 1,"))],
-    "k1_split_max_4": [(0, _K1_SPLIT,
+    "tap_loop_unroll_4": [(_F32, _TAPS,
+                           _TAPS.replace("unroll 8", "unroll 4"))],
+    "tap_loop_unroll_2": [(_F32, _TAPS,
+                           _TAPS.replace("unroll 8", "unroll 2"))],
+    "k2_phase_groups_4": [(_F32, _GROUPS,
+                           _GROUPS.replace("4), 2)", "4), 4)"))],
+    "k2_phase_groups_1": [(_F32, _GROUPS,
+                           _GROUPS.replace("4), 2)", "4), 1)"))],
+    "k2_fill_256": [(_F32, "kSynFill = 128;", "kSynFill = 256;")],
+    "k2_max_steps_512": [(_F32, "kSynMaxSteps = 256;", "kSynMaxSteps = 512;")],
+    "k1_no_split": [(_F32, _K1_SPLIT, _K1_SPLIT.replace(" M,", " 1,"))],
+    "k1_split_max_4": [(_F32, _K1_SPLIT,
                         _K1_SPLIT.replace(" M,", " min_i(M, 8),"))],
-    "k1_nt_4": [(0, _K1_NT, _K1_NT.replace("NT = c.NT", "NT = 4"))],
-    "k1_one_tile_a_block": [(0, _K1_GX, "p.gx = tiles;")],
-    "k1_balanced_grid": [(0, _K1_GX, "p.gx = MS == 1 ? cdiv(tiles, cdiv("
+    "k1_nt_4": [(_F32, _K1_NT, _K1_NT.replace("NT = c.NT", "NT = 4"))],
+    "k1_one_tile_a_block": [(_F32, _K1_GX, "p.gx = tiles;")],
+    "k1_balanced_grid": [(_F32, _K1_GX, "p.gx = MS == 1 ? cdiv(tiles, cdiv("
                           "tiles, max_i(1, n_sms * per_sm / p.gy))) : "
                           "tiles;")],
-    "k1_divide": [(0, "fuse_mask, log2_exact(M));", "fuse_mask, -1);")],
-    "k1_window_8192": [(0, *_K1_W8K)],
-    "k1_copy_whole_window": [(0, "e < M * (Tt + J - 1); e += blockDim.x",
+    "k1_divide": [(_F32, "fuse_mask, log2_exact(M));", "fuse_mask, -1);")],
+    "k1_window_8192": [(_F32, *_K1_W8K)],
+    "k1_copy_whole_window": [(_F32, "e < M * (Tt + J - 1); e += blockDim.x",
                               "e < M * XR; e += blockDim.x")],
-    "k1_groups_4": [(0, *_K1_G4)],
-    "k1_groups_1": [(0, *_K1_G1)],
+    "k1_groups_4": [(_F32, *_K1_G4)],
+    "k1_groups_1": [(_F32, *_K1_G1)],
     # K1t/K2t: each design choice undone
-    "tc_no_swizzle": [(1, "a.swz = LD == 0 && log2_exact(S) >= 3 ? "
+    "tc_no_swizzle": [(_TC, "a.swz = LD == 0 && log2_exact(S) >= 3 ? "
                           "min_i(S / 8, 8) - 1 : 0;", "a.swz = 0;")],
-    "tc_stage_always": [(1, "p.stage = g.stage && (c.persist || (long long)"
+    "tc_stage_always": [(_TC, "p.stage = g.stage && (c.persist || (long long)"
                             "tiles * p.gy <= n_sms);", "p.stage = g.stage;")],
-    "tc_no_ldmatrix": [(1, _TC_LD,
+    "tc_no_ldmatrix": [(_TC, _TC_LD,
                         "const int LD = S % 2 == 0 ? 1 : 2;")],
-    "tc_bank_global": [(1, "g.stage = g.bank_bytes <= kTcBankBytes &&",
+    "tc_bank_global": [(_TC, "g.stage = g.bank_bytes <= kTcBankBytes &&",
                         "g.stage = false && g.bank_bytes <= kTcBankBytes "
                         "&&")],
-    "tc_fill_16": [(1, "kTcFillWarps = 8;", "kTcFillWarps = 16;")],
-    "tc_no_split_k": [(1, "while (wk < kTcWarps && 2 * wk <= g.n_k",
+    "tc_fill_16": [(_TC, "kTcFillWarps = 8;", "kTcFillWarps = 16;")],
+    "tc_no_split_k": [(_TC, "while (wk < kTcWarps && 2 * wk <= g.n_k",
                        "while (false && 2 * wk <= g.n_k")],
-    "tc_persist_m16_64": [(1, "kTcPersistM16 = 16;",
+    "tc_persist_m16_64": [(_TC, "kTcPersistM16 = 16;",
                            "kTcPersistM16 = 64;")],
     # K3t: each design choice undone or moved
-    "rt_no_swizzle": [(1, "a.swz = LD == 0 ? min_i(M / 8, 8) - 1 : 0;",
+    "rt_no_swizzle": [(_TC, "a.swz = LD == 0 ? min_i(M / 8, 8) - 1 : 0;",
                        "a.swz = 0;")],
-    "rt_stage_never": [(1, "g.stage = g.n_cb == 1 && g.bank_bytes",
+    "rt_stage_never": [(_TC, "g.stage = g.n_cb == 1 && g.bank_bytes",
                         "g.stage = false && g.bank_bytes")],
-    "rt_stage_always": [(1, "p.stage = g.stage && (persist || n_tiles <= "
+    "rt_stage_always": [(_TC, "p.stage = g.stage && (persist || n_tiles <= "
                             "n_sms || g.C > 1);", "p.stage = g.stage;")],
     "rt_fill_div_8": [(_RT_PLAN, "kRtFillDiv = 4;", "kRtFillDiv = 8;")],
     "rt_fill_div_1": [(_RT_PLAN, "kRtFillDiv = 4;", "kRtFillDiv = 1;")],
-    "rt_sub_512": [(1, "kRtTcSub = 256;", "kRtTcSub = 512;")],
-    "rt_sub_128": [(1, "kRtTcSub = 256;", "kRtTcSub = 128;")],
-    "rt_no_split_k": [(1, "while (2 * wk * items <= kRtTcWarps",
+    "rt_sub_512": [(_TC, "kRtTcSub = 256;", "kRtTcSub = 512;")],
+    "rt_sub_128": [(_TC, "kRtTcSub = 256;", "kRtTcSub = 128;")],
+    "rt_no_split_k": [(_TC, "while (2 * wk * items <= kRtTcWarps",
                        "while (false && 2 * wk * items <= kRtTcWarps")],
     # K3 at M = 32/64 (the cluster kernel): its thread tiles moved
-    "rtc_whole_4x8": [(0, "constexpr int kRtcNB = 2;",
+    "rtc_whole_4x8": [(_F32, "constexpr int kRtcNB = 2;",
                        "constexpr int kRtcNB = 4;")],
-    "rtc_whole_2x4": [(0, "constexpr int kRtcNT = 8;",
+    "rtc_whole_2x4": [(_F32, "constexpr int kRtcNT = 8;",
                        "constexpr int kRtcNT = 4;")],
-    "rtc_small_2x4": [(0, "constexpr int kRtcSmallNB = 1;",
+    "rtc_small_2x4": [(_F32, "constexpr int kRtcSmallNB = 1;",
                        "constexpr int kRtcSmallNB = 2;")],
     # K3t at M = 32/64: every block of the cluster one n8 tile
-    "rt_block_nn_1": [(1, "constexpr int kRtTcBlockNN = 2;",
+    "rt_block_nn_1": [(_TC, "constexpr int kRtTcBlockNN = 2;",
                        "constexpr int kRtTcBlockNN = 1;")],
 }
 
@@ -121,20 +124,19 @@ VARIANTS = {
 def _build_all(out: Path, names) -> dict:
     from pqmf_tpu_torch.kernels import _build
 
-    files_in = _build.SOURCES + _build.HEADERS
-    srcs = [src.read_text() for src in files_in]
+    srcs = {src.name: src.read_text()
+            for src in _build.SOURCES + _build.HEADERS}
     nvcc = _build._find_nvcc()
     procs = {}
     for name in names:
-        texts = list(srcs)
+        texts = dict(srcs)
         for which, old, new in VARIANTS[name]:
             if texts[which].count(old) != 1:
-                raise SystemExit(f"{name}: {old!r} is not once in "
-                                 f"{files_in[which].name}")
+                raise SystemExit(f"{name}: {old!r} is not once in {which}")
             texts[which] = texts[which].replace(old, new)
         (out / name).mkdir(exist_ok=True)
-        for src, text in zip(files_in, texts):
-            (out / name / src.name).write_text(text)
+        for file, text in texts.items():
+            (out / name / file).write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
              str(out / f"{name}.so"),

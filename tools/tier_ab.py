@@ -24,7 +24,7 @@ and round.
     python3 tools/tier_ab.py OTHER_CHECKOUT --what flagship
 
 times instead the live flagship block (``PQMFPitchShiftWrapper``, atten
-100, 16 bands, 8192 samples, the smoke's shifts, state carried) at each
+100, 16 bands, 8192 samples, the card tests' shifts, state carried) at each
 tier: ms a block by CUDA events over 200 blocks (best of 3 windows) and
 the host clock's median over 200 synchronized blocks — the host-bound
 step, where a change to the Python around the kernels (the operator
@@ -42,8 +42,9 @@ cost of the operators' operand checks alone.
 
 times the fused round trip at M = 32 and 64 (the designed banks, syn_pad
 (16, 16)) at each tier, ``fused_roundtrip_conv`` with the kept arranged
-banks at the tiers: device time (each checkout's ``chip_smoke._device_us``:
-the median whole call of a profiler trace) at host blocks [1,1,8192+Ka-1]
+banks at the tiers: device time (this checkout's
+``kernel_times._device_us`` for both: the median whole call of a profiler
+trace) at host blocks [1,1,8192+Ka-1]
 and [16,1,8192+Ka-1] and on 60 s (the centered analysis pad in the
 kernel), and CUDA events a call on 60 s; beside them the two halves
 (``strided_analysis_conv`` + ``dense_synthesis_conv``) on the same input.
@@ -170,7 +171,9 @@ def measure_bands() -> dict:
     sys.path[0]: device us at host blocks and on 60 s, events ms on 60 s."""
     import torch
 
-    import chip_smoke
+    # the helper of this tool's checkout, whichever checkout is measured
+    sys.path.append(str(Path(__file__).resolve().parent))
+    from kernel_times import _device_us
     from pqmf_tpu_torch import StreamingPQMF
     from pqmf_tpu_torch.kernels import cached_conv as cc
 
@@ -227,7 +230,7 @@ def measure_bands() -> dict:
                 n = 10 if shape == "60 s" else 50
                 for name, fn in (("K3", k3), ("halves", halves)):
                     key = f"{name} M={M} {shape} {tier}"
-                    out[key + " device_us"] = chip_smoke._device_us(
+                    out[key + " device_us"] = _device_us(
                         lambda: fn(x, pad), n)
                     if shape == "60 s":
                         out[key + " events_ms"] = events_ms(
