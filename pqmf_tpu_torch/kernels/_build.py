@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels (``csrc/cached_conv.cu``,
 the f32 kernels, ``csrc/cached_conv_tc.cu``, the tensor-core tiers, and
-``csrc/middle.cu``, the flagship pitch shifter's middle).
+``csrc/middle.cu``, the flagship pitch shifter's middle) and the host side
+of a graph replay (``csrc/graph_io.cu``, ``graphs.py``).
 
 Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into an
 object, all at once in parallel, and the objects are linked into one shared
@@ -21,11 +22,11 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["SOURCES", "HEADERS", "BUILD_DIR", "nvcc_command", "link_command",
-           "build", "load"]
+           "build", "load", "bind_graph_io"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "cached_conv.cu", _PKG / "csrc" / "cached_conv_tc.cu",
-           _PKG / "csrc" / "middle.cu")
+           _PKG / "csrc" / "middle.cu", _PKG / "csrc" / "graph_io.cu")
 # included by both sources (the fused round trip's call-size tile choice)
 HEADERS = (_PKG / "csrc" / "rt_plan.h",)
 BUILD_DIR = _PKG / "_build"
@@ -156,6 +157,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pqmf_error_string.argtypes = [i]
     lib.pqmf_error_string.restype = ctypes.c_char_p
+    return bind_graph_io(lib)
+
+
+def bind_graph_io(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``csrc/graph_io.cu``'s entries: the graph's 1-D copy nodes
+    (graph, cap, nodes, kinds, sources, destinations, bytes, count) and a
+    replay (its ``pqmf_graph_plan``, the stream)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pqmf_graph_copies.argtypes = [p, i, p, p, p, p, p, p]
+    lib.pqmf_graph_replay.argtypes = [p, p]
+    for fn in (lib.pqmf_graph_copies, lib.pqmf_graph_replay):
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -2312,6 +2312,109 @@ def test_graph_process_follows_set_weights(dev):
     assert (new[1][1] - old[1][1]).abs().max().item() > 1e-4
 
 
+# a replay's copies in and out are the graph's own memcpy nodes, re-pointed
+# at each call's tensors (graphs.IO, csrc/graph_io.cu)
+
+
+def _io():
+    from pqmf_tpu_torch import graphs
+
+    graphs.IO.update(bound=0, dispatched=0)
+    return graphs.IO
+
+
+def test_graph_queued_replays_equal_eager(dev):
+    """Two replays queued behind a 20 ms device sleep, with no sync between
+    them: the second re-points the copy nodes before the first has run,
+    and each still equals the eager body bit for bit (a change to an
+    instantiated graph holds only for later launches)."""
+    w = _flagship16("highest", dev)
+    xs = _blocks(dev, 3, 81)
+    s0, _ = w.pitchshift_fn(w.init_state(), xs[0])  # eager, then capture
+    se1, ye1 = w._pitchshift_fn_eager(s0, xs[1])
+    se2, ye2 = w._pitchshift_fn_eager(se1, xs[2])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)  # ~20 ms of a 1.98 GHz SM clock
+    s1, y1 = w.pitchshift_fn(s0, xs[1])
+    s2, y2 = w.pitchshift_fn(s1, xs[2])
+    torch.cuda.synchronize()
+    _bit_equal([y1, s1["prev_tail"], y2, s2["prev_tail"]],
+               [ye1, se1["prev_tail"], ye2, se2["prev_tail"]],
+               "queued replays")
+
+
+def test_graph_replays_return_fresh_storages(dev):
+    """Three replays return three distinct output storages, none the
+    graph's, and the earlier outputs keep their values after the later
+    replays."""
+    w = _flagship16("highest", dev)
+    xs = _blocks(dev, 4, 82)
+    state, _ = w.pitchshift_fn(w.init_state(), xs[0])
+    outs = []
+    for x in xs[1:]:
+        state, y = w.pitchshift_fn(state, x)
+        torch.cuda.synchronize()
+        outs.append((y, state["prev_tail"], y.clone(),
+                     state["prev_tail"].clone()))
+    (prog,) = w._graphs.values()
+    graph_own = {t.untyped_storage().data_ptr()
+                 for t in pytree_leaves(prog._static_out)}
+    storages = [t.untyped_storage().data_ptr() for o in outs for t in o[:2]]
+    assert len(set(storages)) == 6 and not graph_own & set(storages)
+    torch.cuda.synchronize()
+    _bit_equal([t for o in outs for t in o[:2]],
+               [t for o in outs for t in o[2:]], "outputs after replays")
+
+
+def test_graph_strided_block_equals_eager(dev):
+    """A strided block through ``pitchshift_fn`` is made contiguous by one
+    copy of its own (``IO["dispatched"]``) and equals the eager body bit
+    for bit; a contiguous block at an odd storage offset (4-byte aligned)
+    is read by the graph's copy node itself and equals it too."""
+    w = _flagship16("highest", dev)
+    wide = torch.stack(_blocks(dev, 2, 83), dim=-1).reshape(1, 2 * 8192)
+    state, _ = w.pitchshift_fn(w.init_state(), _blocks(dev, 1, 84)[0])
+    for x, dispatched in ((wide[:, ::2], 1),
+                          (wide.view(-1)[1:8193].view(1, 8192), 0)):
+        io = _io()
+        sg, yg = w.pitchshift_fn(state, x)
+        assert io == {"bound": 4, "dispatched": dispatched}, x.stride()
+        se, ye = w._pitchshift_fn_eager(state, x)
+        torch.cuda.synchronize()
+        _bit_equal([yg, sg["prev_tail"]], [ye, se["prev_tail"]],
+                   f"strided block {x.stride()} at {x.storage_offset()}")
+
+
+@pytest.mark.parametrize("tier", ["highest", "default"])
+def test_graph_replays_bind_every_leaf(dev, tier):
+    """On ``pitchshift_fn`` (tail and x in, tail and y out),
+    ``pitchshift_streams`` (the same over 16 streams) and ``process`` (x
+    in, both outputs out) every tensor leaf of every replay is carried by
+    a re-pointed copy node and none is dispatched."""
+    w = _flagship16(tier, dev)
+    bank = PQMFWrapper(100, 16, 512, precision=tier, device="cuda")
+    xs = _blocks(dev, 4, 85)
+    streams = [x[:, 0] for x in _blocks(dev, 4, 86, B=16)]
+    blocks = [torch.from_numpy(b).to(dev) for b in _host_blocks(4, 512, 87)]
+    s, ss = w.init_state(), w.init_streams(16)
+    s, _ = w.pitchshift_fn(s, xs[0])
+    ss, _ = w.pitchshift_streams(ss, streams[0])
+    bank.process(blocks[0])
+    io = _io()
+    for x in xs[1:]:
+        s, _ = w.pitchshift_fn(s, x)
+    assert io == {"bound": 3 * 4, "dispatched": 0}
+    io = _io()
+    for x in streams[1:]:
+        ss, _ = w.pitchshift_streams(ss, x)
+    assert io == {"bound": 3 * 4, "dispatched": 0}
+    io = _io()
+    for x in blocks[1:]:
+        bank.process(x)
+    assert io == {"bound": 3 * 3, "dispatched": 0}
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("tier", ["highest", *TIERS])
 @pytest.mark.parametrize("C", [1, 2])
 def test_graph_stream_ola_equals_eager(dev, tier, C):
@@ -2479,9 +2582,9 @@ def test_graph_train_step_equals_the_eager_step(dev, tier, remat):
         if i == 0:  # count the replays from here on
             (prog,) = sg._graphs.values()
 
-            def counted(replay=prog._replay):
+            def counted(leaves, outs, replay=prog._replay):
                 replays[0] += 1
-                replay()
+                replay(leaves, outs)
             prog._replay = counted
     torch.cuda.synchronize()
     assert all(v == 0 for v in cc.LAUNCHES.values())

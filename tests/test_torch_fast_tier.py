@@ -162,7 +162,7 @@ def test_a_replay_adds_what_its_capture_counted(monkeypatch):
     """A graph's capture adds nothing to the tier counters and each replay
     adds what the captured step counted, as for the launch counters."""
     def capture(fn, args, device):
-        return (lambda: None), fn(*args), {}
+        return (lambda leaves, outs: None), fn(*args), {}
 
     monkeypatch.setattr(graphs, "_graphed", lambda device: True)
     monkeypatch.setattr(graphs, "_capture", capture)

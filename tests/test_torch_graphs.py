@@ -13,10 +13,14 @@ by a later call, the launch counts of captures and replays, eviction on
 collected. Through the stand-in every entry equals its eager body exactly.
 """
 
+import ctypes
 import gc
 import io
 import re
+import shutil
+import subprocess
 import weakref
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -50,12 +54,14 @@ def _restore(counts):
 
 
 class StandIn:
-    """A capture for the CPU: records the body, and its replay runs the body
-    again over the static arguments and copies the result into the static
-    outputs. A real replay touches no Python counter, so neither does this
-    one's body. While the body runs in either, ``graphs._capturing()`` is
-    true (a program it calls runs its body into this one, as it would into
-    a real capture). ``fail`` makes the capture raise."""
+    """A capture for the CPU: records the body, and its replay, given the
+    call's argument leaves and its fresh output tensors, runs the body
+    again on those arguments and writes the result into those outputs, as
+    a replay's re-pointed copy nodes do. A real replay touches no Python
+    counter, so neither does this one's body. While the body runs in
+    either, ``graphs._capturing()`` is true (a program it calls runs its
+    body into this one, as it would into a real capture). ``fail`` makes
+    the capture raise."""
 
     def __init__(self):
         self.events = []
@@ -75,13 +81,15 @@ class StandIn:
             raise RuntimeError("capture refused")
         out = self.inside(fn, args)
 
-        def replay():
+        def replay(leaves, outs):
             self.events.append("replay")
             counts = _counts()
-            new = self.inside(fn, args)
+            new = self.inside(fn, leaves)
             _restore(counts)
-            for o, n in zip(torch.utils._pytree.tree_leaves(out),
-                            torch.utils._pytree.tree_leaves(new)):
+            tensors = [t for t in torch.utils._pytree.tree_leaves(new)
+                       if isinstance(t, torch.Tensor)]
+            assert len(tensors) == len(outs)
+            for o, n in zip(outs, tensors):
                 o.copy_(n)
 
         return replay, out, {"capture_ms": 0.0, "instantiate_ms": 0.0,
@@ -438,3 +446,265 @@ def test_export_traces_the_eager_process_node_for_node(bank):
     assert targets(got) == targets(want)
     assert targets(got).count("pqmf_tpu_torch.analysis_conv.default") == 1
     assert targets(got).count("pqmf_tpu_torch.synthesis_conv.default") == 1
+
+
+# ---------------------------------------------------------------------------
+# a replay's copies in and out (``graphs.IO``)
+# ---------------------------------------------------------------------------
+
+
+def _reset_io():
+    graphs.IO.update(bound=0, dispatched=0)
+
+
+def test_a_strided_argument_is_made_contiguous_first(stand_in, flagship):
+    """An argument a 1-D copy cannot read (a strided block) is made
+    contiguous by a copy of its own, counted once in ``IO["dispatched"]``,
+    and bound like the others; the replay equals the eager body bit for
+    bit."""
+    wide = torch.from_numpy(_audio((1, 1024), 110))
+    state, _ = flagship.pitchshift_fn(flagship.init_state(),
+                                      wide[:, :512].contiguous())
+    x = wide[:, ::2]
+    assert not x.is_contiguous()
+    _reset_io()
+    sg, yg = flagship.pitchshift_fn(state, x)
+    assert graphs.IO == {"bound": 4, "dispatched": 1}
+    assert stand_in.events == ["capture", "replay"]
+    se, ye = flagship._pitchshift_fn_eager(state, x)
+    torch.testing.assert_close(yg, ye, rtol=0, atol=0)
+    torch.testing.assert_close(sg["prev_tail"], se["prev_tail"], rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("entry,leaves", [("pitchshift_fn", 4),
+                                          ("process", 3)])
+def test_a_replay_binds_every_leaf(stand_in, flagship, bank, entry, leaves):
+    """The flagship's block (the tail and x in, the tail and y out) and the
+    bank's (x in, the round trip and the sub-bands out): every tensor leaf
+    of every replay is carried by a copy node, none dispatched."""
+    state = flagship.init_state()
+
+    def block(i):
+        nonlocal state
+        x = _audio((1, 512), 120 + i)
+        if entry == "process":
+            return bank.process(x)
+        state, y = flagship.pitchshift_fn(state, x)
+        return y
+
+    block(0)  # the eager call and the capture
+    _reset_io()
+    for i in range(1, 4):
+        block(i)
+    assert graphs.IO == {"bound": 3 * leaves, "dispatched": 0}
+    (prog,) = (bank if entry == "process" else flagship)._graphs.values()
+    assert prog._bound == leaves
+
+
+def test_a_zero_element_leaf_replays(stand_in):
+    """A leaf of no elements has no copy node: an empty argument and empty
+    outputs replay (each output a fresh empty tensor), and only the other
+    leaves are bound."""
+    def body(x, empty):
+        return x * 2.0, empty + 1.0, x[:0]
+
+    cache, key, e = {}, ("body", 1, 4, "highest", CPU, 0), torch.zeros(0, 3)
+    _reset_io()
+    kept = []
+    for i in range(3):
+        x = torch.arange(4.0) + i
+        y, z, w = graphs.call(cache, key, body, x, e)
+        torch.testing.assert_close(y, x * 2.0, rtol=0, atol=0)
+        assert z.shape == (0, 3) and w.shape == (0,)
+        kept.append(z)
+    assert stand_in.events == ["capture", "replay", "replay"]
+    assert graphs.IO == {"bound": 4, "dispatched": 0}  # x in, y out
+    assert kept[1] is not kept[2]
+
+
+# ---------------------------------------------------------------------------
+# csrc/graph_io.cu on the CPU
+# ---------------------------------------------------------------------------
+
+# What csrc/graph_io.cu uses of the CUDA runtime, for g++: a graph is a
+# list of nodes (a kernel or a memcpy), an instantiated graph a copy of its
+# memcpy parameters, and a launch runs its copies in order with memcpy.
+# ``emu_*`` build graphs from Python and read what a launch did.
+_EMU_GRAPHS = r"""
+#pragma once
+#include <cstddef>
+#include <cstring>
+#include <vector>
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef void* cudaStream_t;
+enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
+enum cudaGraphNodeType { cudaGraphNodeTypeKernel = 0,
+                         cudaGraphNodeTypeMemcpy = 1 };
+struct cudaPitchedPtr { void* ptr; size_t pitch, xsize, ysize; };
+struct cudaPos { size_t x, y, z; };
+struct cudaExtent { size_t width, height, depth; };
+typedef struct cudaArray* cudaArray_t;
+struct cudaMemcpy3DParms {
+  cudaArray_t srcArray; cudaPos srcPos; cudaPitchedPtr srcPtr;
+  cudaArray_t dstArray; cudaPos dstPos; cudaPitchedPtr dstPtr;
+  cudaExtent extent; cudaMemcpyKind kind; };
+struct EmuNode { cudaGraphNodeType type; cudaMemcpy3DParms p; };
+struct EmuGraph { std::vector<EmuNode*> nodes; };
+struct EmuExec { EmuGraph* g; std::vector<cudaMemcpy3DParms> p;
+                 int sets = 0, launches = 0; };
+typedef EmuGraph* cudaGraph_t;
+typedef EmuNode* cudaGraphNode_t;
+typedef EmuExec* cudaGraphExec_t;
+inline cudaError_t cudaGraphGetNodes(cudaGraph_t g, cudaGraphNode_t* nodes,
+                                     size_t* n) {
+  if (nodes)
+    for (size_t i = 0; i < *n && i < g->nodes.size(); ++i)
+      nodes[i] = g->nodes[i];
+  *n = g->nodes.size();
+  return cudaSuccess;
+}
+inline cudaError_t cudaGraphNodeGetType(cudaGraphNode_t n,
+                                        cudaGraphNodeType* t) {
+  *t = n->type;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGraphMemcpyNodeGetParams(cudaGraphNode_t n,
+                                                cudaMemcpy3DParms* p) {
+  *p = n->p;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGraphExecMemcpyNodeSetParams1D(
+    cudaGraphExec_t e, cudaGraphNode_t node, void* dst, const void* src,
+    size_t count, cudaMemcpyKind kind) {
+  for (size_t i = 0; i < e->g->nodes.size(); ++i)
+    if (e->g->nodes[i] == node) {
+      cudaMemcpy3DParms& p = e->p[i];
+      if (node->type != cudaGraphNodeTypeMemcpy || p.extent.height != 1 ||
+          count != p.extent.width || kind != p.kind)
+        return cudaErrorInvalidValue;
+      p.srcPtr.ptr = (void*)src;
+      p.dstPtr.ptr = dst;
+      p.srcPos.x = p.dstPos.x = 0;
+      ++e->sets;
+      return cudaSuccess;
+    }
+  return cudaErrorInvalidValue;
+}
+inline cudaError_t cudaGraphLaunch(cudaGraphExec_t e, cudaStream_t) {
+  for (size_t i = 0; i < e->g->nodes.size(); ++i)
+    if (e->g->nodes[i]->type == cudaGraphNodeTypeMemcpy) {
+      const cudaMemcpy3DParms& p = e->p[i];
+      std::memcpy((char*)p.dstPtr.ptr + p.dstPos.x,
+                  (char*)p.srcPtr.ptr + p.srcPos.x,
+                  p.extent.width * p.extent.height);
+    }
+  ++e->launches;
+  return cudaSuccess;
+}
+extern "C" {
+EmuGraph* emu_graph() { return new EmuGraph; }
+void emu_node(EmuGraph* g, int memcpy, void* src, void* dst, size_t bytes,
+              size_t rows) {
+  EmuNode* n = new EmuNode{};
+  n->type = memcpy ? cudaGraphNodeTypeMemcpy : cudaGraphNodeTypeKernel;
+  n->p.srcPtr.ptr = src;
+  n->p.dstPtr.ptr = dst;
+  n->p.extent = {bytes, rows, 1};
+  n->p.kind = cudaMemcpyDeviceToDevice;
+  g->nodes.push_back(n);
+}
+EmuExec* emu_instantiate(EmuGraph* g) {
+  EmuExec* e = new EmuExec;
+  e->g = g;
+  for (EmuNode* n : g->nodes) e->p.push_back(n->p);
+  return e;
+}
+int emu_sets(EmuExec* e) { return e->sets; }
+int emu_launches(EmuExec* e) { return e->launches; }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated_graphs(tmp_path_factory):
+    """``csrc/graph_io.cu`` built with g++ against the emulated runtime,
+    bound as the card's library is (``_build.bind_graph_io``)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the emulated CUDA source")
+    from pqmf_tpu_torch.kernels import _build
+
+    d = tmp_path_factory.mktemp("graph_io_emulated")
+    (d / "cuda_runtime.h").write_text(_EMU_GRAPHS)
+    src = Path(graphs.__file__).parent / "csrc" / "graph_io.cu"
+    (d / "g.cpp").write_text(src.read_text())
+    subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-w",
+                    f"-I{d}", "-o", str(d / "g.so"), str(d / "g.cpp")],
+                   check=True, capture_output=True)
+    lib = _build.bind_graph_io(ctypes.CDLL(str(d / "g.so")))
+    p = ctypes.c_void_p
+    lib.emu_graph.restype = p
+    lib.emu_node.argtypes = [p, ctypes.c_int, p, p, ctypes.c_size_t,
+                             ctypes.c_size_t]
+    lib.emu_instantiate.argtypes = [p]
+    lib.emu_instantiate.restype = p
+    lib.emu_sets.argtypes = lib.emu_launches.argtypes = [p]
+    lib.pqmf_error_string = lambda err: b"emulated error"
+    return lib
+
+
+def _buf(values):
+    return torch.tensor(values, dtype=torch.float32)
+
+
+def test_emulated_replay_re_points_the_copies_it_binds(emulated_graphs):
+    """``graphs._plan`` finds each copy by its addresses among the 1-D
+    memcpy nodes (a kernel node and a 2-D copy are passed over, and 70
+    other copies make the node walk ask twice); a replay re-points only a
+    node whose pair changed and launches once, and a launch copies from the
+    new sources into the new destinations."""
+    lib = emulated_graphs
+    arg, static = _buf([1, 2, 3, 4]), _buf([0] * 4)
+    res, out = _buf([5, 6]), _buf([0] * 2)
+    rows = _buf([0] * 4)  # the 2-D copy's destination: res in two rows
+    others = [(_buf([float(i)]), _buf([0])) for i in range(70)]
+    g = lib.emu_graph()
+    lib.emu_node(g, 0, None, None, 0, 1)
+    lib.emu_node(g, 1, arg.data_ptr(), static.data_ptr(), 16, 1)
+    lib.emu_node(g, 1, res.data_ptr(), rows.data_ptr(), 4, 2)
+    for s, t in others:
+        lib.emu_node(g, 1, s.data_ptr(), t.data_ptr(), 4, 1)
+    lib.emu_node(g, 1, res.data_ptr(), out.data_ptr(), 8, 1)
+    e = lib.emu_instantiate(g)
+    copies = [(arg.data_ptr(), static.data_ptr(), 16),
+              (res.data_ptr(), out.data_ptr(), 8)]
+    plan = graphs._plan(lib, g, e, copies)
+    assert plan.n == 2 and list(plan.bytes[:2]) == [16, 8]
+    at = ctypes.addressof(plan)
+    assert lib.pqmf_graph_replay(at, None) == 0
+    assert lib.emu_sets(e) == 0 and torch.equal(static, arg)
+    new_arg, new_out = _buf([9, 8, 7, 6]), _buf([0] * 2)
+    plan.next[0], plan.next[3] = new_arg.data_ptr(), new_out.data_ptr()
+    for launches in (2, 3):
+        assert lib.pqmf_graph_replay(at, None) == 0
+        assert lib.emu_sets(e) == 2 and lib.emu_launches(e) == launches
+    assert torch.equal(static, new_arg) and torch.equal(new_out, res)
+    assert all(torch.equal(s, t) for s, t in others)
+
+
+def test_emulated_plan_refuses_a_copy_it_cannot_tell_apart(emulated_graphs):
+    """A copy the graph holds twice (the body copying from the same source
+    into the same freed buffer) or not at all is refused: no node is bound
+    by guess."""
+    lib = emulated_graphs
+    a, b = _buf([1, 2]), _buf([0, 0])
+    g = lib.emu_graph()
+    for _ in range(2):
+        lib.emu_node(g, 1, a.data_ptr(), b.data_ptr(), 8, 1)
+    e = lib.emu_instantiate(g)
+    with pytest.raises(RuntimeError, match="holds 2 copy nodes"):
+        graphs._plan(lib, g, e, [(a.data_ptr(), b.data_ptr(), 8)])
+    with pytest.raises(RuntimeError, match="holds 0 copy nodes"):
+        graphs._plan(lib, g, e, [(a.data_ptr(), b.data_ptr(), 4)])

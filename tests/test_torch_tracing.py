@@ -148,11 +148,19 @@ def _assert_one_replay(found):
 
 def test_a_replay_records_its_three_spans_and_no_capture(monkeypatch,
                                                          tmp_path):
+    """The replay's three spans come in order around it: the stand-in's
+    replay (the launch) runs once a replayed call, and it binds the call's
+    four tensor leaves (tail and x in, tail and y out)."""
+    cap = StandIn()
     monkeypatch.setattr(graphs, "_graphed", lambda device: True)
-    monkeypatch.setattr(graphs, "_capture", StandIn())
+    monkeypatch.setattr(graphs, "_capture", cap)
+    monkeypatch.setitem(graphs.IO, "bound", 0)
+    monkeypatch.setitem(graphs.IO, "dispatched", 0)
     w = PQMFPitchShiftWrapper(70, 4, 512, shifts_in_semitones=[1, -1, 3, -3],
                               device="cpu")
     _assert_one_replay(_replay_spans(w, _audio((1, 512), 4), tmp_path))
+    assert cap.events == ["capture", "replay", "replay"]
+    assert graphs.IO == {"bound": 8, "dispatched": 0}
 
 
 def test_a_process_replay_records_its_three_spans(monkeypatch, tmp_path):
