@@ -36,7 +36,8 @@ the body anew and is not used).
   ``polyphase.LAUNCHES``, ``middle.LAUNCHES``) count device launches: the
   capture adds nothing, and each replay adds the counts the capture
   recorded. So do the conv kernels' count by tier
-  (``cached_conv.KERNELS``) and the DFT operands' roundings
+  (``cached_conv.KERNELS``), the round trips that run in thread-block
+  clusters (``cached_conv.CLUSTERS``) and the DFT operands' roundings
   (``ops.stft.ROUNDED``), which ``Program.launches`` leaves out.
 - Under a running ``torch.profiler`` a replay records three host spans:
   ``pqmf.graph.copy_in`` (reading and checking the arguments, making a
@@ -106,8 +107,9 @@ def reset_collectives() -> None:
 
 _COUNTERS = (cc.LAUNCHES, pk.LAUNCHES, pm.LAUNCHES)
 # every counter a replay adds to: the launches (``Program.launches``), the
-# conv kernels by tier, the rounded DFT operands, the collectives
-_ALL = _COUNTERS + (cc.KERNELS, S.ROUNDED, COLLECTIVES)
+# conv kernels by tier, the clustered round trips, the rounded DFT
+# operands, the collectives (last: ``Program.collectives``)
+_ALL = _COUNTERS + (cc.KERNELS, cc.CLUSTERS, S.ROUNDED, COLLECTIVES)
 
 
 def _counts() -> list:

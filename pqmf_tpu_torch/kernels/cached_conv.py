@@ -34,7 +34,9 @@ for CPU tensors; its CUDA impl launches the kernel of its tier or raises;
 no shape or tier falls back to the plain version or to another tier's
 kernel there. Every launch adds one to :data:`LAUNCHES`, whatever the
 tier, and every call of either impl one to :data:`KERNELS` under the
-kernel of its tier; its fake impl gives the output's shape to a trace.
+kernel of its tier, and, where the round trip's geometry runs in
+thread-block clusters on the card (M >= 32), one to :data:`CLUSTERS`; its
+fake impl gives the output's shape to a trace.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from pqmf_tpu_torch.ops import filterbank as fb
 __all__ = [
     "LAUNCHES",
     "KERNELS",
+    "CLUSTERS",
     "reset_launches",
     "strided_analysis_conv",
     "dense_synthesis_conv",
@@ -74,16 +77,24 @@ LAUNCHES = {"analysis": 0, "synthesis": 0, "roundtrip": 0}
 # "default"): a launch on a CUDA device, a run of its plain version on the
 # CPU
 KERNELS = {"K1": 0, "K1t": 0, "K2": 0, "K2t": 0, "K3": 0, "K3t": 0}
+# calls of the round trip's operator counted in KERNELS whose geometry runs
+# in thread-block clusters on the card (M >= 32: roundtrip_cluster_kernel,
+# and roundtrip_tc_kernel with more than one block a cluster)
+CLUSTERS = {"K3": 0, "K3t": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, KERNELS):
+    for counts in (LAUNCHES, KERNELS, CLUSTERS):
         for k in counts:
             counts[k] = 0
 
 
-def _count(kernel: str, precision: str) -> None:
-    KERNELS[kernel if precision == "highest" else kernel + "t"] += 1
+def _count(kernel: str, precision: str, M: int = 0) -> None:
+    name = kernel if precision == "highest" else kernel + "t"
+    KERNELS[name] += 1
+    if M >= (_RTC_MIN_BANDS if precision == "highest"
+             else _RT_TC_CLUSTER_BANDS):
+        CLUSTERS[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -1001,7 +1012,7 @@ def _roundtrip_cuda(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
                     bank_ana.data_ptr(), bank_syn.data_ptr(), *args,
                     _PASSES[mxu_precision])
     LAUNCHES["roundtrip"] += 1
-    _count("K3", mxu_precision)
+    _count("K3", mxu_precision, M)
     return out
 
 
@@ -1023,7 +1034,7 @@ def _synthesis_cpu(x, w, bank, fuse_mask, x_offset, pad_l, pad_r,
 def _roundtrip_cpu(x, w_ana, w_syn, bank_ana, bank_syn, M, pad_l, pad_r,
                    syn_pad_l, syn_pad_r, mxu_precision):
     _roundtrip_operands(x, w_ana, w_syn, bank_ana, bank_syn, M, mxu_precision)
-    _count("K3", mxu_precision)
+    _count("K3", mxu_precision, M)
     return roundtrip_conv_plain(x, w_ana, w_syn, M, (syn_pad_l, syn_pad_r),
                                 mxu_precision, (pad_l, pad_r))
 

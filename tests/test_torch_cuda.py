@@ -1676,6 +1676,42 @@ def test_k3_bands_entry_points_run_one_k3(dev, monkeypatch, tier, M):
             assert_k3t_close(got.cpu(), ref, sub, w_syn, tier)
 
 
+def test_tuned_64_band_files_match_the_plain_reference(dev, monkeypatch):
+    """The ``pqmf64.files`` cell's call: ``PQMF(100, 64)`` with the
+    committed fine-tuned bank installed by ``set_weights``, one
+    ``roundtrip`` of 8 clips of 60 s (2,645,952 samples, a multiple of 64)
+    on the card. Exactly one K6 and one K3, counted once in
+    ``KERNELS["K3"]`` and once in ``CLUSTERS["K3"]`` (the cluster kernel),
+    every plain version refused; each clip within the cell's limit
+    (2e-5 relative) of the benchmark's plain reference fed the same
+    committed bank (``bank.polyphase_roundtrip``, cuDNN in full float32)."""
+    from benchmark import audio
+    from benchmark.reference import bank, tuned_bank
+    from pqmf_tpu_torch.parallel.training import load_pretrained_bank
+
+    name = "hk64_atten100_finetuned"
+    pq = PQMF(100, 64, device=dev)
+    pq.set_weights(load_pretrained_bank(name))
+    T = 60 * SR - 60 * SR % 64
+    x = audio.rows(8, T, 2**31 + 26, SR, dev)
+    with monkeypatch.context() as mp:
+        _refuse_plain(mp)
+        cc.reset_launches()
+        pk.reset_launches()
+        y = pq.roundtrip(x[:, None])
+        torch.cuda.synchronize()
+    assert pk.LAUNCHES == _launches({"roundtrip": 1})
+    assert cc.LAUNCHES == _launches({"roundtrip": 1})
+    assert cc.KERNELS == {**dict.fromkeys(cc.KERNELS, 0), "K3": 1}
+    assert cc.CLUSTERS == {"K3": 1, "K3t": 0}
+    assert y.shape == (8, 1, T)
+    hk = tuned_bank.load(name)
+    for b in range(8):
+        r = bank.polyphase_roundtrip(x[b:b + 1], hk)
+        rel = (y[b].reshape(-1) - r.reshape(-1)).norm() / r.norm()
+        assert rel.item() <= 2e-5, (b, rel.item())
+
+
 # -- fine-tuning (parallel/training.py) on the card ---------------------------
 
 
